@@ -1,0 +1,189 @@
+// Shared pieces of the psi kernels (psi_sample.cu, psi_nll.cu): the
+// precision menu on shared-memory matrices, one-row matrix-vector dots, and
+// the block reduction.
+//
+// Layout. A CTA owns one column of the stacked state [x_r; x_i] (one chain
+// or one example) and runs the whole time loop itself. Thread i computes
+// row i of every [2D,2D] x [2D] product. Each [2D,2D] constant is stored in
+// dynamic shared memory TRANSPOSED (mT[j*n + i] = M[i][j]), so in the dot
+// loop the threads of a warp read consecutive words (no bank conflicts)
+// while the state element v[j] is a broadcast.
+//
+// Precision (the TPU's pallas_block._make_dot_ops), as a template argument:
+//   kHighest: fp32 values, fp32 FMA;
+//   kHigh:    both operands split into bf16 (hi, lo) with round-to-nearest;
+//             the sum hi*hi + hi*lo + lo*hi is taken in fp32 (each bf16
+//             product is exact in fp32);
+//   kDefault: both operands rounded to bf16, one product, fp32 sum.
+// A matrix element takes 4 bytes in every mode: the fp32 value (kHighest),
+// the bf16-rounded value as fp32 (kDefault), or the packed bf16 pair
+// (hi in the upper 16 bits, lo in the lower) for kHigh.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace amt {
+
+enum Precision { kHighest = 0, kHigh = 1, kDefault = 2 };
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// bf16 (hi, lo) split of x: hi = bf16(x), lo = bf16(x - hi).
+__device__ __forceinline__ void split_bf16(float x, float& hi, float& lo) {
+  hi = bf16_round(x);
+  lo = bf16_round(x - hi);
+}
+
+template <int P>
+__device__ __forceinline__ uint32_t pack_elem(float x) {
+  if (P == kHigh) {
+    float hi, lo;
+    split_bf16(x, hi, lo);
+    return (__float_as_uint(hi) & 0xffff0000u) | (__float_as_uint(lo) >> 16);
+  }
+  if (P == kDefault) return __float_as_uint(bf16_round(x));
+  return __float_as_uint(x);
+}
+
+// Copy the row-major [n,n] matrix src into shared memory, transposed and
+// packed for precision P. Runs once per CTA.
+template <int P>
+__device__ void load_matrix_t(uint32_t* dst, const float* __restrict__ src,
+                              int n) {
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
+    const int i = idx / n, j = idx - i * n;
+    dst[j * n + i] = pack_elem<P>(src[idx]);
+  }
+}
+
+// Publish a state element for the next products: vh holds the value
+// (kHighest), its bf16 rounding (kDefault) or its bf16 hi part (kHigh);
+// vl holds the kHigh lo part.
+template <int P>
+__device__ __forceinline__ void store_vec(float* vh, float* vl, int i,
+                                          float x) {
+  if (P == kHigh) {
+    float hi, lo;
+    split_bf16(x, hi, lo);
+    vh[i] = hi;
+    vl[i] = lo;
+  } else if (P == kDefault) {
+    vh[i] = bf16_round(x);
+  } else {
+    vh[i] = x;
+  }
+}
+
+// Row i of (M1 v) and (M2 v) for two transposed shared matrices.
+template <int P>
+__device__ __forceinline__ void row_dot2(const uint32_t* m1t,
+                                         const uint32_t* m2t, const float* vh,
+                                         const float* vl, int n, int i,
+                                         float& out1, float& out2) {
+  if (P == kHigh) {
+    float a1 = 0.f, a2 = 0.f, a3 = 0.f, b1 = 0.f, b2 = 0.f, b3 = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < n; ++j) {
+      const float h = vh[j], l = vl[j];
+      const uint32_t w1 = m1t[j * n + i], w2 = m2t[j * n + i];
+      const float m1h = __uint_as_float(w1 & 0xffff0000u);
+      const float m1l = __uint_as_float(w1 << 16);
+      const float m2h = __uint_as_float(w2 & 0xffff0000u);
+      const float m2l = __uint_as_float(w2 << 16);
+      a1 = fmaf(m1h, h, a1);
+      a2 = fmaf(m1h, l, a2);
+      a3 = fmaf(m1l, h, a3);
+      b1 = fmaf(m2h, h, b1);
+      b2 = fmaf(m2h, l, b2);
+      b3 = fmaf(m2l, h, b3);
+    }
+    out1 = (a1 + a2) + a3;
+    out2 = (b1 + b2) + b3;
+  } else {
+    float a = 0.f, b = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < n; ++j) {
+      const float v = vh[j];
+      a = fmaf(__uint_as_float(m1t[j * n + i]), v, a);
+      b = fmaf(__uint_as_float(m2t[j * n + i]), v, b);
+    }
+    out1 = a;
+    out2 = b;
+  }
+}
+
+// Row i of (M v) for one transposed shared matrix.
+template <int P>
+__device__ __forceinline__ float row_dot(const uint32_t* mt, const float* vh,
+                                         const float* vl, int n, int i) {
+  if (P == kHigh) {
+    float a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < n; ++j) {
+      const float h = vh[j], l = vl[j];
+      const uint32_t w = mt[j * n + i];
+      const float mh = __uint_as_float(w & 0xffff0000u);
+      const float ml = __uint_as_float(w << 16);
+      a1 = fmaf(mh, h, a1);
+      a2 = fmaf(mh, l, a2);
+      a3 = fmaf(ml, h, a3);
+    }
+    return (a1 + a2) + a3;
+  }
+  float a = 0.f;
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) a = fmaf(__uint_as_float(mt[j * n + i]), vh[j], a);
+  return a;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum of v (and of u) over the CTA. Every thread gets the same value: the
+// warp partials are added in warp order by each thread. `red` must not be
+// written again before every thread has passed a later __syncthreads().
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float r = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) r += red[w];
+  return r;
+}
+
+__device__ __forceinline__ void block_sum2(float v, float u, float* red,
+                                           float& sv, float& su) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  v = warp_sum(v);
+  u = warp_sum(u);
+  if (lane == 0) {
+    red[2 * warp] = v;
+    red[2 * warp + 1] = u;
+  }
+  __syncthreads();
+  float a = 0.f, b = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    a += red[2 * w];
+    b += red[2 * w + 1];
+  }
+  sv = a;
+  su = b;
+}
+
+// max(x, floor) that keeps a NaN x (as jnp.maximum / torch.clamp do).
+__device__ __forceinline__ float floor_at(float x, float floor) {
+  return x < floor ? floor : x;
+}
+
+// Threads per CTA: one per state row, rounded up to whole warps.
+inline int threads_for(int D) { return ((2 * D + 31) / 32) * 32; }
+
+}  // namespace amt

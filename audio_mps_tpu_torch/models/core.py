@@ -1,0 +1,102 @@
+"""Eager psi reference: losses, samplers, trajectories (port of the psi half
+of ``audio_mps_tpu/models/core.py``).
+
+Time is a plain Python loop over ``models/cell.py`` steps, so this is the
+slow, obviously-right version that the CUDA kernels of ``ops/block.py`` are
+held to. It runs on whatever device the parameters live on.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..config import CMPSConfig
+from . import cell
+from .cell import make_constants
+
+
+def psi0(params, cfg: CMPSConfig):
+    """Normalized initial pure state [D] (reference: model.py:214-222)."""
+    pr, pi = params.psi_x[None, :], params.psi_y[None, :]
+    pr, pi = cell.normalize_psi(pr, pi, cfg.norm_eps)
+    return pr[0], pi[0]
+
+
+def _tile(x, n):
+    return x[None].expand((n,) + tuple(x.shape))
+
+
+def _increments(signals):
+    """Waveform [B,T] -> time-major increments [T-1, B]
+    (reference: model.py:138-139)."""
+    return (signals[:, 1:] - signals[:, :-1]).T
+
+
+def psi_nll(params, cfg: CMPSConfig, signals):
+    """Mean NLL of waveforms [B,T] under the pure-state model
+    (reference: model.py:257-267)."""
+    cc = make_constants(params, cfg)
+    incs = _increments(signals)
+    B = signals.shape[0]
+    pr, pi = psi0(params, cfg)
+    carry = (_tile(pr, B), _tile(pi, B),
+             torch.zeros((B,), dtype=signals.dtype, device=signals.device))
+    for inc in incs:
+        carry = cell.psi_loss_step(cc, cfg, carry, inc)
+    return torch.mean(carry[2])
+
+
+def _sample_noise(cfg: CMPSConfig, generator: torch.Generator,
+                  num_samples: int, length: int, temp):
+    """SDE driving noise [length, N] on the generator's device."""
+    std = cfg.sigma * math.sqrt(temp * cfg.delta_t)
+    return std * torch.randn((length, num_samples), generator=generator,
+                             device=generator.device, dtype=torch.float32)
+
+
+def sample_psi_with_noise(params, cfg: CMPSConfig, noise):
+    """Waveforms [N, T] from given noise [T, N] (the SDE driving terms)."""
+    cc = make_constants(params, cfg)
+    num_samples = noise.shape[1]
+    pr, pi = psi0(params, cfg)
+    carry = (_tile(pr, num_samples), _tile(pi, num_samples))
+    incs = []
+    for z in noise:
+        carry, (inc, _state) = cell.psi_sample_step(cc, cfg, carry, z)
+        incs.append(inc)
+    return cc.A * torch.cumsum(torch.stack(incs), dim=0).T
+
+
+def sample_psi(params, cfg: CMPSConfig, generator: torch.Generator,
+               num_samples: int, length: int, temp=1.0):
+    """(reference: model.py:242-251)"""
+    noise = _sample_noise(cfg, generator, num_samples, length, temp)
+    return sample_psi_with_noise(params, cfg, noise.to(params.A.device))
+
+
+def _lab_rotate_psi_traj(params, cfg: CMPSConfig, pr, pi):
+    """psi_lab(t_n) = phases(t_n) .* psi~, phases = exp(i f t_n)."""
+    T = pr.shape[0]
+    t = torch.arange(T, dtype=torch.float32, device=pr.device) * cfg.delta_t
+    ang = t[:, None] * params.freqs[None]        # [T,D]
+    c, s = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+    return pr * c - pi * s, pr * s + pi * c
+
+
+def psi_evolve_with_data(params, cfg: CMPSConfig, signals):
+    """Full psi trajectory [B, T-1, D] pair (reference: model.py:231-240)."""
+    cc = make_constants(params, cfg)
+    incs = _increments(signals)
+    B = signals.shape[0]
+    pr, pi = psi0(params, cfg)
+    carry = (_tile(pr, B), _tile(pi, B),
+             torch.zeros((B,), dtype=signals.dtype, device=signals.device))
+    tr_r, tr_i = [], []
+    for inc in incs:
+        carry, (sr, si) = cell.psi_evolve_step(cc, cfg, carry, inc)
+        tr_r.append(sr)
+        tr_i.append(si)
+    tr_r, tr_i = _lab_rotate_psi_traj(params, cfg, torch.stack(tr_r),
+                                      torch.stack(tr_i))
+    return tr_r.transpose(0, 1), tr_i.transpose(0, 1)

@@ -1,0 +1,138 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface. On first use they are
+compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started
+together, then one link) into ``libamt_kernels.so`` and loaded with
+``ctypes``. In a source checkout the library goes to ``build/kernels/`` at
+its root; for an installed package, to a per-user cache directory keyed by
+the build hash. A stamp file holds that hash, of the sources, the flags and
+``nvcc --version``; a changed hash rebuilds. Nothing here runs at import
+time, so the CPU tests import every module without a toolkit.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("psi_sample.cu", "psi_nll.cu")
+HEADERS = ("common.cuh",)
+ROOT = Path(__file__).resolve().parents[2]
+LIB_NAME = "libamt_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # ab, bb, pc, ps, t0, noise, inv_a, wave, D, T, N, dt, norm_eps,
+    # precision, stream
+    "amt_psi_sample": ([_P] * 8 + [_I, _I, _I, _F, _F, _I, _P], _I),
+    # ab, bb, rb, t0, se, loss, D, n_steps, B, unroll, log_eps, norm_eps,
+    # precision, defer_norm, stream
+    "amt_psi_nll": ([_P] * 6 + [_I, _I, _I, _I, _F, _F, _I, _I, _P], _I),
+    "amt_psi_sample_smem_bytes": ([_I], ctypes.c_size_t),
+    "amt_psi_nll_smem_bytes": ([_I], ctypes.c_size_t),
+    "amt_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def _source_hash(nvcc: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(subprocess.run([nvcc, "--version"], capture_output=True,
+                            text=True, check=True).stdout.encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()
+
+
+def _build_dir(digest: str) -> Path:
+    """``build/kernels`` in a source checkout, else a per-user cache."""
+    if (ROOT / "pyproject.toml").exists():
+        return ROOT / "build" / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "audio_mps_tpu_torch" / digest[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                       "port's kernels are built from csrc/ on first use")
+
+
+def build() -> dict:
+    """Compile ``csrc/`` into the shared library unless the stamp matches.
+
+    Returns ``{"path", "rebuilt", "seconds", "log"}``; ``log`` holds
+    ``ptxas -v`` (registers, shared memory, spills) for each source."""
+    nvcc = _nvcc()
+    digest = _source_hash(nvcc)
+    build_dir = _build_dir(digest)
+    lib = build_dir / LIB_NAME
+    stamp = build_dir / (LIB_NAME + ".sha256")
+    if (lib.exists() and stamp.exists()
+            and stamp.read_text().strip() == digest):
+        return dict(path=str(lib), rebuilt=False, seconds=0.0, log="")
+    build_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        procs = []
+        for name in SOURCES:
+            obj = os.path.join(tmp, name + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                   str(CSRC / name), "-o", obj]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for name, _obj, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        tmp_lib = os.path.join(tmp, LIB_NAME)
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib,
+             *[obj for _n, obj, _p in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib)
+    stamp.write_text(digest + "\n")
+    return dict(path=str(lib), rebuilt=True,
+                seconds=time.perf_counter() - t0, log="\n".join(logs))
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    lib = ctypes.CDLL(build()["path"])
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def check(lib, err: int, name: str):
+    """Raise when a C entry returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(
+            f"{name}: CUDA error {err} "
+            f"({lib.amt_error_string(err).decode()})")

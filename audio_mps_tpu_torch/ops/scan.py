@@ -1,0 +1,111 @@
+"""Kernel dispatch for psi generation and forward scoring (counterpart of
+the psi entry points of ``audio_mps_tpu/ops/pallas_scan.py``).
+
+Layout resolution follows the JAX package: the block kernels
+(``ops/block.py``) take D % 8 == 0 for the sampler and D % 4 == 0 for the
+NLL; other D resolve to the split layout. The split-layout kernels are not
+ported yet: on a CUDA tensor a split request raises ``NotImplementedError``
+naming the queued kernel, and on a CPU tensor it runs the split kernel's
+plain twin, the eager reference in ``models/core.py``.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Optional
+
+import torch
+
+from ..config import CMPSConfig
+from ..models import core
+from . import block
+
+DEFAULT_UNROLL = 16
+
+_SPLIT_SAMPLER = ("audio_mps_tpu/ops/pallas_scan.py _make_psi_sample_kernel "
+                  "(split-layout psi sampler, ROADMAP queue B)")
+_SPLIT_NLL = ("audio_mps_tpu/ops/pallas_scan.py _make_psi_nll_kernel "
+              "(split-layout forward psi NLL, ROADMAP queue B)")
+
+
+def _sampler_layout(cfg: CMPSConfig, layout: Optional[str]) -> str:
+    """The block sampler needs D % 8 == 0, so even an explicit "block"
+    resolves to split when unsupported (with a warning), as on the TPU."""
+    requested = layout if layout is not None else cfg.kernel_layout
+    if requested not in ("auto", "split", "block"):
+        raise ValueError(
+            f"layout must be 'auto', 'split', or 'block', got {requested!r}")
+    if requested == "split":
+        return "split"
+    if block.supports_block_sampler(cfg):
+        return "block"
+    if requested == "block":
+        warnings.warn(
+            f"explicit sampler layout='block' needs bond_dim % 8 == 0; "
+            f"resolving to the split sampler at D={cfg.bond_dim}",
+            stacklevel=3)
+    return "split"
+
+
+def _nll_layout(cfg: CMPSConfig, layout: Optional[str]) -> str:
+    """"auto" picks block when D % 4 == 0, else split; an explicit "block"
+    on an unsupported D flows into the block path, which raises."""
+    layout = layout if layout is not None else cfg.kernel_layout
+    if layout == "auto":
+        return "block" if block.supports_block(cfg) else "split"
+    if layout not in ("split", "block"):
+        raise ValueError(
+            f"layout must be 'auto', 'split', or 'block', got {layout!r}")
+    return layout
+
+
+def psi_sample_fused(params, cfg: CMPSConfig, noise, *,
+                     precision: Optional[str] = None,
+                     layout: Optional[str] = None):
+    """Waveforms [N, T] from noise [T, N] on the noise's device (stands for
+    ``audio_mps_tpu.ops.pallas_scan.psi_sample_pallas``; semantics of
+    ``core.sample_psi_with_noise``). ``precision=None`` follows
+    ``cfg.kernel_precision``."""
+    if precision is None:
+        precision = cfg.kernel_precision
+    if _sampler_layout(cfg, layout) == "block":
+        inputs = block.psi_sample_inputs(params, cfg, noise)
+        wave = block.psi_sample_block(**inputs, precision=precision)
+        return params.A.detach() * wave.T
+    if noise.device.type != "cpu":
+        raise NotImplementedError(
+            f"psi sampler at D={cfg.bond_dim} needs the split-layout kernel "
+            f"{_SPLIT_SAMPLER}, which is not ported to CUDA yet")
+    with torch.no_grad():
+        return core.sample_psi_with_noise(params, cfg, noise)
+
+
+def psi_sample_fused_keyed(params, cfg: CMPSConfig, generator,
+                           num_samples: int, length: int, temp=1.0, **kw):
+    """Drop-in for ``core.sample_psi`` through the kernels (stands for
+    ``audio_mps_tpu.ops.pallas_scan.psi_sample_pallas_keyed``): the noise
+    comes from ``generator``."""
+    noise = core._sample_noise(cfg, generator, num_samples, length, temp)
+    return psi_sample_fused(params, cfg, noise.to(params.A.device), **kw)
+
+
+def psi_nll_fused(params, cfg: CMPSConfig, signals, *,
+                  unroll: int = DEFAULT_UNROLL, precision: str = "highest",
+                  defer_norm: bool = False, layout: Optional[str] = None):
+    """Mean NLL [scalar] of waveforms [B, T] on the signals' device (stands
+    for ``audio_mps_tpu.ops.pallas_scan.psi_nll_pallas``; semantics of
+    ``core.psi_nll``)."""
+    if _nll_layout(cfg, layout) == "block":
+        inputs = block.psi_nll_inputs(params, cfg, signals)
+        return block.psi_nll_block(**inputs, unroll=unroll,
+                                   precision=precision,
+                                   defer_norm=defer_norm).mean()
+    if precision == "high":
+        raise ValueError(
+            "kernel_precision='high' (bf16x3) is only implemented in the "
+            "block kernel layout (ops/block.py)")
+    if signals.device.type != "cpu":
+        raise NotImplementedError(
+            f"psi NLL at D={cfg.bond_dim} needs the split-layout kernel "
+            f"{_SPLIT_NLL}, which is not ported to CUDA yet")
+    with torch.no_grad():
+        return core.psi_nll(params, cfg, signals)

@@ -1,0 +1,163 @@
+"""The PyTorch port stands alone and never falls back: it imports neither jax
+nor the JAX package, its default-device entry points raise without a card,
+a tensor that is not on the CPU never takes a plain version, and a shape
+whose CUDA kernel is not ported raises on the card. This file imports no
+jax, so it also runs on a card machine without it:
+
+    python -m pytest --noconftest tests/test_torch_isolation.py \
+        tests/test_torch_cuda.py
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from audio_mps_tpu_torch import CMPSConfig, PsiCMPS, init_psi
+from audio_mps_tpu_torch.ops import block, scan
+from audio_mps_tpu_torch.sample import SampleConfig, sample
+from audio_mps_tpu_torch.weights import (load_params, psi_params_from_numpy,
+                                         save_params)
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "audio_mps_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "audio_mps_tpu"}
+
+
+def port_modules():
+    names = []
+    for path in sorted(PORT.rglob("*.py")):
+        parts = path.relative_to(REPO).with_suffix("").parts
+        names.append(".".join(parts[:-1] if parts[-1] == "__init__"
+                              else parts))
+    return names
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r})\n"
+        "print('LOADED', len(sys.modules), 'BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "BAD []" in proc.stdout
+
+
+def test_no_forbidden_import_statements():
+    """An AST scan of the port and chip_smoke.py (relative imports are the
+    port's own)."""
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    found = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [f"{path.name}: {n}" for n in names
+                      if n.split(".")[0] in FORBIDDEN]
+    assert len(files) > 10 and not found, found
+
+
+def _np_weights(D=8):
+    rng = np.random.default_rng(0)
+    return {k: rng.standard_normal(s).astype(np.float32) for k, s in
+            dict(A=(), Rx=(D, D), Ry=(D, D), freqs=(D,), psi_x=(D,),
+                 psi_y=(D,)).items()}
+
+
+@pytest.mark.parametrize("entry", ["PsiCMPS", "init_psi", "from_numpy",
+                                   "load_params", "sample_cli"])
+def test_default_device_entry_points_raise_without_a_card(entry, tmp_path,
+                                                          monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = str(tmp_path / "params.npz")
+    save_params(path, psi_params_from_numpy(_np_weights(), "cpu"))
+    calls = {
+        "PsiCMPS": lambda: PsiCMPS(CMPSConfig()),
+        "init_psi": lambda: init_psi(torch.Generator(), CMPSConfig()),
+        "from_numpy": lambda: psi_params_from_numpy(_np_weights()),
+        "load_params": lambda: load_params(path),
+        "sample_cli": lambda: sample(SampleConfig(modeldir=str(tmp_path),
+                                                  fused=True, out="")),
+    }
+    with pytest.raises(RuntimeError, match="cuda"):
+        calls[entry]()
+
+
+def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
+    cfg = CMPSConfig(bond_dim=8)
+    p = psi_params_from_numpy(_np_weights(), "cpu")
+    s_in = block.psi_sample_inputs(p, cfg, torch.zeros(5, 2))
+    n_in = block.psi_nll_inputs(p, cfg, torch.zeros(2, 6))
+
+    def meta(d):
+        return {k: v.to("meta") if isinstance(v, torch.Tensor) else v
+                for k, v in d.items()}
+
+    with pytest.raises(ValueError, match="no kernel"):
+        block.psi_sample_block(**meta(s_in))
+    with pytest.raises(ValueError, match="no kernel"):
+        block.psi_nll_block(**meta(n_in))
+    launches = (block.psi_sample_block.launches, block.psi_nll_block.launches)
+    block.psi_sample_block(**s_in)
+    block.psi_nll_block(**n_in)
+    assert (block.psi_sample_block.launches,
+            block.psi_nll_block.launches) == launches
+
+
+@pytest.mark.parametrize("where", ["alone", "repo"])
+def test_chip_smoke_fails_without_the_port_or_a_card(where, tmp_path):
+    if where == "repo" and torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    cwd = REPO
+    if where == "alone":
+        shutil.copy(REPO / "chip_smoke.py", tmp_path)
+        cwd = tmp_path
+        if torch.cuda.is_available() and subprocess.run(
+                [sys.executable, "-c", "import importlib.util as u; print(u."
+                 "find_spec('audio_mps_tpu_torch') is not None)"],
+                cwd=cwd, env=env, capture_output=True, text=True,
+                timeout=60).stdout.strip() == "True":
+            pytest.skip("the port is installed and a card is present: "
+                        "chip_smoke.py would run for real")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, D", [("sample", 12), ("sample", 96),
+                                     ("nll", 2), ("nll", 72)])
+def test_cuda_path_raises_for_unported_shapes(kind, D):
+    """On a CUDA tensor: the split-layout D (sampler D % 8 != 0, NLL
+    D % 4 != 0) and a D whose constants overflow shared memory raise
+    NotImplementedError instead of running anything else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA path has no CPU mode")
+    dev = torch.device("cuda")
+    cfg = CMPSConfig(bond_dim=D)
+    p = init_psi(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    before = (block.psi_sample_block.launches, block.psi_nll_block.launches)
+    with pytest.raises(NotImplementedError):
+        if kind == "sample":
+            scan.psi_sample_fused(p, cfg, torch.zeros(16, 2, device=dev))
+        else:
+            scan.psi_nll_fused(p, cfg, torch.zeros(2, 17, device=dev))
+    assert (block.psi_sample_block.launches,
+            block.psi_nll_block.launches) == before
