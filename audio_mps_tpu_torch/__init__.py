@@ -1,15 +1,19 @@
 """audio_mps_tpu_torch — the PyTorch/CUDA port of audio_mps_tpu.
 
-The psi family's generation and forward scoring, with the two block
-kernels of the TPU package (SDE sampler, forward-only NLL) written by hand
-in CUDA for Hopper (``csrc/``). The kernels are built on first use, never
-at import. The JAX package stays the reference; this package imports
-neither it nor jax.
+The psi family's generation, forward scoring and training, with the block
+kernels of the TPU package (SDE sampler, forward-only NLL, the training
+forward and its adjoint) written by hand in CUDA for Hopper (``csrc/``).
+The kernels are built on first use, never at import. The JAX package stays
+the reference; this package imports neither it nor jax.
 """
-from .config import CMPSConfig
+from .config import CMPSConfig, RunConfig
 from .models.cmps import PsiCMPS
 from .models.params import init_psi
+from .ops.grad import psi_nll_fused_trainable
 from .ops.scan import psi_nll_fused, psi_sample_fused, psi_sample_fused_keyed
+from .training import Checkpointer, make_optimizer, make_train_step
 
-__all__ = ["CMPSConfig", "PsiCMPS", "init_psi", "psi_nll_fused",
-           "psi_sample_fused", "psi_sample_fused_keyed"]
+__all__ = ["CMPSConfig", "Checkpointer", "PsiCMPS", "RunConfig", "init_psi",
+           "make_optimizer", "make_train_step", "psi_nll_fused",
+           "psi_nll_fused_trainable", "psi_sample_fused",
+           "psi_sample_fused_keyed"]

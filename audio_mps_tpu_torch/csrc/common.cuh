@@ -1,13 +1,19 @@
-// Shared pieces of the psi kernels (psi_sample.cu, psi_nll.cu): the
-// precision menu on shared-memory matrices, one-row matrix-vector dots, and
-// the block reduction.
+// Shared pieces of the psi kernels (psi_sample.cu, psi_nll.cu,
+// psi_train_fwd.cu, psi_train_bwd.cu, psi_cotangents.cu): the precision menu
+// on shared-memory matrices, one-row matrix-vector dots, the block
+// reduction, and the dispatch of a C entry's runtime options to template
+// arguments.
 //
-// Layout. A CTA owns one column of the stacked state [x_r; x_i] (one chain
-// or one example) and runs the whole time loop itself. Thread i computes
-// row i of every [2D,2D] x [2D] product. Each [2D,2D] constant is stored in
-// dynamic shared memory TRANSPOSED (mT[j*n + i] = M[i][j]), so in the dot
-// loop the threads of a warp read consecutive words (no bank conflicts)
-// while the state element v[j] is a broadcast.
+// Layout. A chain kernel's CTA owns one column of the stacked state
+// [x_r; x_i] (one chain or one example) and runs the whole time loop
+// itself. Thread i computes row i of every [2D,2D] x [2D] product. The
+// forward kernels store each [2D,2D] constant in dynamic shared memory
+// TRANSPOSED (mT[j*n + i] = M[i][j]), so in the dot loop the threads of a
+// warp read consecutive words (no bank conflicts) while the state element
+// v[j] is a broadcast. The adjoint needs both M v and M^T v from one copy:
+// it stores M row-major with rows padded to n + 1 words (load_matrix_pad),
+// so a row walk (stride 1, rows n + 1 apart, n + 1 odd) and a column walk
+// (stride n + 1, consecutive columns) both hit 32 distinct banks.
 //
 // Precision (the TPU's pallas_block._make_dot_ops), as a template argument:
 //   kHighest: fp32 values, fp32 FMA;
@@ -23,6 +29,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace amt {
 
@@ -60,6 +68,17 @@ __device__ void load_matrix_t(uint32_t* dst, const float* __restrict__ src,
   }
 }
 
+// Copy the row-major [n,n] matrix src into shared memory, row-major with a
+// row pitch of n + 1 words, packed for precision P. Runs once per CTA.
+template <int P>
+__device__ void load_matrix_pad(uint32_t* dst, const float* __restrict__ src,
+                                int n) {
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
+    const int i = idx / n, j = idx - i * n;
+    dst[i * (n + 1) + j] = pack_elem<P>(src[idx]);
+  }
+}
+
 // Publish a state element for the next products: vh holds the value
 // (kHighest), its bf16 rounding (kDefault) or its bf16 hi part (kHigh);
 // vl holds the kHigh lo part.
@@ -78,18 +97,19 @@ __device__ __forceinline__ void store_vec(float* vh, float* vl, int i,
   }
 }
 
-// Row i of (M1 v) and (M2 v) for two transposed shared matrices.
+// sum_j m1[j*stride] v[j] and sum_j m2[j*stride] v[j] over j < n, for two
+// packed shared matrices walked at the same offsets.
 template <int P>
-__device__ __forceinline__ void row_dot2(const uint32_t* m1t,
-                                         const uint32_t* m2t, const float* vh,
-                                         const float* vl, int n, int i,
-                                         float& out1, float& out2) {
+__device__ __forceinline__ void dot2_strided(const uint32_t* m1,
+                                             const uint32_t* m2, int stride,
+                                             const float* vh, const float* vl,
+                                             int n, float& out1, float& out2) {
   if (P == kHigh) {
     float a1 = 0.f, a2 = 0.f, a3 = 0.f, b1 = 0.f, b2 = 0.f, b3 = 0.f;
 #pragma unroll 8
     for (int j = 0; j < n; ++j) {
       const float h = vh[j], l = vl[j];
-      const uint32_t w1 = m1t[j * n + i], w2 = m2t[j * n + i];
+      const uint32_t w1 = m1[j * stride], w2 = m2[j * stride];
       const float m1h = __uint_as_float(w1 & 0xffff0000u);
       const float m1l = __uint_as_float(w1 << 16);
       const float m2h = __uint_as_float(w2 & 0xffff0000u);
@@ -108,24 +128,25 @@ __device__ __forceinline__ void row_dot2(const uint32_t* m1t,
 #pragma unroll 8
     for (int j = 0; j < n; ++j) {
       const float v = vh[j];
-      a = fmaf(__uint_as_float(m1t[j * n + i]), v, a);
-      b = fmaf(__uint_as_float(m2t[j * n + i]), v, b);
+      a = fmaf(__uint_as_float(m1[j * stride]), v, a);
+      b = fmaf(__uint_as_float(m2[j * stride]), v, b);
     }
     out1 = a;
     out2 = b;
   }
 }
 
-// Row i of (M v) for one transposed shared matrix.
+// sum_j m[j*stride] v[j] over j < n for one packed shared matrix.
 template <int P>
-__device__ __forceinline__ float row_dot(const uint32_t* mt, const float* vh,
-                                         const float* vl, int n, int i) {
+__device__ __forceinline__ float dot_strided(const uint32_t* m, int stride,
+                                             const float* vh, const float* vl,
+                                             int n) {
   if (P == kHigh) {
     float a1 = 0.f, a2 = 0.f, a3 = 0.f;
 #pragma unroll 8
     for (int j = 0; j < n; ++j) {
       const float h = vh[j], l = vl[j];
-      const uint32_t w = mt[j * n + i];
+      const uint32_t w = m[j * stride];
       const float mh = __uint_as_float(w & 0xffff0000u);
       const float ml = __uint_as_float(w << 16);
       a1 = fmaf(mh, h, a1);
@@ -136,8 +157,24 @@ __device__ __forceinline__ float row_dot(const uint32_t* mt, const float* vh,
   }
   float a = 0.f;
 #pragma unroll 8
-  for (int j = 0; j < n; ++j) a = fmaf(__uint_as_float(mt[j * n + i]), vh[j], a);
+  for (int j = 0; j < n; ++j) a = fmaf(__uint_as_float(m[j * stride]), vh[j], a);
   return a;
+}
+
+// Row i of (M1 v) and (M2 v) for two transposed shared matrices.
+template <int P>
+__device__ __forceinline__ void row_dot2(const uint32_t* m1t,
+                                         const uint32_t* m2t, const float* vh,
+                                         const float* vl, int n, int i,
+                                         float& out1, float& out2) {
+  dot2_strided<P>(m1t + i, m2t + i, n, vh, vl, n, out1, out2);
+}
+
+// Row i of (M v) for one transposed shared matrix.
+template <int P>
+__device__ __forceinline__ float row_dot(const uint32_t* mt, const float* vh,
+                                         const float* vl, int n, int i) {
+  return dot_strided<P>(mt + i, n, vh, vl, n);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -185,5 +222,44 @@ __device__ __forceinline__ float floor_at(float x, float floor) {
 
 // Threads per CTA: one per state row, rounded up to whole warps.
 inline int threads_for(int D) { return ((2 * D + 31) / 32) * 32; }
+
+// f(std::integral_constant<int, P>{}) for the runtime precision of a C entry
+// (0 highest, 1 high, 2 default); an unknown precision is
+// cudaErrorInvalidValue.
+template <typename F>
+cudaError_t dispatch_precision(int precision, F&& f) {
+  switch (precision) {
+    case kHighest:
+      return f(std::integral_constant<int, kHighest>{});
+    case kHigh:
+      return f(std::integral_constant<int, kHigh>{});
+    case kDefault:
+      return f(std::integral_constant<int, kDefault>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// f(precision constant, std::bool_constant<DEFER>{}) for the runtime
+// precision and deferred-norm flag of a C entry.
+template <typename F>
+cudaError_t dispatch(int precision, bool defer, F&& f) {
+  return dispatch_precision(precision, [&](auto p) {
+    return defer ? f(p, std::true_type{}) : f(p, std::false_type{});
+  });
+}
+
+// Launch `kernel` on `grid` CTAs of `threads` with `smem` bytes of dynamic
+// shared memory (opted in past the 48 KB default); returns the launch error.
+template <typename... Params, typename... Args>
+cudaError_t launch_smem(void (*kernel)(Params...), int grid, int threads,
+                        size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
 
 }  // namespace amt

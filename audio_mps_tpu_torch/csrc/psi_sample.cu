@@ -97,21 +97,6 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <int P>
-cudaError_t launch_sample(const float* ab, const float* bb, const float* pc,
-                          const float* ps, const float* t0, const float* noise,
-                          const float* inv_a, float* wave, int D, int T, int N,
-                          float dt, float norm_eps, size_t smem,
-                          cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      psi_sample_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  psi_sample_kernel<P><<<N, threads_for(D), smem, stream>>>(
-      ab, bb, pc, ps, t0, noise, inv_a, wave, D, T, N, dt, norm_eps);
-  return cudaGetLastError();
-}
-
 }  // namespace amt
 
 extern "C" {
@@ -129,24 +114,12 @@ int amt_psi_sample(const float* ab, const float* bb, const float* pc,
                    const float* ps, const float* t0, const float* noise,
                    const float* inv_a, float* wave, int D, int T, int N,
                    float dt, float norm_eps, int precision, void* stream) {
-  const size_t smem = amt_psi_sample_smem_bytes(D);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (precision) {
-    case amt::kHighest:
-      return amt::launch_sample<amt::kHighest>(ab, bb, pc, ps, t0, noise,
-                                               inv_a, wave, D, T, N, dt,
-                                               norm_eps, smem, st);
-    case amt::kHigh:
-      return amt::launch_sample<amt::kHigh>(ab, bb, pc, ps, t0, noise, inv_a,
-                                            wave, D, T, N, dt, norm_eps, smem,
-                                            st);
-    case amt::kDefault:
-      return amt::launch_sample<amt::kDefault>(ab, bb, pc, ps, t0, noise,
-                                               inv_a, wave, D, T, N, dt,
-                                               norm_eps, smem, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(amt::dispatch_precision(precision, [&](auto p) {
+    return amt::launch_smem(amt::psi_sample_kernel<decltype(p)::value>, N,
+                            amt::threads_for(D), amt_psi_sample_smem_bytes(D),
+                            static_cast<cudaStream_t>(stream), ab, bb, pc, ps,
+                            t0, noise, inv_a, wave, D, T, N, dt, norm_eps);
+  }));
 }
 
 const char* amt_error_string(int code) {

@@ -1,4 +1,5 @@
 """Datasets of the PyTorch/CUDA port."""
-from .synthetic import damped_sine_batch
+from .audio import get_audio
+from .synthetic import damped_sine_batch, damped_sine_iterator
 
-__all__ = ["damped_sine_batch"]
+__all__ = ["damped_sine_batch", "damped_sine_iterator", "get_audio"]

@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from ..device import resolve_device
+
 MIDDLE_C_HZ = 261.6
 DECAY_TIME_S = 0.1
 
@@ -37,3 +39,14 @@ def damped_sine_batch(generator: torch.Generator, batch_size: int,
     wave = gate * torch.sin(2.0 * math.pi * f * times) \
         * torch.exp(-times / DECAY_TIME_S)
     return wave.to(torch.float32)
+
+
+def damped_sine_iterator(cfg, sample_duration: int, seed: int = 0,
+                         device="cuda"):
+    """Infinite iterator of fresh [minibatch_size, sample_duration] batches
+    on ``device``: one generator seeded with ``seed``, advanced by each
+    batch's draws."""
+    generator = torch.Generator(resolve_device(device)).manual_seed(seed)
+    while True:
+        yield damped_sine_batch(generator, cfg.minibatch_size,
+                                sample_duration, cfg.delta_t)

@@ -3,17 +3,22 @@ of ``audio_mps_tpu/models/core.py``).
 
 Time is a plain Python loop over ``models/cell.py`` steps, so this is the
 slow, obviously-right version that the CUDA kernels of ``ops/block.py`` are
-held to. It runs on whatever device the parameters live on.
+held to. It runs on whatever device the parameters live on. The loss runs
+through ``chunked_scan``, whose full chunks are recomputed in the backward
+pass (``torch.utils.checkpoint``), so its gradient over T=65536 keeps
+O(T/chunk + chunk) states alive instead of O(T).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import CMPSConfig
 from . import cell
-from .cell import make_constants
+from .cell import effective_R, make_constants
 
 
 def psi0(params, cfg: CMPSConfig):
@@ -25,6 +30,27 @@ def psi0(params, cfg: CMPSConfig):
 
 def _tile(x, n):
     return x[None].expand((n,) + tuple(x.shape))
+
+
+def chunked_scan(step, carry, xs, chunk: int):
+    """Fold ``step(carry, x)`` over the leading axis of ``xs`` with
+    bounded-memory backprop: full chunks of ``chunk`` steps run under
+    ``torch.utils.checkpoint`` (their states are recomputed in the backward
+    pass), the remainder runs plain, so no masking is needed. ``carry`` is a
+    tuple of tensors."""
+    def plain(carry, xs_):
+        for x in xs_:
+            carry = step(carry, x)
+        return carry
+
+    T = xs.shape[0]
+    if chunk is None or chunk <= 1 or T <= chunk:
+        return plain(carry, xs)
+    n_full = T // chunk
+    for c in range(n_full):
+        carry = checkpoint(plain, carry, xs[c * chunk:(c + 1) * chunk],
+                           use_reentrant=False)
+    return plain(carry, xs[n_full * chunk:])
 
 
 def _increments(signals):
@@ -42,9 +68,18 @@ def psi_nll(params, cfg: CMPSConfig, signals):
     pr, pi = psi0(params, cfg)
     carry = (_tile(pr, B), _tile(pi, B),
              torch.zeros((B,), dtype=signals.dtype, device=signals.device))
-    for inc in incs:
-        carry = cell.psi_loss_step(cc, cfg, carry, inc)
-    return torch.mean(carry[2])
+    step = functools.partial(cell.psi_loss_step, cc, cfg)
+    _, _, loss = chunked_scan(step, carry, incs, cfg.scan_chunk)
+    return torch.mean(loss)
+
+
+def regularized_loss(nll, params, cfg: CMPSConfig):
+    """``total = nll + h_reg ||freqs||^2 + r_reg ||R||^2``, with R's zeroed
+    diagonal (reference: train.py:55-60). Returns (total, (h_sq, r_sq))."""
+    Rr, Ri = effective_R(params)
+    r_sq = torch.sum(Rr * Rr + Ri * Ri)
+    h_sq = torch.sum(params.freqs ** 2)
+    return nll + cfg.h_reg * h_sq + cfg.r_reg * r_sq, (h_sq, r_sq)
 
 
 def _sample_noise(cfg: CMPSConfig, generator: torch.Generator,

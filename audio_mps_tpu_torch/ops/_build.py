@@ -22,8 +22,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("psi_sample.cu", "psi_nll.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("psi_sample.cu", "psi_nll.cu", "psi_train_fwd.cu",
+           "psi_train_bwd.cu", "psi_cotangents.cu")
+HEADERS = ("common.cuh", "psi_fwd.cuh")
 ROOT = Path(__file__).resolve().parents[2]
 LIB_NAME = "libamt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -39,8 +40,22 @@ _SIGNATURES = {
     # ab, bb, rb, t0, se, loss, D, n_steps, B, unroll, log_eps, norm_eps,
     # precision, defer_norm, stream
     "amt_psi_nll": ([_P] * 6 + [_I, _I, _I, _I, _F, _F, _I, _I, _P], _I),
+    # ab, bb, rb, t0, se, loss, ys, n2s, D, n_steps, B, unroll, log_eps,
+    # norm_eps, precision, defer_norm, stream
+    "amt_psi_train_fwd": ([_P] * 8 + [_I, _I, _I, _I, _F, _F, _I, _I, _P],
+                          _I),
+    # ab, bb, rb, t0, se, g, ys, n2s, dse, dt0, dys, dehats, D, n_steps, B,
+    # unroll, log_eps, norm_eps, precision, defer_norm, stream
+    "amt_psi_train_bwd": ([_P] * 12 + [_I, _I, _I, _I, _F, _F, _I, _I, _P],
+                          _I),
+    # dys, ys, t0, se, n2s, dehats, partial, out, D, n_steps, B, unroll,
+    # norm_eps, precision, defer_norm, stream
+    "amt_psi_cotangents": ([_P] * 8 + [_I, _I, _I, _I, _F, _I, _I, _P], _I),
     "amt_psi_sample_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_nll_smem_bytes": ([_I], ctypes.c_size_t),
+    "amt_psi_train_fwd_smem_bytes": ([_I], ctypes.c_size_t),
+    "amt_psi_train_bwd_smem_bytes": ([_I], ctypes.c_size_t),
+    "amt_psi_cotangents_workspace_floats": ([_I, _I], ctypes.c_size_t),
     "amt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,5 +1,5 @@
-"""Block-complex psi kernels for Hopper: the SDE sampler and the
-forward-only NLL (port of the psi generation and eval half of
+"""Block-complex psi kernels for Hopper: the SDE sampler, the forward-only
+NLL and the training NLL with its adjoint (port of the psi half of
 ``audio_mps_tpu/ops/pallas_block.py``).
 
 Layout (as in the JAX package): every complex operator is embedded as the
@@ -12,14 +12,18 @@ Each kernel comes as a pair:
 
 * ``*_plain``: the step loop in plain PyTorch. It is the CPU path and the
   version the CUDA kernel is held to on the card.
-* the wrapper (``psi_sample_block``, ``psi_nll_block``): a CPU tensor goes
-  to the plain version; a CUDA tensor launches the hand-written kernel from
-  ``csrc/`` (built by ``ops/_build.py``) or raises. The wrapper counts its
-  launches in ``.launches``.
+* the wrapper (``psi_sample_block``, ``psi_nll_block``, ``psi_train_fwd``,
+  ``psi_train_bwd``, ``psi_cotangents``): a CPU tensor goes to the plain
+  version; a CUDA tensor launches the hand-written kernel from ``csrc/``
+  (built by ``ops/_build.py``) or raises. The wrapper counts its launches
+  in ``.launches``.
 
-Both take the kernel inputs that ``psi_sample_inputs`` / ``psi_nll_inputs``
-build from the parameters, and both are forward-only (no autograd), as the
-TPU kernels are.
+The sampler and the NLL take the kernel inputs that ``psi_sample_inputs`` /
+``psi_nll_inputs`` build from the parameters, and are forward-only (no
+autograd), as their TPU kernels are. The three training functions sit
+under ``PsiBlockNLL``, a ``torch.autograd.Function`` whose inputs
+(``psi_nll_block_trainable*``) are built with autograd, so the cotangents
+flow on to the parameters.
 
 Precision menu (``_make_dot_ops``; the TPU's ``pallas_block._make_dot_ops``):
 ``highest`` is fp32; ``high`` splits both operands into bf16 (hi, lo) and
@@ -115,6 +119,21 @@ def _make_dot_ops(precision):
                      f"{precision!r}")
 
 
+def _make_dot_ops_bwd(precision):
+    """(prep, dotf, dotnt) for the plain adjoint and cotangents (the TPU's
+    ``pallas_block._make_dot_ops_bwd``; its ``rec`` serves only the
+    recompute adjoint, which is not ported): ``dotnt(a, b)`` is a @ b.T on
+    prepped operands, contracting their last axes."""
+    prep, dotf = _make_dot_ops(precision)
+    if precision == "high":
+        def dotnt(a, b):
+            ah, al = a
+            bh, bl = b
+            return ah @ bh.T + ah @ bl.T + al @ bh.T
+        return prep, dotf, dotnt
+    return prep, dotf, (lambda a, b: a @ b.T)
+
+
 def _as_kernel_input(x):
     return x.detach().to(torch.float32).contiguous()
 
@@ -132,6 +151,24 @@ def _check_inputs(name, device, shapes: dict):
         if any(s >= 2 ** 31 for s in shape):
             raise ValueError(f"{name}: {key} has a dimension past the "
                              f"kernel's 32-bit sizes: {shape}")
+
+
+def _check_options(precision: str, unroll: int = 1):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    if unroll < 1:
+        raise ValueError(f"unroll must be >= 1, got {unroll}")
+
+
+def _cuda_or_raise(name, x):
+    """True for a CPU tensor (the plain version runs), False for a CUDA one
+    (the kernel launches); any other device raises."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    return False
 
 
 def _check_smem(name, need: int, device, D: int):
@@ -209,15 +246,11 @@ def psi_sample_block(ab, bb, pc, ps, t0, noise, inv_a, *, dt: float,
                      norm_eps: float, precision: str = "highest"):
     """Running waveform [T, N]: ``psi_sample_block_plain`` for CPU tensors,
     the CUDA kernel ``csrc/psi_sample.cu`` for CUDA tensors."""
-    if noise.device.type == "cpu":
+    if _cuda_or_raise("psi_sample_block", noise):
         return psi_sample_block_plain(ab, bb, pc, ps, t0, noise, inv_a,
                                       dt=dt, norm_eps=norm_eps,
                                       precision=precision)
-    if noise.device.type != "cuda":
-        raise ValueError(f"psi_sample_block: no kernel for {noise.device}")
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got "
-                         f"{precision!r}")
+    _check_options(precision)
     T, N = noise.shape
     D = pc.shape[0]
     _check_inputs("psi_sample_block", noise.device, dict(
@@ -264,15 +297,18 @@ def psi_nll_inputs(params, cfg: CMPSConfig, signals) -> dict:
                     norm_eps=float(cfg.norm_eps))
 
 
-@torch.no_grad()
-def psi_nll_block_plain(ab, bb, rb, t0, se, *, log_eps: float,
-                        norm_eps: float, unroll: int = 16,
-                        precision: str = "highest",
-                        defer_norm: bool = False):
-    """Per-example NLL [B] over the increments se [T-1, B] (already divided
-    by A). ``defer_norm`` keeps the state unnormalised between
-    renormalisations at every ``unroll``-th step, as the TPU kernel does at
-    its block exits. Plain PyTorch, any device."""
+def _renorms(k: int, unroll: int, defer_norm: bool) -> bool:
+    """Does step k renormalise its output state? Every step with per-step
+    norm; every ``unroll``-th with the deferred norm (the TPU's block
+    exits)."""
+    return not defer_norm or (k + 1) % unroll == 0
+
+
+def _psi_chain_plain(ab, bb, rb, t0, se, *, log_eps, norm_eps, unroll,
+                     precision, defer_norm, on_step=None):
+    """The forward step loop shared by the NLL and the training forward:
+    per-example NLL [B]; ``on_step(k, y, n2)`` sees each post-step state
+    y_k [2D, B] and its squared norm [1, B]."""
     prep, dotf = _make_dot_ops(precision)
     abp, bbp, rbp = prep(ab), prep(bb), prep(rb)
     t = t0
@@ -286,15 +322,31 @@ def psi_nll_block_plain(ab, bb, rb, t0, se, *, log_eps: float,
         ru = dotf(rbp, prep(y))              # R y (expectation)
         e = 2.0 * torch.sum(y * ru, dim=0, keepdim=True)
         n2 = torch.sum(y * y, dim=0, keepdim=True)
+        if on_step is not None:
+            on_step(k, y, n2)
         if defer_norm:
             e = e / torch.clamp(n2p, min=norm_eps)
         acc = acc - torch.log(torch.clamp(1.0 + e * s, min=log_eps))
-        if defer_norm and (k + 1) % unroll:
-            t, n2p = y, n2
-        else:
+        if _renorms(k, unroll, defer_norm):
             t = y * torch.rsqrt(torch.clamp(n2, min=norm_eps))
             n2p = torch.ones_like(acc)
+        else:
+            t, n2p = y, n2
     return acc[0]
+
+
+@torch.no_grad()
+def psi_nll_block_plain(ab, bb, rb, t0, se, *, log_eps: float,
+                        norm_eps: float, unroll: int = 16,
+                        precision: str = "highest",
+                        defer_norm: bool = False):
+    """Per-example NLL [B] over the increments se [T-1, B] (already divided
+    by A). ``defer_norm`` keeps the state unnormalised between
+    renormalisations at every ``unroll``-th step, as the TPU kernel does at
+    its block exits. Plain PyTorch, any device."""
+    return _psi_chain_plain(ab, bb, rb, t0, se, log_eps=log_eps,
+                            norm_eps=norm_eps, unroll=unroll,
+                            precision=precision, defer_norm=defer_norm)
 
 
 @torch.no_grad()
@@ -303,18 +355,12 @@ def psi_nll_block(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
                   defer_norm: bool = False):
     """Per-example NLL [B]: ``psi_nll_block_plain`` for CPU tensors, the
     CUDA kernel ``csrc/psi_nll.cu`` for CUDA tensors."""
-    if se.device.type == "cpu":
+    if _cuda_or_raise("psi_nll_block", se):
         return psi_nll_block_plain(ab, bb, rb, t0, se, log_eps=log_eps,
                                    norm_eps=norm_eps, unroll=unroll,
                                    precision=precision,
                                    defer_norm=defer_norm)
-    if se.device.type != "cuda":
-        raise ValueError(f"psi_nll_block: no kernel for {se.device}")
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got "
-                         f"{precision!r}")
-    if unroll < 1:
-        raise ValueError(f"unroll must be >= 1, got {unroll}")
+    _check_options(precision, unroll)
     n_steps, B = se.shape
     D = t0.shape[0] // 2
     _check_inputs("psi_nll_block", se.device, dict(
@@ -336,3 +382,359 @@ def psi_nll_block(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
 
 
 psi_nll_block.launches = 0
+
+
+# ===========================================================================
+# Training: streamed-states forward, adjoint chain, cotangent reduction
+# ===========================================================================
+#
+# The TPU's training pair (pallas_block._make_psi_fwd_kernel_stream and
+# _make_psi_bwd_kernel_stream) is three functions here: the forward streams
+# every post-step state y_k and its squared norm; the adjoint runs the serial
+# reverse chain over them and emits dse, dt0 and, per step, dy_k and dehat_k;
+# a third function reduces those streams to the [2D,2D] cotangents dAb, dBb,
+# dRb. Every step's input state t_k is rebuilt from the streams as
+# y_{k-1} * scale_{k-1} (t_0 = t0), with the forward's own operations, so it
+# is the forward's state bit for bit. The same three also serve the per-step
+# norm (defer_norm=False), whose TPU pair is _make_psi_fwd_kernel and
+# _make_psi_bwd_kernel.
+
+_STREAM_OFF = ("audio_mps_tpu/ops/pallas_block.py _make_psi_bwd_kernel_defer "
+               "(:621, the recompute adjoint that needs no state stream; "
+               "ROADMAP queue B, kernel table row 3d)")
+
+
+def _state_scales(n2s, *, norm_eps, unroll, defer_norm):
+    """[n_steps, B]: the factor that takes y_k to the next input state
+    t_{k+1}, rsqrt(max(n2_k, eps)) on a renormalising step and 1 elsewhere."""
+    inv = torch.rsqrt(torch.clamp(n2s, min=norm_eps))
+    if not defer_norm:
+        return inv
+    k = torch.arange(n2s.shape[0], device=n2s.device)
+    return torch.where(((k + 1) % unroll == 0)[:, None], inv,
+                       torch.ones_like(inv))
+
+
+def _input_states(t0, ys, scales):
+    """t_k for every step [n_steps, 2D, B]: t0, then y_{k-1} scale_{k-1}."""
+    ts = torch.cat([t0[None], ys[:-1] * scales[:-1, None, :]], dim=0)
+    return ts[:ys.shape[0]]
+
+
+@torch.no_grad()
+def psi_train_fwd_plain(ab, bb, rb, t0, se, *, log_eps: float,
+                        norm_eps: float, unroll: int = 16,
+                        precision: str = "highest",
+                        defer_norm: bool = False):
+    """(loss [B], ys [n_steps, 2D, B], n2s [n_steps, B]): the NLL of
+    ``psi_nll_block_plain`` plus every post-step state y_k and |y_k|^2.
+    Plain PyTorch, any device."""
+    n_steps, B = se.shape
+    ys = se.new_empty((n_steps, t0.shape[0], B))
+    n2s = se.new_empty((n_steps, B))
+
+    def keep(k, y, n2):
+        ys[k] = y
+        n2s[k] = n2[0]
+
+    loss = _psi_chain_plain(ab, bb, rb, t0, se, log_eps=log_eps,
+                            norm_eps=norm_eps, unroll=unroll,
+                            precision=precision, defer_norm=defer_norm,
+                            on_step=keep)
+    return loss, ys, n2s
+
+
+@torch.no_grad()
+def psi_train_bwd_plain(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
+                        norm_eps: float, unroll: int = 16,
+                        precision: str = "highest",
+                        defer_norm: bool = False):
+    """Adjoint of ``psi_train_fwd`` for the loss cotangent g [B]:
+    (dse [n_steps, B], dt0 [2D, B], dy [n_steps, 2D, B], dehat [n_steps, B]).
+
+    The chain-independent work is batched over all steps, as the TPU
+    kernel batches it over a block (``RU``, the e/arg/dn2 tail, ``dru`` and
+    its ``Rb^T`` product); the loop is the serial chain
+    dt <- Ab^T dy + s (Bb^T dy). The dn2 bookkeeping is the TPU's: the dn2
+    used at step k is step k+1's dn2_new, a renormalising step seeds its own
+    from dt, and a block's first step drops its dn2_new. Plain PyTorch, any
+    device."""
+    prep, dotf, _ = _make_dot_ops_bwd(precision)
+    n_steps = se.shape[0]
+    k = torch.arange(n_steps, device=se.device)[:, None]
+    # e divides by |y_{k-1}|^2 inside a deferred block, else by 1 (exactly)
+    inside = (k % unroll != 0) if defer_norm else torch.zeros_like(k).bool()
+    n2prev = torch.cat([torch.ones_like(n2s[:1]), n2s[:-1]])
+    n2p = torch.where(inside, n2prev, torch.ones_like(n2prev))
+    n2p_c = torch.clamp(n2p, min=norm_eps)
+    RU = dotf(prep(rb), prep(ys))                       # Rb y, every step
+    ehat = 2.0 * torch.sum(ys * RU, dim=1)
+    e = ehat / n2p_c
+    arg = torch.clamp(1.0 + e * se, min=log_eps)
+    darg = torch.where(arg > log_eps, -g / arg, torch.zeros_like(arg))
+    de = darg * se
+    ds0 = darg * e
+    dehat = de / n2p_c
+    dn2_new = torch.where(n2p > norm_eps, -de * e / n2p_c,
+                          torch.zeros_like(de))
+    RTD = dotf(prep(rb.T), prep((2.0 * dehat)[:, None, :] * ys))
+    ts = _input_states(t0, ys, _state_scales(
+        n2s, norm_eps=norm_eps, unroll=unroll, defer_norm=defer_norm))
+
+    abT, bbT = prep(ab.T), prep(bb.T)
+    dt = torch.zeros_like(t0)
+    dn2n = torch.zeros_like(g)
+    dy_all = torch.empty_like(ys)
+    dse = torch.empty_like(se)
+    for k in reversed(range(n_steps)):
+        y = ys[k]
+        if _renorms(k, unroll, defer_norm):
+            inv = torch.rsqrt(torch.clamp(n2s[k], min=norm_eps))
+            dinv = torch.sum(dt * y, dim=0)
+            dn2 = torch.where(n2s[k] > norm_eps,
+                              -0.5 * dinv * inv * inv * inv,
+                              torch.zeros_like(dinv))
+            dt = dt * inv
+        else:
+            dn2 = dn2n
+        dy = dt + ((y * (2.0 * dn2) + RU[k] * (2.0 * dehat[k])) + RTD[k])
+        dy_all[k] = dy
+        pdy = prep(dy)
+        du = dotf(bbT, pdy)                             # Bb^T dy
+        dse[k] = ds0[k] + torch.sum(du * ts[k], dim=0)
+        dt = dotf(abT, pdy) + se[k] * du
+        dn2n = dn2_new[k]
+    return dse, dt, dy_all, dehat
+
+
+@torch.no_grad()
+def psi_cotangents_plain(dy, ys, t0, se, n2s, dehat, *, norm_eps: float,
+                         unroll: int = 16, precision: str = "highest",
+                         defer_norm: bool = False):
+    """(dAb, dBb, dRb) [2D, 2D]: sum over steps k and columns of dy t^T,
+    dy (s t)^T and dru y^T, dru = 2 dehat y, from the streams of
+    ``psi_train_fwd`` and ``psi_train_bwd``. Plain PyTorch, any device."""
+    prep, _, dotnt = _make_dot_ops_bwd(precision)
+    n = t0.shape[0]
+
+    def lanes(x):                                       # [2D, n_steps * B]
+        return x.transpose(0, 1).reshape(n, -1)
+
+    ts = _input_states(t0, ys, _state_scales(
+        n2s, norm_eps=norm_eps, unroll=unroll, defer_norm=defer_norm))
+    pdy = prep(lanes(dy))
+    dab = dotnt(pdy, prep(lanes(ts)))
+    dbb = dotnt(pdy, prep(lanes(se[:, None, :] * ts)))
+    drb = dotnt(prep(lanes((2.0 * dehat)[:, None, :] * ys)), prep(lanes(ys)))
+    return dab, dbb, drb
+
+
+@torch.no_grad()
+def psi_train_fwd(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
+                  unroll: int = 16, precision: str = "highest",
+                  defer_norm: bool = False):
+    """(loss [B], ys, n2s): ``psi_train_fwd_plain`` for CPU tensors, the
+    CUDA kernel ``csrc/psi_train_fwd.cu`` for CUDA tensors."""
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision, defer_norm=defer_norm)
+    if _cuda_or_raise("psi_train_fwd", se):
+        return psi_train_fwd_plain(ab, bb, rb, t0, se, **kw)
+    _check_options(precision, unroll)
+    n_steps, B = se.shape
+    D = t0.shape[0] // 2
+    n = 2 * D
+    _check_inputs("psi_train_fwd", se.device, dict(
+        ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)), t0=(t0, (n, B)),
+        se=(se, (n_steps, B))))
+    lib = _build.library()
+    _check_smem("psi_train_fwd", lib.amt_psi_train_fwd_smem_bytes(D),
+                se.device, D)
+    loss = se.new_empty((B,))
+    ys = se.new_empty((n_steps, n, B))
+    n2s = se.new_empty((n_steps, B))
+    if B == 0:
+        return loss, ys, n2s
+    err = lib.amt_psi_train_fwd(
+        _ptr(ab), _ptr(bb), _ptr(rb), _ptr(t0), _ptr(se), _ptr(loss),
+        _ptr(ys), _ptr(n2s), D, n_steps, B, unroll, log_eps, norm_eps,
+        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+    _build.check(lib, err, "psi_train_fwd")
+    psi_train_fwd.launches += 1
+    return loss, ys, n2s
+
+
+psi_train_fwd.launches = 0
+
+
+@torch.no_grad()
+def psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
+                  norm_eps: float, unroll: int = 16,
+                  precision: str = "highest", defer_norm: bool = False):
+    """(dse, dt0, dy, dehat): ``psi_train_bwd_plain`` for CPU tensors, the
+    CUDA kernel ``csrc/psi_train_bwd.cu`` for CUDA tensors."""
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision, defer_norm=defer_norm)
+    if _cuda_or_raise("psi_train_bwd", se):
+        return psi_train_bwd_plain(ab, bb, rb, t0, se, g, ys, n2s, **kw)
+    _check_options(precision, unroll)
+    n_steps, B = se.shape
+    D = t0.shape[0] // 2
+    n = 2 * D
+    _check_inputs("psi_train_bwd", se.device, dict(
+        ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)), t0=(t0, (n, B)),
+        se=(se, (n_steps, B)), g=(g, (B,)), ys=(ys, (n_steps, n, B)),
+        n2s=(n2s, (n_steps, B))))
+    lib = _build.library()
+    _check_smem("psi_train_bwd", lib.amt_psi_train_bwd_smem_bytes(D),
+                se.device, D)
+    dse = torch.empty_like(se)
+    dt0 = torch.empty_like(t0)
+    dy = torch.empty_like(ys)
+    dehat = torch.empty_like(se)
+    if B == 0:
+        return dse, dt0, dy, dehat
+    err = lib.amt_psi_train_bwd(
+        _ptr(ab), _ptr(bb), _ptr(rb), _ptr(t0), _ptr(se), _ptr(g), _ptr(ys),
+        _ptr(n2s), _ptr(dse), _ptr(dt0), _ptr(dy), _ptr(dehat), D, n_steps,
+        B, unroll, log_eps, norm_eps, PRECISIONS.index(precision),
+        int(defer_norm), _stream_ptr(se.device))
+    _build.check(lib, err, "psi_train_bwd")
+    psi_train_bwd.launches += 1
+    return dse, dt0, dy, dehat
+
+
+psi_train_bwd.launches = 0
+
+
+@torch.no_grad()
+def psi_cotangents(dy, ys, t0, se, n2s, dehat, *, norm_eps: float,
+                   unroll: int = 16, precision: str = "highest",
+                   defer_norm: bool = False):
+    """(dAb, dBb, dRb): ``psi_cotangents_plain`` for CPU tensors, the CUDA
+    kernel ``csrc/psi_cotangents.cu`` for CUDA tensors."""
+    kw = dict(norm_eps=norm_eps, unroll=unroll, precision=precision,
+              defer_norm=defer_norm)
+    if _cuda_or_raise("psi_cotangents", se):
+        return psi_cotangents_plain(dy, ys, t0, se, n2s, dehat, **kw)
+    _check_options(precision, unroll)
+    n_steps, B = se.shape
+    D = t0.shape[0] // 2
+    n = 2 * D
+    _check_inputs("psi_cotangents", se.device, dict(
+        dy=(dy, (n_steps, n, B)), ys=(ys, (n_steps, n, B)), t0=(t0, (n, B)),
+        se=(se, (n_steps, B)), n2s=(n2s, (n_steps, B)),
+        dehat=(dehat, (n_steps, B))))
+    lib = _build.library()
+    work = se.new_empty((lib.amt_psi_cotangents_workspace_floats(D,
+                                                                 n_steps),))
+    out = se.new_empty((3, n, n))
+    err = lib.amt_psi_cotangents(
+        _ptr(dy), _ptr(ys), _ptr(t0), _ptr(se), _ptr(n2s), _ptr(dehat),
+        _ptr(work), _ptr(out), D, n_steps, B, unroll, norm_eps,
+        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+    _build.check(lib, err, "psi_cotangents")
+    psi_cotangents.launches += 1
+    return out[0], out[1], out[2]
+
+
+psi_cotangents.launches = 0
+
+
+class PsiBlockNLL(torch.autograd.Function):
+    """Per-example NLL [B] over the block constants with a kernel adjoint:
+    the counterpart of ``_psi_block_factory``'s custom VJP
+    (``pallas_block.py:1248-1264``). ``forward(ab, bb, rb, t0, se, opts)``
+    returns loss [B]; ``backward(g)`` returns (dAb, dBb, dRb, dt0, dse).
+    ``opts`` holds log_eps, norm_eps, unroll, precision and defer_norm.
+    Only the values handed to the kernels are detached; autograd carries
+    the cotangents on to the parameters outside."""
+
+    @staticmethod
+    def forward(ctx, ab, bb, rb, t0, se, opts):
+        ins = [_as_kernel_input(x) for x in (ab, bb, rb, t0, se)]
+        loss, ys, n2s = psi_train_fwd(*ins, **opts)
+        ctx.save_for_backward(*ins, ys, n2s)
+        ctx.opts = opts
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        ab, bb, rb, t0, se, ys, n2s = ctx.saved_tensors
+        opts = ctx.opts
+        dse, dt0, dy, dehat = psi_train_bwd(ab, bb, rb, t0, se,
+                                            _as_kernel_input(g), ys, n2s,
+                                            **opts)
+        dab, dbb, drb = psi_cotangents(
+            dy, ys, t0, se, n2s, dehat, norm_eps=opts["norm_eps"],
+            unroll=opts["unroll"], precision=opts["precision"],
+            defer_norm=opts["defer_norm"])
+        return dab, dbb, drb, dt0, dse, None
+
+
+def stream_bytes(D: int, B: int, T: int) -> int:
+    """Bytes of the two fp32 state streams of one training step: ys from
+    the forward and dy from the adjoint, [T-1, 2D, B] each."""
+    return 2 * 4 * max(T - 1, 0) * 2 * D * B
+
+
+def auto_stream(cfg: CMPSConfig, B: int, T: int, device) -> bool:
+    """Do the streamed-states kernels run? The port's own policy in place
+    of the TPU's HBM budget (``pallas_block.auto_stream``): "off" never
+    streams; "auto" and "on" stream on a CPU tensor, and on the card when
+    ``stream_bytes`` fits its free memory."""
+    if cfg.kernel_stream == "off":
+        return False
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    free, _total = torch.cuda.mem_get_info(device)
+    return stream_bytes(cfg.bond_dim, B, T) <= free
+
+
+def psi_nll_block_trainable_from_state(params, cfg: CMPSConfig, signals,
+                                       psi0_pair, *, unroll: int = 16,
+                                       precision: str = "highest",
+                                       defer_norm: bool = False):
+    """Differentiable block-layout per-example NLL [B] of waveforms [B, T]
+    from per-example initial states (pr0, pi0) [B, D] (the TPU's
+    ``pallas_block.psi_nll_block_trainable_from_state`` with
+    ``reduce="none"``). The block constants, initial state and increments
+    are built with autograd; the loss and its adjoint go through
+    ``PsiBlockNLL``. On a CUDA tensor a stream that is off or does not fit
+    raises ``NotImplementedError``: the recompute adjoint is not ported. On
+    a CPU tensor the plain versions run either way."""
+    if not supports_block(cfg):
+        raise ValueError(
+            f"block layout requires bond_dim % 4 == 0, got {cfg.bond_dim}")
+    _check_options(precision, unroll)
+    B, T = signals.shape
+    if signals.device.type == "cuda" and not auto_stream(cfg, B, T,
+                                                         signals.device):
+        raise NotImplementedError(
+            f"psi training at D={cfg.bond_dim}, B={B}, T={T} without the "
+            f"state stream ({stream_bytes(cfg.bond_dim, B, T)} bytes; "
+            f"kernel_stream={cfg.kernel_stream!r}) needs {_STREAM_OFF}, which "
+            f"is not ported to CUDA yet")
+    cc = make_constants(params, cfg)
+    se = (signals[:, 1:] - signals[:, :-1]).T / cc.A      # [T-1, B]
+    pr0, pi0 = psi0_pair
+    ab, bb, rb = _psi_block_constants(cc)
+    t0 = _psi_block_t0(cc, pr0.T, pi0.T)
+    log_eps = cfg.log_eps if cfg.log_eps > 0 else float("-inf")
+    return PsiBlockNLL.apply(ab, bb, rb, t0, se, dict(
+        log_eps=float(log_eps), norm_eps=float(cfg.norm_eps), unroll=unroll,
+        precision=precision, defer_norm=defer_norm))
+
+
+def psi_nll_block_trainable(params, cfg: CMPSConfig, signals, *,
+                            unroll: int = 16, precision: str = "highest",
+                            defer_norm: bool = False):
+    """Differentiable mean NLL with the model's own initial state
+    (semantics of ``core.psi_nll``; the TPU's
+    ``pallas_block.psi_nll_block_trainable``)."""
+    B = signals.shape[0]
+    pr0, pi0 = core.psi0(params, cfg)
+    pair = (pr0[None].expand(B, -1), pi0[None].expand(B, -1))
+    return psi_nll_block_trainable_from_state(
+        params, cfg, signals, pair, unroll=unroll, precision=precision,
+        defer_norm=defer_norm).mean()

@@ -1,0 +1,46 @@
+"""Differentiable psi NLL through the kernels (counterpart of the psi entry
+points of ``audio_mps_tpu/ops/pallas_grad.py``).
+
+Layout resolution is the forward NLL's (``ops/scan.py``), as in the JAX
+package: the block kernels (``ops/block.py``) take D % 4 == 0. The
+split-layout training kernels are not ported yet: on a CUDA tensor the
+split layout raises ``NotImplementedError`` naming the queued kernel, and
+on a CPU tensor it runs the eager reference ``models/core.psi_nll``, as the
+forward-only dispatch of ``ops/scan.py`` does.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from ..config import CMPSConfig
+from ..models import core
+from . import block
+from .scan import DEFAULT_UNROLL, _nll_layout
+
+_SPLIT_TRAIN = ("audio_mps_tpu/ops/pallas_grad.py _psi_fused_nll_factory "
+                "(:478, split-layout psi training, ROADMAP queue B, kernel "
+                "table row 8)")
+
+
+def psi_nll_fused_trainable(params, cfg: CMPSConfig, signals, *,
+                            unroll: int = DEFAULT_UNROLL,
+                            precision: str = "highest",
+                            defer_norm: bool = False,
+                            layout: Optional[str] = None):
+    """Differentiable mean NLL of waveforms [B, T] on the signals' device
+    (stands for ``pallas_grad.psi_nll_pallas_trainable``; semantics of
+    ``core.psi_nll``): gradients reach every parameter through the block
+    constants, the initial state and the increments."""
+    if _nll_layout(cfg, layout) == "block":
+        return block.psi_nll_block_trainable(
+            params, cfg, signals, unroll=unroll, precision=precision,
+            defer_norm=defer_norm)
+    if precision == "high":
+        raise ValueError(
+            "kernel_precision='high' (bf16x3) is only implemented in the "
+            "block kernel layout (ops/block.py)")
+    if signals.device.type != "cpu":
+        raise NotImplementedError(
+            f"psi training at D={cfg.bond_dim} needs the split-layout kernel "
+            f"{_SPLIT_TRAIN}, which is not ported to CUDA yet")
+    return core.psi_nll(params, cfg, signals)

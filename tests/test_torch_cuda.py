@@ -72,6 +72,138 @@ def test_nll_kernel_matches_plain(dev, D, precision, defer):
     _close(got, block.psi_nll_block_plain(**inputs, **kw), TOL[precision])
 
 
+def _train_inputs(dev, D, steps, B=5, seed=2):
+    cfg = CMPSConfig(bond_dim=D)
+    p = init_psi(torch.Generator(dev).manual_seed(D), cfg, device=dev)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(seed), B,
+                            steps + 1, cfg.delta_t)
+    inputs = block.psi_nll_inputs(p, cfg, sig)
+    g = torch.rand(B, generator=torch.Generator(dev).manual_seed(5),
+                   device=dev) + 0.5
+    return inputs, g
+
+
+def _counts():
+    return (block.psi_train_fwd.launches, block.psi_train_bwd.launches,
+            block.psi_cotangents.launches)
+
+
+@pytest.mark.parametrize("D", [8, 12, 16, 64])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_train_kernels_match_plain(dev, D, precision, defer):
+    """Each training kernel against its plain version on the same inputs:
+    the forward on the step inputs, the adjoint on the plain forward's
+    streams, the cotangent reduction on the plain adjoint's streams."""
+    inputs, g = _train_inputs(dev, D, STEPS[precision])
+    kw = dict(norm_eps=inputs.pop("norm_eps"), precision=precision,
+              defer_norm=defer, unroll=7)
+    log_eps = inputs.pop("log_eps")
+    before = _counts()
+    fwd = block.psi_train_fwd_plain(**inputs, log_eps=log_eps, **kw)
+    for a, b in zip(block.psi_train_fwd(**inputs, log_eps=log_eps, **kw),
+                    fwd):
+        _close(a, b, TOL[precision])
+    _, ys, n2s = fwd
+    bwd = block.psi_train_bwd_plain(**inputs, g=g, ys=ys, n2s=n2s,
+                                    log_eps=log_eps, **kw)
+    for a, b in zip(block.psi_train_bwd(**inputs, g=g, ys=ys, n2s=n2s,
+                                        log_eps=log_eps, **kw), bwd):
+        _close(a, b, TOL[precision])
+    cot_in = dict(dy=bwd[2], ys=ys, t0=inputs["t0"], se=inputs["se"],
+                  n2s=n2s, dehat=bwd[3])
+    got = block.psi_cotangents(**cot_in, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, block.psi_cotangents_plain(**cot_in, **kw)):
+        _close(a, b, TOL[precision])
+    assert _counts() == tuple(c + 1 for c in before)
+
+
+def test_train_path_runs_the_three_kernels_at_d64(dev):
+    """One value-and-gradient of the training NLL on the card launches each
+    training kernel once and matches the plain path (the same call on CPU
+    copies of the inputs)."""
+    from audio_mps_tpu_torch.weights import (psi_params_from_numpy,
+                                             psi_params_to_numpy)
+    cfg = CMPSConfig(bond_dim=64, minibatch_size=8)
+    p = init_psi(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(1), 8, 257,
+                            cfg.delta_t)
+    before = _counts()
+    loss = block.psi_nll_block_trainable(p, cfg, sig, defer_norm=True)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert _counts() == tuple(c + 1 for c in before)
+    q = psi_params_from_numpy(psi_params_to_numpy(p), "cpu")
+    want = block.psi_nll_block_trainable(q, cfg, sig.cpu(), defer_norm=True)
+    want.backward()
+    assert abs(loss.item() - want.item()) <= 1e-4 * abs(want.item())
+    for name in q.NAMES:
+        _close(getattr(p, name).grad.cpu(), getattr(q, name).grad, 1e-3)
+
+
+@pytest.mark.parametrize("case", ["stream_off", "D72"])
+def test_train_path_raises_without_a_kernel(dev, case):
+    """kernel_stream="off" (the recompute adjoint is not ported) and D=72
+    (the constants overflow shared memory) raise NotImplementedError on the
+    card before any launch."""
+    from audio_mps_tpu_torch.training import nll_fn_for
+    D = 72 if case == "D72" else 8
+    cfg = CMPSConfig(bond_dim=D, kernel_stream="off" if case == "stream_off"
+                     else "auto")
+    p = init_psi(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    sig = torch.zeros(2, 17, device=dev)
+    before = _counts()
+    with pytest.raises(NotImplementedError):
+        nll_fn_for("psi_mps")(p, cfg, sig)
+    assert _counts() == before
+
+
+def test_train_kernels_index_past_2_pow_31_elements(dev):
+    """A [n_steps, 2D, B] stream of more than 2^31 elements (8 GiB in fp32):
+    the last column of the forward and of the adjoint over all columns
+    equals, bit for bit, a launch over that column alone. The cotangents of
+    streams that are zero except in the last column equal those of the
+    column alone: the zero terms add nothing, and the split over steps
+    depends on n_steps only."""
+    cfg = CMPSConfig(bond_dim=8)
+    p = init_psi(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    n_steps, cols = 131073, 1024
+    assert n_steps * 2 * cfg.bond_dim * cols > 2 ** 31
+    inputs = block.psi_nll_inputs(p, cfg, torch.zeros(cols, 2, device=dev))
+    inputs["se"] = torch.randn(n_steps, cols, device=dev,
+                               generator=torch.Generator(dev).manual_seed(3)
+                               ).mul_(0.01)
+    kw = dict(log_eps=inputs.pop("log_eps"), norm_eps=inputs.pop("norm_eps"),
+              defer_norm=True)
+    g = torch.ones(cols, device=dev)
+
+    def last(x):
+        return x[..., -1:].contiguous()
+
+    alone = dict(t0=last(inputs["t0"]), se=last(inputs["se"]),
+                 ab=inputs["ab"], bb=inputs["bb"], rb=inputs["rb"])
+    loss, ys, n2s = block.psi_train_fwd(**inputs, **kw)
+    a_loss, a_ys, a_n2s = block.psi_train_fwd(**alone, **kw)
+    assert torch.equal(last(loss), a_loss) and torch.equal(last(ys), a_ys)
+    dse, dt0, dy, dehat = block.psi_train_bwd(**inputs, g=g, ys=ys, n2s=n2s,
+                                              **kw)
+    a_bwd = block.psi_train_bwd(**alone, g=g[-1:], ys=a_ys, n2s=a_n2s, **kw)
+    for a, b in zip((dse, dt0, dy, dehat), a_bwd):
+        assert torch.equal(last(a), b)
+    del kw["log_eps"]
+    dy[..., :-1] = 0
+    dehat[:, :-1] = 0
+    got = block.psi_cotangents(dy, ys, inputs["t0"], inputs["se"], n2s,
+                               dehat, **kw)
+    del ys, dy
+    want = block.psi_cotangents(a_bwd[2], a_ys, alone["t0"], alone["se"],
+                                a_n2s, a_bwd[3], **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(b).all() and torch.equal(a, b)
+
+
 @pytest.mark.parametrize("kind", ["sample", "nll"])
 def test_kernels_index_past_2_pow_31_elements(dev, kind):
     """A [T, cols] operand of more than 2^31 elements (8 GiB in fp32): the
@@ -102,3 +234,16 @@ def test_kernels_index_past_2_pow_31_elements(dev, kind):
     torch.cuda.synchronize()
     assert torch.isfinite(want).all()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_train_forward_loss_is_the_nll_kernel_bit_for_bit(dev, precision,
+                                                          defer):
+    """The training forward and the scoring NLL are one kernel template
+    (csrc/psi_fwd.cuh) with and without the state stream: their losses are
+    equal bit for bit."""
+    inputs, _ = _train_inputs(dev, 64, 300)
+    kw = dict(precision=precision, defer_norm=defer, unroll=7)
+    loss, _, _ = block.psi_train_fwd(**inputs, **kw)
+    assert torch.equal(loss, block.psi_nll_block(**inputs, **kw))

@@ -18,9 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from audio_mps_tpu_torch import CMPSConfig, PsiCMPS, init_psi
+from audio_mps_tpu_torch import CMPSConfig, PsiCMPS, RunConfig, init_psi
 from audio_mps_tpu_torch.ops import block, scan
 from audio_mps_tpu_torch.sample import SampleConfig, sample
+from audio_mps_tpu_torch.train import main as train_main
+from audio_mps_tpu_torch.train import train
+from audio_mps_tpu_torch.training import make_train_step
 from audio_mps_tpu_torch.weights import (load_params, psi_params_from_numpy,
                                          save_params)
 
@@ -79,7 +82,8 @@ def _np_weights(D=8):
 
 
 @pytest.mark.parametrize("entry", ["PsiCMPS", "init_psi", "from_numpy",
-                                   "load_params", "sample_cli"])
+                                   "load_params", "sample_cli", "train",
+                                   "train_cli", "make_train_step"])
 def test_default_device_entry_points_raise_without_a_card(entry, tmp_path,
                                                           monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -92,6 +96,12 @@ def test_default_device_entry_points_raise_without_a_card(entry, tmp_path,
         "load_params": lambda: load_params(path),
         "sample_cli": lambda: sample(SampleConfig(modeldir=str(tmp_path),
                                                   fused=True, out="")),
+        "train": lambda: train(RunConfig(logdir=str(tmp_path), max_steps=1)),
+        "train_cli": lambda: train_main([f"--logdir={tmp_path}",
+                                         "--max_steps=1"]),
+        "make_train_step": lambda: make_train_step(
+            "psi_mps", CMPSConfig(),
+            psi_params_from_numpy(_np_weights(), "cpu")),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
@@ -102,20 +112,31 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     p = psi_params_from_numpy(_np_weights(), "cpu")
     s_in = block.psi_sample_inputs(p, cfg, torch.zeros(5, 2))
     n_in = block.psi_nll_inputs(p, cfg, torch.zeros(2, 6))
+    g = torch.ones(2)
+    ys = torch.zeros(5, 16, 2)
+    n2s = torch.ones(5, 2)
+    cot = dict(dy=ys, ys=ys, t0=n_in["t0"], se=n_in["se"], n2s=n2s,
+               dehat=n2s, norm_eps=n_in["norm_eps"])
+    calls = [
+        (block.psi_sample_block, lambda d: block.psi_sample_block(**d(s_in))),
+        (block.psi_nll_block, lambda d: block.psi_nll_block(**d(n_in))),
+        (block.psi_train_fwd, lambda d: block.psi_train_fwd(**d(n_in))),
+        (block.psi_train_bwd, lambda d: block.psi_train_bwd(
+            **d(dict(n_in, g=g, ys=ys, n2s=n2s)))),
+        (block.psi_cotangents, lambda d: block.psi_cotangents(**d(cot))),
+    ]
 
     def meta(d):
         return {k: v.to("meta") if isinstance(v, torch.Tensor) else v
                 for k, v in d.items()}
 
-    with pytest.raises(ValueError, match="no kernel"):
-        block.psi_sample_block(**meta(s_in))
-    with pytest.raises(ValueError, match="no kernel"):
-        block.psi_nll_block(**meta(n_in))
-    launches = (block.psi_sample_block.launches, block.psi_nll_block.launches)
-    block.psi_sample_block(**s_in)
-    block.psi_nll_block(**n_in)
-    assert (block.psi_sample_block.launches,
-            block.psi_nll_block.launches) == launches
+    for _fn, call in calls:
+        with pytest.raises(ValueError, match="no kernel"):
+            call(meta)
+    launches = [fn.launches for fn, _call in calls]
+    for _fn, call in calls:
+        call(dict)
+    assert [fn.launches for fn, _call in calls] == launches
 
 
 @pytest.mark.parametrize("where", ["alone", "repo"])
