@@ -1,0 +1,30 @@
+// Forward-only rho NLL (purification factor, block-complex layout) for
+// Hopper.
+//
+// Replaces the TPU kernel audio_mps_tpu/ops/pallas_block.py rho_nll_block
+// (its inline kernel, :2519, built on _rho_step / _rho_step_defer). The
+// kernel is rho_fwd_kernel of rho_fwd.cuh without the state stream; the
+// step, the design and what bounds it are described there.
+#include "rho_fwd.cuh"
+
+extern "C" {
+
+// Dynamic shared memory of one NLL CTA (rho_fwd.cuh).
+size_t amt_rho_nll_smem_bytes(int D, int R) {
+  return amt::rho_fwd_smem_bytes(D, R);
+}
+
+// Per-example NLL loss[B] from se[n_steps, B] (increments / A) and the
+// factors t0[2D, B*R]; see rho_fwd.cuh. precision: 0 highest, 1 high,
+// 2 default. Returns a cudaError_t.
+int amt_rho_nll(const float* ab, const float* bb, const float* xb,
+                const float* t0, const float* se, float* loss, int D,
+                int n_steps, int B, int R, int unroll, float log_eps,
+                float norm_eps, int precision, int defer_norm, void* stream) {
+  return static_cast<int>(amt::launch_rho_fwd<false>(
+      ab, bb, xb, t0, se, loss, nullptr, nullptr, D, n_steps, B, R, unroll,
+      log_eps, norm_eps, precision, defer_norm != 0,
+      static_cast<cudaStream_t>(stream)));
+}
+
+}  // extern "C"

@@ -1,11 +1,15 @@
-"""The cMPS physics cell, psi half (port of ``audio_mps_tpu/models/cell.py``).
+"""The cMPS physics cell (port of ``audio_mps_tpu/models/cell.py``).
 
 The ancilla evolves in the rotating (interaction) frame: with a diagonal
-Hamiltonian the one-step lab-frame update becomes a time-independent update
-``psi'' = psi + (-(sigma^2 dt/2) K + s R) psi`` followed by the constant
-phase ``psi <- conj(p) .* psi''`` with ``p = exp(i f dt)`` and
-``K = R^dag R``. All complex algebra is split into real pairs (see
-``ops/complexing.py``); states are row-vector batches ``[B, D]``.
+Hamiltonian the one-step lab-frame update becomes time-independent. For
+psi it is ``psi'' = psi + (-(sigma^2 dt/2) K + s R) psi`` followed by the
+constant phase ``psi <- conj(p) .* psi''`` with ``p = exp(i f dt)`` and
+``K = R^dag R``; for rho it is ``rho'' = U rho U^dag``, ``U = C + s R``,
+followed by ``rho <- rho'' .* Phi``, ``Phi_ij = exp(i (f_j - f_i) dt)``,
+with ``C = 1 - (sigma^2 dt/2) K``. All complex algebra is split into real
+pairs (see ``ops/complexing.py``); psi states are row-vector batches
+``[B, D]``, rho states ``[B, D, D]`` and purification factors
+``[B, rank, D]``.
 
 Reference quirks kept as they are: the expectation in the loss is taken on
 the unnormalised post-update state; ``log_eps <= 0`` leaves ``-log`` of a
@@ -19,7 +23,8 @@ from dataclasses import dataclass
 import torch
 
 from ..config import CMPSConfig
-from ..ops.complexing import apply_matrix, gram_adj
+from ..ops.complexing import (apply_matrix, cmatmul, cmatmul_adj_right, cmul,
+                               ctrace_re, gram_adj)
 
 
 def effective_R(params):
@@ -67,6 +72,35 @@ def make_constants(params, cfg: CMPSConfig) -> CellConstants:
                          p_s=torch.sin(f * cfg.delta_t), A=params.A)
 
 
+def rho_apply_U(cc: CellConstants, rr, ri, s):
+    """Unnormalized Kraus update ``rho'' = (C + s R) rho (C + s R)^dag``.
+    rr/ri: [B,D,D]; s: [B] = signal / A (reference: model.py:172-187)."""
+    sb = s[:, None, None]
+    Ur = cc.Cr[None] + sb * cc.Rr[None]
+    Ui = cc.Ci[None] + sb * cc.Ri[None]
+    mr, mi = cmatmul(Ur, Ui, rr, ri)
+    return cmatmul_adj_right(mr, mi, Ur, Ui)
+
+
+def rho_expectation(cc: CellConstants, rr, ri):
+    """``<x> = Re tr[(R + R^dag) rho~]``, frame-invariant
+    (reference: model.py:189-196)."""
+    return (torch.einsum("ik,bki->b", cc.Xr, rr)
+            - torch.einsum("ik,bki->b", cc.Xi, ri))
+
+
+def normalize_rho(rr, ri, eps: float):
+    """Divide by the (real) trace, floored at eps
+    (reference: model.py:198-203)."""
+    inv = (1.0 / torch.clamp(ctrace_re(rr), min=eps))[:, None, None]
+    return rr * inv, ri * inv
+
+
+def rotate_rho(cc: CellConstants, rr, ri):
+    """Advance the rotating frame one step: ``rho~ <- rho~ .* Phi``."""
+    return cmul(rr, ri, cc.phi_c[None], cc.phi_s[None])
+
+
 def psi_apply_update(cc: CellConstants, pr, pi, s):
     """``psi'' = psi + (-(sigma^2 dt/2) K + s R) psi`` in the rotating frame
     (reference: model.py:300-317), using ``-(sigma^2 dt/2) K = C - I``.
@@ -105,6 +139,78 @@ def nll_increment(e, s, log_eps: float):
     if log_eps > 0:
         arg = torch.clamp(arg, min=log_eps)
     return -torch.log(arg)
+
+
+def rho_loss_step(cc: CellConstants, cfg: CMPSConfig, carry, inc):
+    """update -> loss -> normalize -> rotate (reference: model.py:152-158);
+    the expectation is taken on the unnormalized post-update state."""
+    rr, ri, loss = carry
+    s = inc / cc.A
+    rr2, ri2 = rho_apply_U(cc, rr, ri, s)
+    e = rho_expectation(cc, rr2, ri2)
+    loss = loss + nll_increment(e, s, cfg.log_eps)
+    rr2, ri2 = normalize_rho(rr2, ri2, cfg.norm_eps)
+    rr2, ri2 = rotate_rho(cc, rr2, ri2)
+    return (rr2, ri2, loss)
+
+
+def rho_evolve_step(cc: CellConstants, cfg: CMPSConfig, carry, inc):
+    """Update without loss (reference: model.py:144-150). Returns the carry
+    plus the normalized pre-rotation state."""
+    rr, ri, loss = carry
+    s = inc / cc.A
+    rr2, ri2 = rho_apply_U(cc, rr, ri, s)
+    rr2, ri2 = normalize_rho(rr2, ri2, cfg.norm_eps)
+    out = (rr2, ri2)
+    rr2, ri2 = rotate_rho(cc, rr2, ri2)
+    return (rr2, ri2, loss), out
+
+
+def rho_sample_step(cc: CellConstants, cfg: CMPSConfig, carry, noise):
+    """Euler–Maruyama step (reference: model.py:160-167): the increment is
+    ``<x> dt + noise`` on the current state, and the ancilla is conditioned
+    on it. Returns (carry, (increment, state))."""
+    rr, ri = carry
+    e = rho_expectation(cc, rr, ri)
+    inc = e * cfg.delta_t + noise
+    s = inc / cc.A
+    rr2, ri2 = rho_apply_U(cc, rr, ri, s)
+    rr2, ri2 = normalize_rho(rr2, ri2, cfg.norm_eps)
+    state = (rr2, ri2)
+    rr2, ri2 = rotate_rho(cc, rr2, ri2)
+    return (rr2, ri2), (inc, state)
+
+
+def rho_factor_loss_step(cc: CellConstants, cfg: CMPSConfig, carry, inc):
+    """One loss step on the purification factor G (rho = G^dag G evolves as
+    G <- G U^dag, exactly). carry: (gr, gi [B, rank, D], loss [B])."""
+    gr, gi, loss = carry
+    s = (inc / cc.A)[:, None, None]
+    cdr, cdi = cc.Cr.T, -cc.Ci.T
+    rdr, rdi = cc.Rr.T, -cc.Ri.T
+    yr = (gr @ cdr - gi @ cdi) + s * (gr @ rdr - gi @ rdi)
+    yi = (gr @ cdi + gi @ cdr) + s * (gr @ rdi + gi @ rdr)
+    # e = Re tr(X rho'') = sum Re(G'' . conj(G'' @ X))
+    gxr = yr @ cc.Xr - yi @ cc.Xi
+    gxi = yr @ cc.Xi + yi @ cc.Xr
+    e = torch.sum(yr * gxr + yi * gxi, dim=(1, 2))
+    tr = torch.sum(yr * yr + yi * yi, dim=(1, 2))
+    loss = loss + nll_increment(e, s[:, 0, 0], cfg.log_eps)
+    inv = torch.rsqrt(torch.clamp(tr, min=cfg.norm_eps))[:, None, None]
+    yr = yr * inv
+    yi = yi * inv
+    # rotate: G <- G P (column scale by exp(i f dt))
+    return (yr * cc.p_c - yi * cc.p_s, yr * cc.p_s + yi * cc.p_c, loss)
+
+
+def rho_factor_state0(params, cfg: CMPSConfig, b: int):
+    """Initial purification factor [b, rank, D], normalized to unit trace
+    (reference: model.py:57-66)."""
+    wr, wi = params.Wx, params.Wy
+    tr0 = torch.sum(wr * wr + wi * wi)
+    inv0 = torch.rsqrt(torch.clamp(tr0, min=cfg.norm_eps))
+    return ((wr * inv0)[None].expand((b,) + tuple(wr.shape)),
+            (wi * inv0)[None].expand((b,) + tuple(wi.shape)))
 
 
 def psi_loss_step(cc: CellConstants, cfg: CMPSConfig, carry, inc):

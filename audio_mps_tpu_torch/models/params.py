@@ -1,14 +1,15 @@
-"""Learnable parameters of the pure-state cMPS (port of
-``audio_mps_tpu/models/params.py``, psi family).
+"""Learnable parameters of the cMPS families (port of
+``audio_mps_tpu/models/params.py``): the pure state (psi) and the mixed
+state (rho).
 
 All complex quantities are stored as real pairs, with the JAX leaf names
-(``A, Rx, Ry, freqs, psi_x, psi_y``) so that weights cross between the two
-packages by name (see ``weights.py``).
+(``A, Rx, Ry, freqs`` and ``psi_x, psi_y`` or ``Wx, Wy``) so that weights
+cross between the two packages by name (see ``weights.py``).
 
 Initialization follows the JAX package's distributions (R: normal with
-stddev ``1/sqrt(r_reg)``; freqs: stddev ``1/sqrt(h_reg)``; psi_0: TF1's
-glorot_uniform limits) drawn from an explicit ``torch.Generator``. The
-values differ from ``jax.random``'s for the same seed.
+stddev ``1/sqrt(r_reg)``; freqs: stddev ``1/sqrt(h_reg)``; psi_0 and W:
+TF1's glorot_uniform limits) drawn from an explicit ``torch.Generator``.
+The values differ from ``jax.random``'s for the same seed.
 """
 from __future__ import annotations
 
@@ -32,7 +33,22 @@ def _glorot_uniform(generator, shape):
     return (2.0 * u - 1.0) * limit
 
 
-class PsiParams(nn.Module):
+class _Params(nn.Module):
+    """fp32 ``nn.Parameter`` leaves named by ``NAMES``."""
+
+    NAMES: tuple = ()
+
+    def __init__(self, **leaves):
+        super().__init__()
+        if set(leaves) != set(self.NAMES):
+            raise TypeError(f"{type(self).__name__} takes {self.NAMES}, got "
+                            f"{tuple(leaves)}")
+        for name in self.NAMES:
+            setattr(self, name, nn.Parameter(
+                torch.as_tensor(leaves[name], dtype=torch.float32).clone()))
+
+
+class PsiParams(_Params):
     """Pure-state parameters (reference: model.py:5-52, 214-222).
 
     Attributes (all fp32 ``nn.Parameter``):
@@ -45,11 +61,13 @@ class PsiParams(nn.Module):
 
     NAMES = ("A", "Rx", "Ry", "freqs", "psi_x", "psi_y")
 
-    def __init__(self, A, Rx, Ry, freqs, psi_x, psi_y):
-        super().__init__()
-        for name, value in zip(self.NAMES, (A, Rx, Ry, freqs, psi_x, psi_y)):
-            setattr(self, name, nn.Parameter(
-                torch.as_tensor(value, dtype=torch.float32).clone()))
+
+class RhoParams(_Params):
+    """Mixed-state parameters (reference: model.py:55-67, 118-130): the
+    shared leaves and the rho_0 factor W, ``rho_0 = W^dag W / tr(W^dag W)``,
+    with Wx, Wy the real/imag parts of W [initial_rank, D]."""
+
+    NAMES = ("A", "Rx", "Ry", "freqs", "Wx", "Wy")
 
 
 def _complex_in(x, shape, name, device):
@@ -95,3 +113,20 @@ def init_psi(generator: torch.Generator, cfg: CMPSConfig, freqs_in=None,
         psi_x = _glorot_uniform(generator, (cfg.bond_dim,)).to(dev)
         psi_y = _glorot_uniform(generator, (cfg.bond_dim,)).to(dev)
     return PsiParams(psi_x=psi_x, psi_y=psi_y, **common)
+
+
+def init_rho(generator: torch.Generator, cfg: CMPSConfig, freqs_in=None,
+             R_in=None, W_in=None, device="cuda") -> RhoParams:
+    """Random (or warm-started) ``RhoParams`` on ``device``; W is
+    [initial_rank, D] (rank D when ``initial_rank`` is None)."""
+    common = init_common(generator, cfg, freqs_in=freqs_in, R_in=R_in,
+                         device=device)
+    dev = common["A"].device
+    rank = cfg.initial_rank if cfg.initial_rank is not None else cfg.bond_dim
+    shape = (rank, cfg.bond_dim)
+    if W_in is not None:
+        Wx, Wy = _complex_in(W_in, shape, "W_in", dev)
+    else:
+        Wx = _glorot_uniform(generator, shape).to(dev)
+        Wy = _glorot_uniform(generator, shape).to(dev)
+    return RhoParams(Wx=Wx, Wy=Wy, **common)

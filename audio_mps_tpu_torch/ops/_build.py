@@ -23,8 +23,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("psi_sample.cu", "psi_nll.cu", "psi_train_fwd.cu",
-           "psi_train_bwd.cu", "psi_cotangents.cu")
-HEADERS = ("common.cuh", "psi_fwd.cuh")
+           "psi_train_bwd.cu", "psi_cotangents.cu", "rho_sample.cu",
+           "rho_nll.cu", "rho_train_fwd.cu", "rho_train_bwd.cu")
+HEADERS = ("common.cuh", "psi_fwd.cuh", "rho_tile.cuh", "rho_fwd.cuh")
 ROOT = Path(__file__).resolve().parents[2]
 LIB_NAME = "libamt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -51,11 +52,27 @@ _SIGNATURES = {
     # dys, ys, t0, se, n2s, dehats, partial, out, D, n_steps, B, unroll,
     # norm_eps, precision, defer_norm, stream
     "amt_psi_cotangents": ([_P] * 8 + [_I, _I, _I, _I, _F, _I, _I, _P], _I),
+    # ab, bb, xs, pc, ps, t0, noise, inv_a, wave, D, T, N, R, dt, norm_eps,
+    # precision, stream
+    "amt_rho_sample": ([_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _P], _I),
+    # ab, bb, xb, t0, se, loss, D, n_steps, B, R, unroll, log_eps, norm_eps,
+    # precision, defer_norm, stream
+    "amt_rho_nll": ([_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    # ab, bb, xb, t0, se, loss, ys, trs, D, n_steps, B, R, unroll, log_eps,
+    # norm_eps, precision, defer_norm, stream
+    "amt_rho_train_fwd": ([_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    # ab, bb, xb, t0, se, g, ys, trs, dse, dt0, dys, dehats, dtrns, D,
+    # n_steps, B, R, unroll, log_eps, norm_eps, precision, defer_norm, stream
+    "amt_rho_train_bwd": ([_P] * 13 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
     "amt_psi_sample_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_nll_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_train_fwd_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_train_bwd_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_cotangents_workspace_floats": ([_I, _I], ctypes.c_size_t),
+    "amt_rho_sample_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "amt_rho_nll_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "amt_rho_train_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "amt_rho_train_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_error_string": ([_I], ctypes.c_char_p),
 }
 

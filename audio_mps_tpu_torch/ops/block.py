@@ -1,5 +1,5 @@
-"""Block-complex psi kernels for Hopper: the SDE sampler, the forward-only
-NLL and the training NLL with its adjoint (port of the psi half of
+"""Block-complex kernels for Hopper, psi and rho: the SDE samplers, the
+forward-only NLLs and the training NLLs with their adjoints (port of
 ``audio_mps_tpu/ops/pallas_block.py``).
 
 Layout (as in the JAX package): every complex operator is embedded as the
@@ -13,17 +13,17 @@ Each kernel comes as a pair:
 * ``*_plain``: the step loop in plain PyTorch. It is the CPU path and the
   version the CUDA kernel is held to on the card.
 * the wrapper (``psi_sample_block``, ``psi_nll_block``, ``psi_train_fwd``,
-  ``psi_train_bwd``, ``psi_cotangents``): a CPU tensor goes to the plain
-  version; a CUDA tensor launches the hand-written kernel from ``csrc/``
-  (built by ``ops/_build.py``) or raises. The wrapper counts its launches
-  in ``.launches``.
+  ``psi_train_bwd``, ``psi_cotangents`` and their ``rho_*`` counterparts):
+  a CPU tensor goes to the plain version; a CUDA tensor launches the
+  hand-written kernel from ``csrc/`` (built by ``ops/_build.py``) or
+  raises. The wrapper counts its launches in ``.launches``.
 
-The sampler and the NLL take the kernel inputs that ``psi_sample_inputs`` /
-``psi_nll_inputs`` build from the parameters, and are forward-only (no
-autograd), as their TPU kernels are. The three training functions sit
-under ``PsiBlockNLL``, a ``torch.autograd.Function`` whose inputs
-(``psi_nll_block_trainable*``) are built with autograd, so the cotangents
-flow on to the parameters.
+The samplers and the NLLs take the kernel inputs that ``*_sample_inputs``
+/ ``*_nll_inputs`` build from the parameters, and are forward-only (no
+autograd), as their TPU kernels are. The training functions sit under
+``PsiBlockNLL`` / ``RhoBlockNLL``, ``torch.autograd.Function``s whose
+inputs (``*_nll_block_trainable*``) are built with autograd, so the
+cotangents flow on to the parameters.
 
 Precision menu (``_make_dot_ops``; the TPU's ``pallas_block._make_dot_ops``):
 ``highest`` is fp32; ``high`` splits both operands into bf16 (hi, lo) and
@@ -616,6 +616,18 @@ def psi_cotangents(dy, ys, t0, se, n2s, dehat, *, norm_eps: float,
               defer_norm=defer_norm)
     if _cuda_or_raise("psi_cotangents", se):
         return psi_cotangents_plain(dy, ys, t0, se, n2s, dehat, **kw)
+    return _cotangents_kernel(psi_cotangents, dy, ys, t0, se, n2s, dehat,
+                              **kw)
+
+
+psi_cotangents.launches = 0
+
+
+def _cotangents_kernel(counted, dy, ys, t0, se, n2s, dehat, *,
+                       norm_eps: float, unroll: int, precision: str,
+                       defer_norm: bool):
+    """Launch ``csrc/psi_cotangents.cu`` on CUDA tensors and add one to
+    ``counted.launches``: the wrapper whose path the launch belongs to."""
     _check_options(precision, unroll)
     n_steps, B = se.shape
     D = t0.shape[0] // 2
@@ -633,11 +645,8 @@ def psi_cotangents(dy, ys, t0, se, n2s, dehat, *, norm_eps: float,
         _ptr(work), _ptr(out), D, n_steps, B, unroll, norm_eps,
         PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
     _build.check(lib, err, "psi_cotangents")
-    psi_cotangents.launches += 1
+    counted.launches += 1
     return out[0], out[1], out[2]
-
-
-psi_cotangents.launches = 0
 
 
 class PsiBlockNLL(torch.autograd.Function):
@@ -671,13 +680,14 @@ class PsiBlockNLL(torch.autograd.Function):
         return dab, dbb, drb, dt0, dse, None
 
 
-def stream_bytes(D: int, B: int, T: int) -> int:
+def stream_bytes(D: int, cols: int, T: int) -> int:
     """Bytes of the two fp32 state streams of one training step: ys from
-    the forward and dy from the adjoint, [T-1, 2D, B] each."""
-    return 2 * 4 * max(T - 1, 0) * 2 * D * B
+    the forward and dy from the adjoint, [T-1, 2D, cols] each (cols = B for
+    psi, B * rank for rho)."""
+    return 2 * 4 * max(T - 1, 0) * 2 * D * cols
 
 
-def auto_stream(cfg: CMPSConfig, B: int, T: int, device) -> bool:
+def auto_stream(cfg: CMPSConfig, cols: int, T: int, device) -> bool:
     """Do the streamed-states kernels run? The port's own policy in place
     of the TPU's HBM budget (``pallas_block.auto_stream``): "off" never
     streams; "auto" and "on" stream on a CPU tensor, and on the card when
@@ -688,7 +698,7 @@ def auto_stream(cfg: CMPSConfig, B: int, T: int, device) -> bool:
     if device.type != "cuda":
         return True
     free, _total = torch.cuda.mem_get_info(device)
-    return stream_bytes(cfg.bond_dim, B, T) <= free
+    return stream_bytes(cfg.bond_dim, cols, T) <= free
 
 
 def psi_nll_block_trainable_from_state(params, cfg: CMPSConfig, signals,
@@ -738,3 +748,587 @@ def psi_nll_block_trainable(params, cfg: CMPSConfig, signals, *,
     return psi_nll_block_trainable_from_state(
         params, cfg, signals, pair, unroll=unroll, precision=precision,
         defer_norm=defer_norm).mean()
+
+
+# ===========================================================================
+# rho (mixed state): the purification factor on [2D, B*rank]
+# ===========================================================================
+#
+# The state is H = G^T stacked as [2D, cols], cols = (example or chain) x
+# rank: example b owns columns b*rank .. (b+1)*rank - 1. The trace and the
+# expectation of an example are sums over its whole column segment, so a
+# CUDA kernel gives one CTA one example's segment, and the per-example
+# scalars (the increment s, the loss, the trace) are [*, B], not repeated
+# over the rank lanes as on the TPU.
+
+_STREAM_OFF_RHO = (
+    "audio_mps_tpu/ops/pallas_block.py _make_rho_bwd_kernel_defer (:1790) "
+    "and _make_rho_bwd_kernel_batched with stream=False (:1438), the "
+    "recompute adjoints that need no state stream (ROADMAP queue B, kernel "
+    "table row 4d)")
+
+
+def rho_factor_inputs(params, cfg: CMPSConfig, n_cols: int):
+    """Normalized initial purification factor H0 = W^T / sqrt(tr(W^dag W))
+    tiled over ``n_cols`` examples: (h0r, h0i) [D, n_cols * rank] (the
+    TPU's ``pallas_scan.rho_factor_inputs`` without its rank padding and
+    0/1 segment matrix: the port runs the real rank, one CTA a segment)."""
+    wr, wi = params.Wx, params.Wy
+    tr0 = torch.sum(wr * wr + wi * wi)
+    inv0 = torch.rsqrt(torch.clamp(tr0, min=cfg.norm_eps))
+    return (wr.T * inv0).repeat(1, n_cols), (wi.T * inv0).repeat(1, n_cols)
+
+
+def _rho_block_constants(cc):
+    """(Ab, Bb, Xb) with the diag(p) rotation folded in:
+    A~ = conj(C) diag(p), B~ = conj(R) diag(p); Xb embeds X^T."""
+    pc, ps = cc.p_c, cc.p_s
+    atr = cc.Cr * pc[None, :] + cc.Ci * ps[None, :]
+    ati = cc.Cr * ps[None, :] - cc.Ci * pc[None, :]
+    btr = cc.Rr * pc[None, :] + cc.Ri * ps[None, :]
+    bti = cc.Rr * ps[None, :] - cc.Ri * pc[None, :]
+    return (block_embed(atr, ati), block_embed(btr, bti),
+            block_embed(cc.Xr.T, cc.Xi.T))
+
+
+def _rho_sample_xb(cc):
+    """The sampler's expectation operator: its expectation acts on the
+    current state H = p .* t, so X^T takes the update operators' diag(p)
+    fold, (X^T diag(p)) t (``pallas_block.rho_sample_block`` :2356-2363)."""
+    pc, ps = cc.p_c[None, :], cc.p_s[None, :]
+    return block_embed(cc.Xr.T * pc - cc.Xi.T * ps,
+                       cc.Xi.T * pc + cc.Xr.T * ps)
+
+
+def _rho_block_t0(cc, h0r, h0i):
+    """Stacked kernel-frame initial factor t0 = conj(p) .* H0 ([2D, cols])."""
+    pc, ps = cc.p_c[:, None], cc.p_s[:, None]
+    return torch.cat([h0r * pc + h0i * ps, h0i * pc - h0r * ps], dim=0)
+
+
+def _lanes(v, rank: int):
+    """Per-example values [..., B] repeated over each example's rank lanes
+    ([..., B * rank])."""
+    return v.repeat_interleave(rank, dim=-1)
+
+
+def _segment_sum(x, rank: int):
+    """Sum of x [..., rows, B * rank] over the rows and each example's rank
+    lanes: [..., B]."""
+    s = x.sum(dim=-2)
+    return s.reshape(s.shape[:-1] + (-1, rank)).sum(dim=-1)
+
+
+def _rank_of(name, cols: int, n: int) -> int:
+    if n <= 0 or cols % n:
+        raise ValueError(f"{name}: {cols} state columns are not a whole "
+                         f"number of rank segments for {n} examples")
+    return cols // n
+
+
+def rho_sample_inputs(params, cfg: CMPSConfig, noise) -> dict:
+    """Kernel inputs of ``rho_sample_block`` from parameters and noise
+    [T, N] (the TPU's ``pallas_block.rho_sample_block`` preamble)."""
+    if not supports_block_sampler(cfg):
+        raise ValueError(
+            f"block sampler requires bond_dim % 8 == 0, got {cfg.bond_dim}")
+    with torch.no_grad():
+        cc = make_constants(params, cfg)
+        ab, bb, _ = _rho_block_constants(cc)
+        t0 = _rho_block_t0(cc, *rho_factor_inputs(params, cfg,
+                                                  noise.shape[1]))
+        return dict(ab=_as_kernel_input(ab), bb=_as_kernel_input(bb),
+                    xb=_as_kernel_input(_rho_sample_xb(cc)),
+                    pc=_as_kernel_input(cc.p_c), ps=_as_kernel_input(cc.p_s),
+                    t0=_as_kernel_input(t0), noise=_as_kernel_input(noise),
+                    inv_a=_as_kernel_input((1.0 / cc.A).reshape(1)),
+                    dt=float(cfg.delta_t), norm_eps=float(cfg.norm_eps))
+
+
+@torch.no_grad()
+def rho_sample_block_plain(ab, bb, xb, pc, ps, t0, noise, inv_a, *,
+                           dt: float, norm_eps: float,
+                           precision: str = "highest"):
+    """Running waveform [T, N] of N chains whose factors are t0
+    [2D, N * rank] (the caller scales by A and transposes). The
+    expectation is taken on the current state with the conj(p) twist, then
+    the factor is updated with the realised increment / A and renormalised
+    by its trace. Plain PyTorch, any device."""
+    prep, dotf = _make_dot_ops(precision)
+    D = pc.shape[0]
+    rank = _rank_of("rho_sample_block", t0.shape[1], noise.shape[1])
+    abp, bbp, xbp = prep(ab), prep(bb), prep(xb)
+    pc, ps = pc[:, None], ps[:, None]
+    t = t0
+    samp = torch.zeros_like(noise[0])
+    out = torch.empty_like(noise)
+    for k in range(noise.shape[0]):
+        tp = prep(t)
+        gx = dotf(xbp, tp)                   # X^T H on the current state
+        gxr, gxi = gx[:D], gx[D:]
+        vr = pc * gxr + ps * gxi             # v = conj(p) .* gx
+        vi = pc * gxi - ps * gxr
+        e = _segment_sum(t[:D] * vr + t[D:] * vi, rank)
+        inc = e * dt + noise[k]
+        samp = samp + inc
+        out[k] = samp
+        s = _lanes(inc * inv_a, rank)
+        y = dotf(abp, tp) + s * dotf(bbp, tp)
+        tr = _segment_sum(y * y, rank)
+        t = y * _lanes(torch.rsqrt(torch.clamp(tr, min=norm_eps)), rank)
+    return out
+
+
+def _check_rho_shape(name, D: int, rank: int):
+    """The rho kernels' thread layout: a CTA of (D/4) x ceil(rank/4)
+    threads, each owning 8 rows x 4 columns of the [2D, rank] segment."""
+    if D % 4 or D > 64 or not 1 <= rank <= 64:
+        raise NotImplementedError(
+            f"{name} at D={D}, rank={rank}: the rho kernels take D % 4 == 0, "
+            f"D <= 64 and 1 <= rank <= 64 (one CTA holds an example's whole "
+            f"[2D, rank] segment beside its [2D,2D] constants); splitting a "
+            f"segment over a thread-block cluster is not ported yet (ROADMAP "
+            f"queue B)")
+
+
+@torch.no_grad()
+def rho_sample_block(ab, bb, xb, pc, ps, t0, noise, inv_a, *, dt: float,
+                     norm_eps: float, precision: str = "highest"):
+    """Running waveform [T, N]: ``rho_sample_block_plain`` for CPU tensors,
+    the CUDA kernel ``csrc/rho_sample.cu`` for CUDA tensors."""
+    if _cuda_or_raise("rho_sample_block", noise):
+        return rho_sample_block_plain(ab, bb, xb, pc, ps, t0, noise, inv_a,
+                                      dt=dt, norm_eps=norm_eps,
+                                      precision=precision)
+    _check_options(precision)
+    T, N = noise.shape
+    D = pc.shape[0]
+    rank = _rank_of("rho_sample_block", t0.shape[1], N)
+    _check_rho_shape("rho_sample_block", D, rank)
+    n = 2 * D
+    _check_inputs("rho_sample_block", noise.device, dict(
+        ab=(ab, (n, n)), bb=(bb, (n, n)), xb=(xb, (n, n)), pc=(pc, (D,)),
+        ps=(ps, (D,)), t0=(t0, (n, N * rank)), noise=(noise, (T, N)),
+        inv_a=(inv_a, (1,))))
+    lib = _build.library()
+    _check_smem("rho_sample_block", lib.amt_rho_sample_smem_bytes(D, rank),
+                noise.device, D)
+    wave = torch.empty_like(noise)
+    if T == 0 or N == 0:
+        return wave
+    err = lib.amt_rho_sample(
+        _ptr(ab), _ptr(bb), _ptr(xb), _ptr(pc), _ptr(ps), _ptr(t0),
+        _ptr(noise), _ptr(inv_a), _ptr(wave), D, T, N, rank, dt, norm_eps,
+        PRECISIONS.index(precision), _stream_ptr(noise.device))
+    _build.check(lib, err, "rho_sample_block")
+    rho_sample_block.launches += 1
+    return wave
+
+
+rho_sample_block.launches = 0
+
+
+def rho_nll_inputs(params, cfg: CMPSConfig, signals) -> dict:
+    """Kernel inputs of ``rho_nll_block`` from parameters and waveforms
+    [B, T] (the TPU's ``pallas_block.rho_nll_block`` preamble); ``se`` is
+    per example, [T-1, B]."""
+    if not supports_block(cfg):
+        raise ValueError(
+            f"block layout requires bond_dim % 4 == 0, got {cfg.bond_dim}")
+    with torch.no_grad():
+        cc = make_constants(params, cfg)
+        se = (signals[:, 1:] - signals[:, :-1]).T / cc.A      # [T-1, B]
+        ab, bb, xb = _rho_block_constants(cc)
+        t0 = _rho_block_t0(cc, *rho_factor_inputs(params, cfg,
+                                                  signals.shape[0]))
+        log_eps = cfg.log_eps if cfg.log_eps > 0 else float("-inf")
+        return dict(ab=_as_kernel_input(ab), bb=_as_kernel_input(bb),
+                    xb=_as_kernel_input(xb), t0=_as_kernel_input(t0),
+                    se=_as_kernel_input(se), log_eps=float(log_eps),
+                    norm_eps=float(cfg.norm_eps))
+
+
+def _rho_chain_plain(ab, bb, xb, t0, se, *, log_eps, norm_eps, unroll,
+                     precision, defer_norm, on_step=None):
+    """The rho forward step loop shared by the NLL and the training forward:
+    per-example NLL [B]; ``on_step(k, y, tr)`` sees each post-step state
+    y_k [2D, B*rank] and its per-example trace [B]."""
+    prep, dotf = _make_dot_ops(precision)
+    rank = _rank_of("rho NLL", t0.shape[1], se.shape[1])
+    abp, bbp, xbp = prep(ab), prep(bb), prep(xb)
+    t = t0
+    acc = torch.zeros_like(se[0])
+    trp = torch.ones_like(acc)
+    for k in range(se.shape[0]):
+        s = se[k]
+        tp = prep(t)
+        y = dotf(abp, tp) + _lanes(s, rank) * dotf(bbp, tp)
+        gx = dotf(xbp, prep(y))              # X^T H'' (expectation)
+        ehat = _segment_sum(y * gx, rank)
+        tr = _segment_sum(y * y, rank)
+        if on_step is not None:
+            on_step(k, y, tr)
+        e = ehat / torch.clamp(trp, min=norm_eps) if defer_norm else ehat
+        acc = acc - torch.log(torch.clamp(1.0 + e * s, min=log_eps))
+        if _renorms(k, unroll, defer_norm):
+            t = y * _lanes(torch.rsqrt(torch.clamp(tr, min=norm_eps)), rank)
+            trp = torch.ones_like(acc)
+        else:
+            t, trp = y, tr
+    return acc
+
+
+@torch.no_grad()
+def rho_nll_block_plain(ab, bb, xb, t0, se, *, log_eps: float,
+                        norm_eps: float, unroll: int = 16,
+                        precision: str = "highest",
+                        defer_norm: bool = False):
+    """Per-example NLL [B] over the per-example increments se [T-1, B]
+    (already divided by A) of factors t0 [2D, B * rank]. ``defer_norm``
+    divides the expectation by the previous step's trace and renormalises
+    at every ``unroll``-th step, as the TPU kernel does at its block exits.
+    Plain PyTorch, any device."""
+    return _rho_chain_plain(ab, bb, xb, t0, se, log_eps=log_eps,
+                            norm_eps=norm_eps, unroll=unroll,
+                            precision=precision, defer_norm=defer_norm)
+
+
+def _rho_fwd_checks(name, ab, bb, xb, t0, se, precision, unroll):
+    _check_options(precision, unroll)
+    n_steps, B = se.shape
+    n = t0.shape[0]
+    D = n // 2
+    rank = _rank_of(name, t0.shape[1], B)
+    _check_rho_shape(name, D, rank)
+    _check_inputs(name, se.device, dict(
+        ab=(ab, (n, n)), bb=(bb, (n, n)), xb=(xb, (n, n)),
+        t0=(t0, (n, B * rank)), se=(se, (n_steps, B))))
+    return n_steps, B, D, rank
+
+
+@torch.no_grad()
+def rho_nll_block(ab, bb, xb, t0, se, *, log_eps: float, norm_eps: float,
+                  unroll: int = 16, precision: str = "highest",
+                  defer_norm: bool = False):
+    """Per-example NLL [B]: ``rho_nll_block_plain`` for CPU tensors, the
+    CUDA kernel ``csrc/rho_nll.cu`` for CUDA tensors."""
+    if _cuda_or_raise("rho_nll_block", se):
+        return rho_nll_block_plain(ab, bb, xb, t0, se, log_eps=log_eps,
+                                   norm_eps=norm_eps, unroll=unroll,
+                                   precision=precision,
+                                   defer_norm=defer_norm)
+    n_steps, B, D, rank = _rho_fwd_checks("rho_nll_block", ab, bb, xb, t0,
+                                          se, precision, unroll)
+    lib = _build.library()
+    _check_smem("rho_nll_block", lib.amt_rho_nll_smem_bytes(D, rank),
+                se.device, D)
+    loss = se.new_empty((B,))
+    if B == 0:
+        return loss
+    err = lib.amt_rho_nll(
+        _ptr(ab), _ptr(bb), _ptr(xb), _ptr(t0), _ptr(se), _ptr(loss), D,
+        n_steps, B, rank, unroll, log_eps, norm_eps,
+        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+    _build.check(lib, err, "rho_nll_block")
+    rho_nll_block.launches += 1
+    return loss
+
+
+rho_nll_block.launches = 0
+
+
+# The rho training functions follow the psi ones (see above): the forward
+# streams every post-step factor y_k [n_steps, 2D, B*rank] and the
+# per-example trace trs [n_steps, B]; the adjoint runs the reverse chain
+# over them; the cotangents reduce the streams to dAb, dBb, dXb.
+
+@torch.no_grad()
+def rho_train_fwd_plain(ab, bb, xb, t0, se, *, log_eps: float,
+                        norm_eps: float, unroll: int = 16,
+                        precision: str = "highest",
+                        defer_norm: bool = False):
+    """(loss [B], ys [n_steps, 2D, B*rank], trs [n_steps, B]): the NLL of
+    ``rho_nll_block_plain`` plus every post-step factor and its trace.
+    Plain PyTorch, any device."""
+    n_steps, B = se.shape
+    ys = se.new_empty((n_steps,) + tuple(t0.shape))
+    trs = se.new_empty((n_steps, B))
+
+    def keep(k, y, tr):
+        ys[k] = y
+        trs[k] = tr
+
+    loss = _rho_chain_plain(ab, bb, xb, t0, se, log_eps=log_eps,
+                            norm_eps=norm_eps, unroll=unroll,
+                            precision=precision, defer_norm=defer_norm,
+                            on_step=keep)
+    return loss, ys, trs
+
+
+def _rho_input_state(k, t0, ys, scales):
+    """t_k [2D, B*rank]: t0, or y_{k-1} times its lane scale."""
+    return t0 if k == 0 else ys[k - 1] * scales[k - 1]
+
+
+@torch.no_grad()
+def rho_train_bwd_plain(ab, bb, xb, t0, se, g, ys, trs, *, log_eps: float,
+                        norm_eps: float, unroll: int = 16,
+                        precision: str = "highest",
+                        defer_norm: bool = False):
+    """Adjoint of ``rho_train_fwd`` for the loss cotangent g [B]:
+    (dse [n_steps, B], dt0 [2D, B*rank], dy [n_steps, 2D, B*rank],
+    dehat [n_steps, B]).
+
+    Step k in reverse, with dt the cotangent of t_{k+1}: the chain-free
+    tail (the TPU's batched precompute, ``pallas_block.py`` :1516-1562)
+    gives e, darg, dehat = de / trp and q = dehat (Xb y + Xb^T y); a
+    renormalising step seeds dtr from dt, another takes step k+1's dtr_new
+    (the cotangent of tr_k through e_{k+1}); then
+    dy = dt + (2 dtr y + q), dt <- Ab^T dy + s (Bb^T dy) and
+    dse = darg e + sum((Bb^T dy) .* t_k), all per example. Plain PyTorch,
+    any device."""
+    prep, dotf, _ = _make_dot_ops_bwd(precision)
+    n_steps, B = se.shape
+    rank = _rank_of("rho_train_bwd", t0.shape[1], B)
+    scales = _state_scales(_lanes(trs, rank), norm_eps=norm_eps,
+                           unroll=unroll, defer_norm=defer_norm)
+    xbp, xbtp = prep(xb), prep(xb.T)
+    abT, bbT = prep(ab.T), prep(bb.T)
+    dt = torch.zeros_like(t0)
+    dtrn = torch.zeros_like(g)
+    dy_all = torch.empty_like(ys)
+    dse = torch.empty_like(se)
+    dehat_all = torch.empty_like(se)
+    one = torch.ones_like(g)
+    for k in reversed(range(n_steps)):
+        y, s = ys[k], se[k]
+        # the chain-free tail of step k
+        inside = defer_norm and k % unroll != 0
+        trp = trs[k - 1] if inside else one
+        trp_c = torch.clamp(trp, min=norm_eps)
+        py = prep(y)
+        gx, xt = dotf(xbp, py), dotf(xbtp, py)
+        ehat = _segment_sum(y * gx, rank)
+        e = ehat / trp_c if defer_norm else ehat
+        arg = torch.clamp(1.0 + e * s, min=log_eps)
+        darg = torch.where(arg > log_eps, -g / arg, torch.zeros_like(arg))
+        de = darg * s
+        dehat = de / trp_c if defer_norm else de
+        dtr_new = torch.where(trp > norm_eps, -de * e / trp_c,
+                              torch.zeros_like(de))
+        q = _lanes(dehat, rank) * (gx + xt)
+        # the chain
+        if _renorms(k, unroll, defer_norm):
+            inv = torch.rsqrt(torch.clamp(trs[k], min=norm_eps))
+            dinv = _segment_sum(dt * y, rank)
+            dtr = torch.where(trs[k] > norm_eps,
+                              -0.5 * dinv * inv * inv * inv,
+                              torch.zeros_like(dinv))
+            dt = dt * _lanes(inv, rank)
+        else:
+            dtr = dtrn
+        dy = dt + (y * _lanes(2.0 * dtr, rank) + q)
+        dy_all[k] = dy
+        dehat_all[k] = dehat
+        pdy = prep(dy)
+        du = dotf(bbT, pdy)                             # Bb^T dy
+        tk = _rho_input_state(k, t0, ys, scales)
+        dse[k] = darg * e + _segment_sum(du * tk, rank)
+        dt = dotf(abT, pdy) + _lanes(s, rank) * du
+        dtrn = dtr_new
+    return dse, dt, dy_all, dehat_all
+
+
+@torch.no_grad()
+def rho_cotangents_plain(dy, ys, t0, se, trs, dehat, *, norm_eps: float,
+                         unroll: int = 16, precision: str = "highest",
+                         defer_norm: bool = False):
+    """(dAb, dBb, dXb) [2D, 2D]: sums over steps k and columns of dy t^T,
+    dy (s t)^T and dehat y y^T (the TPU's dotnt at ``pallas_block.py``
+    :1583-1585), from the streams of ``rho_train_fwd`` and
+    ``rho_train_bwd``, a chunk of steps at a time. Plain PyTorch, any
+    device."""
+    prep, _, dotnt = _make_dot_ops_bwd(precision)
+    n_steps, B = se.shape
+    n, cols = t0.shape
+    rank = _rank_of("rho_cotangents", cols, B)
+    scales = _state_scales(_lanes(trs, rank), norm_eps=norm_eps,
+                           unroll=unroll, defer_norm=defer_norm)
+    se_l, dehat_l = _lanes(se, rank), _lanes(dehat, rank)
+
+    def lanes(x):                                       # [2D, steps * cols]
+        return x.transpose(0, 1).reshape(n, -1)
+
+    out = [t0.new_zeros((n, n)) for _ in range(3)]
+    chunk = 1024
+    for k0 in range(0, n_steps, chunk):
+        k1 = min(k0 + chunk, n_steps)
+        ts = torch.stack([_rho_input_state(k, t0, ys, scales)
+                          for k in range(k0, k1)])
+        y = ys[k0:k1]
+        pdy = prep(lanes(dy[k0:k1]))
+        out[0] += dotnt(pdy, prep(lanes(ts)))
+        out[1] += dotnt(pdy, prep(lanes(se_l[k0:k1, None, :] * ts)))
+        out[2] += dotnt(prep(lanes(dehat_l[k0:k1, None, :] * y)),
+                        prep(lanes(y)))
+    return tuple(out)
+
+
+@torch.no_grad()
+def rho_train_fwd(ab, bb, xb, t0, se, *, log_eps: float, norm_eps: float,
+                  unroll: int = 16, precision: str = "highest",
+                  defer_norm: bool = False):
+    """(loss [B], ys, trs): ``rho_train_fwd_plain`` for CPU tensors, the
+    CUDA kernel ``csrc/rho_train_fwd.cu`` for CUDA tensors."""
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision, defer_norm=defer_norm)
+    if _cuda_or_raise("rho_train_fwd", se):
+        return rho_train_fwd_plain(ab, bb, xb, t0, se, **kw)
+    n_steps, B, D, rank = _rho_fwd_checks("rho_train_fwd", ab, bb, xb, t0,
+                                          se, precision, unroll)
+    lib = _build.library()
+    _check_smem("rho_train_fwd", lib.amt_rho_train_fwd_smem_bytes(D, rank),
+                se.device, D)
+    loss = se.new_empty((B,))
+    ys = se.new_empty((n_steps,) + tuple(t0.shape))
+    trs = se.new_empty((n_steps, B))
+    if B == 0:
+        return loss, ys, trs
+    err = lib.amt_rho_train_fwd(
+        _ptr(ab), _ptr(bb), _ptr(xb), _ptr(t0), _ptr(se), _ptr(loss),
+        _ptr(ys), _ptr(trs), D, n_steps, B, rank, unroll, log_eps, norm_eps,
+        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+    _build.check(lib, err, "rho_train_fwd")
+    rho_train_fwd.launches += 1
+    return loss, ys, trs
+
+
+rho_train_fwd.launches = 0
+
+
+@torch.no_grad()
+def rho_train_bwd(ab, bb, xb, t0, se, g, ys, trs, *, log_eps: float,
+                  norm_eps: float, unroll: int = 16,
+                  precision: str = "highest", defer_norm: bool = False):
+    """(dse, dt0, dy, dehat): ``rho_train_bwd_plain`` for CPU tensors, the
+    CUDA kernels of ``csrc/rho_train_bwd.cu`` (the chain-free tail over all
+    steps at once, then the serial chain) for CUDA tensors."""
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision, defer_norm=defer_norm)
+    if _cuda_or_raise("rho_train_bwd", se):
+        return rho_train_bwd_plain(ab, bb, xb, t0, se, g, ys, trs, **kw)
+    n_steps, B, D, rank = _rho_fwd_checks("rho_train_bwd", ab, bb, xb, t0,
+                                          se, precision, unroll)
+    n = 2 * D
+    _check_inputs("rho_train_bwd", se.device, dict(
+        g=(g, (B,)), ys=(ys, (n_steps, n, B * rank)),
+        trs=(trs, (n_steps, B))))
+    lib = _build.library()
+    _check_smem("rho_train_bwd", lib.amt_rho_train_bwd_smem_bytes(D, rank),
+                se.device, D)
+    dse = torch.empty_like(se)
+    dt0 = torch.empty_like(t0)
+    dy = torch.empty_like(ys)
+    dehat = torch.empty_like(se)
+    dtrn = torch.empty_like(se)
+    if B == 0:
+        return dse, dt0, dy, dehat
+    err = lib.amt_rho_train_bwd(
+        _ptr(ab), _ptr(bb), _ptr(xb), _ptr(t0), _ptr(se), _ptr(g), _ptr(ys),
+        _ptr(trs), _ptr(dse), _ptr(dt0), _ptr(dy), _ptr(dehat), _ptr(dtrn),
+        D, n_steps, B, rank, unroll, log_eps, norm_eps,
+        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+    _build.check(lib, err, "rho_train_bwd")
+    rho_train_bwd.launches += 1
+    return dse, dt0, dy, dehat
+
+
+rho_train_bwd.launches = 0
+
+
+@torch.no_grad()
+def rho_cotangents(dy, ys, t0, se, trs, dehat, *, norm_eps: float,
+                   unroll: int = 16, precision: str = "highest",
+                   defer_norm: bool = False):
+    """(dAb, dBb, dXb): ``rho_cotangents_plain`` for CPU tensors; for CUDA
+    tensors the kernel ``csrc/psi_cotangents.cu`` over the B*rank lanes,
+    fed the per-example se, trace and dehat / 2 repeated over each
+    example's lanes: its dRb = sum (2 dehat / 2) y y^T is dXb, and its
+    state rebuild is the rho forward's. The launch counts here only."""
+    kw = dict(norm_eps=norm_eps, unroll=unroll, precision=precision,
+              defer_norm=defer_norm)
+    if _cuda_or_raise("rho_cotangents", se):
+        return rho_cotangents_plain(dy, ys, t0, se, trs, dehat, **kw)
+    rank = _rank_of("rho_cotangents", t0.shape[1], se.shape[1])
+    return _cotangents_kernel(rho_cotangents, dy, ys, t0,
+                              _lanes(se, rank).contiguous(),
+                              _lanes(trs, rank).contiguous(),
+                              _lanes(0.5 * dehat, rank).contiguous(), **kw)
+
+
+rho_cotangents.launches = 0
+
+
+class RhoBlockNLL(torch.autograd.Function):
+    """Per-example rho NLL [B] over the block constants with a kernel
+    adjoint: the counterpart of ``_rho_block_factory``'s custom VJP
+    (``pallas_block.py:2090-2110``). ``forward(ab, bb, xb, t0, se, opts)``
+    returns loss [B] for per-example increments se [T-1, B];
+    ``backward(g)`` returns (dAb, dBb, dXb, dt0, dse). ``opts`` as in
+    ``PsiBlockNLL``."""
+
+    @staticmethod
+    def forward(ctx, ab, bb, xb, t0, se, opts):
+        ins = [_as_kernel_input(x) for x in (ab, bb, xb, t0, se)]
+        loss, ys, trs = rho_train_fwd(*ins, **opts)
+        ctx.save_for_backward(*ins, ys, trs)
+        ctx.opts = opts
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        ab, bb, xb, t0, se, ys, trs = ctx.saved_tensors
+        opts = ctx.opts
+        dse, dt0, dy, dehat = rho_train_bwd(ab, bb, xb, t0, se,
+                                            _as_kernel_input(g), ys, trs,
+                                            **opts)
+        dab, dbb, dxb = rho_cotangents(
+            dy, ys, t0, se, trs, dehat, norm_eps=opts["norm_eps"],
+            unroll=opts["unroll"], precision=opts["precision"],
+            defer_norm=opts["defer_norm"])
+        return dab, dbb, dxb, dt0, dse, None
+
+
+def rho_nll_block_trainable(params, cfg: CMPSConfig, signals, *,
+                            unroll: int = 16, precision: str = "highest",
+                            defer_norm: bool = False):
+    """Differentiable mean rho NLL of waveforms [B, T] in
+    purification-factor form (semantics of ``core.rho_nll``; the TPU's
+    ``pallas_block.rho_nll_block_trainable``) at the real rank, with no
+    padding lanes. The block constants, initial factor and increments are
+    built with autograd; the loss and its adjoint go through
+    ``RhoBlockNLL``. On a CUDA tensor a stream that is off or does not fit
+    raises ``NotImplementedError``: the recompute adjoints are not
+    ported."""
+    if not supports_block(cfg):
+        raise ValueError(
+            f"block layout requires bond_dim % 4 == 0, got {cfg.bond_dim}")
+    _check_options(precision, unroll)
+    B, T = signals.shape
+    rank = params.Wx.shape[0]
+    if signals.device.type == "cuda" and not auto_stream(
+            cfg, B * rank, T, signals.device):
+        raise NotImplementedError(
+            f"rho training at D={cfg.bond_dim}, B={B}, rank={rank}, T={T} "
+            f"without the state stream "
+            f"({stream_bytes(cfg.bond_dim, B * rank, T)} bytes; "
+            f"kernel_stream={cfg.kernel_stream!r}) needs {_STREAM_OFF_RHO}, "
+            f"which is not ported to CUDA yet")
+    cc = make_constants(params, cfg)
+    se = (signals[:, 1:] - signals[:, :-1]).T / cc.A      # [T-1, B]
+    ab, bb, xb = _rho_block_constants(cc)
+    t0 = _rho_block_t0(cc, *rho_factor_inputs(params, cfg, B))
+    log_eps = cfg.log_eps if cfg.log_eps > 0 else float("-inf")
+    return RhoBlockNLL.apply(ab, bb, xb, t0, se, dict(
+        log_eps=float(log_eps), norm_eps=float(cfg.norm_eps), unroll=unroll,
+        precision=precision, defer_norm=defer_norm)).mean()

@@ -23,14 +23,30 @@ def cmul(ar, ai, br, bi):
     return ar * br - ai * bi, ar * bi + ai * br
 
 
+def cconj(ar, ai):
+    return ar, -ai
+
+
 def cmatmul(ar, ai, br, bi):
     """Complex matmul of cpairs using 4 real matmuls."""
     return ar @ br - ai @ bi, ar @ bi + ai @ br
 
 
+def cmatmul_adj_right(ar, ai, br, bi):
+    """``A @ B^dagger`` for cpairs: B^dagger = conj(B)^T."""
+    bt_r = br.transpose(-1, -2)
+    bt_i = -bi.transpose(-1, -2)
+    return ar @ bt_r - ai @ bt_i, ar @ bt_i + ai @ bt_r
+
+
 def cadjoint(ar, ai):
     """Conjugate transpose of the last two axes."""
     return ar.transpose(-1, -2), -ai.transpose(-1, -2)
+
+
+def ctrace_re(ar):
+    """Real part of the trace only needs the real part of the matrix."""
+    return ar.diagonal(dim1=-2, dim2=-1).sum(-1)
 
 
 def gram_adj(ar, ai):

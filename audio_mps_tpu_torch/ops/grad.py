@@ -1,12 +1,13 @@
-"""Differentiable psi NLL through the kernels (counterpart of the psi entry
-points of ``audio_mps_tpu/ops/pallas_grad.py``).
+"""Differentiable NLL through the kernels, psi and rho (counterpart of the
+entry points of ``audio_mps_tpu/ops/pallas_grad.py``).
 
 Layout resolution is the forward NLL's (``ops/scan.py``), as in the JAX
 package: the block kernels (``ops/block.py``) take D % 4 == 0. The
 split-layout training kernels are not ported yet: on a CUDA tensor the
 split layout raises ``NotImplementedError`` naming the queued kernel, and
-on a CPU tensor it runs the eager reference ``models/core.psi_nll``, as the
-forward-only dispatch of ``ops/scan.py`` does.
+on a CPU tensor it runs the eager reference (``models/core.psi_nll``,
+``core.rho_nll_factor``), as the forward-only dispatch of ``ops/scan.py``
+does.
 """
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ from .scan import DEFAULT_UNROLL, _nll_layout
 _SPLIT_TRAIN = ("audio_mps_tpu/ops/pallas_grad.py _psi_fused_nll_factory "
                 "(:478, split-layout psi training, ROADMAP queue B, kernel "
                 "table row 8)")
+_SPLIT_RHO_TRAIN = ("audio_mps_tpu/ops/pallas_grad.py _rho_fused_nll_factory "
+                    "(:1201, split-layout rho training, ROADMAP queue B, "
+                    "kernel table row 9)")
 
 
 def psi_nll_fused_trainable(params, cfg: CMPSConfig, signals, *,
@@ -44,3 +48,27 @@ def psi_nll_fused_trainable(params, cfg: CMPSConfig, signals, *,
             f"psi training at D={cfg.bond_dim} needs the split-layout kernel "
             f"{_SPLIT_TRAIN}, which is not ported to CUDA yet")
     return core.psi_nll(params, cfg, signals)
+
+
+def rho_nll_fused_trainable(params, cfg: CMPSConfig, signals, *,
+                            unroll: int = DEFAULT_UNROLL,
+                            precision: str = "highest",
+                            defer_norm: bool = False,
+                            layout: Optional[str] = None):
+    """Differentiable mean rho NLL of waveforms [B, T] on the signals'
+    device (stands for ``pallas_grad.rho_nll_pallas_trainable``; semantics
+    of ``core.rho_nll``): gradients reach every parameter through the
+    block constants, the initial factor and the increments."""
+    if _nll_layout(cfg, layout) == "block":
+        return block.rho_nll_block_trainable(
+            params, cfg, signals, unroll=unroll, precision=precision,
+            defer_norm=defer_norm)
+    if precision == "high":
+        raise ValueError(
+            "kernel_precision='high' (bf16x3) is only implemented in the "
+            "block kernel layout (ops/block.py)")
+    if signals.device.type != "cpu":
+        raise NotImplementedError(
+            f"rho training at D={cfg.bond_dim} needs the split-layout kernel "
+            f"{_SPLIT_RHO_TRAIN}, which is not ported to CUDA yet")
+    return core.rho_nll_factor(params, cfg, signals)

@@ -1,5 +1,5 @@
-"""Kernel dispatch for psi generation and forward scoring (counterpart of
-the psi entry points of ``audio_mps_tpu/ops/pallas_scan.py``).
+"""Kernel dispatch for generation and forward scoring, psi and rho
+(counterpart of the entry points of ``audio_mps_tpu/ops/pallas_scan.py``).
 
 Layout resolution follows the JAX package: the block kernels
 (``ops/block.py``) take D % 8 == 0 for the sampler and D % 4 == 0 for the
@@ -25,6 +25,12 @@ _SPLIT_SAMPLER = ("audio_mps_tpu/ops/pallas_scan.py _make_psi_sample_kernel "
                   "(split-layout psi sampler, ROADMAP queue B)")
 _SPLIT_NLL = ("audio_mps_tpu/ops/pallas_scan.py _make_psi_nll_kernel "
               "(split-layout forward psi NLL, ROADMAP queue B)")
+_SPLIT_RHO_SAMPLER = ("audio_mps_tpu/ops/pallas_scan.py "
+                      "_make_rho_sample_kernel (:657, split-layout rho "
+                      "sampler, ROADMAP queue B, kernel table row 13)")
+_SPLIT_RHO_NLL = ("audio_mps_tpu/ops/pallas_scan.py _make_rho_nll_kernel "
+                  "(:289, split-layout forward rho NLL, ROADMAP queue B, "
+                  "kernel table row 11)")
 
 
 def _sampler_layout(cfg: CMPSConfig, layout: Optional[str]) -> str:
@@ -109,3 +115,57 @@ def psi_nll_fused(params, cfg: CMPSConfig, signals, *,
             f"{_SPLIT_NLL}, which is not ported to CUDA yet")
     with torch.no_grad():
         return core.psi_nll(params, cfg, signals)
+
+
+def rho_sample_fused(params, cfg: CMPSConfig, noise, *,
+                     precision: Optional[str] = None,
+                     layout: Optional[str] = None):
+    """Waveforms [N, T] from noise [T, N] under the mixed-state model, on
+    the noise's device (stands for
+    ``audio_mps_tpu.ops.pallas_scan.rho_sample_pallas``; semantics of
+    ``core.sample_rho_with_noise``). ``precision=None`` follows
+    ``cfg.kernel_precision``."""
+    if precision is None:
+        precision = cfg.kernel_precision
+    if _sampler_layout(cfg, layout) == "block":
+        inputs = block.rho_sample_inputs(params, cfg, noise)
+        wave = block.rho_sample_block(**inputs, precision=precision)
+        return params.A.detach() * wave.T
+    if noise.device.type != "cpu":
+        raise NotImplementedError(
+            f"rho sampler at D={cfg.bond_dim} needs the split-layout kernel "
+            f"{_SPLIT_RHO_SAMPLER}, which is not ported to CUDA yet")
+    with torch.no_grad():
+        return core.sample_rho_with_noise(params, cfg, noise)
+
+
+def rho_sample_fused_keyed(params, cfg: CMPSConfig, generator,
+                           num_samples: int, length: int, temp=1.0, **kw):
+    """Drop-in for ``core.sample_rho`` through the kernels (stands for
+    ``audio_mps_tpu.ops.pallas_scan.rho_sample_pallas_keyed``): the noise
+    comes from ``generator``."""
+    noise = core._sample_noise(cfg, generator, num_samples, length, temp)
+    return rho_sample_fused(params, cfg, noise.to(params.A.device), **kw)
+
+
+def rho_nll_fused(params, cfg: CMPSConfig, signals, *,
+                  unroll: int = DEFAULT_UNROLL, precision: str = "highest",
+                  defer_norm: bool = False, layout: Optional[str] = None):
+    """Mean rho NLL [scalar] of waveforms [B, T] on the signals' device
+    (stands for ``audio_mps_tpu.ops.pallas_scan.rho_nll_pallas``; semantics
+    of ``core.rho_nll``)."""
+    if _nll_layout(cfg, layout) == "block":
+        inputs = block.rho_nll_inputs(params, cfg, signals)
+        return block.rho_nll_block(**inputs, unroll=unroll,
+                                   precision=precision,
+                                   defer_norm=defer_norm).mean()
+    if precision == "high":
+        raise ValueError(
+            "kernel_precision='high' (bf16x3) is only implemented in the "
+            "block kernel layout (ops/block.py)")
+    if signals.device.type != "cpu":
+        raise NotImplementedError(
+            f"rho NLL at D={cfg.bond_dim} needs the split-layout kernel "
+            f"{_SPLIT_RHO_NLL}, which is not ported to CUDA yet")
+    with torch.no_grad():
+        return core.rho_nll_factor(params, cfg, signals)

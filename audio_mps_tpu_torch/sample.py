@@ -5,11 +5,12 @@
         --num_samples=3 --sample_duration=65536 --fused --out=samples.npz
 
 Reads ``{modeldir}/config.json`` (the format ``audio_mps_tpu.train``
-writes) and the psi weights ``{modeldir}/params.npz`` (see ``weights.py``;
-README, "PyTorch/CUDA port", shows the JAX lines that export a checkpoint).
+writes) and the weights ``{modeldir}/params.npz`` of the run's family, psi
+or rho (``--mps_model`` or the config's; see ``weights.py``; README,
+"PyTorch/CUDA port", shows the JAX lines that export a checkpoint).
 Without ``params.npz`` it warns and samples from a random init, as the JAX
-CLI does without a checkpoint. ``--fused`` runs the block sampler kernel;
-``--device`` defaults to ``cuda``.
+CLI does without a checkpoint. ``--fused`` runs the family's block sampler
+kernel; ``--device`` defaults to ``cuda``.
 
 Randomness: the init draws from a generator seeded with ``--seed`` and the
 SDE noise from one seeded with ``--seed`` + 1, both on ``--device``.
@@ -27,8 +28,8 @@ import torch
 from .config import CMPSConfig, _coerce
 from .device import resolve_device
 from .models import core
-from .models.params import init_psi
-from .ops.scan import psi_sample_fused_keyed
+from .models.params import init_psi, init_rho
+from .ops.scan import psi_sample_fused_keyed, rho_sample_fused_keyed
 from .weights import load_params
 
 
@@ -56,9 +57,12 @@ _TYPES = {"modeldir": str, "mps_model": str, "hparams": str,
 
 # model families and options of the JAX CLI that later slices port
 _NOT_PORTED = {
-    "rho_mps": "the rho family (ROADMAP slice 3: queue A item 6, queue B "
-               "items 9-13)",
     "latent": "the latent family (ROADMAP queue A item 8)",
+}
+# mps_model -> (init, fused sampler, eager sampler)
+_FAMILIES = {
+    "psi_mps": (init_psi, psi_sample_fused_keyed, core.sample_psi),
+    "rho_mps": (init_rho, rho_sample_fused_keyed, core.sample_rho),
 }
 
 
@@ -91,7 +95,7 @@ def write_wav(path: str, waveform: np.ndarray, sample_rate: int):
 
 
 def sample(sc: SampleConfig, verbose: bool = True) -> np.ndarray:
-    """Restore (or init) psi weights and write ``num_samples`` waveforms;
+    """Restore (or init) the weights and write ``num_samples`` waveforms;
     returns them as [N, sample_duration]."""
     if not sc.modeldir:
         raise ValueError("--modeldir is required (a run logdir holding "
@@ -118,26 +122,27 @@ def sample(sc: SampleConfig, verbose: bool = True) -> np.ndarray:
         raise NotImplementedError(
             f"--mps_model={mps_model}: {_NOT_PORTED[mps_model]} is not "
             f"ported yet")
-    if mps_model != "psi_mps":
+    if mps_model not in _FAMILIES:
         raise ValueError(f"unknown mps_model {mps_model!r}")
+    init, fused_fn, eager_fn = _FAMILIES[mps_model]
 
     params_path = os.path.join(sc.modeldir, "params.npz")
     if os.path.exists(params_path):
         params = load_params(params_path, device)
+        if ("Wx" in params.NAMES) != (mps_model == "rho_mps"):
+            raise ValueError(f"{params_path} holds {params.NAMES}, not "
+                             f"{mps_model} weights")
     else:
         if verbose:
             print(f"warning: no {params_path} found, sampling from random "
                   f"init", flush=True)
-        params = init_psi(torch.Generator(device).manual_seed(sc.seed), cfg,
-                          device=device)
+        params = init(torch.Generator(device).manual_seed(sc.seed), cfg,
+                      device=device)
     gen = torch.Generator(device).manual_seed(sc.seed + 1)
     with torch.no_grad():
-        if sc.fused:
-            waves = psi_sample_fused_keyed(params, cfg, gen, sc.num_samples,
-                                           sc.sample_duration, sc.temperature)
-        else:
-            waves = core.sample_psi(params, cfg, gen, sc.num_samples,
-                                    sc.sample_duration, sc.temperature)
+        waves = (fused_fn if sc.fused else eager_fn)(
+            params, cfg, gen, sc.num_samples, sc.sample_duration,
+            sc.temperature)
     waves = waves.cpu().numpy()
     if sc.out:
         np.savez(sc.out, samples=waves)

@@ -4,6 +4,9 @@
     python -m audio_mps_tpu_torch.train --mps_model=psi_mps \
         --dataset=damped_sine --hparams="bond_dim=64,minibatch_size=128" \
         --sample_duration=16384 --logdir=./logging
+    python -m audio_mps_tpu_torch.train --mps_model=rho_mps \
+        --dataset=damped_sine --hparams="bond_dim=64,minibatch_size=8" \
+        --sample_duration=16384 --logdir=./logging
 
 The flags are the JAX CLI's (``config.RunConfig``) plus ``--device``
 (default ``cuda``; ``--device=cpu`` runs the eager reference on the CPU).
@@ -17,9 +20,10 @@ latest checkpoint.
 Randomness: the init draws from a generator seeded with ``--seed``, the
 damped-sine batches from one seeded with ``--seed`` + 1, the summaries'
 samples from one seeded with ``--seed`` + 2, all on ``--device``. The
-summaries' samples go through the sampler kernel on a card (at D % 8 == 0,
-its layout) and through the eager ``core.sample_psi``, as in the JAX CLI,
-elsewhere. ``--mesh`` and ``--profile_steps`` are not ported and raise.
+summaries' samples go through the family's sampler kernel on a card (at
+D % 8 == 0, its layout) and through the eager ``core.sample_psi`` /
+``core.sample_rho``, as in the JAX CLI, elsewhere. ``--mesh`` and
+``--profile_steps`` are not ported and raise.
 """
 from __future__ import annotations
 
@@ -76,9 +80,11 @@ def train(run: RunConfig, cfg: CMPSConfig = None, verbose: bool = True,
     writer = summaries_lib.make_writer(logdir)
     sample_gen = torch.Generator(dev).manual_seed(run.seed + 2)
     # the eager loop launches ~30 small ops a sample step on a card
-    sample_fn = (scan.psi_sample_fused_keyed
-                 if dev.type == "cuda" and block.supports_block_sampler(cfg)
-                 else core.sample_psi)
+    kernel = dev.type == "cuda" and block.supports_block_sampler(cfg)
+    if run.mps_model == "rho_mps":
+        sample_fn = scan.rho_sample_fused_keyed if kernel else core.sample_rho
+    else:
+        sample_fn = scan.psi_sample_fused_keyed if kernel else core.sample_psi
 
     metrics = {}
     step = start_step

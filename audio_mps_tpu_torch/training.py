@@ -1,5 +1,5 @@
 """Training subsystem of the port: the loss, the Adam step and checkpoints
-(counterpart of ``audio_mps_tpu/training.py``, psi family).
+(counterpart of ``audio_mps_tpu/training.py``, psi and rho families).
 
 The step is eager PyTorch: total loss (NLL + h_reg/r_reg, reference:
 train.py:55-60), ``backward()``, and ``torch.optim.Adam`` at
@@ -22,52 +22,57 @@ import torch
 from .config import CMPSConfig
 from .device import resolve_device
 from .models import core
-from .models.params import init_psi
-from .ops.grad import psi_nll_fused_trainable
+from .models.params import init_psi, init_rho
+from .ops.grad import psi_nll_fused_trainable, rho_nll_fused_trainable
 
 _NOT_PORTED = {
-    "rho_mps": "the rho family (ROADMAP queue A item 6)",
     "latent": "the latent family (ROADMAP queue A item 8)",
+}
+# mps_model -> (eager loss, kernel loss, init)
+_FAMILIES = {
+    "psi_mps": (core.psi_nll, psi_nll_fused_trainable, init_psi),
+    # the factor evolution: the value of core.rho_nll at half the FLOPs
+    "rho_mps": (core.rho_nll_factor, rho_nll_fused_trainable, init_rho),
 }
 
 
-def _check_model(mps_model: str):
+def _family(mps_model: str):
     if mps_model in _NOT_PORTED:
         raise NotImplementedError(
             f"mps_model={mps_model!r}: {_NOT_PORTED[mps_model]} is not "
             f"ported yet")
-    if mps_model != "psi_mps":
+    if mps_model not in _FAMILIES:
         raise ValueError(
             f"mps_model must be rho_mps, psi_mps, or latent, got "
             f"{mps_model!r}")
+    return _FAMILIES[mps_model]
 
 
 def nll_fn_for(mps_model: str, fused: Optional[bool] = None):
     """NLL implementation nll(params, cfg, signals) -> scalar.
     ``fused=None`` runs the kernels when the signals lie on a CUDA device
-    and the eager ``core.psi_nll`` on the CPU; ``fused=True`` runs the
-    kernel path (its plain versions on the CPU); ``fused=False`` runs
-    ``core.psi_nll`` anywhere. Past the kernels' shared-memory ceiling
-    (D > 68) the kernel path raises ``NotImplementedError``; unlike the JAX
-    package, nothing falls back to the scan."""
-    _check_model(mps_model)
+    and the eager loss (``core.psi_nll``, ``core.rho_nll_factor``) on the
+    CPU; ``fused=True`` runs the kernel path (its plain versions on the
+    CPU); ``fused=False`` runs the eager loss anywhere. Past the kernels'
+    shared-memory ceiling (psi D > 68, rho D > 64 or rank > 64) the kernel
+    path raises ``NotImplementedError``; unlike the JAX package, nothing
+    falls back to the scan."""
+    eager, kernel, _init = _family(mps_model)
 
     def nll(params, cfg: CMPSConfig, signals):
         kernels = (signals.device.type == "cuda" if fused is None
                    else fused)
         if not kernels:
-            return core.psi_nll(params, cfg, signals)
-        return psi_nll_fused_trainable(params, cfg, signals,
-                                       precision=cfg.kernel_precision,
-                                       defer_norm=cfg.defer_norm)
+            return eager(params, cfg, signals)
+        return kernel(params, cfg, signals, precision=cfg.kernel_precision,
+                      defer_norm=cfg.defer_norm)
     return nll
 
 
 def init_params_for(mps_model: str, generator: torch.Generator,
                     cfg: CMPSConfig, device="cuda"):
     """Random parameters on ``device``."""
-    _check_model(mps_model)
-    return init_psi(generator, cfg, device=device)
+    return _family(mps_model)[2](generator, cfg, device=device)
 
 
 def make_optimizer(cfg: CMPSConfig, params):

@@ -19,18 +19,28 @@ failure (the script then exits non-zero):
    params.npz and writes 8 x 65536-sample waveforms, then a damped-sine
    batch is scored through ``psi_nll_fused``; both kernels' launch counts
    must move in that window;
-5. the training kernels (forward, adjoint, cotangent reduction) vs their
-   plain versions: the main path's variant on the whole B=128, T=16384
-   batch (one timed run of each plain version), the other three variants
-   on its T=2048 prefix, with a control reading of the kernels at
-   ``default``; then the training path's value and gradients vs autograd
-   through the eager reference;
-6. the training path: the train CLI takes 3 Adam steps at D=64, B=128,
-   T=16384 on damped-sine batches, then a second call restores step 3 and
-   takes one more; the three training kernels' launch counts must move in
-   that window; then the step time of ``make_train_step`` (host clock);
-7. CUDA-event timings (median of 5 after a warm-up) of each kernel, and one
-   timed run of each plain version, beside each kernel's bound.
+5. the training phases (``train_phases``) of psi at D=64, B=128, T=16384:
+   the training kernels (forward, adjoint, cotangent reduction) vs their
+   plain versions (the main path's variant on the whole batch, with one
+   timed run of each plain version, the other three variants on a T=2048
+   prefix, with a control reading of the kernels at ``default``); the
+   training path's value and gradients vs autograd through the eager
+   reference; the train CLI (3 Adam steps on damped-sine batches, then a
+   second call restores step 3 and takes one more; the family's three
+   training kernels' launch counts must move in that window, the other
+   family's must not); the step time of ``make_train_step`` (host clock);
+   CUDA-event timings (median of 5 after a warm-up) of each kernel beside
+   its bound;
+6. timings of the psi sampler and NLL kernels, and one timed run of each
+   plain version, beside each kernel's bound;
+7. the rho (mixed-state) family at D=64, rank 64 (``rho_phases``): the
+   sampler (N=8 chains, T=65536) and the NLL (B=8, T=16384) held to their
+   plain versions (with controls at ``default`` for each ``high`` limit),
+   the serving path (the sample CLI with ``mps_model=rho_mps`` and
+   ``fused=True``, then ``rho_nll_fused``), the training phases of 5 at
+   B=8, T=16384 (the reference is autograd through the eager
+   ``core.rho_nll_factor``), the device time by kernel of one rho train
+   step (``torch.profiler``), and the sampler's and NLL's timings.
 
 It prints each phase's measurements, the card line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -73,33 +83,65 @@ TOL = {"highest": 1e-4, "high": 1e-3}
 # another association order (rotation folded into the block constants)
 TOL_REFERENCE = 1e-4
 
-T_TRAIN_PLAIN = 2048   # prefix for the variants the main path does not run
+T_PREFIX = 2048        # prefix for the variants the main paths do not run
 TRAIN_STEPS = 3        # Adam steps of the train CLI's first call
 # Training kernels vs plain, max|kernel - plain| <= TOL * max|plain|, per
-# output. The main path's variant (the CLI's precision and norm) is held at
-# the full T=16384, the other three on the T=2048 prefix.
-# Forward (loss, the state stream ys and its norms n2s): as the NLL above.
+# output, for both families. The main path's variant (the CLI's precision
+# and norm) is held at the full T=16384, the other three on the T=2048
+# prefix.
+# Forward (loss, the state stream ys and its norms): as the NLL above.
 # Adjoint (dse, dt0, dy, dehat): fed the plain forward's own streams, so
 #   only its own summation order differs; its chain renormalises dt with the
 #   state, so the difference stays at the per-step level as in the forward:
 #   1e-4 at highest, 1e-3 at high, where the bf16 splits of dy can round
 #   the other way.
-# Reductions (dAb, dBb, dRb): fed the plain adjoint's own streams, both
-#   sides form the same bf16 splits, and only the order of the fp32 sum over
-#   n_steps x 128 terms differs (~1e-6 of max|plain| at T=16384): 1e-5 at
-#   both precisions. The rounding errors of a kernel that dropped the lo
-#   terms average out over the coherent sums, to ~5e-5, so a looser limit
-#   would not see it.
+# Reductions (dAb, dBb, dRb or dXb): fed the plain adjoint's own streams,
+#   both sides form the same bf16 splits, and only the order of the fp32
+#   sum over n_steps x 128 terms differs (~1e-6 of max|plain| at T=16384):
+#   1e-5 at both precisions. The rounding errors of a kernel that dropped
+#   the lo terms average out over the coherent sums, to ~5e-5, so a looser
+#   limit would not see it.
+# rho: the same limits for the same reasons; its kernels sum a segment of
+#   2D x rank terms where psi sums 2D, in another order than the plain
+#   versions, which moves the per-step difference by ~1e-7 at most.
 # Control: the kernels at default (bf16 products without the lo terms)
 #   against the plain versions at high must miss each high limit.
-TOL_TRAIN = {"highest": {"psi_train_fwd": 1e-4, "psi_train_bwd": 1e-4,
-                         "psi_cotangents": 1e-5},
-             "high": {"psi_train_fwd": 1e-3, "psi_train_bwd": 1e-3,
-                      "psi_cotangents": 1e-5}}
+TOL_TRAIN = {"highest": {"fwd": 1e-4, "bwd": 1e-4, "cot": 1e-5},
+             "high": {"fwd": 1e-3, "bwd": 1e-3, "cot": 1e-5}}
 # the training path's loss and its six parameter gradients vs autograd
-# through core.psi_nll: the same fp32 arithmetic in another order, so the
-# value to 1e-4 and each gradient to 1e-3 of its largest element
+# through the eager reference: the same fp32 arithmetic in another order,
+# so the value to 1e-4 and each gradient to 1e-3 of its largest element
 TOL_TRAIN_REFERENCE = (1e-4, 1e-3)
+
+# FLOPs of the training kernels: the fewest [2D,2D] products a lane-step
+# (2 n^2 FLOPs each, n = 2D) the function needs, plus the per-example-step
+# matrix work, in n^2 FLOPs.
+# psi (one lane an example): forward 3 (Ab t, Bb t, Rb y); adjoint 4 (RU
+#   recomputed on its chain); reductions 3.
+# rho: an example's rank lanes share one increment s, so y = Ab t + s Bb t
+#   = (Ab + s Bb) t is one product after one multiply-add per element of a
+#   [2D,2D] matrix (2 n^2) an example-step. Forward 2 (that, and Xb y).
+#   Adjoint 3: Ab^T dy and Bb^T dy on its chain (dse needs the latter
+#   alone), and (Xb + Xb^T) y in its tail. Reductions 2: dy t^T, whose
+#   per-example sum gives dAb by n^2 adds and dBb by n^2 multiply-adds
+#   (3 n^2), and y y^T weighted per example for dXb.
+TRAIN_PRODUCTS = {"psi": {"fwd": 3, "bwd": 4, "cot": 3},
+                  "rho": {"fwd": 2, "bwd": 3, "cot": 2}}
+TRAIN_BUILDS = {"psi": {"fwd": 0, "bwd": 0, "cot": 0},
+                "rho": {"fwd": 2, "bwd": 0, "cot": 3}}
+
+# The rho family's main paths (README: "Training, mixed state (rho, D=64,
+# B=8, T=16384)" and "Fused SDE samplers (rho, D=64)"), at rank D = 64.
+RHO_N_CHAINS = 8       # 8 chains x rank 64 = 512 state columns
+RHO_B = 8
+RHO_T = 16384
+RHO_T_SAMPLE_CHECK = 16384   # the sampler's prefix held at TOL["highest"]
+# The sampler's waveform is a running sum of T increments, so the kernel's
+# and the plain version's per-step differences in e dt add up along the run:
+# 7.9e-5 of max|plain| over all 65536 steps on an H100 at D=64, rank 64, 16x
+# the T=4096 level. The full run is held at 1e-3, its prefix at
+# TOL["highest"].
+RHO_TOL_SAMPLE_FULL = 1e-3
 
 
 def check(cond, msg):
@@ -160,49 +202,90 @@ def bound_ms(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def train_phases(dev, params, cfg):
-    """Phases 5-7 for the training path; returns the three kernels' entries
-    of the {"kernels": [...]} line."""
+def _free():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _control(name, got_fn, want, limit):
+    """The kernel at default against the plain version at high must miss
+    the high limit; returns the worst reading."""
+    got = got_fn()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    worst = max(rel_err(a, b)[1] for a, b in zip(got, want))
+    check(worst > limit, f"control: {name} at default is within the high "
+                         f"limit of plain at high ({worst:.3e})")
+    return worst
+
+
+@dataclasses.dataclass
+class Family:
+    """What the training phases need of one model family. Its kernels are
+    ``block.<name>_train_fwd``, ``<name>_train_bwd`` and
+    ``<name>_cotangents``, each beside its ``_plain`` version."""
+    name: str              # "psi" or "rho"
+    params: object         # the family's seeded weights
+    cfg: object
+    B: int                 # the training headline's batch and length
+    T: int
+    seed: int              # of its batch; the step timing's data uses seed+1
+    ref_cols: int          # examples of the check against autograd
+    reference: object      # the eager loss that autograd runs through
+    replaces: dict         # "fwd" / "bwd" / "cot" -> the TPU kernel
+    dehat_scale: float     # the third reduction's weight on dehat
+
+
+def _train_kernel_names(family: str) -> dict:
+    return {"fwd": f"{family}_train_fwd", "bwd": f"{family}_train_bwd",
+            "cot": f"{family}_cotangents"}
+
+
+def train_phases(dev, fam: Family):
+    """The training phases of one family; returns its three kernels'
+    entries of the {"kernels": [...]} line."""
+    from audio_mps_tpu_torch import weights
     from audio_mps_tpu_torch.data import damped_sine_batch, damped_sine_iterator
-    from audio_mps_tpu_torch.models import core
     from audio_mps_tpu_torch.ops import block
     from audio_mps_tpu_torch.ops.scan import DEFAULT_UNROLL
     from audio_mps_tpu_torch.train import parse_args, train
     from audio_mps_tpu_torch.training import make_train_step
-    from audio_mps_tpu_torch.weights import (psi_params_from_numpy,
-                                             psi_params_to_numpy)
 
-    B, T = B_NLL, T_NLL
+    cfg, B, T = fam.cfg, fam.B, fam.T
+    rank = fam.params.Wx.shape[0] if fam.name == "rho" else 1
     n = 2 * D
-    wrappers = {"psi_train_fwd": block.psi_train_fwd,
-                "psi_train_bwd": block.psi_train_bwd,
-                "psi_cotangents": block.psi_cotangents}
-    signals = damped_sine_batch(torch.Generator(dev).manual_seed(4), B, T,
-                                cfg.delta_t)
-    t_in = block.psi_nll_inputs(params, cfg, signals)
+    names = _train_kernel_names(fam.name)
+    kernels = {r: getattr(block, k) for r, k in names.items()}
+    plains = {r: getattr(block, k + "_plain") for r, k in names.items()}
+    aux = "n2s" if fam.name == "psi" else "trs"   # the forward's norm stream
+    labels = {"fwd": ("loss", "ys", aux), "bwd": ("dse", "dt0", "dy", "dehat"),
+              "cot": ("dAb", "dBb", "dRb" if fam.name == "psi" else "dXb")}
+    shape = f"D={D}, B={B}" + (f", rank {rank}" if fam.name == "rho" else "")
+    signals = damped_sine_batch(torch.Generator(dev).manual_seed(fam.seed), B,
+                                T, cfg.delta_t)
+    t_in = getattr(block, f"{fam.name}_nll_inputs")(fam.params, cfg, signals)
     eps = dict(log_eps=t_in.pop("log_eps"), norm_eps=t_in.pop("norm_eps"))
-    pre = dict(t_in, se=t_in["se"][:T_TRAIN_PLAIN - 1].contiguous())
+    pre = dict(t_in, se=t_in["se"][:T_PREFIX - 1].contiguous())
     g = torch.full((B,), 1.0 / B, device=dev)     # the batch mean's cotangent
 
     def fwd(ins, plain=False, **o):
-        f = block.psi_train_fwd_plain if plain else block.psi_train_fwd
-        return f(**ins, **eps, **o)
+        return (plains if plain else kernels)["fwd"](**ins, **eps, **o)
 
-    def bwd(ins, ys, n2s, plain=False, **o):
-        f = block.psi_train_bwd_plain if plain else block.psi_train_bwd
-        return f(**ins, g=g, ys=ys, n2s=n2s, **eps, **o)
+    def bwd(ins, ys, norms, plain=False, **o):
+        return (plains if plain else kernels)["bwd"](
+            **ins, g=g, ys=ys, **{aux: norms}, **eps, **o)
 
-    def cot(ins, ys, n2s, dy, dehat, plain=False, **o):
-        f = block.psi_cotangents_plain if plain else block.psi_cotangents
-        return f(dy, ys, ins["t0"], ins["se"], n2s, dehat,
-                 norm_eps=eps["norm_eps"], **o)
+    def cot(ins, ys, norms, dy, dehat, plain=False, **o):
+        return (plains if plain else kernels)["cot"](
+            dy, ys, ins["t0"], ins["se"], norms, dehat,
+            norm_eps=eps["norm_eps"], **o)
 
-    def kernel_outputs(kname, ins, f_p, b_p, **o):
+    def kernel_outputs(role, ins, f_p, b_p, **o):
         """The kernel's outputs, each kernel fed the plain versions' streams."""
         torch.cuda.synchronize()
-        if kname == "psi_train_fwd":
+        if role == "fwd":
             out = fwd(ins, **o)
-        elif kname == "psi_train_bwd":
+        elif role == "bwd":
             out = bwd(ins, f_p[1], f_p[2], **o)
         else:
             out = cot(ins, f_p[1], f_p[2], b_p[2], b_p[3], **o)
@@ -210,13 +293,9 @@ def train_phases(dev, params, cfg):
         return out
 
     main = (cfg.kernel_precision, cfg.defer_norm)
-    phase(f"training kernels vs plain (D={D}, B={B}): the main path's "
-          f"variant {main} at T={T}, the other three on a T={T_TRAIN_PLAIN} "
-          f"prefix")
-    err_at, plain_ms = {}, {}
-    names = {"psi_train_fwd": ("loss", "ys", "n2s"),
-             "psi_train_bwd": ("dse", "dt0", "dy", "dehat"),
-             "psi_cotangents": ("dAb", "dBb", "dRb")}
+    phase(f"{fam.name} training kernels vs plain ({shape}): the main path's "
+          f"variant {main} at T={T}, the other three on a T={T_PREFIX} prefix")
+    err_at, plain_ms, ctrl = {}, {}, {}
     variants = [(p, d) for p in ("highest", "high") for d in (False, True)
                 if (p, d) != main] + [main]
     for prec, defer in variants:
@@ -226,25 +305,24 @@ def train_phases(dev, params, cfg):
         t_b, b_p = timed(lambda: bwd(ins, f_p[1], f_p[2], plain=True, **o))
         t_c, c_p = timed(lambda: cot(ins, f_p[1], f_p[2], b_p[2], b_p[3],
                                      plain=True, **o))
-        want = {"psi_train_fwd": f_p, "psi_train_bwd": b_p,
-                "psi_cotangents": c_p}
+        want = {"fwd": f_p, "bwd": b_p, "cot": c_p}
         if (prec, defer) == main:
-            plain_ms = {"psi_train_fwd": t_f, "psi_train_bwd": t_b,
-                        "psi_cotangents": t_c}
+            plain_ms = {"fwd": t_f, "bwd": t_b, "cot": t_c}
         line = []
-        for kname, outs in names.items():
-            tol = TOL_TRAIN[prec][kname]
-            got = kernel_outputs(kname, ins, f_p, b_p, **o)
+        for role, outs in labels.items():
+            tol = TOL_TRAIN[prec][role]
+            got = kernel_outputs(role, ins, f_p, b_p, **o)
             worst = 0.0
-            for label, a, b in zip(outs, got, want[kname]):
+            for label, a, b in zip(outs, got, want[role]):
                 check(bool(torch.isfinite(a).all()),
-                      f"{kname} {label}: non-finite")
+                      f"{names[role]} {label}: non-finite")
                 err, rel = rel_err(a, b)
                 worst = max(worst, err)
                 line.append(f"{label} {rel:.2e}")
-                check(rel <= tol, f"{kname} {prec} defer={defer} {label}:"
-                                  f" rel err {rel:.3e} (tol {tol:g})")
-            err_at[(kname, prec, defer)] = worst
+                check(rel <= tol, f"{names[role]} {prec} defer={defer} "
+                                  f"{label}: rel err {rel:.3e} (tol {tol:g})")
+            if (prec, defer) == main:
+                err_at[role] = worst
             del got
         print(f"  {prec} defer_norm={defer}, T={ins['se'].shape[0] + 1} (tol "
               + " / ".join(f"{v:g}" for v in TOL_TRAIN[prec].values())
@@ -252,57 +330,60 @@ def train_phases(dev, params, cfg):
         if prec == "high" and ins is pre:
             # control: the kernels at default (bf16 products without the lo
             # terms) against the plain versions at high, on the same inputs
-            ctrl = []
-            for kname, outs in names.items():
-                got = kernel_outputs(kname, ins, f_p, b_p, precision="default",
-                                     defer_norm=defer)
-                worst = max(rel_err(a, b)[1]
-                            for a, b in zip(got, want[kname]))
-                ctrl.append(f"{kname} {worst:.2e}")
-                check(worst > TOL_TRAIN["high"][kname],
-                      f"control: {kname} at default is within the high "
-                      f"limit of plain at high ({worst:.3e})")
+            readings = []
+            for role in labels:
+                worst = _control(names[role], lambda: kernel_outputs(
+                    role, ins, f_p, b_p, precision="default",
+                    defer_norm=defer), want[role], TOL_TRAIN["high"][role])
+                ctrl[role] = max(ctrl.get(role, 0.0), worst)
+                readings.append(f"{names[role]} {worst:.2e}")
             print(f"  control, kernels at default vs plain at high, defer_norm"
                   f"={defer}, worst x max|plain| (must exceed the high "
-                  f"limits): " + ", ".join(ctrl), flush=True)
+                  f"limits): " + ", ".join(readings), flush=True)
         del f_p, b_p, c_p, want
-    print(f"  plain versions at T={T} ({main}): fwd "
-          f"{plain_ms['psi_train_fwd']:.1f} ms, bwd "
-          f"{plain_ms['psi_train_bwd']:.1f} ms, cotangents "
-          f"{plain_ms['psi_cotangents']:.1f} ms (CUDA events, one run)",
-          flush=True)
+        _free()
+    print(f"  plain versions at T={T} ({main}): fwd {plain_ms['fwd']:.1f} ms, "
+          f"bwd {plain_ms['bwd']:.1f} ms, cotangents {plain_ms['cot']:.1f} ms "
+          f"(CUDA events, one run)", flush=True)
 
-    phase(f"training path vs the eager reference (D={D}, 8 columns, T=512)")
-    short = signals[:8, :512].contiguous()
-    cfg8 = dataclasses.replace(cfg, minibatch_size=8)
-    pk = psi_params_from_numpy(psi_params_to_numpy(params), dev)
-    pr = psi_params_from_numpy(psi_params_to_numpy(params), dev)
-    loss_k = block.psi_nll_block_trainable(pk, cfg8, short,
-                                           precision="highest",
-                                           defer_norm=cfg.defer_norm)
+    phase(f"{fam.name} training path vs autograd through the eager reference "
+          f"(D={D}, {fam.ref_cols} examples, T=512)")
+    short = signals[:fam.ref_cols, :512].contiguous()
+    cfg_r = dataclasses.replace(cfg, minibatch_size=fam.ref_cols)
+    from_numpy = getattr(weights, f"{fam.name}_params_from_numpy")
+    pk = from_numpy(weights.params_to_numpy(fam.params), dev)
+    pr = from_numpy(weights.params_to_numpy(fam.params), dev)
+    loss_k = getattr(block, f"{fam.name}_nll_block_trainable")(
+        pk, cfg_r, short, precision="highest", defer_norm=cfg.defer_norm)
     loss_k.backward()
-    loss_r = core.psi_nll(pr, cfg8, short)
+    loss_r = fam.reference(pr, cfg_r, short)
     loss_r.backward()
     _, rel = rel_err(loss_k.detach(), loss_r.detach())
     line = [f"loss {rel:.2e}"]
-    check(rel <= TOL_TRAIN_REFERENCE[0], f"train loss vs reference: {rel:.3e}")
+    check(rel <= TOL_TRAIN_REFERENCE[0], f"{fam.name} train loss vs "
+                                         f"reference: {rel:.3e}")
     for name in pk.NAMES:
         _, rel = rel_err(getattr(pk, name).grad, getattr(pr, name).grad)
         line.append(f"d{name} {rel:.2e}")
         check(rel <= TOL_TRAIN_REFERENCE[1],
-              f"gradient of {name} vs reference: rel err {rel:.3e}")
+              f"{fam.name} gradient of {name} vs reference: rel err "
+              f"{rel:.3e}")
     print(f"  x max|reference| (tol {TOL_TRAIN_REFERENCE[0]:g} / "
           f"{TOL_TRAIN_REFERENCE[1]:g}): " + ", ".join(line), flush=True)
+    del pk, pr, loss_k, loss_r
 
-    phase(f"training path: train CLI (D={D}, B={B}, T={T}), {TRAIN_STEPS} "
-          f"steps, then a restore and one more step")
+    phase(f"{fam.name} training path: train CLI ({shape}, T={T}), "
+          f"{TRAIN_STEPS} steps, then a restore and one more step")
+    # every training wrapper of both families: this family's must count
+    # each step once, the other family's not at all
+    counted = {k: getattr(block, k) for f in ("psi", "rho")
+               for k in _train_kernel_names(f).values()}
     with tempfile.TemporaryDirectory() as tmp:
-        argv = ["--mps_model=psi_mps", "--dataset=damped_sine",
+        argv = [f"--mps_model={fam.name}_mps", "--dataset=damped_sine",
                 f"--sample_duration={T}",
                 f"--hparams=bond_dim={D},minibatch_size={B}",
                 f"--logdir={tmp}", f"--device={dev.type}"]
-        for w in (block.psi_sample_block, block.psi_nll_block,
-                  *wrappers.values()):
+        for w in counted.values():
             w.launches = 0
         run, device = parse_args(argv + [f"--max_steps={TRAIN_STEPS}"])
         t0 = time.perf_counter()
@@ -316,7 +397,7 @@ def train_phases(dev, params, cfg):
         p_last, m_last = train(run2, device=device)
         torch.cuda.synchronize()
         t_second = time.perf_counter() - t0
-        launches = {k: w.launches for k, w in wrappers.items()}
+        launches = {k: w.launches for k, w in counted.items()}
         state = torch.load(os.path.join(ckdir, f"ckpt_{TRAIN_STEPS + 1}.pt"),
                            map_location="cpu", weights_only=True)
         has_npz = os.path.exists(os.path.join(run.run_logdir(cfg),
@@ -333,19 +414,21 @@ def train_phases(dev, params, cfg):
               for s in state["optimizer"]["state"].values()),
           "the Adam state was not restored")
     check(has_npz, "the train CLI wrote no params.npz")
+    check(type(p_last) is type(fam.params),
+          f"the train CLI made no {fam.name} weights")
     for m in (m_first, m_last):
         check(all(bool(torch.isfinite(v).all()) for v in m.values()),
               f"non-finite metrics {m}")
     check(all(bool(torch.isfinite(x).all()) for x in p_last.parameters()),
           "non-finite parameters")
     for name, count in launches.items():
-        check(count == TRAIN_STEPS + 1,
-              f"{name} launched {count} times on the training path, "
-              f"expected {TRAIN_STEPS + 1}")
+        expect = TRAIN_STEPS + 1 if name in names.values() else 0
+        check(count == expect, f"{name} launched {count} times on the "
+                               f"{fam.name} training path, expected {expect}")
 
-    tp = psi_params_from_numpy(psi_params_to_numpy(params), dev)
-    _, step = make_train_step("psi_mps", cfg, tp, device=dev)
-    data = damped_sine_iterator(cfg, T, seed=5, device=dev)
+    tp = from_numpy(weights.params_to_numpy(fam.params), dev)
+    _, step = make_train_step(f"{fam.name}_mps", cfg, tp, device=dev)
+    data = damped_sine_iterator(cfg, T, seed=fam.seed + 1, device=dev)
     step(next(data))
     torch.cuda.synchronize()
     reps = 5
@@ -355,77 +438,290 @@ def train_phases(dev, params, cfg):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / reps * 1e3
     check(bool(torch.isfinite(metrics["total_loss"])), "non-finite loss")
-    print(f"  train step (make_train_step, batch draw included): "
+    print(f"  {fam.name} train step (make_train_step, batch draw included): "
           f"{step_ms:.2f} ms host clock, mean of {reps} after a warm-up; "
           f"{B * (T - 1) / step_ms * 1e3:.4e} frames/s", flush=True)
+    del tp, step, data
+    _free()
 
-    phase("training timings (CUDA events, median of 5 after 1 warm-up)")
+    phase(f"{fam.name} training timings (CUDA events, median of 5 after 1 "
+          f"warm-up)")
     o = dict(precision=cfg.kernel_precision, defer_norm=cfg.defer_norm)
-    loss, ys, n2s = fwd(t_in, **o)
-    dse, dt0, dy, dehat = bwd(t_in, ys, n2s, **o)
-    ms = {"psi_train_fwd": median_ms(lambda: fwd(t_in, **o)),
-          "psi_train_bwd": median_ms(lambda: bwd(t_in, ys, n2s, **o)),
-          "psi_cotangents": median_ms(lambda: cot(t_in, ys, n2s, dy, dehat,
-                                                  **o))}
+    loss, ys, norms = fwd(t_in, **o)
+    dse, dt0, dy, dehat = bwd(t_in, ys, norms, **o)
+    ms = {"fwd": median_ms(lambda: fwd(t_in, **o)),
+          "bwd": median_ms(lambda: bwd(t_in, ys, norms, **o)),
+          "cot": median_ms(lambda: cot(t_in, ys, norms, dy, dehat, **o))}
     # library yardstick of the reductions: the three [2D, M] x [M, 2D]
     # products as torch.matmul (fp32, TF32 off) on operands built once
-    m_cols = (T - 1) * B
+    scales = block._state_scales(block._lanes(norms, rank),
+                                 norm_eps=eps["norm_eps"],
+                                 unroll=DEFAULT_UNROLL,
+                                 defer_norm=cfg.defer_norm)
+    ts = block._input_states(t_in["t0"], ys, scales)
+    del scales, dse, dt0
 
     def lanes(x):
-        return x.transpose(0, 1).reshape(n, m_cols)
+        return x.transpose(0, 1).reshape(n, -1)
 
-    ts = block._input_states(t_in["t0"], ys, block._state_scales(
-        n2s, norm_eps=eps["norm_eps"], unroll=DEFAULT_UNROLL,
-        defer_norm=cfg.defer_norm))
     ops = [(lanes(dy), lanes(ts)),
-           (lanes(dy), lanes(t_in["se"][:, None, :] * ts)),
-           (lanes((2.0 * dehat)[:, None, :] * ys), lanes(ys))]
+           (lanes(dy), lanes(block._lanes(t_in["se"], rank)[:, None, :]
+                             * ts))]
     del ts
+    ops.append((lanes(fam.dehat_scale
+                      * block._lanes(dehat, rank)[:, None, :] * ys),
+                lanes(ys)))
+    del loss, ys, norms, dy, dehat
+    _free()
     library_ms = median_ms(lambda: [a @ b.T for a, b in ops])
     del ops
+    _free()
     # the main path's variant once more last, as a repeat within the call
-    for prec, defer in (("high", True), ("highest", False),
-                        (cfg.kernel_precision, cfg.defer_norm)):
+    for prec, defer in (("high", True), ("highest", False), main):
         v = dict(precision=prec, defer_norm=defer)
-        l_v, ys_v, n2s_v = fwd(t_in, **v)
-        b_v = bwd(t_in, ys_v, n2s_v, **v)
+        l_v, ys_v, norms_v = fwd(t_in, **v)
+        b_v = bwd(t_in, ys_v, norms_v, **v)
         t_f = median_ms(lambda: fwd(t_in, **v))
-        t_b = median_ms(lambda: bwd(t_in, ys_v, n2s_v, **v))
-        t_c = median_ms(lambda: cot(t_in, ys_v, n2s_v, b_v[2], b_v[3], **v))
+        t_b = median_ms(lambda: bwd(t_in, ys_v, norms_v, **v))
+        t_c = median_ms(lambda: cot(t_in, ys_v, norms_v, b_v[2], b_v[3], **v))
         print(f"  {prec} defer_norm={defer}: fwd {t_f:.3f} ms, bwd "
               f"{t_b:.3f} ms, cotangents {t_c:.3f} ms", flush=True)
-        del l_v, ys_v, n2s_v, b_v
-    # FLOPs: the [2D,2D] products only, 2 n^2 a column-step each: 3 in the
-    # forward, 4 on the adjoint chain (RU recomputed), 3 reductions. Bytes:
-    # the ys / dy streams and the per-step rows, each read or written once.
-    steps = (T - 1) * B
-    cost = {"psi_train_fwd": (3 * 2 * n * n * steps,
-                              4 * (steps * n + 2 * steps + 3 * n * n)),
-            "psi_train_bwd": (4 * 2 * n * n * steps,
-                              4 * (2 * steps * n + 4 * steps + 3 * n * n)),
-            "psi_cotangents": (3 * 2 * n * n * steps,
-                               4 * (2 * steps * n + 3 * steps + 3 * n * n))}
-    replaces = {"psi_train_fwd": "audio_mps_tpu/ops/pallas_block.py:875",
-                "psi_train_bwd": "audio_mps_tpu/ops/pallas_block.py:935",
-                "psi_cotangents": "audio_mps_tpu/ops/pallas_block.py:1035"}
+        del l_v, ys_v, norms_v, b_v
+        _free()
+    # bounds: FLOPs as TRAIN_PRODUCTS and TRAIN_BUILDS count them; bytes:
+    # the ys / dy streams, the per-step rows, the constants and the initial
+    # state, each read or written once
+    ex_steps = (T - 1) * B
+    lane_steps = ex_steps * rank
+    cols = B * rank
+    mats = 3 * n * n
+    nbytes = {"fwd": lane_steps * n + 2 * ex_steps + mats + n * cols + B,
+              "bwd": (2 * lane_steps * n + 4 * ex_steps + mats + 2 * n * cols
+                      + B),
+              "cot": 2 * lane_steps * n + 3 * ex_steps + n * cols + mats}
     entries = []
-    for name in wrappers:
+    for role, name in names.items():
+        flops = (TRAIN_PRODUCTS[fam.name][role] * 2 * n * n * lane_steps
+                 + TRAIN_BUILDS[fam.name][role] * n * n * ex_steps)
+        bound, by = bound_ms(flops, 4 * nbytes[role])
+        src = "psi_cotangents.cu" if role == "cot" else f"{name}.cu"
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"audio_mps_tpu_torch/csrc/{src}",
+            "replaces": fam.replaces[role], "launches": launches[name],
+            "max_abs_err": err_at[role], "ms": ms[role],
+            "plain_ms": plain_ms[role], "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms if role == "cot" else None})
+        print(f"  {name}: {ms[role]:.3f} ms, launches per train step "
+              f"{launches[name] / (TRAIN_STEPS + 1):g} (plain "
+              f"{plain_ms[role]:.1f} ms at T={T}, bound {bound:.3f} ms by "
+              f"{by}, control at default "
+              f"{ctrl.get(role, float('nan')):.2e})", flush=True)
+    print(f"  torch.matmul of the three reductions: {library_ms:.3f} ms; "
+          f"{fam.name} train step {step_ms:.2f} ms, of which the three "
+          f"kernels {sum(ms.values()):.2f} ms", flush=True)
+    return entries
+
+
+def rho_phases(dev):
+    """Phase 7, the rho family; returns its five kernels' entries of the
+    {"kernels": [...]} line."""
+    from audio_mps_tpu_torch.config import CMPSConfig
+    from audio_mps_tpu_torch.data import damped_sine_batch
+    from audio_mps_tpu_torch.models import core
+    from audio_mps_tpu_torch.models.params import init_rho
+    from audio_mps_tpu_torch.ops import block
+    from audio_mps_tpu_torch.ops.scan import rho_nll_fused
+    from audio_mps_tpu_torch.sample import SampleConfig, sample
+    from audio_mps_tpu_torch.weights import save_params
+
+    cfg = CMPSConfig(bond_dim=D, minibatch_size=RHO_B)    # rank D
+    params = init_rho(torch.Generator(dev).manual_seed(10), cfg, device=dev)
+    rank = params.Wx.shape[0]
+    n = 2 * D
+    err_at, plain_ms, ctrl = {}, {}, {}
+
+    phase(f"rho sampler kernel vs plain (D={D}, rank {rank}, "
+          f"N={RHO_N_CHAINS}, T={T_SAMPLE})")
+    noise = core._sample_noise(cfg, torch.Generator(dev).manual_seed(11),
+                               RHO_N_CHAINS, T_SAMPLE, 1.0)
+    s_in = block.rho_sample_inputs(params, cfg, noise)
+    wave = block.rho_sample_block(**s_in)
+    _free()
+    check(bool(torch.isfinite(wave).all()), "rho sampler kernel: non-finite")
+    plain_ms["rho_sample_block"], want = timed(
+        lambda: block.rho_sample_block_plain(**s_in))
+    k = RHO_T_SAMPLE_CHECK
+    _, rel_pre = rel_err(wave[:k], want[:k])
+    err, rel = rel_err(wave, want)
+    err_at["rho_sample_block"] = err
+    print(f"  highest: {rel_pre:.3e} x max|plain| over the first {k} steps "
+          f"(tol {TOL['highest']:g}); max|d| {err:.3e} = {rel:.3e} x "
+          f"max|plain| over all {T_SAMPLE} (tol {RHO_TOL_SAMPLE_FULL:g}); "
+          f"plain {plain_ms['rho_sample_block']:.1f} ms (one run)",
+          flush=True)
+    check(rel_pre <= TOL["highest"], f"rho sampler highest, first {k} "
+                                     f"steps: rel err {rel_pre:.3e}")
+    check(rel <= RHO_TOL_SAMPLE_FULL, f"rho sampler highest: rel err "
+                                      f"{rel:.3e}")
+    pre = dict(s_in, noise=s_in["noise"][:T_PLAIN].contiguous())
+    want = block.rho_sample_block_plain(**pre, precision="high")
+    _, rel = rel_err(block.rho_sample_block(**pre, precision="high"), want)
+    check(rel <= TOL["high"], f"rho sampler high: rel err {rel:.3e}")
+    ctrl["rho_sample_block"] = _control(
+        "rho sampler", lambda: block.rho_sample_block(**pre,
+                                                      precision="default"),
+        want, TOL["high"])
+    print(f"  high over {T_PLAIN} steps: {rel:.3e} x max|plain| (tol "
+          f"{TOL['high']:g}); control at default "
+          f"{ctrl['rho_sample_block']:.3e} (must exceed it)", flush=True)
+    del wave, want
+
+    phase(f"rho NLL kernel vs plain (D={D}, rank {rank}, B={RHO_B}): the "
+          f"scoring variant (highest, per-step norm) at T={RHO_T}, the other "
+          f"three on a T={T_PREFIX} prefix")
+    signals = damped_sine_batch(torch.Generator(dev).manual_seed(12), RHO_B,
+                                RHO_T, cfg.delta_t)
+    n_in = block.rho_nll_inputs(params, cfg, signals)
+    n_pre = dict(n_in, se=n_in["se"][:T_PREFIX - 1].contiguous())
+    for prec in ("highest", "high"):
+        for defer in (False, True):
+            o = dict(precision=prec, defer_norm=defer)
+            ins = n_in if (prec, defer) == ("highest", False) else n_pre
+            got = block.rho_nll_block(**ins, **o)
+            t_p, want = timed(lambda: block.rho_nll_block_plain(**ins, **o))
+            check(bool(torch.isfinite(got).all()), "rho NLL: non-finite")
+            err, rel = rel_err(got, want)
+            line = (f"  {prec} defer_norm={defer}, T={ins['se'].shape[0] + 1}:"
+                    f" max|d| {err:.3e} = {rel:.3e} x max|plain| (tol "
+                    f"{TOL[prec]:g}); mean loss {got.mean().item():.6f}")
+            check(rel <= TOL[prec], f"rho NLL {prec} defer={defer}: rel err "
+                                    f"{rel:.3e}")
+            if (prec, defer) == ("highest", False):
+                err_at["rho_nll_block"] = err
+                plain_ms["rho_nll_block"] = t_p
+            if prec == "high" and not defer:
+                ctrl["rho_nll_block"] = _control(
+                    "rho NLL", lambda: block.rho_nll_block(
+                        **ins, precision="default", defer_norm=defer),
+                    want, TOL["high"])
+                line += (f"; control at default "
+                         f"{ctrl['rho_nll_block']:.3e}")
+            print(line, flush=True)
+
+    phase("rho serving path: sample CLI (mps_model=rho_mps, fused) + "
+          "rho_nll_fused")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({"cfg": dataclasses.asdict(cfg),
+                       "run": {"mps_model": "rho_mps"}}, f)
+        save_params(os.path.join(tmp, "params.npz"), params)
+        out = os.path.join(tmp, "samples.npz")
+        block.rho_sample_block.launches = 0
+        block.rho_nll_block.launches = 0
+        t0 = time.perf_counter()
+        waves = sample(SampleConfig(modeldir=tmp, mps_model="rho_mps",
+                                    num_samples=RHO_N_CHAINS,
+                                    sample_duration=T_SAMPLE, fused=True,
+                                    device=dev.type, out=out))
+        t_sample = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch = damped_sine_batch(torch.Generator(dev).manual_seed(13),
+                                  RHO_B, RHO_T, cfg.delta_t)
+        nll = rho_nll_fused(params, cfg, batch).item()
+        t_score = time.perf_counter() - t0
+        serve = {"rho_sample_block": block.rho_sample_block.launches,
+                 "rho_nll_block": block.rho_nll_block.launches}
+        check(os.path.exists(out), "sample CLI wrote no samples.npz")
+    print(f"  sample CLI: {waves.shape} in {t_sample * 1e3:.1f} ms; NLL "
+          f"{nll:.6f} in {t_score * 1e3:.1f} ms (host clock); launches "
+          f"{serve}", flush=True)
+    check(waves.shape == (RHO_N_CHAINS, T_SAMPLE), f"waves {waves.shape}")
+    check(bool(torch.isfinite(torch.as_tensor(waves)).all()),
+          "rho sampled waveforms are not finite")
+    check(torch.isfinite(torch.tensor(nll)).item(), f"rho NLL {nll}")
+    for name, count in serve.items():
+        check(count > 0, f"{name} was not launched on the rho serving path")
+
+    train_entries = train_phases(dev, Family(
+        name="rho", params=params, cfg=cfg, B=RHO_B, T=RHO_T, seed=12,
+        ref_cols=2, reference=core.rho_nll_factor, dehat_scale=1.0,
+        replaces={"fwd": "audio_mps_tpu/ops/pallas_block.py:1366",
+                  "bwd": "audio_mps_tpu/ops/pallas_block.py:1438",
+                  "cot": "audio_mps_tpu/ops/pallas_block.py:1583"}))
+
+    # device time by kernel of one rho training step's three launches (the
+    # adjoint's call runs two kernels: the tail and the chain). The script
+    # opens one torch.profiler session: a second one in the same process
+    # recorded no device time on the H100.
+    from torch.profiler import ProfilerActivity, profile
+    t_in = dict(n_in)
+    eps = dict(log_eps=t_in.pop("log_eps"), norm_eps=t_in.pop("norm_eps"))
+    o = dict(precision=cfg.kernel_precision, defer_norm=cfg.defer_norm)
+    g = torch.full((RHO_B,), 1.0 / RHO_B, device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, ys, trs = block.rho_train_fwd(**t_in, **eps, **o)
+        b_p = block.rho_train_bwd(**t_in, g=g, ys=ys, trs=trs, **eps, **o)
+        block.rho_cotangents(b_p[2], ys, t_in["t0"], t_in["se"], trs, b_p[3],
+                             norm_eps=eps["norm_eps"], **o)
+        torch.cuda.synchronize()
+    del ys, trs, b_p
+    _free()
+    by_kernel = sorted(
+        ((getattr(e, "device_time_total", 0.0), e.key.split("(")[0])
+         for e in prof.key_averages()
+         if getattr(e, "device_time_total", 0.0) > 0
+         and not e.key.startswith("cuda")), reverse=True)
+    print("  torch.profiler, device time of one rho train step's kernels: "
+          + (", ".join(f"{k} {us / 1e3:.3f} ms" for us, k in by_kernel[:8])
+             if by_kernel else "no device time recorded (not measured)"),
+          flush=True)
+
+    phase("rho serving timings (CUDA events, median of 5 after 1 warm-up)")
+    ms = {"rho_sample_block": median_ms(lambda: block.rho_sample_block(
+              **s_in)),
+          "rho_nll_block": median_ms(lambda: block.rho_nll_block(**n_in))}
+    for prec in ("high", "default"):
+        t_s = median_ms(lambda: block.rho_sample_block(**s_in,
+                                                       precision=prec),
+                        reps=1, warmup=0)
+        t_n = median_ms(lambda: block.rho_nll_block(**n_in, precision=prec),
+                        reps=1, warmup=0)
+        print(f"  {prec}: rho_sample_block {t_s:.3f} ms, rho_nll_block "
+              f"{t_n:.3f} ms (one run each)", flush=True)
+    # FLOPs: the fewest [2D,2D] products a lane-step, 2 n^2 each, and the
+    # per-example-step (per chain-step) matrix build (Ab + s Bb), 2 n^2: the
+    # NLL 2 products ((Ab + s Bb) t, Xb y), the sampler 2 (Xs t for the
+    # expectation on the current state, then the update). Bytes: each input
+    # read once, each output written once.
+    chain_steps = T_SAMPLE * RHO_N_CHAINS
+    ex_steps = (RHO_T - 1) * RHO_B
+    mats = 3 * n * n
+    cost = {
+        "rho_sample_block": (2 * 2 * n * n * chain_steps * rank
+                             + 2 * n * n * chain_steps,
+                             4 * (2 * chain_steps + mats
+                                  + n * RHO_N_CHAINS * rank + 2 * D + 1)),
+        "rho_nll_block": (2 * 2 * n * n * ex_steps * rank
+                          + 2 * n * n * ex_steps,
+                          4 * (ex_steps + mats + n * RHO_B * rank + RHO_B))}
+    where = {"rho_sample_block": ("rho_sample.cu", "pallas_block.py:2278"),
+             "rho_nll_block": ("rho_nll.cu", "pallas_block.py:2519")}
+    entries = []
+    for name, (src, rep) in where.items():
         bound, by = bound_ms(*cost[name])
         entries.append({
             "name": name, "route": "cuda",
-            "source": f"audio_mps_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": err_at[(name, *main)], "ms": ms[name],
+            "source": f"audio_mps_tpu_torch/csrc/{src}",
+            "replaces": f"audio_mps_tpu/ops/{rep}", "launches": serve[name],
+            "max_abs_err": err_at[name], "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": bound, "bound_by": by,
-            "library_ms": library_ms if name == "psi_cotangents" else None})
-        print(f"  {name}: {ms[name]:.3f} ms, launches per train step "
-              f"{launches[name] / (TRAIN_STEPS + 1):g} (plain "
-              f"{plain_ms[name]:.1f} ms at T={T}, bound "
-              f"{bound:.3f} ms by {by})", flush=True)
-    print(f"  torch.matmul of the three reductions: {library_ms:.3f} ms; "
-          f"train step {step_ms:.2f} ms, of which the three kernels "
-          f"{sum(ms.values()):.2f} ms", flush=True)
-    return entries
+            "library_ms": None})
+        print(f"  {name}: {ms[name]:.3f} ms, launches {serve[name]} (plain "
+              f"{plain_ms[name]:.1f} ms, bound {bound:.3f} ms by {by}, "
+              f"control at default {ctrl[name]:.2e})", flush=True)
+    return entries + train_entries
 
 
 def main() -> int:
@@ -556,7 +852,12 @@ def main() -> int:
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the serving path")
 
-    train_entries = train_phases(dev, params, cfg)
+    train_entries = train_phases(dev, Family(
+        name="psi", params=params, cfg=cfg, B=B_NLL, T=T_NLL, seed=4,
+        ref_cols=8, reference=core.psi_nll, dehat_scale=2.0,
+        replaces={"fwd": "audio_mps_tpu/ops/pallas_block.py:875",
+                  "bwd": "audio_mps_tpu/ops/pallas_block.py:935",
+                  "cot": "audio_mps_tpu/ops/pallas_block.py:1035"}))
 
     phase("timings (CUDA events, median of 5 after 1 warm-up)")
     n = 2 * D
@@ -612,9 +913,13 @@ def main() -> int:
         print(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.1f} "
               f"ms, bound {k['bound_ms']:.3f} ms by {k['bound_by']})",
               flush=True)
+    del s_in, n_in, noise, signals, wave
+    _free()
+    rho_entries = rho_phases(dev)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)
-    print(json.dumps({"kernels": kernels + train_entries}), flush=True)
+    print(json.dumps({"kernels": kernels + train_entries + rho_entries}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

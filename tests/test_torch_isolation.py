@@ -18,14 +18,15 @@ import numpy as np
 import pytest
 import torch
 
-from audio_mps_tpu_torch import CMPSConfig, PsiCMPS, RunConfig, init_psi
-from audio_mps_tpu_torch.ops import block, scan
+from audio_mps_tpu_torch import (CMPSConfig, PsiCMPS, RhoCMPS, RunConfig,
+                                 init_psi, init_rho)
+from audio_mps_tpu_torch.ops import block, grad, scan
 from audio_mps_tpu_torch.sample import SampleConfig, sample
 from audio_mps_tpu_torch.train import main as train_main
 from audio_mps_tpu_torch.train import train
 from audio_mps_tpu_torch.training import make_train_step
 from audio_mps_tpu_torch.weights import (load_params, psi_params_from_numpy,
-                                         save_params)
+                                         rho_params_from_numpy, save_params)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "audio_mps_tpu_torch"
@@ -81,9 +82,19 @@ def _np_weights(D=8):
                  psi_y=(D,)).items()}
 
 
+def _np_rho_weights(D=8, rank=3):
+    rng = np.random.default_rng(0)
+    return {k: rng.standard_normal(s).astype(np.float32) for k, s in
+            dict(A=(), Rx=(D, D), Ry=(D, D), freqs=(D,), Wx=(rank, D),
+                 Wy=(rank, D)).items()}
+
+
 @pytest.mark.parametrize("entry", ["PsiCMPS", "init_psi", "from_numpy",
                                    "load_params", "sample_cli", "train",
-                                   "train_cli", "make_train_step"])
+                                   "train_cli", "make_train_step",
+                                   "RhoCMPS", "init_rho", "rho_from_numpy",
+                                   "rho_sample_cli", "rho_train_cli",
+                                   "rho_make_train_step"])
 def test_default_device_entry_points_raise_without_a_card(entry, tmp_path,
                                                           monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -102,6 +113,18 @@ def test_default_device_entry_points_raise_without_a_card(entry, tmp_path,
         "make_train_step": lambda: make_train_step(
             "psi_mps", CMPSConfig(),
             psi_params_from_numpy(_np_weights(), "cpu")),
+        "RhoCMPS": lambda: RhoCMPS(CMPSConfig()),
+        "init_rho": lambda: init_rho(torch.Generator(), CMPSConfig()),
+        "rho_from_numpy": lambda: rho_params_from_numpy(_np_rho_weights()),
+        "rho_sample_cli": lambda: sample(SampleConfig(
+            modeldir=str(tmp_path), mps_model="rho_mps", fused=True,
+            out="")),
+        "rho_train_cli": lambda: train_main([f"--logdir={tmp_path}",
+                                             "--mps_model=rho_mps",
+                                             "--max_steps=1"]),
+        "rho_make_train_step": lambda: make_train_step(
+            "rho_mps", CMPSConfig(),
+            rho_params_from_numpy(_np_rho_weights(), "cpu")),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
@@ -117,7 +140,20 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     n2s = torch.ones(5, 2)
     cot = dict(dy=ys, ys=ys, t0=n_in["t0"], se=n_in["se"], n2s=n2s,
                dehat=n2s, norm_eps=n_in["norm_eps"])
+    r = rho_params_from_numpy(_np_rho_weights(), "cpu")
+    rs_in = block.rho_sample_inputs(r, cfg, torch.zeros(5, 2))
+    rn_in = block.rho_nll_inputs(r, cfg, torch.zeros(2, 6))
+    rys = torch.zeros(5, 16, 6)
+    trs = torch.ones(5, 2)
+    rcot = dict(dy=rys, ys=rys, t0=rn_in["t0"], se=rn_in["se"], trs=trs,
+                dehat=trs, norm_eps=rn_in["norm_eps"])
     calls = [
+        (block.rho_sample_block, lambda d: block.rho_sample_block(**d(rs_in))),
+        (block.rho_nll_block, lambda d: block.rho_nll_block(**d(rn_in))),
+        (block.rho_train_fwd, lambda d: block.rho_train_fwd(**d(rn_in))),
+        (block.rho_train_bwd, lambda d: block.rho_train_bwd(
+            **d(dict(rn_in, g=g, ys=rys, trs=trs)))),
+        (block.rho_cotangents, lambda d: block.rho_cotangents(**d(rcot))),
         (block.psi_sample_block, lambda d: block.psi_sample_block(**d(s_in))),
         (block.psi_nll_block, lambda d: block.psi_nll_block(**d(n_in))),
         (block.psi_train_fwd, lambda d: block.psi_train_fwd(**d(n_in))),
@@ -182,3 +218,35 @@ def test_cuda_path_raises_for_unported_shapes(kind, D):
             scan.psi_nll_fused(p, cfg, torch.zeros(2, 17, device=dev))
     assert (block.psi_sample_block.launches,
             block.psi_nll_block.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, D, rank", [
+    ("sample", 12, 3), ("nll", 6, 3), ("train", 6, 3), ("nll", 72, 3),
+    ("train", 8, 65), ("train_stream_off", 8, 3)])
+def test_cuda_rho_path_raises_for_unported_shapes(kind, D, rank):
+    """On a CUDA tensor the rho entry points raise NotImplementedError,
+    launching nothing: the split layout (sampler D % 8 != 0, NLL and
+    training D % 4 != 0: table rows 13, 11, 9), a D or rank past the
+    kernels' layout (D > 64, rank > 64), and training without the state
+    stream (the recompute adjoints, row 4d)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA path has no CPU mode")
+    dev = torch.device("cuda")
+    cfg = CMPSConfig(bond_dim=D, initial_rank=rank,
+                     kernel_stream="off" if kind == "train_stream_off"
+                     else "auto")
+    p = init_rho(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    wrappers = (block.rho_sample_block, block.rho_nll_block,
+                block.rho_train_fwd, block.rho_train_bwd,
+                block.rho_cotangents)
+    before = [w.launches for w in wrappers]
+    with pytest.raises(NotImplementedError):
+        if kind == "sample":
+            scan.rho_sample_fused(p, cfg, torch.zeros(16, 2, device=dev))
+        elif kind == "nll":
+            scan.rho_nll_fused(p, cfg, torch.zeros(2, 17, device=dev))
+        else:
+            grad.rho_nll_fused_trainable(p, cfg,
+                                         torch.zeros(2, 17, device=dev))
+    assert [w.launches for w in wrappers] == before

@@ -105,7 +105,7 @@ def test_sample_cli_random_init_warns(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("kw, exc", [
-    (dict(mps_model="rho_mps"), NotImplementedError),
+    (dict(mps_model="rho_mps", mesh="dp:2"), NotImplementedError),
     (dict(mps_model="latent"), NotImplementedError),
     (dict(mesh="dp:2"), NotImplementedError),
     (dict(mps_model="bogus"), ValueError),

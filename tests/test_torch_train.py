@@ -328,8 +328,8 @@ def test_regularized_loss_matches_jax():
 
 def test_dispatch_and_unported_paths_on_cpu():
     """nll_fn_for: fused=None runs the eager core on a CPU tensor, fused=True
-    the kernel path's plain versions; rho_mps and latent raise
-    NotImplementedError; the split layout (D % 4 != 0) runs the eager core
+    the kernel path's plain versions; latent raises NotImplementedError
+    (rho_mps is ported: tests/test_torch_rho_train.py); the split layout (D % 4 != 0) runs the eager core
     on the CPU; the file datasets raise NotImplementedError."""
     hp, _ = configs()
     tp = psi_params_from_numpy(np_params(8), "cpu")
@@ -338,9 +338,9 @@ def test_dispatch_and_unported_paths_on_cpu():
     kern = training.nll_fn_for("psi_mps", fused=True)(tp, hp, sig)
     assert eager.item() == core.psi_nll(tp, hp, sig).item()
     np.testing.assert_allclose(kern.item(), eager.item(), rtol=VALUE_RTOL)
-    for model in ("rho_mps", "latent"):
-        with pytest.raises(NotImplementedError):
-            training.nll_fn_for(model)
+    with pytest.raises(NotImplementedError):
+        training.nll_fn_for("latent")
+    assert callable(training.nll_fn_for("rho_mps"))
     with pytest.raises(ValueError):
         training.nll_fn_for("mps")
     hp6 = dataclasses.replace(hp, bond_dim=6)
