@@ -1,6 +1,7 @@
 // Shared pieces of the rho kernels (rho_sample.cu, rho_nll.cu,
-// rho_train_fwd.cu, rho_train_bwd.cu): the thread layout over one example's
-// factor segment and the [2D,2D] x [2D,R] product on it.
+// rho_train_fwd.cu, rho_train_bwd.cu, and through rank_partials.cuh the
+// rank-partials kernels): the thread layout over one example's factor
+// segment and the [2D,2D] x [2D,R] product on it.
 //
 // Layout. A rho example (or sampler chain) is a segment of R = rank state
 // columns, [2D, R]; its trace and expectation are sums over the whole

@@ -24,8 +24,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("psi_sample.cu", "psi_nll.cu", "psi_train_fwd.cu",
            "psi_train_bwd.cu", "psi_cotangents.cu", "rho_sample.cu",
-           "rho_nll.cu", "rho_train_fwd.cu", "rho_train_bwd.cu")
-HEADERS = ("common.cuh", "psi_fwd.cuh", "rho_tile.cuh", "rho_fwd.cuh")
+           "rho_nll.cu", "rho_train_fwd.cu", "rho_train_bwd.cu",
+           "rank_partials_fwd.cu", "rank_partials_bwd.cu")
+HEADERS = ("common.cuh", "psi_fwd.cuh", "rho_tile.cuh", "rho_fwd.cuh",
+           "rank_partials.cuh")
 ROOT = Path(__file__).resolve().parents[2]
 LIB_NAME = "libamt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -64,6 +66,12 @@ _SIGNATURES = {
     # ab, bb, xb, t0, se, g, ys, trs, dse, dt0, dys, dehats, dtrns, D,
     # n_steps, B, R, unroll, log_eps, norm_eps, precision, defer_norm, stream
     "amt_rho_train_bwd": ([_P] * 13 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    # abt, bbt, xbt, t0, se, eh, tr, tfin, ys, D, n_steps, B, S, rc,
+    # unroll, norm_eps, precision, stream
+    "amt_rank_partials_fwd": ([_P] * 9 + [_I] * 6 + [_F, _I, _P], _I),
+    # xbt, xb, ab, bb, t0, se, ys, tr, deh, dtr, dtfin, dse, dt0, dys, D,
+    # n_steps, B, S, rc, unroll, norm_eps, precision, stream
+    "amt_rank_partials_bwd": ([_P] * 14 + [_I] * 6 + [_F, _I, _P], _I),
     "amt_psi_sample_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_nll_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_train_fwd_smem_bytes": ([_I], ctypes.c_size_t),
@@ -73,6 +81,7 @@ _SIGNATURES = {
     "amt_rho_nll_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_rho_train_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_rho_train_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "amt_rank_partials_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -879,16 +879,29 @@ def rho_sample_block_plain(ab, bb, xb, pc, ps, t0, noise, inv_a, *,
     return out
 
 
-def _check_rho_shape(name, D: int, rank: int):
+def rho_block_fits(D: int, rank: int) -> bool:
     """The rho kernels' thread layout: a CTA of (D/4) x ceil(rank/4)
-    threads, each owning 8 rows x 4 columns of the [2D, rank] segment."""
-    if D % 4 or D > 64 or not 1 <= rank <= 64:
+    threads, each owning 8 rows x 4 columns of the [2D, rank] segment, at
+    D % 4 == 0, D <= 64 and 1 <= rank <= 64."""
+    return D % 4 == 0 and D <= 64 and 1 <= rank <= 64
+
+
+def rho_train_smem_bytes(D: int, rank: int) -> int:
+    """Dynamic shared memory of the rho training forward's CTA, the largest
+    of the rho kernels (``csrc/rho_fwd.cuh``): Ab, Bb, Xb, the state tile
+    and 64 reduction floats, 4 bytes a word."""
+    n = 2 * D
+    return 4 * (3 * n * n + n * 4 * -(-rank // 4) + 64)
+
+
+def _check_rho_shape(name, D: int, rank: int):
+    if not rho_block_fits(D, rank):
         raise NotImplementedError(
             f"{name} at D={D}, rank={rank}: the rho kernels take D % 4 == 0, "
             f"D <= 64 and 1 <= rank <= 64 (one CTA holds an example's whole "
-            f"[2D, rank] segment beside its [2D,2D] constants); splitting a "
-            f"segment over a thread-block cluster is not ported yet (ROADMAP "
-            f"queue B)")
+            f"[2D, rank] segment beside its [2D,2D] constants); rho training "
+            f"past that runs rank-chunked (ops/rank.py); sampling and "
+            f"scoring there are not ported yet (ROADMAP queue B)")
 
 
 @torch.no_grad()

@@ -16,6 +16,7 @@ from typing import Optional
 from ..config import CMPSConfig
 from ..models import core
 from . import block
+from .rank import device_limits, rho_nll_rank_chunked, rho_train_chunk
 from .scan import DEFAULT_UNROLL, _nll_layout
 
 _SPLIT_TRAIN = ("audio_mps_tpu/ops/pallas_grad.py _psi_fused_nll_factory "
@@ -56,13 +57,25 @@ def rho_nll_fused_trainable(params, cfg: CMPSConfig, signals, *,
                             defer_norm: bool = False,
                             layout: Optional[str] = None):
     """Differentiable mean rho NLL of waveforms [B, T] on the signals'
-    device (stands for ``pallas_grad.rho_nll_pallas_trainable``; semantics
-    of ``core.rho_nll``): gradients reach every parameter through the
-    block constants, the initial factor and the increments."""
+    device (stands for ``pallas_grad.rho_nll_pallas_trainable`` and the
+    rank chunking of ``audio_mps_tpu/training.py:100-140``; semantics of
+    ``core.rho_nll``): gradients reach every parameter through the block
+    constants, the initial factor and the increments. In the block layout
+    the monolithic kernels (``block.rho_nll_block_trainable``) run while
+    one block holds the constants beside an example's segment; past that
+    (``rank.rho_train_chunk`` on the card's limits: D > 64 or rank > 64 on
+    an H100) the rank-chunked partials (``rank.rho_nll_rank_chunked``),
+    which renormalise at block exits whatever ``defer_norm`` says."""
     if _nll_layout(cfg, layout) == "block":
-        return block.rho_nll_block_trainable(
-            params, cfg, signals, unroll=unroll, precision=precision,
-            defer_norm=defer_norm)
+        B, rank = signals.shape[0], params.Wx.shape[0]
+        chunk = rho_train_chunk(cfg.bond_dim, B, rank,
+                                *device_limits(signals.device))
+        if chunk is None:
+            return block.rho_nll_block_trainable(
+                params, cfg, signals, unroll=unroll, precision=precision,
+                defer_norm=defer_norm)
+        return rho_nll_rank_chunked(params, cfg, signals, rank_chunk=chunk,
+                                    unroll=unroll, precision=precision)
     if precision == "high":
         raise ValueError(
             "kernel_precision='high' (bf16x3) is only implemented in the "

@@ -1,0 +1,569 @@
+"""Rank-chunked rho training past one block's shared memory (port of
+``audio_mps_tpu/ops/pallas_rank.py``, the single-device rank chunking).
+
+The rho block kernels (``ops/block.py``) keep Ab, Bb and Xb resident in one
+block's shared memory and an example's whole [2D, rank] factor segment in
+one CTA: 224 KB of 227 at D=64, rank 64, and no room beyond. This module
+keeps the rho family on hand-written kernels past that ceiling by changing
+the kernel boundary, as the JAX package does: the purification factor's
+rank rows evolve independently (``G <- G U(s)^dag``), so a kernel that owns
+a CHUNK of an example's rows evolves them exactly and emits, per step and
+chunk, the partial sums
+
+    ehat[t] = sum over the chunk's rows of Re<row| X |row>   (block-entry
+    tr[t]   = sum over the chunk's rows of ||row||^2          scale)
+
+renormalising the chunk's rows by its own trace at every ``unroll``-th
+step. The global NLL is rebuilt outside the kernel, in plain differentiable
+PyTorch, by ``combine_rank_partials`` in the log domain (gamma is each
+chunk's absolute log squared norm at its block entry):
+
+    e[t] = sum_g ehat_g[t] e^{gamma_g - m} / sum_g trp_g[t] e^{gamma_g - m}
+    loss = mean_B sum_t -log(max(1 + e[t] s[t], log_eps))
+
+so the per-chunk renormalisations cancel and the value and gradients are
+those of the one-kernel path up to the order of the sums.
+
+The kernels (``csrc/rank_partials_fwd.cu``, ``csrc/rank_partials_bwd.cu``
+and ``csrc/psi_cotangents.cu`` over the lanes) run every chunk of every
+example in one launch, one CTA a (example, chunk) segment, and stream the
+[2D,2D] constants from global memory (they stay in the 50 MB L2) in slabs,
+so D is bounded by the CTA's thread layout, not by shared memory. Each
+comes beside its plain PyTorch version; the wrappers run the plain version
+for a CPU tensor and the kernel, or raise, for a CUDA one.
+
+Layout: the state is [2D, B*rank] as in ``ops/block.py``, example b in
+columns b*rank .. (b+1)*rank - 1, its chunk g in the rc columns from
+b*rank + g*rc. Segment j = b*G + g (G = rank / rc chunks an example) owns
+columns j*rc .. (j+1)*rc - 1; the per-step partials are [n_steps, B*G].
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..config import CMPSConfig
+from ..models.cell import make_constants
+from . import _build, block
+from .block import (PRECISIONS, _as_kernel_input, _check_inputs,
+                    _check_options, _check_smem, _cuda_or_raise, _lanes,
+                    _make_dot_ops, _make_dot_ops_bwd, _ptr, _segment_sum,
+                    _stream_ptr)
+
+# The H100 SXM: the per-block shared-memory opt-in limit and the SM count;
+# the chunk rule reads the card's own on a CUDA tensor, these on the CPU.
+H100_SMEM_PER_BLOCK = 232448
+H100_SMS = 132
+# The partials kernels' CTA: 256 threads, each an 8 x 4 tile of the
+# [2D, rc] segment (rho_tile.cuh), so D/4 x ceil(rc/4) <= 256; and a
+# constant slab of 4096 words staged in shared memory, double-buffered.
+PARTIALS_THREADS = 256
+SLAB_WORDS = 4096
+
+_STREAM_OFF = ("audio_mps_tpu/ops/pallas_rank.py "
+               "_make_rank_partials_bwd_kernel (:152, the recompute adjoint "
+               "that needs no state stream; ROADMAP queue B, kernel table "
+               "row 7c)")
+
+
+# ===========================================================================
+# The dispatch rule: one kernel while the constants fit, rank chunks beyond
+# ===========================================================================
+
+def partials_fits(D: int, rc: int) -> bool:
+    """Does the partials kernels' thread layout take a [2D, rc] segment?"""
+    return D % 4 == 0 and rc >= 1 and \
+        (D // 4) * -(-rc // 4) <= PARTIALS_THREADS
+
+
+def partials_smem_bytes(D: int, rc: int) -> int:
+    """Dynamic shared memory of the largest partials CTA (the adjoint
+    chain): the prepped state tile [2D, 4 ceil(rc/4)], two matrices' slabs
+    double-buffered and 64 reduction floats, 4 bytes a word."""
+    return 4 * (2 * D * 4 * -(-rc // 4) + 4 * SLAB_WORDS + 64)
+
+
+def rank_chunk_for(D: int, B: int, rank: int,
+                   smem_limit: int = H100_SMEM_PER_BLOCK,
+                   n_sms: int = H100_SMS) -> Optional[int]:
+    """The chunk of the rank rows one partials CTA owns: a divisor rc of
+    ``rank`` whose segment fits the thread layout and ``smem_limit``, or
+    None when none does. Among those it takes the rc with the least work
+    an SM does, waves x active threads a CTA, ceil(B rank / rc / n_sms) x
+    D/4 ceil(rc/4); ties go to the larger rc, whose constant loads serve
+    more columns (D=256, rank 256, B=8 on 132 SMs: rc=16, 128 CTAs). No
+    precision enters: every precision packs a constant element into 4
+    bytes."""
+    best, best_cost = None, None
+    for rc in range(1, rank + 1):
+        if rank % rc or not partials_fits(D, rc) \
+                or partials_smem_bytes(D, rc) > smem_limit:
+            continue
+        ctas = B * (rank // rc)
+        cost = -(-ctas // n_sms) * (D // 4) * -(-rc // 4)
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = rc, cost
+    return best
+
+
+def rho_train_chunk(D: int, B: int, rank: int,
+                    smem_limit: int = H100_SMEM_PER_BLOCK,
+                    n_sms: int = H100_SMS) -> Optional[int]:
+    """The dispatch of rho training: None while the monolithic kernels
+    (``ops/block.py``, one CTA holding an example's segment beside the
+    resident constants) take (D, rank) within ``smem_limit``; else the rank
+    chunk of ``rank_chunk_for``. Raises when neither fits. (The port of the
+    decision at ``audio_mps_tpu/training.py:100-140``, not of its v5e
+    constants.)"""
+    if block.rho_block_fits(D, rank) and \
+            block.rho_train_smem_bytes(D, rank) <= smem_limit:
+        return None
+    rc = rank_chunk_for(D, B, rank, smem_limit, n_sms)
+    if rc is None:
+        raise NotImplementedError(
+            f"rho training at D={D}, rank={rank}: no rank chunk fits the "
+            f"partials kernels (D/4 x ceil(chunk/4) <= {PARTIALS_THREADS} "
+            f"threads, {smem_limit} bytes of shared memory)")
+    return rc
+
+
+def device_limits(device) -> tuple:
+    """(shared memory per block, SM count) of a CUDA device; the H100's
+    for any other device, so that the CPU takes the card's branch."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return H100_SMEM_PER_BLOCK, H100_SMS
+    props = torch.cuda.get_device_properties(device)
+    return props.shared_memory_per_block_optin, props.multi_processor_count
+
+
+# ===========================================================================
+# Kernels and their plain versions
+# ===========================================================================
+
+def _n_segments(name, t0, se, rc: int):
+    """(S, G): segments of rc columns and chunks an example."""
+    cols, B = t0.shape[1], se.shape[1]
+    if rc < 1 or B < 1 or cols % (B * rc):
+        raise ValueError(f"{name}: {cols} state columns are not {B} examples "
+                         f"of whole rank chunks of {rc}")
+    return cols // rc, cols // (B * rc)
+
+
+def _exit_scales(tr, *, rc, unroll, norm_eps):
+    """[n_steps, cols]: the factor taking y_k to t_{k+1}: rsqrt(max(tr,
+    eps)) of the segment at a block exit, 1 elsewhere."""
+    return block._state_scales(_lanes(tr, rc), norm_eps=norm_eps,
+                               unroll=unroll, defer_norm=True)
+
+
+@torch.no_grad()
+def rank_partials_fwd_plain(ab, bb, xb, t0, se, *, rc: int, unroll: int,
+                            norm_eps: float, precision: str = "highest"):
+    """(eh [L, S], tr [L, S], tfin [2D, cols], ys [L, 2D, cols]) of the
+    segments of rc columns of t0 over the per-example increments se [L, B]:
+    per step y = (Ab + s Bb) t (one s an example), ehat = sum(y .* Xb y) and
+    tr = sum(y .* y) per segment, t = y renormalised by its segment's trace
+    at every ``unroll``-th step (the math of ``pallas_rank.py:80-149``,
+    with ``stream``). Plain PyTorch, any device."""
+    prep, dotf = _make_dot_ops(precision)
+    n, cols = t0.shape
+    L, B = se.shape
+    S, _ = _n_segments("rank_partials_fwd", t0, se, rc)
+    rank = cols // B
+    xbp = prep(xb)
+    ys = t0.new_empty((L, n, cols))
+    eh = se.new_empty((L, S))
+    tr = se.new_empty((L, S))
+    t = t0
+    for k in range(L):
+        m = ab + se[k][:, None, None] * bb                  # [B, 2D, 2D]
+        tb = t.reshape(n, B, rank).transpose(0, 1)          # [B, 2D, rank]
+        y = dotf(prep(m), prep(tb)).transpose(0, 1).reshape(n, cols)
+        gx = dotf(xbp, prep(y))
+        eh[k] = _segment_sum(y * gx, rc)
+        tr[k] = _segment_sum(y * y, rc)
+        ys[k] = y
+        if (k + 1) % unroll == 0:
+            y = y * _lanes(torch.rsqrt(torch.clamp(tr[k], min=norm_eps)), rc)
+        t = y
+    return eh, tr, t, ys
+
+
+@torch.no_grad()
+def rank_partials_bwd_plain(ab, bb, xb, t0, se, ys, tr, deh, dtr, dtfin, *,
+                            rc: int, unroll: int, norm_eps: float,
+                            precision: str = "highest"):
+    """Adjoint of ``rank_partials_fwd`` for the cotangents deh, dtr
+    [L, S] and dtfin [2D, cols]: (dse [L, S], dt0 [2D, cols],
+    dy [L, 2D, cols]), the math of ``pallas_rank.py:259-369``. Step k in
+    reverse, dt the cotangent of t_{k+1} (dtfin after the last step):
+    q = deh (Xb + Xb^T) y; at a block exit dtr += -0.5 sum(dt .* y) inv^3
+    (tr > eps) and dt <- dt inv; dy = dt + (2 dtr y + q);
+    dse = sum((Bb^T dy) .* t_k) per segment; dt <- Ab^T dy + s Bb^T dy.
+    Plain PyTorch, any device."""
+    prep, dotf, _ = _make_dot_ops_bwd(precision)
+    L, B = se.shape
+    rank = t0.shape[1] // B
+    S, _ = _n_segments("rank_partials_bwd", t0, se, rc)
+    scales = _exit_scales(tr, rc=rc, unroll=unroll, norm_eps=norm_eps)
+    xsp = prep(xb + xb.T)
+    abT, bbT = prep(ab.T), prep(bb.T)
+    dt = dtfin
+    dy_all = torch.empty_like(ys)
+    dse = se.new_empty((L, S))
+    for k in reversed(range(L)):
+        y = ys[k]
+        q = _lanes(deh[k], rc) * dotf(xsp, prep(y))
+        dtr_k = dtr[k]
+        if (k + 1) % unroll == 0:
+            inv = torch.rsqrt(torch.clamp(tr[k], min=norm_eps))
+            dinv = _segment_sum(dt * y, rc)
+            dtr_k = dtr_k + torch.where(tr[k] > norm_eps,
+                                        -0.5 * dinv * inv * inv * inv,
+                                        torch.zeros_like(dinv))
+            dt = dt * _lanes(inv, rc)
+        dy = dt + (y * _lanes(2.0 * dtr_k, rc) + q)
+        dy_all[k] = dy
+        pdy = prep(dy)
+        du = dotf(bbT, pdy)                             # Bb^T dy
+        tk = block._rho_input_state(k, t0, ys, scales)
+        dse[k] = _segment_sum(du * tk, rc)
+        dt = dotf(abT, pdy) + _lanes(se[k], rank) * du
+    return dse, dt, dy_all
+
+
+@torch.no_grad()
+def rank_cotangents_plain(dy, ys, t0, se, tr, deh, *, rc: int, unroll: int,
+                          norm_eps: float, precision: str = "highest"):
+    """(dAb, dBb, dXb) [2D, 2D]: sums over steps and columns of dy t^T,
+    dy (s t)^T and deh y y^T (``pallas_rank.py:356-358``). They are the rho
+    cotangents with each segment standing in for an example:
+    ``block.rho_cotangents_plain`` over the segments, fed s repeated over
+    an example's chunks. Plain PyTorch, any device."""
+    _, G = _n_segments("rank_cotangents", t0, se, rc)
+    return block.rho_cotangents_plain(
+        dy, ys, t0, _lanes(se, G), tr, deh, norm_eps=norm_eps,
+        unroll=unroll, precision=precision, defer_norm=True)
+
+
+def _partials_checks(name, ab, bb, xb, t0, se, rc, precision, unroll):
+    _check_options(precision, unroll)
+    L, B = se.shape
+    n, cols = t0.shape
+    D = n // 2
+    S, _ = _n_segments(name, t0, se, rc)
+    if not partials_fits(D, rc):
+        raise NotImplementedError(
+            f"{name} at D={D}, rank chunk {rc}: the partials kernels take "
+            f"D % 4 == 0 and D/4 x ceil(chunk/4) <= {PARTIALS_THREADS} "
+            f"threads; take a smaller chunk (rank_chunk_for)")
+    _check_inputs(name, se.device, dict(
+        ab=(ab, (n, n)), bb=(bb, (n, n)), xb=(xb, (n, n)),
+        t0=(t0, (n, cols)), se=(se, (L, B))))
+    lib = _build.library()
+    _check_smem(name, lib.amt_rank_partials_smem_bytes(D, rc), se.device, D)
+    return lib, L, B, D, S
+
+
+@torch.no_grad()
+def rank_partials_fwd(ab, bb, xb, t0, se, *, rc: int, unroll: int,
+                      norm_eps: float, precision: str = "highest"):
+    """(eh, tr, tfin, ys): ``rank_partials_fwd_plain`` for CPU tensors, the
+    CUDA kernel ``csrc/rank_partials_fwd.cu`` for CUDA tensors."""
+    kw = dict(rc=rc, unroll=unroll, norm_eps=norm_eps, precision=precision)
+    if _cuda_or_raise("rank_partials_fwd", se):
+        return rank_partials_fwd_plain(ab, bb, xb, t0, se, **kw)
+    lib, L, B, D, S = _partials_checks("rank_partials_fwd", ab, bb, xb, t0,
+                                       se, rc, precision, unroll)
+    eh = se.new_empty((L, S))
+    tr = se.new_empty((L, S))
+    tfin = torch.empty_like(t0)
+    ys = se.new_empty((L,) + tuple(t0.shape))
+    # the kernel reads each constant "j-major" (row j: the coefficients of
+    # v[j]): the transposes
+    abt, bbt, xbt = (m.t().contiguous() for m in (ab, bb, xb))
+    err = lib.amt_rank_partials_fwd(
+        _ptr(abt), _ptr(bbt), _ptr(xbt), _ptr(t0), _ptr(se), _ptr(eh),
+        _ptr(tr), _ptr(tfin), _ptr(ys), D, L, B, S, rc, unroll, norm_eps,
+        PRECISIONS.index(precision), _stream_ptr(se.device))
+    _build.check(lib, err, "rank_partials_fwd")
+    rank_partials_fwd.launches += 1
+    return eh, tr, tfin, ys
+
+
+rank_partials_fwd.launches = 0
+
+
+@torch.no_grad()
+def rank_partials_bwd(ab, bb, xb, t0, se, ys, tr, deh, dtr, dtfin, *,
+                      rc: int, unroll: int, norm_eps: float,
+                      precision: str = "highest"):
+    """(dse, dt0, dy): ``rank_partials_bwd_plain`` for CPU tensors, the
+    CUDA kernels of ``csrc/rank_partials_bwd.cu`` (the chain-free tail over
+    all steps at once, then the serial chain) for CUDA tensors."""
+    kw = dict(rc=rc, unroll=unroll, norm_eps=norm_eps, precision=precision)
+    if _cuda_or_raise("rank_partials_bwd", se):
+        return rank_partials_bwd_plain(ab, bb, xb, t0, se, ys, tr, deh, dtr,
+                                       dtfin, **kw)
+    lib, L, B, D, S = _partials_checks("rank_partials_bwd", ab, bb, xb, t0,
+                                       se, rc, precision, unroll)
+    n, cols = t0.shape
+    _check_inputs("rank_partials_bwd", se.device, dict(
+        ys=(ys, (L, n, cols)), tr=(tr, (L, S)), deh=(deh, (L, S)),
+        dtr=(dtr, (L, S)), dtfin=(dtfin, (n, cols))))
+    dse = se.new_empty((L, S))
+    dt0 = torch.empty_like(t0)
+    dy = torch.empty_like(ys)
+    # j-major of Xb and of Xb^T for the tail, of Ab^T and Bb^T (the
+    # matrices themselves) for the chain
+    xbt = xb.t().contiguous()
+    err = lib.amt_rank_partials_bwd(
+        _ptr(xbt), _ptr(xb), _ptr(ab), _ptr(bb), _ptr(t0), _ptr(se),
+        _ptr(ys), _ptr(tr), _ptr(deh), _ptr(dtr), _ptr(dtfin), _ptr(dse),
+        _ptr(dt0), _ptr(dy), D, L, B, S, rc, unroll, norm_eps,
+        PRECISIONS.index(precision), _stream_ptr(se.device))
+    _build.check(lib, err, "rank_partials_bwd")
+    rank_partials_bwd.launches += 1
+    return dse, dt0, dy
+
+
+rank_partials_bwd.launches = 0
+
+
+@torch.no_grad()
+def rank_cotangents(dy, ys, t0, se, tr, deh, *, rc: int, unroll: int,
+                    norm_eps: float, precision: str = "highest"):
+    """(dAb, dBb, dXb): ``rank_cotangents_plain`` for CPU tensors; for CUDA
+    tensors the kernel ``csrc/psi_cotangents.cu`` over the lanes, fed s of
+    each lane's example, the trace of its segment and deh / 2 (its dRb =
+    sum (2 deh / 2) y y^T is dXb; its state rebuild is the partials
+    forward's). The launch counts here only."""
+    kw = dict(rc=rc, unroll=unroll, norm_eps=norm_eps, precision=precision)
+    if _cuda_or_raise("rank_cotangents", se):
+        return rank_cotangents_plain(dy, ys, t0, se, tr, deh, **kw)
+    _n_segments("rank_cotangents", t0, se, rc)
+    rank = t0.shape[1] // se.shape[1]
+    return block._cotangents_kernel(
+        rank_cotangents, dy, ys, t0, _lanes(se, rank).contiguous(),
+        _lanes(tr, rc).contiguous(), _lanes(0.5 * deh, rc).contiguous(),
+        norm_eps=norm_eps, unroll=unroll, precision=precision,
+        defer_norm=True)
+
+
+rank_cotangents.launches = 0
+
+
+class RankPartials(torch.autograd.Function):
+    """(eh [L, S], tr [L, S], tfin [2D, cols]) of the segments with a
+    kernel adjoint: the counterpart of ``_rank_partials_factory``'s custom
+    VJP (``pallas_rank.py:372-530``). ``forward(ab, bb, xb, t0, se, opts)``
+    for per-example increments se [L, B]; ``backward(deh, dtr, dtfin)``
+    returns (dAb, dBb, dXb, dt0, dse), dse per example (the kernel's per
+    segment dse summed over an example's chunks). ``opts`` holds rc,
+    unroll, norm_eps and precision."""
+
+    @staticmethod
+    def forward(ctx, ab, bb, xb, t0, se, opts):
+        ins = [_as_kernel_input(x) for x in (ab, bb, xb, t0, se)]
+        eh, tr, tfin, ys = rank_partials_fwd(*ins, **opts)
+        ctx.save_for_backward(*ins, ys, tr)
+        ctx.opts = opts
+        return eh, tr, tfin
+
+    @staticmethod
+    def backward(ctx, deh, dtr, dtfin):
+        ab, bb, xb, t0, se, ys, tr = ctx.saved_tensors
+        opts = ctx.opts
+        deh, dtr, dtfin = (_as_kernel_input(x) for x in (deh, dtr, dtfin))
+        dse, dt0, dy = rank_partials_bwd(ab, bb, xb, t0, se, ys, tr, deh,
+                                         dtr, dtfin, **opts)
+        dab, dbb, dxb = rank_cotangents(dy, ys, t0, se, tr, deh, **opts)
+        L, B = se.shape
+        return dab, dbb, dxb, dt0, dse.reshape(L, B, -1).sum(-1), None
+
+
+# ===========================================================================
+# The host side: initial chunks, time segments, the combination
+# ===========================================================================
+
+def segment_steps(D: int, cols: int, n_steps: int, unroll: int, device,
+                  time_segment: Optional[int] = None) -> Optional[int]:
+    """Steps per kernel call, a whole number of unroll blocks, or None for
+    one call over the whole run. ``time_segment`` is rounded up to whole
+    blocks; left None, a CUDA device takes as many steps as half its free
+    memory (the card's, and what the caching allocator holds unused)
+    holds of one segment's two streams (``ys`` from the forward,
+    ``dy`` from the adjoint), at least one block, and any other device the
+    whole run. (The port's own policy in place of
+    ``pallas_rank.auto_time_segment``.)"""
+    if time_segment is None:
+        device = torch.device(device)
+        if device.type != "cuda":
+            return None
+        # free on the card, and what PyTorch's allocator holds unused
+        free = (torch.cuda.mem_get_info(device)[0]
+                + torch.cuda.memory_reserved(device)
+                - torch.cuda.memory_allocated(device))
+        per_step = block.stream_bytes(D, cols, 2)
+        time_segment = max(unroll, (free // 2 // per_step) // unroll * unroll)
+    steps = -(-time_segment // unroll) * unroll
+    return None if steps >= n_steps else steps
+
+
+def _chunk_t0(params, cfg: CMPSConfig, cc, B: int, rc: int):
+    """(t0 [2D, B*rank], c0 [G]): each chunk's rows normalised by their
+    own trace, tiled over the examples, in the kernel frame, and the log of
+    that trace (``pallas_rank.py:813-828`` for every chunk at once)."""
+    wr, wi = params.Wx, params.Wy
+    rank, D = wr.shape
+    tr0 = (wr * wr + wi * wi).reshape(rank // rc, rc * D).sum(-1)
+    scale = torch.rsqrt(torch.clamp(tr0, min=cfg.norm_eps)) \
+        .repeat_interleave(rc)[:, None]
+    h0r = (wr * scale).T.repeat(1, B)
+    h0i = (wi * scale).T.repeat(1, B)
+    return (block._rho_block_t0(cc, h0r, h0i),
+            torch.log(torch.clamp(tr0, min=cfg.norm_eps)))
+
+
+def partials_inputs(params, cfg: CMPSConfig, signals, rank_chunk: int):
+    """Kernel inputs of ``rank_partials_fwd`` from parameters and waveforms
+    [B, T] (ab, bb, xb, t0, se, rc, norm_eps), as
+    ``rho_nll_rank_partials`` builds them, detached, and the chunks' log
+    scales c0 [G] that ``chunk_partials`` takes."""
+    with torch.no_grad():
+        cc = make_constants(params, cfg)
+        ab, bb, xb = block._rho_block_constants(cc)
+        t0, c0 = _chunk_t0(params, cfg, cc, signals.shape[0], rank_chunk)
+        se = (signals[:, 1:] - signals[:, :-1]).T / cc.A
+        return dict(ab=_as_kernel_input(ab), bb=_as_kernel_input(bb),
+                    xb=_as_kernel_input(xb), t0=_as_kernel_input(t0),
+                    se=_as_kernel_input(se), rc=rank_chunk,
+                    norm_eps=float(cfg.norm_eps)), c0
+
+
+def rho_nll_rank_partials(params, cfg: CMPSConfig, signals, *,
+                          rank_chunk: Optional[int] = None, unroll: int = 16,
+                          precision: str = "highest",
+                          time_segment: Optional[int] = None):
+    """Run the partials kernels on every chunk of ``rank_chunk`` rows of
+    params' W (the whole rank when None) over waveforms [B, T]. Returns
+    (ehat, trp, gamma) [G, T-1, B], one row of each a chunk, and
+    seb [T-1, B] (``pallas_rank.rho_nll_rank_partials``, :740):
+      ehat  per-step expectation partials (block-entry scale);
+      trp   the previous step's trace partial (1 at block entries);
+      gamma the absolute log squared norm of the chunk's rows at each
+            step's block entry (log tr0 + the block exits' log traces);
+      seb   the per-example increments / A.
+    The steps run in segments of ``segment_steps`` steps chained through
+    the final state; each segment's forward runs under
+    ``torch.utils.checkpoint``, so the backward holds one segment's streams
+    at a time and recomputes its forward. On a CUDA tensor
+    ``kernel_stream="off"`` raises: the recompute adjoint is not ported."""
+    if not block.supports_block(cfg):
+        raise ValueError(
+            f"rank-partials kernels use the block layout (bond_dim % 4 == "
+            f"0), got bond_dim={cfg.bond_dim}")
+    _check_options(precision, unroll)
+    B, T = signals.shape
+    rank, D = params.Wx.shape
+    rc = rank if rank_chunk is None else rank_chunk
+    if rc < 1 or rank % rc:
+        raise ValueError(f"rank {rank} must be divisible by rank_chunk {rc}")
+    if signals.device.type == "cuda" and cfg.kernel_stream == "off":
+        raise NotImplementedError(
+            f"rank-chunked rho training with kernel_stream='off' needs "
+            f"{_STREAM_OFF}, which is not ported to CUDA yet")
+    G, n_steps = rank // rc, T - 1
+    cc = make_constants(params, cfg)
+    se = (signals[:, 1:] - signals[:, :-1]).T / cc.A      # [T-1, B]
+    ab, bb, xb = block._rho_block_constants(cc)
+    t0, c0 = _chunk_t0(params, cfg, cc, B, rc)
+    opts = dict(rc=rc, unroll=unroll, norm_eps=float(cfg.norm_eps),
+                precision=precision)
+    steps = segment_steps(D, B * rank, n_steps, unroll, signals.device,
+                          time_segment)
+    if steps is None:
+        eh, tr, _ = RankPartials.apply(ab, bb, xb, t0, se, opts)
+    else:
+        t, ehs, trs = t0, [], []
+        for k0 in range(0, n_steps, steps):
+            e_s, r_s, t = checkpoint(RankPartials.apply, ab, bb, xb, t,
+                                     se[k0:k0 + steps], opts,
+                                     use_reentrant=False)
+            ehs.append(e_s)
+            trs.append(r_s)
+        eh, tr = torch.cat(ehs), torch.cat(trs)
+
+    return chunk_partials(eh, tr, c0, B, unroll=unroll,
+                          norm_eps=cfg.norm_eps) + (se,)
+
+
+def chunk_partials(eh, tr, c0, B: int, *, unroll: int, norm_eps: float):
+    """(ehat, trp, gamma) [G, n_steps, B] from the kernel's per-segment
+    rows eh, tr [n_steps, B*G] and the chunks' log scales c0 [G]
+    (``pallas_rank.py:866-878``): trp is the previous step's trace (1 at a
+    block entry), gamma c0 plus the log traces of the earlier block exits."""
+    n_steps, G = eh.shape[0], c0.shape[0]
+
+    def by_chunk(x):                                    # [G, n_steps, B]
+        return x.reshape(n_steps, B, G).permute(2, 0, 1)
+
+    eh, tr = by_chunk(eh), by_chunk(tr)
+    K = unroll
+    nb = -(-n_steps // K)
+    t_pad = nb * K
+    tr4 = torch.cat([tr, tr.new_ones((G, t_pad - n_steps, B))],
+                    dim=1).reshape(G, nb, K, B)
+    trp = torch.cat([tr4.new_ones((G, nb, 1, B)), tr4[:, :, :K - 1]], dim=2)
+    blk = torch.log(torch.clamp(tr4[:, :, K - 1], min=norm_eps))
+    offs = torch.cat([blk.new_zeros((G, 1, B)),
+                      torch.cumsum(blk, dim=1)[:, :-1]], dim=1)
+    gam = (c0[:, None, None, None] + offs[:, :, None, :]).expand(G, nb, K, B)
+    return (eh, trp.reshape(G, t_pad, B)[:, :n_steps],
+            gam.reshape(G, t_pad, B)[:, :n_steps])
+
+
+def combine_rank_partials(eh, trp, gam, seb, cfg: CMPSConfig):
+    """Global mean NLL from stacked chunk partials eh/trp/gam [G, T-1, B]
+    and seb [T-1, B] (``pallas_rank.combine_rank_partials``, :881): each
+    chunk rescaled to the per-step shift m = max_g gamma, summed, and
+    e = num / den is the globally normalised expectation."""
+    m = torch.max(gam, dim=0).values
+    w = torch.exp(gam - m[None])
+    num = torch.sum(eh * w, dim=0)
+    den = torch.sum(trp * w, dim=0)
+    e = num / torch.clamp(den, min=cfg.norm_eps)
+    arg = 1.0 + e * seb
+    if cfg.log_eps > 0:
+        arg = torch.clamp(arg, min=cfg.log_eps)
+    return torch.mean(torch.sum(-torch.log(arg), dim=0))
+
+
+def rho_nll_rank_chunked(params, cfg: CMPSConfig, signals, *,
+                         rank_chunk: Optional[int] = None, unroll: int = 16,
+                         precision: str = "highest",
+                         time_segment: Optional[int] = None):
+    """Differentiable mean rho NLL past the monolithic kernels' ceiling:
+    the rank rows in chunks of ``rank_chunk`` (``rank_chunk_for`` the
+    signals' device when None), every chunk through the partials kernels,
+    combined outside (``pallas_rank.rho_nll_rank_chunked``, :899). The
+    partials renormalise at block exits whatever ``cfg.defer_norm`` says,
+    as in the JAX package."""
+    rank = params.Wx.shape[0]
+    B = signals.shape[0]
+    if rank_chunk is None:
+        rank_chunk = rank_chunk_for(cfg.bond_dim, B, rank,
+                                    *device_limits(signals.device))
+        if rank_chunk is None:
+            raise NotImplementedError(
+                f"no rank chunk fits the partials kernels at "
+                f"bond_dim={cfg.bond_dim}, rank={rank}")
+    parts = rho_nll_rank_partials(params, cfg, signals,
+                                  rank_chunk=rank_chunk, unroll=unroll,
+                                  precision=precision,
+                                  time_segment=time_segment)
+    return combine_rank_partials(*parts, cfg)
+

@@ -22,8 +22,15 @@ damped-sine batches from one seeded with ``--seed`` + 1, the summaries'
 samples from one seeded with ``--seed`` + 2, all on ``--device``. The
 summaries' samples go through the family's sampler kernel on a card (at
 D % 8 == 0, its layout) and through the eager ``core.sample_psi`` /
-``core.sample_rho``, as in the JAX CLI, elsewhere. ``--mesh`` and
+``core.sample_rho``, as in the JAX CLI, elsewhere. rho past D=64 or
+rank 64 trains rank-chunked, but its sampler kernel is not ported there:
+on a card the run then raises before its first step unless the summaries
+draw no samples (``--visualize=false``). ``--mesh`` and
 ``--profile_steps`` are not ported and raise.
+
+    python -m audio_mps_tpu_torch.train --mps_model=rho_mps \
+        --dataset=damped_sine --hparams="bond_dim=256,minibatch_size=8" \
+        --sample_duration=16385 --visualize=false --logdir=./logging
 """
 from __future__ import annotations
 
@@ -83,6 +90,20 @@ def train(run: RunConfig, cfg: CMPSConfig = None, verbose: bool = True,
     kernel = dev.type == "cuda" and block.supports_block_sampler(cfg)
     if run.mps_model == "rho_mps":
         sample_fn = scan.rho_sample_fused_keyed if kernel else core.sample_rho
+        rank = params.Wx.shape[0]
+        if (dev.type == "cuda" and run.visualize and run.num_samples > 0
+                and writer is not None
+                and not block.rho_block_fits(cfg.bond_dim, rank)):
+            # no rho sampler kernel takes this shape, and the summaries do
+            # not fall back to the eager loop on the card
+            writer.close()
+            raise NotImplementedError(
+                f"rho training at D={cfg.bond_dim}, rank={rank} trains "
+                f"rank-chunked, but the summaries' rho sampler kernel takes "
+                f"D <= 64 and rank <= 64 (the sampler past that is not "
+                f"ported yet, ROADMAP queue B); pass --visualize=false or "
+                f"--num_samples=0, or a bond_dim and initial_rank the "
+                f"sampler takes")
     else:
         sample_fn = scan.psi_sample_fused_keyed if kernel else core.sample_psi
 

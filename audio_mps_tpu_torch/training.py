@@ -53,10 +53,12 @@ def nll_fn_for(mps_model: str, fused: Optional[bool] = None):
     ``fused=None`` runs the kernels when the signals lie on a CUDA device
     and the eager loss (``core.psi_nll``, ``core.rho_nll_factor``) on the
     CPU; ``fused=True`` runs the kernel path (its plain versions on the
-    CPU); ``fused=False`` runs the eager loss anywhere. Past the kernels'
-    shared-memory ceiling (psi D > 68, rho D > 64 or rank > 64) the kernel
-    path raises ``NotImplementedError``; unlike the JAX package, nothing
-    falls back to the scan."""
+    CPU); ``fused=False`` runs the eager loss anywhere. Past the monolithic
+    rho kernels' shared-memory ceiling (D > 64 or rank > 64) rho training
+    runs rank-chunked through the partials kernels (``ops/rank.py``), as
+    the JAX package does past its VMEM ceiling; past psi's (D > 68) the
+    kernel path raises ``NotImplementedError``. Unlike the JAX package,
+    nothing falls back to the scan."""
     eager, kernel, _init = _family(mps_model)
 
     def nll(params, cfg: CMPSConfig, signals):

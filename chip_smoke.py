@@ -40,7 +40,17 @@ failure (the script then exits non-zero):
    ``fused=True``, then ``rho_nll_fused``), the training phases of 5 at
    B=8, T=16384 (the reference is autograd through the eager
    ``core.rho_nll_factor``), the device time by kernel of one rho train
-   step (``torch.profiler``), and the sampler's and NLL's timings.
+   step (``torch.profiler``), and the sampler's and NLL's timings;
+8. rank-chunked rho training past the monolithic kernels' shared memory
+   (``rank_phases``) at D=256, full rank, B=8, T=16385: the partials
+   forward, adjoint and reductions vs their plain versions on a T=2049
+   prefix (with controls at ``default``), the chunked path vs the
+   monolithic kernels at D=64, rank 64, T=16385 (loss and six gradients),
+   the train CLI (a refusal while it would sample, then 2 Adam steps with
+   ``--visualize=false``, a restore and one more; the partials kernels'
+   launch counts must move, the monolithic ones' must not), one step's
+   time and peak memory, and each kernel's CUDA-event time per time
+   segment and over the whole run beside its bound.
 
 It prints each phase's measurements, the card line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -143,6 +153,25 @@ RHO_T_SAMPLE_CHECK = 16384   # the sampler's prefix held at TOL["highest"]
 # TOL["highest"].
 RHO_TOL_SAMPLE_FULL = 1e-3
 
+# Rank-chunked rho training past the monolithic kernels' shared memory: the
+# repo's beyond-ceiling model (README "Large-D frontier", the d256_full case
+# of tools/rankstream_bench.py): D=256, full purification rank, B=8,
+# T=16385, the train CLI's defaults.
+RANK_D = 256
+RANK_B = 8
+RANK_T = 16385
+RANK_T_PREFIX = 2049   # the kernels vs their plain versions
+RANK_TRAIN_STEPS = 2   # the train CLI's first call; the second takes one more
+RANK_KERNELS = ("rank_partials_fwd", "rank_partials_bwd", "rank_cotangents")
+# chunked vs monolithic on the card, both branches at D=64, rank 64, B=8,
+# T=16385: the chunked path forced with chunks of 16 rows. The chunked loss
+# to 1e-5 relative of its value in float64 (the monolithic kernel's loss,
+# summed over the steps in one fp32 register, is ~1e-4 off it at this T);
+# each gradient to 1e-4 of the monolithic one's largest element (the same
+# fp32 arithmetic in another order).
+RANK_CHECK_CHUNK = 16
+TOL_CHUNKED = (1e-5, 1e-4)
+
 
 def check(cond, msg):
     if not cond:
@@ -241,15 +270,111 @@ def _train_kernel_names(family: str) -> dict:
             "cot": f"{family}_cotangents"}
 
 
+def train_cli_phase(dev, mps_model, cfg, T, steps, moving, exact,
+                    flags=()):
+    """The train CLI on damped-sine batches at ``cfg``'s width: ``steps``
+    Adam steps, then a second call that restores step ``steps`` and takes
+    one more. Checks the checkpoints, the restored Adam state, params.npz,
+    the family of the weights and that metrics and weights are finite; of
+    every training wrapper (both families' and the rank partials'), those
+    in ``moving`` must count each step once (``exact``) or at least once,
+    the others not at all. Returns the launch counts."""
+    from audio_mps_tpu_torch.models.params import PsiParams, RhoParams
+    from audio_mps_tpu_torch.ops import block, rank
+    from audio_mps_tpu_torch.train import parse_args, train
+
+    counted = {k: getattr(block, k) for f in ("psi", "rho")
+               for k in _train_kernel_names(f).values()}
+    counted.update((k, getattr(rank, k)) for k in RANK_KERNELS)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [f"--mps_model={mps_model}", "--dataset=damped_sine",
+                f"--sample_duration={T}",
+                f"--hparams=bond_dim={cfg.bond_dim},"
+                f"minibatch_size={cfg.minibatch_size}",
+                f"--logdir={tmp}", f"--device={dev.type}", *flags]
+        for w in counted.values():
+            w.launches = 0
+        run, device = parse_args(argv + [f"--max_steps={steps}"])
+        t0 = time.perf_counter()
+        _, m_first = train(run, device=device)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        ckdir = os.path.join(run.run_logdir(cfg), "checkpoints")
+        first_ckpts = sorted(os.listdir(ckdir))
+        run2, device = parse_args(argv + [f"--max_steps={steps + 1}"])
+        t0 = time.perf_counter()
+        p_last, m_last = train(run2, device=device)
+        torch.cuda.synchronize()
+        t_second = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in counted.items()}
+        state = torch.load(os.path.join(ckdir, f"ckpt_{steps + 1}.pt"),
+                           map_location="cpu", weights_only=True)
+        has_npz = os.path.exists(os.path.join(run.run_logdir(cfg),
+                                              "params.npz"))
+    print(f"  first call: {steps} steps in {t_first * 1e3:.1f} ms, "
+          f"checkpoints {first_ckpts}; second call: restore + 1 step in "
+          f"{t_second * 1e3:.1f} ms (host clock, set-up included); final "
+          f"loss {float(m_last['model_loss']):.6f}; launches {launches}",
+          flush=True)
+    check(first_ckpts == [f"ckpt_{steps}.pt"],
+          f"first call left {first_ckpts}")
+    check(state["step"] == steps + 1, f"final step {state['step']}")
+    check(all(float(s["step"]) == steps + 1
+              for s in state["optimizer"]["state"].values()),
+          "the Adam state was not restored")
+    check(has_npz, "the train CLI wrote no params.npz")
+    want = RhoParams if mps_model == "rho_mps" else PsiParams
+    check(type(p_last) is want, f"the train CLI made no {want.__name__}")
+    for m in (m_first, m_last):
+        check(all(bool(torch.isfinite(v).all()) for v in m.values()),
+              f"non-finite metrics {m}")
+    check(all(bool(torch.isfinite(x).all()) for x in p_last.parameters()),
+          "non-finite parameters")
+    for name, count in launches.items():
+        if name not in moving:
+            check(count == 0, f"{name} launched {count} times on the "
+                              f"{mps_model} training path")
+        else:
+            check(count == steps + 1 if exact else count >= steps + 1,
+                  f"{name} launched {count} times in {steps + 1} steps of "
+                  f"the {mps_model} training path")
+    return launches
+
+
+def time_train_step(dev, mps_model, cfg, params, T, seed, reps):
+    """(host-clock ms of one ``make_train_step`` step, batch draw included,
+    the mean of ``reps`` after a warm-up step; peak device memory of the
+    timed steps in bytes) on a copy of ``params``."""
+    from audio_mps_tpu_torch import weights
+    from audio_mps_tpu_torch.data import damped_sine_iterator
+    from audio_mps_tpu_torch.training import make_train_step
+
+    from_numpy = getattr(weights, f"{mps_model[:3]}_params_from_numpy")
+    tp = from_numpy(weights.params_to_numpy(params), dev)
+    _, step = make_train_step(mps_model, cfg, tp, device=dev)
+    data = damped_sine_iterator(cfg, T, seed=seed, device=dev)
+    step(next(data))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        metrics = step(next(data))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    check(bool(torch.isfinite(metrics["total_loss"])), "non-finite loss")
+    peak = torch.cuda.max_memory_allocated(dev)
+    del tp, step, data, metrics
+    _free()
+    return step_ms, peak
+
+
 def train_phases(dev, fam: Family):
     """The training phases of one family; returns its three kernels'
     entries of the {"kernels": [...]} line."""
     from audio_mps_tpu_torch import weights
-    from audio_mps_tpu_torch.data import damped_sine_batch, damped_sine_iterator
+    from audio_mps_tpu_torch.data import damped_sine_batch
     from audio_mps_tpu_torch.ops import block
     from audio_mps_tpu_torch.ops.scan import DEFAULT_UNROLL
-    from audio_mps_tpu_torch.train import parse_args, train
-    from audio_mps_tpu_torch.training import make_train_step
 
     cfg, B, T = fam.cfg, fam.B, fam.T
     rank = fam.params.Wx.shape[0] if fam.name == "rho" else 1
@@ -374,75 +499,14 @@ def train_phases(dev, fam: Family):
 
     phase(f"{fam.name} training path: train CLI ({shape}, T={T}), "
           f"{TRAIN_STEPS} steps, then a restore and one more step")
-    # every training wrapper of both families: this family's must count
-    # each step once, the other family's not at all
-    counted = {k: getattr(block, k) for f in ("psi", "rho")
-               for k in _train_kernel_names(f).values()}
-    with tempfile.TemporaryDirectory() as tmp:
-        argv = [f"--mps_model={fam.name}_mps", "--dataset=damped_sine",
-                f"--sample_duration={T}",
-                f"--hparams=bond_dim={D},minibatch_size={B}",
-                f"--logdir={tmp}", f"--device={dev.type}"]
-        for w in counted.values():
-            w.launches = 0
-        run, device = parse_args(argv + [f"--max_steps={TRAIN_STEPS}"])
-        t0 = time.perf_counter()
-        _, m_first = train(run, device=device)
-        torch.cuda.synchronize()
-        t_first = time.perf_counter() - t0
-        ckdir = os.path.join(run.run_logdir(cfg), "checkpoints")
-        first_ckpts = sorted(os.listdir(ckdir))
-        run2, device = parse_args(argv + [f"--max_steps={TRAIN_STEPS + 1}"])
-        t0 = time.perf_counter()
-        p_last, m_last = train(run2, device=device)
-        torch.cuda.synchronize()
-        t_second = time.perf_counter() - t0
-        launches = {k: w.launches for k, w in counted.items()}
-        state = torch.load(os.path.join(ckdir, f"ckpt_{TRAIN_STEPS + 1}.pt"),
-                           map_location="cpu", weights_only=True)
-        has_npz = os.path.exists(os.path.join(run.run_logdir(cfg),
-                                              "params.npz"))
-    print(f"  first call: {TRAIN_STEPS} steps in {t_first * 1e3:.1f} ms, "
-          f"checkpoints {first_ckpts}; second call: restore + 1 step in "
-          f"{t_second * 1e3:.1f} ms (host clock, set-up included); final "
-          f"loss {float(m_last['model_loss']):.6f}; launches {launches}",
-          flush=True)
-    check(first_ckpts == [f"ckpt_{TRAIN_STEPS}.pt"],
-          f"first call left {first_ckpts}")
-    check(state["step"] == TRAIN_STEPS + 1, f"final step {state['step']}")
-    check(all(float(s["step"]) == TRAIN_STEPS + 1
-              for s in state["optimizer"]["state"].values()),
-          "the Adam state was not restored")
-    check(has_npz, "the train CLI wrote no params.npz")
-    check(type(p_last) is type(fam.params),
-          f"the train CLI made no {fam.name} weights")
-    for m in (m_first, m_last):
-        check(all(bool(torch.isfinite(v).all()) for v in m.values()),
-              f"non-finite metrics {m}")
-    check(all(bool(torch.isfinite(x).all()) for x in p_last.parameters()),
-          "non-finite parameters")
-    for name, count in launches.items():
-        expect = TRAIN_STEPS + 1 if name in names.values() else 0
-        check(count == expect, f"{name} launched {count} times on the "
-                               f"{fam.name} training path, expected {expect}")
-
-    tp = from_numpy(weights.params_to_numpy(fam.params), dev)
-    _, step = make_train_step(f"{fam.name}_mps", cfg, tp, device=dev)
-    data = damped_sine_iterator(cfg, T, seed=fam.seed + 1, device=dev)
-    step(next(data))
-    torch.cuda.synchronize()
+    launches = train_cli_phase(dev, f"{fam.name}_mps", cfg, T, TRAIN_STEPS,
+                               set(names.values()), exact=True)
     reps = 5
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        metrics = step(next(data))
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / reps * 1e3
-    check(bool(torch.isfinite(metrics["total_loss"])), "non-finite loss")
+    step_ms, _ = time_train_step(dev, f"{fam.name}_mps", cfg, fam.params, T,
+                                 fam.seed + 1, reps)
     print(f"  {fam.name} train step (make_train_step, batch draw included): "
           f"{step_ms:.2f} ms host clock, mean of {reps} after a warm-up; "
           f"{B * (T - 1) / step_ms * 1e3:.4e} frames/s", flush=True)
-    del tp, step, data
-    _free()
 
     phase(f"{fam.name} training timings (CUDA events, median of 5 after 1 "
           f"warm-up)")
@@ -724,6 +788,315 @@ def rho_phases(dev):
     return entries + train_entries
 
 
+def rank_phases(dev):
+    """Phase 8, rank-chunked rho training at D=256, full rank; returns the
+    partials kernels' entries of the {"kernels": [...]} line."""
+    from audio_mps_tpu_torch import weights
+    from audio_mps_tpu_torch.config import CMPSConfig
+    from audio_mps_tpu_torch.data import damped_sine_batch
+    from audio_mps_tpu_torch.models.cell import make_constants
+    from audio_mps_tpu_torch.models.params import init_rho
+    from audio_mps_tpu_torch.ops import block, rank
+    from audio_mps_tpu_torch.ops.scan import DEFAULT_UNROLL
+    from audio_mps_tpu_torch.train import parse_args, train
+
+    cfg = CMPSConfig(bond_dim=RANK_D, minibatch_size=RANK_B)    # rank D
+    params = init_rho(torch.Generator(dev).manual_seed(20), cfg, device=dev)
+    rank_ = params.Wx.shape[0]
+    n = 2 * RANK_D
+    cols = RANK_B * rank_
+    limits = rank.device_limits(dev)
+    rc = rank.rho_train_chunk(RANK_D, RANK_B, rank_, *limits)
+    check(rc is not None, f"D={RANK_D} dispatched to the monolithic kernels")
+    S = cols // rc
+    names = dict(zip(("fwd", "bwd", "cot"), RANK_KERNELS))
+    kernels = {r: getattr(rank, k) for r, k in names.items()}
+    plains = {r: getattr(rank, k + "_plain") for r, k in names.items()}
+    labels = {"fwd": ("eh", "tr", "tfin", "ys"), "bwd": ("dse", "dt0", "dy"),
+              "cot": ("dAb", "dBb", "dXb")}
+    shape = f"D={RANK_D}, rank {rank_}, B={RANK_B}, chunks of {rc} rows"
+    signals = damped_sine_batch(torch.Generator(dev).manual_seed(21), RANK_B,
+                                RANK_T, cfg.delta_t)
+    kw = dict(rc=rc, unroll=DEFAULT_UNROLL, norm_eps=float(cfg.norm_eps))
+
+    def inputs(steps):
+        ins, c0 = rank.partials_inputs(params, cfg, signals[:, :steps + 1],
+                                       rc)
+        del ins["rc"], ins["norm_eps"]
+        return ins, c0
+
+    def cotangents(f_out, c0, se):
+        """The combination's cotangents of the forward's eh and tr (as the
+        training path's backward hands them over) and a zero dtfin (the
+        last time segment's)."""
+        eh, tr = (x.detach().clone().requires_grad_(True) for x in f_out[:2])
+        with torch.enable_grad():
+            loss = rank.combine_rank_partials(
+                *rank.chunk_partials(eh, tr, c0, RANK_B, unroll=kw["unroll"],
+                                     norm_eps=kw["norm_eps"]), se, cfg)
+            deh, dtr = torch.autograd.grad(loss, (eh, tr))
+        return dict(deh=deh, dtr=dtr, dtfin=torch.zeros_like(f_out[2]))
+
+    def call(role, ins, cot, f_out, b_out, plain=False, **o):
+        fn = (plains if plain else kernels)[role]
+        if role == "fwd":
+            out = fn(**ins, **kw, **o)
+        elif role == "bwd":
+            out = fn(**ins, ys=f_out[3], tr=f_out[1], **cot, **kw, **o)
+        else:
+            out = fn(b_out[2], f_out[3], ins["t0"], ins["se"], f_out[1],
+                     cot["deh"], **kw, **o)
+        torch.cuda.synchronize()
+        return out
+
+    phase(f"rank-partials kernels vs plain ({shape}, T={RANK_T_PREFIX})")
+    pre, c0 = inputs(RANK_T_PREFIX - 1)
+    err_at, plain_ms, ctrl, prefix_ms = {}, {}, {}, {}
+    for prec in ("highest", "high"):
+        o = dict(precision=prec)
+        outs, line, cot = {}, [], None
+        for role in labels:
+            f_p, b_p = outs.get("fwd"), outs.get("bwd")
+            if role == "bwd":
+                cot = cotangents(f_p, c0, pre["se"])
+            t_p, want = timed(lambda: call(role, pre, cot, f_p, b_p,
+                                           plain=True, **o))
+            outs[role] = want
+            got = call(role, pre, cot, f_p, b_p, **o)
+            tol = TOL_TRAIN[prec][role]
+            worst = 0.0
+            for label, a, b in zip(labels[role], got, want):
+                check(bool(torch.isfinite(a).all()),
+                      f"{names[role]} {label}: non-finite")
+                err, rel = rel_err(a, b)
+                worst = max(worst, err)
+                line.append(f"{label} {rel:.2e}")
+                check(rel <= tol, f"{names[role]} {prec} {label}: rel err "
+                                  f"{rel:.3e} (tol {tol:g})")
+            del got
+            if prec == "highest":
+                err_at[role], plain_ms[role] = worst, t_p
+                prefix_ms[role] = median_ms(
+                    lambda: call(role, pre, cot, f_p, b_p, **o), reps=3)
+            else:
+                ctrl[role] = _control(names[role], lambda: call(
+                    role, pre, cot, f_p, b_p, precision="default"), want,
+                    TOL_TRAIN["high"][role])
+        print(f"  {prec} (tol " + " / ".join(
+            f"{v:g}" for v in TOL_TRAIN[prec].values())
+            + "), x max|plain|: " + ", ".join(line), flush=True)
+        del outs
+        _free()
+    print("  control, kernels at default vs plain at high, worst x "
+          "max|plain| (must exceed the high limits): " + ", ".join(
+              f"{names[r]} {v:.2e}" for r, v in ctrl.items()), flush=True)
+    print(f"  at T={RANK_T_PREFIX}: plain (one run) fwd {plain_ms['fwd']:.1f}"
+          f" / bwd {plain_ms['bwd']:.1f} / cotangents {plain_ms['cot']:.1f} "
+          f"ms; kernels (median of 3) {prefix_ms['fwd']:.2f} / "
+          f"{prefix_ms['bwd']:.2f} / {prefix_ms['cot']:.2f} ms", flush=True)
+    del pre, cot
+    _free()
+
+    phase(f"chunked vs monolithic rho training (D={D}, rank {D}, "
+          f"B={RHO_B}, T={RANK_T}, chunks of {RANK_CHECK_CHUNK})")
+    cfg_m = CMPSConfig(bond_dim=D, minibatch_size=RHO_B)
+    p_m = init_rho(torch.Generator(dev).manual_seed(23), cfg_m, device=dev)
+    sig_m = damped_sine_batch(torch.Generator(dev).manual_seed(24), RHO_B,
+                              RANK_T, cfg_m.delta_t)
+    pm, pc = (weights.rho_params_from_numpy(weights.params_to_numpy(p_m),
+                                            dev) for _ in range(2))
+    counted = [block.rho_train_fwd, block.rho_train_bwd, block.rho_cotangents,
+               *kernels.values()]
+    before = [w.launches for w in counted]
+    t_m, loss_m = timed(lambda: block.rho_nll_block_trainable(
+        pm, cfg_m, sig_m, defer_norm=True))
+    loss_m.backward()
+    t_c, loss_c = timed(lambda: rank.rho_nll_rank_chunked(
+        pc, cfg_m, sig_m, rank_chunk=RANK_CHECK_CHUNK))
+    loss_c.backward()
+    torch.cuda.synchronize()
+    moved = [w.launches - b for w, b in zip(counted, before)]
+    # the value's reference: the chunked function in float64 (its plain
+    # forward on the card). The monolithic kernel sums its loss over the
+    # T steps in one fp32 register, which drifts ~1e-4 from it at T=16385,
+    # so the loss is held to the reference and the two paths' gradients to
+    # each other.
+    with torch.no_grad():
+        q = pm.double()
+        cc = make_constants(q, cfg_m)
+        ab, bb, xb = block._rho_block_constants(cc)
+        t0, c0 = rank._chunk_t0(q, cfg_m, cc, RHO_B, RANK_CHECK_CHUNK)
+        s64 = sig_m.double()
+        se = (s64[:, 1:] - s64[:, :-1]).T / cc.A
+        eh, tr, _, _ = rank.rank_partials_fwd_plain(
+            ab, bb, xb, t0, se, rc=RANK_CHECK_CHUNK, unroll=kw["unroll"],
+            norm_eps=kw["norm_eps"])
+        ref = rank.combine_rank_partials(*rank.chunk_partials(
+            eh, tr, c0, RHO_B, unroll=kw["unroll"],
+            norm_eps=kw["norm_eps"]), se, cfg_m).item()
+        del q, ab, bb, xb, t0, eh, tr
+    rel_c = abs(loss_c.item() - ref) / abs(ref)
+    rel_m = abs(loss_m.item() - ref) / abs(ref)
+    check(rel_c <= TOL_CHUNKED[0], f"chunked loss vs its float64 value: "
+                                   f"{rel_c:.3e}")
+    line = []
+    for name in pm.NAMES:
+        _, rel = rel_err(getattr(pc, name).grad, getattr(pm, name).grad)
+        line.append(f"d{name} {rel:.2e}")
+        check(rel <= TOL_CHUNKED[1], f"chunked vs monolithic gradient of "
+                                     f"{name}: {rel:.3e}")
+    check(all(m == 1 for m in moved), f"launches {moved}")
+    print(f"  loss {loss_c.item():.7f} chunked, {loss_m.item():.7f} "
+          f"monolithic, {ref:.7f} float64: chunked {rel_c:.2e} (tol "
+          f"{TOL_CHUNKED[0]:g}), monolithic {rel_m:.2e} of it; gradients, "
+          f"chunked vs monolithic x max|monolithic| (tol "
+          f"{TOL_CHUNKED[1]:g}): " + ", ".join(line) + f"; forward "
+          f"{t_m:.1f} ms monolithic, {t_c:.1f} ms chunked (one run)",
+          flush=True)
+    del pm, pc, p_m, sig_m, loss_m, loss_c
+    _free()
+
+    phase(f"rank-chunked training path: train CLI ({shape}, T={RANK_T}), "
+          f"{RANK_TRAIN_STEPS} steps, then a restore and one more step")
+    # the summaries' rho sampler is not ported past D=64: with them on, the
+    # CLI refuses before its first step, launching nothing
+    before = [w.launches for w in kernels.values()]
+    with tempfile.TemporaryDirectory() as tmp:
+        run, device = parse_args([
+            "--mps_model=rho_mps", "--dataset=damped_sine",
+            f"--sample_duration={RANK_T}",
+            f"--hparams=bond_dim={RANK_D},minibatch_size={RANK_B}",
+            f"--logdir={tmp}", f"--device={dev.type}", "--max_steps=1"])
+        try:
+            train(run, device=device)
+            refused = ""
+        except NotImplementedError as e:
+            refused = str(e)
+    check("--visualize=false" in refused,
+          f"the train CLI did not refuse the rho sampler: {refused!r}")
+    check([w.launches for w in kernels.values()] == before,
+          "the refused train CLI launched a kernel")
+    print(f"  with visualize on, refused: {refused[:90]}...", flush=True)
+    launches = train_cli_phase(dev, "rho_mps", cfg, RANK_T, RANK_TRAIN_STEPS,
+                               set(RANK_KERNELS), exact=False,
+                               flags=("--visualize=false",))
+    step_ms, peak = time_train_step(dev, "rho_mps", cfg, params, RANK_T, 25,
+                                    reps=1)
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    check(peak < total_mem, f"peak memory {peak} of {total_mem}")
+    print(f"  rank-chunked train step (make_train_step, batch draw "
+          f"included): {step_ms:.1f} ms host clock, one step after a "
+          f"warm-up; {RANK_B * (RANK_T - 1) / step_ms * 1e3:.4e} frames/s; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB of "
+          f"{total_mem / 2 ** 30:.2f}", flush=True)
+
+    n_steps = RANK_T - 1
+    full, c0 = inputs(n_steps)
+    L = rank.segment_steps(RANK_D, cols, n_steps, DEFAULT_UNROLL, dev)
+    L = n_steps if L is None else L
+    phase(f"rank-partials timings ({shape}, T={RANK_T} in segments of {L} "
+          f"steps; CUDA events)")
+    seg = dict(full, se=full["se"][:L].contiguous())
+    f_out = call("fwd", seg, None, None, None)
+    cot = cotangents(f_out, c0, seg["se"])
+    b_out = call("bwd", seg, cot, f_out, None)
+    seg_ms = {r: median_ms(lambda: call(r, seg, cot, f_out, b_out), reps=3)
+              for r in labels}
+    del f_out, b_out, seg
+    _free()
+    # the whole run once: the forward over the segments chained through
+    # tfin, then each segment's adjoint and reductions after its forward
+    # again (as the checkpointed backward runs them), and torch.matmul of
+    # the reductions' three products on operands built per 512 steps
+    ms = {r: 0.0 for r in labels}
+    library_ms = 0.0
+    t_in, starts = full["t0"], []
+    for k0 in range(0, n_steps, L):
+        ins = dict(full, t0=t_in, se=full["se"][k0:k0 + L].contiguous())
+        starts.append(t_in)
+        t_f, out = timed(lambda: call("fwd", ins, None, None, None))
+        ms["fwd"] += t_f
+        t_in = out[2]
+        del out
+    for i, k0 in enumerate(range(0, n_steps, L)):
+        ins = dict(full, t0=starts[i], se=full["se"][k0:k0 + L].contiguous())
+        f_out = call("fwd", ins, None, None, None)
+        cot = cotangents(f_out, c0, ins["se"])
+        t_b, b_out = timed(lambda: call("bwd", ins, cot, f_out, None))
+        t_c, _ = timed(lambda: call("cot", ins, cot, f_out, b_out))
+        ms["bwd"] += t_b
+        ms["cot"] += t_c
+        ys, tr, dy = f_out[3], f_out[1], b_out[2]
+        del b_out
+        scales = rank._exit_scales(tr, rc=rc, unroll=DEFAULT_UNROLL,
+                                   norm_eps=kw["norm_eps"])
+        for j0 in range(0, ys.shape[0], 512):
+            j1 = min(j0 + 512, ys.shape[0])
+            ts = torch.stack([block._rho_input_state(k, ins["t0"], ys, scales)
+                              for k in range(j0, j1)])
+
+            def lanes(x):
+                return x.transpose(0, 1).reshape(n, -1)
+
+            se_l = block._lanes(ins["se"][j0:j1], rank_)[:, None, :]
+            deh_l = block._lanes(cot["deh"][j0:j1], rc)[:, None, :]
+            ops = [(lanes(dy[j0:j1]), lanes(ts)),
+                   (lanes(dy[j0:j1]), lanes(se_l * ts)),
+                   (lanes(deh_l * ys[j0:j1]), lanes(ys[j0:j1]))]
+            del ts
+            t_l, _ = timed(lambda: [a @ b.T for a, b in ops])
+            library_ms += t_l
+            del ops
+        del f_out, ys, tr, dy, scales
+        _free()
+    n_seg = len(starts)
+    print(f"  per segment of {L} steps (median of 3): fwd {seg_ms['fwd']:.1f}"
+          f", bwd {seg_ms['bwd']:.1f}, cotangents {seg_ms['cot']:.1f} ms; "
+          f"the whole run ({n_seg} segments, one run): fwd {ms['fwd']:.1f}, "
+          f"bwd {ms['bwd']:.1f}, cotangents {ms['cot']:.1f} ms; "
+          f"torch.matmul of the reductions {library_ms:.1f} ms", flush=True)
+    # bounds over the whole run: FLOPs as rho's (TRAIN_PRODUCTS,
+    # TRAIN_BUILDS: the chunks of an example share its s); bytes of the
+    # streams, the per-step rows and the constants, each once
+    ex_steps = n_steps * RANK_B
+    lane_steps = n_steps * cols
+    seg_steps = n_steps * S
+    mats = 3 * n * n
+    nbytes = {"fwd": lane_steps * n + 2 * seg_steps + ex_steps + mats
+              + 2 * n * cols,
+              "bwd": (2 * lane_steps * n + 4 * seg_steps + ex_steps + mats
+                      + 3 * n * cols),
+              "cot": 2 * lane_steps * n + 2 * seg_steps + ex_steps + n * cols
+              + mats}
+    src = {"fwd": "rank_partials_fwd.cu", "bwd": "rank_partials_bwd.cu",
+           "cot": "psi_cotangents.cu"}
+    replaces = {"fwd": "audio_mps_tpu/ops/pallas_rank.py:80",
+                "bwd": "audio_mps_tpu/ops/pallas_rank.py:259",
+                "cot": "audio_mps_tpu/ops/pallas_rank.py:356"}
+    entries = []
+    for role, name in names.items():
+        flops = (TRAIN_PRODUCTS["rho"][role] * 2 * n * n * lane_steps
+                 + TRAIN_BUILDS["rho"][role] * n * n * ex_steps)
+        bound, by = bound_ms(flops, 4 * nbytes[role])
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"audio_mps_tpu_torch/csrc/{src[role]}",
+            "replaces": replaces[role], "launches": launches[name],
+            "max_abs_err": err_at[role], "ms": ms[role],
+            "plain_ms": plain_ms[role], "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms if role == "cot" else None})
+        print(f"  {name}: {ms[role]:.1f} ms over T={RANK_T}, "
+              f"{bound / ms[role] * 100:.1f}% of its bound {bound:.3f} ms by "
+              f"{by}; launches in the train CLI's {RANK_TRAIN_STEPS + 1} "
+              f"steps {launches[name]}; plain {plain_ms[role]:.1f} ms at "
+              f"T={RANK_T_PREFIX}; control at default {ctrl[role]:.2e}",
+              flush=True)
+    print(f"  rank-chunked train step {step_ms:.1f} ms, of which one pass of "
+          f"the three kernels {sum(ms.values()):.1f} ms and the recomputed "
+          f"forward {ms['fwd'] if n_seg > 1 else 0.0:.1f} ms", flush=True)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -916,10 +1289,12 @@ def main() -> int:
     del s_in, n_in, noise, signals, wave
     _free()
     rho_entries = rho_phases(dev)
+    _free()
+    rank_entries = rank_phases(dev)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)
-    print(json.dumps({"kernels": kernels + train_entries + rho_entries}),
-          flush=True)
+    print(json.dumps({"kernels": kernels + train_entries + rho_entries
+                      + rank_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -422,3 +422,222 @@ def test_rho_train_kernels_index_past_2_pow_31_elements(dev):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.isfinite(b).all() and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# rank-partials kernels (csrc/rank_partials_*.cu): one CTA a segment of rc
+# columns (an example's chunk of rank rows), constants streamed from L2
+# ---------------------------------------------------------------------------
+
+# (D, rank, rc): partial warps (D=8), chunks that are not a multiple of 4
+# (3, 17), a D past the monolithic kernels (68, 128, 256) and the D=256
+# model's chunk (16 of 256)
+RANK_SHAPES = [(8, 6, 3), (8, 8, 8), (64, 64, 8), (68, 68, 17), (128, 128, 16),
+               (256, 256, 16), (256, 32, 4)]
+
+
+def _rank_counts():
+    from audio_mps_tpu_torch.ops import rank
+    return (rank.rank_partials_fwd.launches, rank.rank_partials_bwd.launches,
+            rank.rank_cotangents.launches)
+
+
+def _rank_inputs(dev, D, rank_, rc, steps, B=2, seed=2):
+    from audio_mps_tpu_torch.ops import rank
+    p, cfg = _rho_params(dev, D, rank_)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(seed), B,
+                            steps + 1, cfg.delta_t)
+    inputs, _ = rank.partials_inputs(p, cfg, sig, rc)
+    gen = torch.Generator(dev).manual_seed(5)
+    S = B * rank_ // rc
+    cot = dict(deh=torch.randn(steps, S, generator=gen, device=dev),
+               dtr=torch.randn(steps, S, generator=gen, device=dev),
+               dtfin=0.1 * torch.randn(inputs["t0"].shape, generator=gen,
+                                       device=dev))
+    return inputs, cot
+
+
+@pytest.mark.parametrize("D, rank_, rc", RANK_SHAPES)
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_rank_partials_kernels_match_plain(dev, D, rank_, rc, precision):
+    """The partials forward, adjoint (tail and chain) and cotangents each
+    against its plain version on the same inputs: the adjoint on the plain
+    forward's streams, the cotangents on the plain adjoint's."""
+    from audio_mps_tpu_torch.ops import rank
+    steps = STEPS[precision] // (3 if D >= 128 else 1)
+    inputs, cot = _rank_inputs(dev, D, rank_, rc, steps)
+    kw = dict(precision=precision, unroll=7)
+    before = _rank_counts()
+    fwd = rank.rank_partials_fwd_plain(**inputs, **kw)
+    for a, b in zip(rank.rank_partials_fwd(**inputs, **kw), fwd):
+        _close(a, b, TOL[precision])
+    eh, tr, tfin, ys = fwd
+    bwd = rank.rank_partials_bwd_plain(**inputs, ys=ys, tr=tr, **cot, **kw)
+    for a, b in zip(rank.rank_partials_bwd(**inputs, ys=ys, tr=tr, **cot,
+                                           **kw), bwd):
+        _close(a, b, TOL[precision])
+    cot_in = dict(dy=bwd[2], ys=ys, t0=inputs["t0"], se=inputs["se"], tr=tr,
+                  deh=cot["deh"], rc=rc, norm_eps=inputs["norm_eps"])
+    got = rank.rank_cotangents(**cot_in, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, rank.rank_cotangents_plain(**cot_in, **kw)):
+        _close(a, b, TOL[precision])
+    assert _rank_counts() == tuple(c + 1 for c in before)
+
+
+def test_rank_partials_smem_and_dispatch_agree_with_the_kernels(dev):
+    """The Python rule's shared-memory counts are the kernels' own, and on
+    this card D=64 at rank 64 stays monolithic while D=68 goes chunked."""
+    from audio_mps_tpu_torch.ops import _build, rank
+    lib = _build.library()
+    for D, rc in ((8, 3), (64, 8), (256, 16), (512, 8)):
+        assert lib.amt_rank_partials_smem_bytes(D, rc) == \
+            rank.partials_smem_bytes(D, rc)
+    assert lib.amt_rho_train_fwd_smem_bytes(64, 64) == \
+        block.rho_train_smem_bytes(64, 64)
+    limits = rank.device_limits(dev)
+    assert rank.rho_train_chunk(64, 8, 64, *limits) is None
+    assert rank.rho_train_chunk(68, 8, 68, *limits) is not None
+
+
+def test_rank_partials_segments_chain_through_tfin(dev):
+    """Two time segments chained through tfin (forward) and dtfin (adjoint)
+    equal one launch over both, bit for bit; the cotangents of the two add
+    up to the one launch's."""
+    from audio_mps_tpu_torch.ops import rank
+    steps, L1 = 70, 28                      # segments of 4 and 6 blocks
+    inputs, cot = _rank_inputs(dev, 64, 64, 16, steps)
+    kw = dict(rc=16, unroll=7, norm_eps=inputs.pop("norm_eps"))
+    inputs.pop("rc")
+    eh, tr, tfin, ys = rank.rank_partials_fwd(**inputs, **kw)
+    first = dict(inputs, se=inputs["se"][:L1].contiguous())
+    e1, r1, t1, y1 = rank.rank_partials_fwd(**first, **kw)
+    second = dict(inputs, t0=t1, se=inputs["se"][L1:].contiguous())
+    e2, r2, t2, y2 = rank.rank_partials_fwd(**second, **kw)
+    for whole, parts in ((eh, (e1, e2)), (tr, (r1, r2)), (ys, (y1, y2))):
+        assert torch.equal(whole, torch.cat(parts))
+    assert torch.equal(tfin, t2)
+
+    def part(x, k0, k1):
+        return x[k0:k1].contiguous()
+
+    zero = torch.zeros_like(cot["dtfin"])
+    dse, dt0, dy = rank.rank_partials_bwd(**inputs, ys=ys, tr=tr,
+                                          deh=cot["deh"], dtr=cot["dtr"],
+                                          dtfin=zero, **kw)
+    b2 = rank.rank_partials_bwd(**second, ys=y2, tr=r2,
+                                deh=part(cot["deh"], L1, steps),
+                                dtr=part(cot["dtr"], L1, steps), dtfin=zero,
+                                **kw)
+    b1 = rank.rank_partials_bwd(**first, ys=y1, tr=r1,
+                                deh=part(cot["deh"], 0, L1),
+                                dtr=part(cot["dtr"], 0, L1), dtfin=b2[1],
+                                **kw)
+    assert torch.equal(dse, torch.cat([b1[0], b2[0]]))
+    assert torch.equal(dt0, b1[1])
+    assert torch.equal(dy, torch.cat([b1[2], b2[2]]))
+    whole = rank.rank_cotangents(dy, ys, inputs["t0"], inputs["se"], tr,
+                                 cot["deh"], **kw)
+    c1 = rank.rank_cotangents(b1[2], y1, first["t0"], first["se"], r1,
+                              part(cot["deh"], 0, L1), **kw)
+    c2 = rank.rank_cotangents(b2[2], y2, second["t0"], second["se"], r2,
+                              part(cot["deh"], L1, steps), **kw)
+    for w, a, b in zip(whole, c1, c2):
+        _close(a + b, w, 1e-5)
+
+
+def test_rank_partials_index_past_2_pow_31_elements(dev):
+    """A [n_steps, 2D, cols] stream of more than 2^31 elements (8 GiB in
+    fp32): the last segment of the forward and of the adjoint over all
+    segments equals, bit for bit, a launch over that segment alone."""
+    from audio_mps_tpu_torch.ops import rank
+    D, B, rank_, rc, steps = 8, 128, 128, 16, 8193
+    assert steps * 2 * D * B * rank_ > 2 ** 31
+    p, cfg = _rho_params(dev, D, rank_)
+    inputs, _ = rank.partials_inputs(p, cfg, torch.zeros(B, 2, device=dev),
+                                     rc)
+    inputs["se"] = torch.randn(steps, B, device=dev,
+                               generator=torch.Generator(dev).manual_seed(3)
+                               ).mul_(0.01)
+    kw = dict(rc=inputs.pop("rc"), unroll=16,
+              norm_eps=inputs.pop("norm_eps"))
+    S = B * rank_ // rc
+    gen = torch.Generator(dev).manual_seed(4)
+    deh = torch.randn(steps, S, generator=gen, device=dev)
+    dtr = torch.randn(steps, S, generator=gen, device=dev)
+
+    def last(x, lanes=rc):
+        return x[..., -lanes:].contiguous()
+
+    alone = dict(inputs, t0=last(inputs["t0"]), se=last(inputs["se"], 1))
+    eh, tr, tfin, ys = rank.rank_partials_fwd(**inputs, **kw)
+    a_eh, a_tr, a_tfin, a_ys = rank.rank_partials_fwd(**alone, **kw)
+    for a, b, lanes in zip((eh, tr, tfin, ys), (a_eh, a_tr, a_tfin, a_ys),
+                           (1, 1, rc, rc)):
+        assert torch.equal(last(a, lanes), b)
+    del a_ys
+    bwd = rank.rank_partials_bwd(**inputs, ys=ys, tr=tr, deh=deh, dtr=dtr,
+                                 dtfin=torch.zeros_like(tfin), **kw)
+    got = [last(x, lanes).clone() for x, lanes in zip(bwd, (1, rc, rc))]
+    del bwd
+    a_eh, a_tr, a_tfin, a_ys = rank.rank_partials_fwd(**alone, **kw)
+    del ys
+    want = rank.rank_partials_bwd(**alone, ys=a_ys, tr=a_tr, deh=last(deh, 1),
+                                  dtr=last(dtr, 1),
+                                  dtfin=torch.zeros_like(a_tfin), **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(b).all() and torch.equal(a, b)
+
+
+def test_rho_train_path_runs_chunked_past_d64(dev):
+    """rho training at D=68 (past the monolithic kernels) goes through the
+    partials kernels once each, no monolithic rho training kernel, and
+    matches the same call on CPU copies; kernel_stream="off" raises,
+    launching nothing."""
+    import dataclasses
+    from audio_mps_tpu_torch.ops import grad
+    from audio_mps_tpu_torch.weights import (params_to_numpy,
+                                             rho_params_from_numpy)
+    p, cfg = _rho_params(dev, 68, 68)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(1), 2, 257,
+                            cfg.delta_t)
+    before, mono = _rank_counts(), _rho_counts()
+    loss = grad.rho_nll_fused_trainable(p, cfg, sig)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert _rank_counts() == tuple(c + 1 for c in before)
+    assert _rho_counts() == mono
+    q = rho_params_from_numpy(params_to_numpy(p), "cpu")
+    want = grad.rho_nll_fused_trainable(q, cfg, sig.cpu())
+    want.backward()
+    assert abs(loss.item() - want.item()) <= 1e-4 * abs(want.item())
+    for name in q.NAMES:
+        _close(getattr(p, name).grad.cpu(), getattr(q, name).grad, 1e-3)
+    off = dataclasses.replace(cfg, kernel_stream="off")
+    with pytest.raises(NotImplementedError, match="pallas_rank.py"):
+        grad.rho_nll_fused_trainable(p, off, sig)
+    assert _rank_counts() == tuple(c + 1 for c in before)
+
+
+def test_rho_train_cli_refuses_the_sampler_past_d64(dev, tmp_path,
+                                                    monkeypatch):
+    """With summaries that draw samples, the train CLI at rho D=68 (trained
+    rank-chunked, but the rho sampler kernel takes D <= 64) raises before
+    its first step, naming the remedy, and launches nothing."""
+    from audio_mps_tpu_torch import summaries
+    from audio_mps_tpu_torch.train import parse_args, train
+
+    class Writer:
+        def close(self):
+            pass
+
+    monkeypatch.setattr(summaries, "make_writer", lambda logdir: Writer())
+    run, device = parse_args([
+        "--mps_model=rho_mps", "--dataset=damped_sine",
+        "--sample_duration=65", "--hparams=bond_dim=68,minibatch_size=2",
+        f"--logdir={tmp_path}", "--max_steps=1"])
+    before = _rank_counts()
+    with pytest.raises(NotImplementedError, match="--visualize=false"):
+        train(run, device=device)
+    assert _rank_counts() == before

@@ -21,6 +21,7 @@ import torch
 from audio_mps_tpu_torch import (CMPSConfig, PsiCMPS, RhoCMPS, RunConfig,
                                  init_psi, init_rho)
 from audio_mps_tpu_torch.ops import block, grad, scan
+from audio_mps_tpu_torch.ops import rank as rank_ops
 from audio_mps_tpu_torch.sample import SampleConfig, sample
 from audio_mps_tpu_torch.train import main as train_main
 from audio_mps_tpu_torch.train import train
@@ -147,7 +148,19 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     trs = torch.ones(5, 2)
     rcot = dict(dy=rys, ys=rys, t0=rn_in["t0"], se=rn_in["se"], trs=trs,
                 dehat=trs, norm_eps=rn_in["norm_eps"])
+    k_in, _ = rank_ops.partials_inputs(r, cfg, torch.zeros(2, 6), 1)
+    S = 6
+    k_cot = dict(ys=rys, tr=torch.ones(5, S), deh=torch.ones(5, S),
+                 dtr=torch.ones(5, S), dtfin=k_in["t0"])
     calls = [
+        (rank_ops.rank_partials_fwd, lambda d: rank_ops.rank_partials_fwd(
+            **d(k_in), unroll=4)),
+        (rank_ops.rank_partials_bwd, lambda d: rank_ops.rank_partials_bwd(
+            **d(dict(k_in, **k_cot)), unroll=4)),
+        (rank_ops.rank_cotangents, lambda d: rank_ops.rank_cotangents(
+            **d(dict(dy=rys, ys=rys, t0=k_in["t0"], se=k_in["se"],
+                     tr=k_cot["tr"], deh=k_cot["deh"], rc=1,
+                     norm_eps=k_in["norm_eps"])), unroll=4)),
         (block.rho_sample_block, lambda d: block.rho_sample_block(**d(rs_in))),
         (block.rho_nll_block, lambda d: block.rho_nll_block(**d(rn_in))),
         (block.rho_train_fwd, lambda d: block.rho_train_fwd(**d(rn_in))),
@@ -223,13 +236,15 @@ def test_cuda_path_raises_for_unported_shapes(kind, D):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind, D, rank", [
     ("sample", 12, 3), ("nll", 6, 3), ("train", 6, 3), ("nll", 72, 3),
-    ("train", 8, 65), ("train_stream_off", 8, 3)])
+    ("train", 1028, 1), ("train_stream_off", 8, 3),
+    ("train_stream_off", 128, 4)])
 def test_cuda_rho_path_raises_for_unported_shapes(kind, D, rank):
     """On a CUDA tensor the rho entry points raise NotImplementedError,
     launching nothing: the split layout (sampler D % 8 != 0, NLL and
-    training D % 4 != 0: table rows 13, 11, 9), a D or rank past the
-    kernels' layout (D > 64, rank > 64), and training without the state
-    stream (the recompute adjoints, row 4d)."""
+    training D % 4 != 0: table rows 13, 11, 9), scoring past the kernels'
+    layout (D > 64), training past what even a rank chunk of one row takes
+    (D/4 > 256 threads), and training without the state stream (the
+    recompute adjoints, rows 4d and, chunked, 7c)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA path has no CPU mode")
     dev = torch.device("cuda")
@@ -239,7 +254,8 @@ def test_cuda_rho_path_raises_for_unported_shapes(kind, D, rank):
     p = init_rho(torch.Generator(dev).manual_seed(0), cfg, device=dev)
     wrappers = (block.rho_sample_block, block.rho_nll_block,
                 block.rho_train_fwd, block.rho_train_bwd,
-                block.rho_cotangents)
+                block.rho_cotangents, rank_ops.rank_partials_fwd,
+                rank_ops.rank_partials_bwd, rank_ops.rank_cotangents)
     before = [w.launches for w in wrappers]
     with pytest.raises(NotImplementedError):
         if kind == "sample":
