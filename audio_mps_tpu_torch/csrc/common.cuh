@@ -36,6 +36,14 @@ namespace amt {
 
 enum Precision { kHighest = 0, kHigh = 1, kDefault = 2 };
 
+// What a forward chain launch (psi_fwd.cuh, rho_fwd.cuh,
+// rank_partials_fwd.cuh) writes besides its per-step or per-example sums:
+// nothing (kNll), every step's state (kStream), the state entering each
+// unroll-step block (kCkpt), or, with one CTA per (column group, block),
+// the states of a segment's blocks re-run from those checkpoints
+// (kRecompute).
+enum FwdMode { kNll = 0, kStream = 1, kCkpt = 2, kRecompute = 3 };
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -252,7 +260,7 @@ cudaError_t dispatch(int precision, bool defer, F&& f) {
 // Launch `kernel` on `grid` CTAs of `threads` with `smem` bytes of dynamic
 // shared memory (opted in past the 48 KB default); returns the launch error.
 template <typename... Params, typename... Args>
-cudaError_t launch_smem(void (*kernel)(Params...), int grid, int threads,
+cudaError_t launch_smem(void (*kernel)(Params...), dim3 grid, int threads,
                         size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,6 +1,8 @@
 // The psi forward chain (block-complex layout) for Hopper, shared by the
-// forward-only NLL (psi_nll.cu, STREAM=false) and the training forward
-// (psi_train_fwd.cu, STREAM=true).
+// forward-only NLL (psi_nll.cu, kNll), the training forward with the state
+// stream (psi_train_fwd.cu, kStream) or with block checkpoints
+// (psi_train_fwd.cu, kCkpt), and the recompute of the recompute adjoint
+// (psi_recompute.cu, kRecompute).
 //
 // One step on the folded kernel-frame state t ([2D] per example), with s the
 // increment / A:
@@ -11,12 +13,27 @@
 //   deferred norm:  e /= max(n2_prev, eps); same loss; t = y, n2_prev = n2,
 //                   renormalised (and n2_prev = 1) at every unroll-th step,
 //                   where the TPU kernel renormalises at its block exits.
-// The mean over the batch stays outside; the kernel writes loss[B]. With
-// STREAM it also writes ys[k] = y_k ([n_steps, 2D, B]) and n2s[k] = |y_k|^2
-// ([n_steps, B]): with them the adjoint (psi_train_bwd.cu) and the cotangent
-// reduction (psi_cotangents.cu) rebuild every step's input state
-// t_k = y_{k-1} * (renorm ? rsqrt(max(n2, eps)) : 1) with the same
-// instructions as here, bit for bit, and no recompute chain.
+// The mean over the batch stays outside; the kernel writes loss[B]. What a
+// launch writes besides (FwdMode):
+//   kStream:    ys[k] = y_k ([n_steps, 2D, B]) and n2s[k] = |y_k|^2
+//               ([n_steps, B]): with them the adjoint (psi_train_bwd.cu) and
+//               the cotangent reduction (psi_cotangents.cu) rebuild every
+//               step's input state t_k = y_{k-1} * (renorm ?
+//               rsqrt(max(n2, eps)) : 1) with the same instructions as here,
+//               bit for bit, and no recompute chain.
+//   kCkpt:      ck[j] = t_{j unroll}, the state entering each unroll-step
+//               block ([n_blocks, 2D, B], n_blocks = ceil(n_steps / unroll);
+//               the state after the previous block's exit renorm), and no
+//               stream: the TPU forward's checkpoints (pallas_block.py :477).
+//   kRecompute: no loss; CTA (column, j) re-runs the span (a whole number
+//               of blocks) that starts at block j span / unroll of a
+//               segment, each block from its own checkpoint in t0 ([blocks,
+//               2D, B]), and writes the span's rows of ys and n2s. The
+//               spans of a segment are independent, so they run side by
+//               side; each CTA runs this loop over its steps, so from the
+//               kCkpt forward's checkpoints ys and n2s equal the kStream
+//               forward's bit for bit, and from any others they are the
+//               plain recompute's function of every checkpoint.
 //
 // Design. On the TPU the grid walks time blocks and scratch carries the
 // state; here each example is independent, so one CTA owns one example and
@@ -30,22 +47,26 @@
 // memory. At B=128 the grid is 128 CTAs on 132 SMs (one CTA fits an SM at
 // 192 KB). The stream write is one 4-byte store per thread per step, strided
 // by B between rows (coalesced only within the CTA's column of 2D rows), off
-// the dependent-dot path. Several examples per CTA, reusing each loaded
-// constant across columns (a warpgroup MMA over the batch), is later work.
+// the dependent-dot path. A recompute CTA loads the constants once for its
+// span; their transposed stores conflict in the banks, so the load costs
+// about a block of 16 steps, and a span of several blocks amortises it.
+// Several examples per CTA, reusing each loaded constant
+// across columns (a warpgroup MMA over the batch), is later work.
 #pragma once
 
 #include "common.cuh"
 
 namespace amt {
 
-template <int P, bool DEFER, bool STREAM>
+template <int P, bool DEFER, int MODE>
 __global__ void __launch_bounds__(1024)
     psi_fwd_kernel(const float* __restrict__ ab, const float* __restrict__ bb,
                    const float* __restrict__ rb, const float* __restrict__ t0,
                    const float* __restrict__ se, float* __restrict__ loss,
-                   float* __restrict__ ys, float* __restrict__ n2s, int D,
-                   int n_steps, int B, int unroll, float log_eps,
-                   float norm_eps) {
+                   float* __restrict__ ys, float* __restrict__ n2s,
+                   float* __restrict__ ck, int D, int n_steps, int B,
+                   int unroll, int span, float log_eps, float norm_eps) {
+  constexpr bool kRows = MODE == kStream || MODE == kRecompute;
   extern __shared__ __align__(16) uint32_t smem[];
   const int n = 2 * D;
   uint32_t* abt = smem;
@@ -67,36 +88,50 @@ __global__ void __launch_bounds__(1024)
 
   load_matrix_t<P>(abt, ab, n);
   load_matrix_t<P>(bbt, bb, n);
-  load_matrix_t<P>(rbt, rb, n);
+  if (MODE != kRecompute) load_matrix_t<P>(rbt, rb, n);
 
-  float t = active ? t0[i * stride + col] : 0.f;
+  // kRecompute: steps k_lo .. k_hi - 1 of span blockIdx.y, each block
+  // from its checkpoint (the next one in t_ck, fetched in a block's last
+  // step, replaces the exit renorm); otherwise every step from t0
+  const int k_lo = MODE == kRecompute ? blockIdx.y * span : 0;
+  const int k_hi = MODE == kRecompute ? min(k_lo + span, n_steps) : n_steps;
+  const float* tin =
+      MODE == kRecompute ? t0 + (k_lo / unroll) * plane : t0;
+  float t = active ? tin[i * stride + col] : 0.f;
+  float t_ck = 0.f;
   float acc = 0.f;
   float n2p = 1.f;
-  float s = n_steps > 0 ? se[col] : 0.f;
+  float s = k_lo < k_hi ? se[k_lo * stride + col] : 0.f;
 
-  for (int k = 0; k < n_steps; ++k) {
+  for (int k = k_lo; k < k_hi; ++k) {
+    if (MODE == kCkpt && active && k % unroll == 0)
+      ck[(k / unroll) * plane + i * stride + col] = t;
     if (active) store_vec<P>(th, tl, i, t);
     __syncthreads();
-    const float s_next = (k + 1 < n_steps) ? se[(k + 1) * stride + col] : 0.f;
+    const float s_next = (k + 1 < k_hi) ? se[(k + 1) * stride + col] : 0.f;
+    if (MODE == kRecompute && active && (k + 1) % unroll == 0 && k + 1 < k_hi)
+      t_ck = t0[((k + 1) / unroll) * plane + i * stride + col];
     float y = 0.f;
     if (active) {
       float a, b;
       row_dot2<P>(abt, bbt, th, tl, n, i, a, b);
       y = a + s * b;
       store_vec<P>(yh, yl, i, y);
-      if (STREAM) ys[k * plane + i * stride + col] = y;
+      if (kRows) ys[k * plane + i * stride + col] = y;
     }
     __syncthreads();
-    const float ru = active ? row_dot<P>(rbt, yh, yl, n, i) : 0.f;
+    // the expectation feeds the loss alone, which kRecompute does not write
+    const float ru = (active && MODE != kRecompute)
+                         ? row_dot<P>(rbt, yh, yl, n, i) : 0.f;
     float ehat, n2;
     block_sum2(y * ru, y * y, red, ehat, n2);
     ehat *= 2.f;
-    if (STREAM && i == 0) n2s[k * stride + col] = n2;
+    if (kRows && i == 0) n2s[k * stride + col] = n2;
     if (DEFER) {
       const float e = ehat / floor_at(n2p, norm_eps);
       acc -= logf(floor_at(1.f + e * s, log_eps));
       if ((k + 1) % unroll == 0) {
-        t = y * rsqrtf(floor_at(n2, norm_eps));
+        t = MODE == kRecompute ? t_ck : y * rsqrtf(floor_at(n2, norm_eps));
         n2p = 1.f;
       } else {
         t = y;
@@ -104,11 +139,12 @@ __global__ void __launch_bounds__(1024)
       }
     } else {
       acc -= logf(floor_at(1.f + ehat * s, log_eps));
-      t = y * rsqrtf(floor_at(n2, norm_eps));
+      t = (MODE == kRecompute && (k + 1) % unroll == 0)
+              ? t_ck : y * rsqrtf(floor_at(n2, norm_eps));
     }
     s = s_next;
   }
-  if (i == 0) loss[col] = acc;
+  if (MODE != kRecompute && i == 0) loss[col] = acc;
 }
 
 // Dynamic shared memory of one forward CTA: Ab, Bb, Rb (4 bytes an
@@ -118,19 +154,27 @@ inline size_t fwd_smem_bytes(int D) {
   return 3 * n * n * 4 + (4 * n + 64) * 4;
 }
 
-// Launch the forward for the runtime precision and norm flag; ys and n2s
-// are written only with STREAM.
-template <bool STREAM>
+// Launch the forward for the runtime precision and norm flag: B CTAs, or,
+// with kRecompute, B x ceil(n_steps / span) (t0 then holds the segment's
+// checkpoints; span, the steps of one CTA, is a whole number of blocks).
+// The pointers a MODE does not write may be null.
+template <int MODE>
 cudaError_t launch_fwd(const float* ab, const float* bb, const float* rb,
                        const float* t0, const float* se, float* loss,
-                       float* ys, float* n2s, int D, int n_steps, int B,
-                       int unroll, float log_eps, float norm_eps,
-                       int precision, bool defer, cudaStream_t stream) {
+                       float* ys, float* n2s, float* ck, int D, int n_steps,
+                       int B, int unroll, int span, float log_eps,
+                       float norm_eps, int precision, bool defer,
+                       cudaStream_t stream) {
+  if (unroll < 1 || span < unroll || span % unroll) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(B, MODE == kRecompute ? (n_steps + span - 1) / span : 1);
+  if (grid.y == 0) return cudaSuccess;
   return dispatch(precision, defer, [&](auto p, auto d) {
     return launch_smem(
-        psi_fwd_kernel<decltype(p)::value, decltype(d)::value, STREAM>, B,
+        psi_fwd_kernel<decltype(p)::value, decltype(d)::value, MODE>, grid,
         threads_for(D), fwd_smem_bytes(D), stream, ab, bb, rb, t0, se, loss,
-        ys, n2s, D, n_steps, B, unroll, log_eps, norm_eps);
+        ys, n2s, ck, D, n_steps, B, unroll, span, log_eps, norm_eps);
   });
 }
 

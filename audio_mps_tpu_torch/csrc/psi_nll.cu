@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel audio_mps_tpu/ops/pallas_block.py psi_nll_block
 // (its inline kernel, built on _psi_step / _psi_step_defer). The kernel is
-// psi_fwd_kernel of psi_fwd.cuh without the state stream; the step, the
+// psi_fwd_kernel of psi_fwd.cuh in its kNll mode; the step, the
 // design and what bounds it are described there.
 #include "psi_fwd.cuh"
 
@@ -18,9 +18,9 @@ int amt_psi_nll(const float* ab, const float* bb, const float* rb,
                 const float* t0, const float* se, float* loss, int D,
                 int n_steps, int B, int unroll, float log_eps, float norm_eps,
                 int precision, int defer_norm, void* stream) {
-  return static_cast<int>(amt::launch_fwd<false>(
-      ab, bb, rb, t0, se, loss, nullptr, nullptr, D, n_steps, B, unroll,
-      log_eps, norm_eps, precision, defer_norm != 0,
+  return static_cast<int>(amt::launch_fwd<amt::kNll>(
+      ab, bb, rb, t0, se, loss, nullptr, nullptr, nullptr, D, n_steps, B,
+      unroll, unroll, log_eps, norm_eps, precision, defer_norm != 0,
       static_cast<cudaStream_t>(stream)));
 }
 

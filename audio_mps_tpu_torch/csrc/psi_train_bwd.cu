@@ -5,11 +5,16 @@
 // deferred norm) and _make_psi_bwd_kernel (defer_norm=False): the reverse
 // chain over the states that psi_train_fwd.cu streamed. The three [2D,2D]
 // cotangent reductions, which the TPU kernel runs in its own body, are
-// psi_cotangents.cu; this kernel hands them dy_k and dehat_k.
+// psi_cotangents.cu; this kernel hands them dy_k and dehat_k. It also
+// serves the recompute adjoint (_make_psi_bwd_kernel_defer :621 and
+// _make_psi_bwd_kernel :529 without the stream): there it runs over one
+// time segment of whole blocks at a time, on the states psi_recompute.cu
+// rebuilt from the checkpoints, with dtfin the cotangent of the state
+// entering the next segment (the dt0 of that segment's run).
 //
-// Step k in reverse, with dt the cotangent of t_{k+1} (zero after the last
-// step), y = y_k, s = se[k], n2p the squared norm e divides by (n2_{k-1}
-// inside a deferred block, else 1):
+// Step k in reverse, with dt the cotangent of t_{k+1} (dtfin after the
+// last step, zero without it), y = y_k, s = se[k], n2p the squared norm e
+// divides by (n2_{k-1} inside a deferred block, else 1):
 //   ru = Rb y; ehat = 2 sum(y .* ru); e = DEFER ? ehat / max(n2p, eps) : ehat
 //   arg = max(1 + e s, log_eps); darg = arg > log_eps ? -g / arg : 0
 //   de = darg s; ds = darg e; dehat = DEFER ? de / max(n2p, eps) : de
@@ -24,7 +29,10 @@
 // k+1's dn2_new, the block-exit renorm seeds the last step of each block,
 // and the dn2_new of a block's first step (its n2p is the constant 1) is
 // dropped. The port loops over the real steps only, so the last step's dn2
-// is 0, as the TPU's zero-padded steps make it.
+// is 0, as the TPU's zero-padded steps make it. A segment ends at a block
+// exit, whose renorm seeds its last step from dt, and the next segment's
+// first step drops its dn2_new: so only dt crosses a segment boundary, and
+// the segments' dse and dt0 equal one run's bit for bit.
 //
 // Design. One CTA per example loops over all steps; thread i owns row i.
 // The chain needs Rb y, Rb^T dru, Ab^T dy and Bb^T dy: four orientations of
@@ -55,6 +63,7 @@ __global__ void __launch_bounds__(1024)
                          const float* __restrict__ g,
                          const float* __restrict__ ys,
                          const float* __restrict__ n2s,
+                         const float* __restrict__ dtfin,
                          float* __restrict__ dse, float* __restrict__ dt0,
                          float* __restrict__ dys, float* __restrict__ dehats,
                          int D, int n_steps, int B, int unroll, float log_eps,
@@ -85,7 +94,8 @@ __global__ void __launch_bounds__(1024)
   load_matrix_pad<P>(rbm, rb, n);
 
   const float gc = g[col];
-  float dt = 0.f;      // cotangent of t_{k+1}
+  float dt = (dtfin != nullptr && active) ? dtfin[i * stride + col]
+                                          : 0.f;   // cotangent of t_{k+1}
   float dn2n = 0.f;    // dn2_new of step k+1
   float y = (active && n_steps > 0)
                 ? ys[(n_steps - 1) * plane + i * stride + col] : 0.f;
@@ -166,14 +176,15 @@ size_t amt_psi_train_bwd_smem_bytes(int D) {
 }
 
 // dse[n_steps, B], dt0[2D, B], dys[n_steps, 2D, B] and dehats[n_steps, B]
-// from the loss cotangent g[B] and the forward's ys and n2s; see the kernel
-// note above. precision: 0 highest, 1 high, 2 default. Returns a
+// from the loss cotangent g[B], the forward's ys and n2s, and dtfin[2D, B],
+// the cotangent of the state after the last step (null: zero); see the
+// kernel note above. precision: 0 highest, 1 high, 2 default. Returns a
 // cudaError_t.
 int amt_psi_train_bwd(const float* ab, const float* bb, const float* rb,
                       const float* t0, const float* se, const float* g,
-                      const float* ys, const float* n2s, float* dse,
-                      float* dt0, float* dys, float* dehats, int D,
-                      int n_steps, int B, int unroll, float log_eps,
+                      const float* ys, const float* n2s, const float* dtfin,
+                      float* dse, float* dt0, float* dys, float* dehats,
+                      int D, int n_steps, int B, int unroll, float log_eps,
                       float norm_eps, int precision, int defer_norm,
                       void* stream) {
   return static_cast<int>(amt::dispatch(
@@ -182,7 +193,8 @@ int amt_psi_train_bwd(const float* ab, const float* bb, const float* rb,
             amt::psi_train_bwd_kernel<decltype(p)::value, decltype(d)::value>,
             B, amt::threads_for(D), amt_psi_train_bwd_smem_bytes(D),
             static_cast<cudaStream_t>(stream), ab, bb, rb, t0, se, g, ys, n2s,
-            dse, dt0, dys, dehats, D, n_steps, B, unroll, log_eps, norm_eps);
+            dtfin, dse, dt0, dys, dehats, D, n_steps, B, unroll, log_eps,
+            norm_eps);
       }));
 }
 

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel audio_mps_tpu/ops/pallas_block.py rho_nll_block
 // (its inline kernel, :2519, built on _rho_step / _rho_step_defer). The
-// kernel is rho_fwd_kernel of rho_fwd.cuh without the state stream; the
+// kernel is rho_fwd_kernel of rho_fwd.cuh in its kNll mode; the
 // step, the design and what bounds it are described there.
 #include "rho_fwd.cuh"
 
@@ -21,9 +21,9 @@ int amt_rho_nll(const float* ab, const float* bb, const float* xb,
                 const float* t0, const float* se, float* loss, int D,
                 int n_steps, int B, int R, int unroll, float log_eps,
                 float norm_eps, int precision, int defer_norm, void* stream) {
-  return static_cast<int>(amt::launch_rho_fwd<false>(
-      ab, bb, xb, t0, se, loss, nullptr, nullptr, D, n_steps, B, R, unroll,
-      log_eps, norm_eps, precision, defer_norm != 0,
+  return static_cast<int>(amt::launch_rho_fwd<amt::kNll>(
+      ab, bb, xb, t0, se, loss, nullptr, nullptr, nullptr, D, n_steps, B, R,
+      unroll, log_eps, norm_eps, precision, defer_norm != 0,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -8,9 +8,14 @@
 // factors that rho_train_fwd.cu streamed. The three [2D,2D] cotangents,
 // which the TPU kernel accumulates in its own body (dotnt :1583-1585), are
 // the psi cotangent kernel (psi_cotangents.cu) run over the B*R lanes; this
-// file hands it dy_k and dehat_k.
+// file hands it dy_k and dehat_k. It also serves the recompute adjoints
+// (_make_rho_bwd_kernel_batched with stream=False :1438,
+// _make_rho_bwd_kernel_defer :1790, _make_rho_bwd_kernel :1689 without the
+// stream): there it runs over one time segment of whole blocks at a time,
+// on the factors rho_recompute.cu rebuilt from the checkpoints, with dtfin
+// the cotangent of the factor entering the next segment.
 //
-// Step k in reverse for example b, with dt the cotangent of t_{k+1} (zero
+// Step k in reverse for example b, with dt the cotangent of t_{k+1} (dtfin
 // after the last step), y = y_k, s = se[k], trp the trace e divides by
 // (tr_{k-1} inside a deferred block, else 1):
 //   tail (free of the chain; the TPU batches it over a block, :1516-1562):
@@ -33,7 +38,9 @@
 // dtrn is dropped). The port loops over the real steps only, so the last
 // step's dtr is 0, as the TPU's zero-padded steps make it; and dse is
 // emitted per example ([n_steps, B]) where the TPU spreads it over the rank
-// lanes for jnp.repeat's adjoint to sum back.
+// lanes for jnp.repeat's adjoint to sum back. A segment ends at a block
+// exit, whose renorm seeds its last step's dtr from dt, and the next
+// segment's first step drops its dtrn: only dt crosses a segment boundary.
 //
 // Design. Two kernels of one launch. The tail runs over all (step, example)
 // pairs at once: a CTA owns one example's segment over a range of steps,
@@ -132,6 +139,7 @@ __global__ void __launch_bounds__(kRhoMaxThreads)
                          const float* __restrict__ ys,
                          const float* __restrict__ trs,
                          const float* __restrict__ dtrns,
+                         const float* __restrict__ dtfin,
                          float* __restrict__ dse, float* __restrict__ dt0,
                          float* __restrict__ dys, int D, int n_steps, int B,
                          int R, int unroll, float norm_eps) {
@@ -155,10 +163,7 @@ __global__ void __launch_bounds__(kRhoMaxThreads)
   load_matrix<P>(bbm, bb, n);
 
   float dt[8][4], y[8][4];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dt[r][c] = 0.f;
+  load_tile(dt, dtfin, cols, col0, tl);
   if (n_steps > 0) load_tile(y, ys + (n_steps - 1) * plane, cols, col0, tl);
   float dtrn = 0.f;   // dtrn of step k+1
 
@@ -231,10 +236,11 @@ inline size_t bwd_smem_bytes(int D, int R) {
 template <int P, bool DEFER>
 cudaError_t launch_rho_bwd(const float* ab, const float* bb, const float* xb,
                            const float* t0, const float* se, const float* g,
-                           const float* ys, const float* trs, float* dse,
-                           float* dt0, float* dys, float* dehats,
-                           float* dtrns, int D, int n_steps, int B, int R,
-                           int unroll, float log_eps, float norm_eps,
+                           const float* ys, const float* trs,
+                           const float* dtfin, float* dse, float* dt0,
+                           float* dys, float* dehats, float* dtrns, int D,
+                           int n_steps, int B, int R, int unroll,
+                           float log_eps, float norm_eps,
                            cudaStream_t stream) {
   const int threads = rho_threads(D, R);
   const size_t smem = bwd_smem_bytes(D, R);
@@ -253,8 +259,8 @@ cudaError_t launch_rho_bwd(const float* ab, const float* bb, const float* xb,
     if (err != cudaSuccess) return err;
   }
   return launch_smem(rho_bwd_chain_kernel<P, DEFER>, B, threads, smem,
-                     stream, ab, bb, t0, se, ys, trs, dtrns, dse, dt0, dys,
-                     D, n_steps, B, R, unroll, norm_eps);
+                     stream, ab, bb, t0, se, ys, trs, dtrns, dtfin, dse, dt0,
+                     dys, D, n_steps, B, R, unroll, norm_eps);
 }
 
 }  // namespace amt
@@ -268,21 +274,23 @@ size_t amt_rho_train_bwd_smem_bytes(int D, int R) {
 }
 
 // dse[n_steps, B], dt0[2D, B*R], dys[n_steps, 2D, B*R] and
-// dehats[n_steps, B] from the loss cotangent g[B] and the forward's ys and
-// trs; dtrns[n_steps, B] is scratch. See the kernel note above. precision:
-// 0 highest, 1 high, 2 default. Returns a cudaError_t.
+// dehats[n_steps, B] from the loss cotangent g[B], the forward's ys and
+// trs, and dtfin[2D, B*R], the cotangent of the factor after the last step
+// (zeros for one whole run); dtrns[n_steps, B] is scratch. See the kernel
+// note above. precision: 0 highest, 1 high, 2 default. Returns a
+// cudaError_t.
 int amt_rho_train_bwd(const float* ab, const float* bb, const float* xb,
                       const float* t0, const float* se, const float* g,
-                      const float* ys, const float* trs, float* dse,
-                      float* dt0, float* dys, float* dehats, float* dtrns,
-                      int D, int n_steps, int B, int R, int unroll,
-                      float log_eps, float norm_eps, int precision,
-                      int defer_norm, void* stream) {
+                      const float* ys, const float* trs, const float* dtfin,
+                      float* dse, float* dt0, float* dys, float* dehats,
+                      float* dtrns, int D, int n_steps, int B, int R,
+                      int unroll, float log_eps, float norm_eps,
+                      int precision, int defer_norm, void* stream) {
   return static_cast<int>(amt::dispatch(
       precision, defer_norm != 0, [&](auto p, auto d) {
         return amt::launch_rho_bwd<decltype(p)::value, decltype(d)::value>(
-            ab, bb, xb, t0, se, g, ys, trs, dse, dt0, dys, dehats, dtrns, D,
-            n_steps, B, R, unroll, log_eps, norm_eps,
+            ab, bb, xb, t0, se, g, ys, trs, dtfin, dse, dt0, dys, dehats,
+            dtrns, D, n_steps, B, R, unroll, log_eps, norm_eps,
             static_cast<cudaStream_t>(stream));
       }));
 }

@@ -1,15 +1,21 @@
 // Training forward of the rho NLL (purification factor, block-complex
 // layout) for Hopper: the forward-only NLL that also streams every
-// post-step factor and its trace.
+// post-step factor and its trace, or writes the block-entry checkpoints
+// instead.
 //
 // Replaces the TPU kernels audio_mps_tpu/ops/pallas_block.py
-// _make_rho_fwd_kernel_batched (:1366, stream=True: deferred norm, the
-// training default) and _make_rho_fwd_kernel (:1602, defer_norm=False).
-// The kernel is rho_fwd_kernel of rho_fwd.cuh with the state stream: besides
-// loss[B] it writes ys[n_steps, 2D, B*R] and trs[n_steps, B], from which the
-// adjoint (rho_train_bwd.cu) and the cotangents rebuild every step's input
-// factor bit for bit. The step, the design and what bounds it are described
-// there; the stream adds one coalesced store of the segment a step.
+// _make_rho_fwd_kernel_batched (:1366: stream=True, deferred norm, the
+// training default; stream=False, the forward of the recompute adjoint)
+// and _make_rho_fwd_kernel (:1602: defer_norm=False, and the forward of
+// _make_rho_bwd_kernel_defer). The kernel is rho_fwd_kernel of rho_fwd.cuh.
+// With the state stream (kStream) it writes, besides loss[B],
+// ys[n_steps, 2D, B*R] and trs[n_steps, B], from which the adjoint
+// (rho_train_bwd.cu) and the cotangents rebuild every step's input factor
+// bit for bit. With checkpoints (kCkpt) it writes ck[n_blocks, 2D, B*R],
+// the factor entering each unroll-step block, from which rho_recompute.cu
+// rebuilds one time segment's ys and trs at a time. The step, the design
+// and what bounds it are described there; the stream adds one coalesced
+// store of the segment a step, the checkpoints one a block.
 #include "rho_fwd.cuh"
 
 extern "C" {
@@ -27,9 +33,22 @@ int amt_rho_train_fwd(const float* ab, const float* bb, const float* xb,
                       float* trs, int D, int n_steps, int B, int R, int unroll,
                       float log_eps, float norm_eps, int precision,
                       int defer_norm, void* stream) {
-  return static_cast<int>(amt::launch_rho_fwd<true>(
-      ab, bb, xb, t0, se, loss, ys, trs, D, n_steps, B, R, unroll, log_eps,
-      norm_eps, precision, defer_norm != 0,
+  return static_cast<int>(amt::launch_rho_fwd<amt::kStream>(
+      ab, bb, xb, t0, se, loss, ys, trs, nullptr, D, n_steps, B, R, unroll,
+      log_eps, norm_eps, precision, defer_norm != 0,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// loss[B] and the checkpoints ck[ceil(n_steps / unroll), 2D, B*R] from
+// se[n_steps, B]; see rho_fwd.cuh. Returns a cudaError_t.
+int amt_rho_train_fwd_ckpt(const float* ab, const float* bb, const float* xb,
+                           const float* t0, const float* se, float* loss,
+                           float* ck, int D, int n_steps, int B, int R,
+                           int unroll, float log_eps, float norm_eps,
+                           int precision, int defer_norm, void* stream) {
+  return static_cast<int>(amt::launch_rho_fwd<amt::kCkpt>(
+      ab, bb, xb, t0, se, loss, nullptr, nullptr, ck, D, n_steps, B, R,
+      unroll, log_eps, norm_eps, precision, defer_norm != 0,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -23,11 +23,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("psi_sample.cu", "psi_nll.cu", "psi_train_fwd.cu",
-           "psi_train_bwd.cu", "psi_cotangents.cu", "rho_sample.cu",
-           "rho_nll.cu", "rho_train_fwd.cu", "rho_train_bwd.cu",
-           "rank_partials_fwd.cu", "rank_partials_bwd.cu")
+           "psi_recompute.cu", "psi_train_bwd.cu", "psi_cotangents.cu",
+           "rho_sample.cu", "rho_nll.cu", "rho_train_fwd.cu",
+           "rho_recompute.cu", "rho_train_bwd.cu", "rank_partials_fwd.cu",
+           "rank_partials_recompute.cu", "rank_partials_bwd.cu")
 HEADERS = ("common.cuh", "psi_fwd.cuh", "rho_tile.cuh", "rho_fwd.cuh",
-           "rank_partials.cuh")
+           "rank_partials.cuh", "rank_partials_fwd.cuh")
 ROOT = Path(__file__).resolve().parents[2]
 LIB_NAME = "libamt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,9 +48,16 @@ _SIGNATURES = {
     # norm_eps, precision, defer_norm, stream
     "amt_psi_train_fwd": ([_P] * 8 + [_I, _I, _I, _I, _F, _F, _I, _I, _P],
                           _I),
-    # ab, bb, rb, t0, se, g, ys, n2s, dse, dt0, dys, dehats, D, n_steps, B,
-    # unroll, log_eps, norm_eps, precision, defer_norm, stream
-    "amt_psi_train_bwd": ([_P] * 12 + [_I, _I, _I, _I, _F, _F, _I, _I, _P],
+    # ab, bb, rb, t0, se, loss, ck, D, n_steps, B, unroll, log_eps,
+    # norm_eps, precision, defer_norm, stream
+    "amt_psi_train_fwd_ckpt": ([_P] * 7 + [_I] * 4 + [_F, _F, _I, _I, _P],
+                               _I),
+    # ab, bb, rb, ck, se, ys, n2s, D, n_steps, B, unroll, blocks_per_cta,
+    # norm_eps, precision, defer_norm, stream
+    "amt_psi_recompute": ([_P] * 7 + [_I] * 5 + [_F, _I, _I, _P], _I),
+    # ab, bb, rb, t0, se, g, ys, n2s, dtfin, dse, dt0, dys, dehats, D,
+    # n_steps, B, unroll, log_eps, norm_eps, precision, defer_norm, stream
+    "amt_psi_train_bwd": ([_P] * 13 + [_I, _I, _I, _I, _F, _F, _I, _I, _P],
                           _I),
     # dys, ys, t0, se, n2s, dehats, partial, out, D, n_steps, B, unroll,
     # norm_eps, precision, defer_norm, stream
@@ -63,12 +71,27 @@ _SIGNATURES = {
     # ab, bb, xb, t0, se, loss, ys, trs, D, n_steps, B, R, unroll, log_eps,
     # norm_eps, precision, defer_norm, stream
     "amt_rho_train_fwd": ([_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
-    # ab, bb, xb, t0, se, g, ys, trs, dse, dt0, dys, dehats, dtrns, D,
-    # n_steps, B, R, unroll, log_eps, norm_eps, precision, defer_norm, stream
-    "amt_rho_train_bwd": ([_P] * 13 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    # ab, bb, xb, t0, se, loss, ck, D, n_steps, B, R, unroll, log_eps,
+    # norm_eps, precision, defer_norm, stream
+    "amt_rho_train_fwd_ckpt": ([_P] * 7 + [_I] * 5 + [_F, _F, _I, _I, _P],
+                               _I),
+    # ab, bb, xb, ck, se, ys, trs, D, n_steps, B, R, unroll, norm_eps,
+    # precision, defer_norm, stream
+    "amt_rho_recompute": ([_P] * 7 + [_I] * 5 + [_F, _I, _I, _P], _I),
+    # ab, bb, xb, t0, se, g, ys, trs, dtfin, dse, dt0, dys, dehats, dtrns,
+    # D, n_steps, B, R, unroll, log_eps, norm_eps, precision, defer_norm,
+    # stream
+    "amt_rho_train_bwd": ([_P] * 14 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
     # abt, bbt, xbt, t0, se, eh, tr, tfin, ys, D, n_steps, B, S, rc,
     # unroll, norm_eps, precision, stream
     "amt_rank_partials_fwd": ([_P] * 9 + [_I] * 6 + [_F, _I, _P], _I),
+    # abt, bbt, xbt, t0, se, eh, tr, tfin, ck, D, n_steps, B, S, rc,
+    # unroll, norm_eps, precision, stream
+    "amt_rank_partials_fwd_ckpt": ([_P] * 9 + [_I] * 6 + [_F, _I, _P], _I),
+    # abt, bbt, ck, se, ys, D, n_steps, B, S, rc, unroll, norm_eps,
+    # precision, stream
+    "amt_rank_partials_recompute": ([_P] * 5 + [_I] * 6 + [_F, _I, _P],
+                                    _I),
     # xbt, xb, ab, bb, t0, se, ys, tr, deh, dtr, dtfin, dse, dt0, dys, D,
     # n_steps, B, S, rc, unroll, norm_eps, precision, stream
     "amt_rank_partials_bwd": ([_P] * 14 + [_I] * 6 + [_F, _I, _P], _I),

@@ -13,10 +13,13 @@ Each kernel comes as a pair:
 * ``*_plain``: the step loop in plain PyTorch. It is the CPU path and the
   version the CUDA kernel is held to on the card.
 * the wrapper (``psi_sample_block``, ``psi_nll_block``, ``psi_train_fwd``,
-  ``psi_train_bwd``, ``psi_cotangents`` and their ``rho_*`` counterparts):
-  a CPU tensor goes to the plain version; a CUDA tensor launches the
-  hand-written kernel from ``csrc/`` (built by ``ops/_build.py``) or
-  raises. The wrapper counts its launches in ``.launches``.
+  ``psi_train_fwd_ckpt``, ``psi_recompute``, ``psi_train_bwd``,
+  ``psi_cotangents`` and their ``rho_*`` counterparts): a CPU tensor goes
+  to the plain version; a CUDA tensor launches the hand-written kernel
+  from ``csrc/`` (built by ``ops/_build.py``) or raises. The wrapper counts
+  its launches in ``.launches``. ``psi_recompute_bwd`` /
+  ``rho_recompute_bwd`` chain three of them over time segments, beside
+  their own plain versions.
 
 The samplers and the NLLs take the kernel inputs that ``*_sample_inputs``
 / ``*_nll_inputs`` build from the parameters, and are forward-only (no
@@ -34,6 +37,7 @@ fp32, as the kernels do.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -121,9 +125,10 @@ def _make_dot_ops(precision):
 
 def _make_dot_ops_bwd(precision):
     """(prep, dotf, dotnt) for the plain adjoint and cotangents (the TPU's
-    ``pallas_block._make_dot_ops_bwd``; its ``rec`` serves only the
-    recompute adjoint, which is not ported): ``dotnt(a, b)`` is a @ b.T on
-    prepped operands, contracting their last axes."""
+    ``pallas_block._make_dot_ops_bwd``; its ``rec`` rebuilds values from the
+    preps its recompute adjoint saves, where the port's recompute rebuilds
+    the states themselves): ``dotnt(a, b)`` is a @ b.T on prepped
+    operands, contracting their last axes."""
     prep, dotf = _make_dot_ops(precision)
     if precision == "high":
         def dotnt(a, b):
@@ -305,16 +310,19 @@ def _renorms(k: int, unroll: int, defer_norm: bool) -> bool:
 
 
 def _psi_chain_plain(ab, bb, rb, t0, se, *, log_eps, norm_eps, unroll,
-                     precision, defer_norm, on_step=None):
-    """The forward step loop shared by the NLL and the training forward:
-    per-example NLL [B]; ``on_step(k, y, n2)`` sees each post-step state
-    y_k [2D, B] and its squared norm [1, B]."""
+                     precision, defer_norm, on_step=None, ck=None):
+    """The forward step loop shared by the NLL, the training forwards and
+    the recompute: per-example NLL [B]; ``on_step(k, y, n2)`` sees each
+    post-step state y_k [2D, B] and its squared norm [1, B]; ``ck[j]``
+    receives the state entering step j * unroll (the block checkpoints)."""
     prep, dotf = _make_dot_ops(precision)
     abp, bbp, rbp = prep(ab), prep(bb), prep(rb)
     t = t0
     acc = torch.zeros_like(t0[:1])
     n2p = torch.ones_like(acc)
     for k in range(se.shape[0]):
+        if ck is not None and k % unroll == 0:
+            ck[k // unroll] = t
         s = se[k:k + 1]
         tp = prep(t)
         bt = dotf(bbp, tp)                   # R~ t
@@ -385,7 +393,8 @@ psi_nll_block.launches = 0
 
 
 # ===========================================================================
-# Training: streamed-states forward, adjoint chain, cotangent reduction
+# Training: streamed-states forward, adjoint chain, cotangent reduction, and
+# the recompute adjoint
 # ===========================================================================
 #
 # The TPU's training pair (pallas_block._make_psi_fwd_kernel_stream and
@@ -398,10 +407,17 @@ psi_nll_block.launches = 0
 # is the forward's state bit for bit. The same three also serve the per-step
 # norm (defer_norm=False), whose TPU pair is _make_psi_fwd_kernel and
 # _make_psi_bwd_kernel.
-
-_STREAM_OFF = ("audio_mps_tpu/ops/pallas_block.py _make_psi_bwd_kernel_defer "
-               "(:621, the recompute adjoint that needs no state stream; "
-               "ROADMAP queue B, kernel table row 3d)")
+#
+# Without the stream (kernel_stream="off", or "auto" when the stream does
+# not fit; the TPU's _make_psi_fwd_kernel with _make_psi_bwd_kernel_defer
+# :621 or _make_psi_bwd_kernel :529) the forward keeps only the block-entry
+# checkpoints ck [n_blocks, 2D, B] (psi_train_fwd_ckpt). The recompute
+# adjoint (psi_recompute_bwd) then runs time segments of whole blocks, last
+# first: psi_recompute rebuilds a segment's ys and n2s from its checkpoints,
+# every block at once, bit for bit the streamed forward's; the adjoint and
+# the reduction above run over the segment, the adjoint carrying dt in from
+# the next segment (dtfin), and the host adds the segments' cotangents in a
+# fixed order. The card holds ck and one segment's ys and dy.
 
 
 def _state_scales(n2s, *, norm_eps, unroll, defer_norm):
@@ -444,13 +460,63 @@ def psi_train_fwd_plain(ab, bb, rb, t0, se, *, log_eps: float,
     return loss, ys, n2s
 
 
+def n_blocks(n_steps: int, unroll: int) -> int:
+    """Blocks of ``unroll`` steps over ``n_steps`` (the last may be
+    shorter): the checkpoints of the recompute path."""
+    return -(-n_steps // unroll)
+
+
+@torch.no_grad()
+def psi_train_fwd_ckpt_plain(ab, bb, rb, t0, se, *, log_eps: float,
+                             norm_eps: float, unroll: int = 16,
+                             precision: str = "highest",
+                             defer_norm: bool = False):
+    """(loss [B], ck [n_blocks, 2D, B]): the NLL of ``psi_nll_block_plain``
+    and the state entering every block of ``unroll`` steps, after the
+    previous block's exit renorm (the TPU forward's checkpoints,
+    ``pallas_block.py:477``). Plain PyTorch, any device."""
+    ck = se.new_empty((n_blocks(se.shape[0], unroll),) + tuple(t0.shape))
+    loss = _psi_chain_plain(ab, bb, rb, t0, se, log_eps=log_eps,
+                            norm_eps=norm_eps, unroll=unroll,
+                            precision=precision, defer_norm=defer_norm,
+                            ck=ck)
+    return loss, ck
+
+
+@torch.no_grad()
+def psi_recompute_plain(ab, bb, rb, ck, se, *, norm_eps: float,
+                        unroll: int = 16, precision: str = "highest",
+                        defer_norm: bool = False):
+    """(ys [n_steps, 2D, B], n2s [n_steps, B]) of a time segment that
+    starts at a block entry, every block re-run from its checkpoint ck[j]
+    as the forward runs it: what ``psi_train_fwd_plain`` streams over those
+    steps. Plain PyTorch, any device."""
+    n_steps, B = se.shape
+    ys = se.new_empty((n_steps, ck.shape[1], B))
+    n2s = se.new_empty((n_steps, B))
+    for j in range(n_blocks(n_steps, unroll)):
+        k0 = j * unroll
+
+        def keep(k, y, n2):
+            ys[k0 + k] = y
+            n2s[k0 + k] = n2[0]
+
+        _psi_chain_plain(ab, bb, rb, ck[j], se[k0:k0 + unroll],
+                         log_eps=float("-inf"), norm_eps=norm_eps,
+                         unroll=unroll, precision=precision,
+                         defer_norm=defer_norm, on_step=keep)
+    return ys, n2s
+
+
 @torch.no_grad()
 def psi_train_bwd_plain(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
                         norm_eps: float, unroll: int = 16,
                         precision: str = "highest",
-                        defer_norm: bool = False):
-    """Adjoint of ``psi_train_fwd`` for the loss cotangent g [B]:
-    (dse [n_steps, B], dt0 [2D, B], dy [n_steps, 2D, B], dehat [n_steps, B]).
+                        defer_norm: bool = False, dtfin=None):
+    """Adjoint of ``psi_train_fwd`` for the loss cotangent g [B] and dtfin
+    [2D, B], the cotangent of the state after the last step (zero when
+    None): (dse [n_steps, B], dt0 [2D, B], dy [n_steps, 2D, B],
+    dehat [n_steps, B]).
 
     The chain-independent work is batched over all steps, as the TPU
     kernel batches it over a block (``RU``, the e/arg/dn2 tail, ``dru`` and
@@ -482,7 +548,7 @@ def psi_train_bwd_plain(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
         n2s, norm_eps=norm_eps, unroll=unroll, defer_norm=defer_norm))
 
     abT, bbT = prep(ab.T), prep(bb.T)
-    dt = torch.zeros_like(t0)
+    dt = torch.zeros_like(t0) if dtfin is None else dtfin
     dn2n = torch.zeros_like(g)
     dy_all = torch.empty_like(ys)
     dse = torch.empty_like(se)
@@ -567,13 +633,98 @@ psi_train_fwd.launches = 0
 
 
 @torch.no_grad()
+def psi_train_fwd_ckpt(ab, bb, rb, t0, se, *, log_eps: float,
+                       norm_eps: float, unroll: int = 16,
+                       precision: str = "highest", defer_norm: bool = False):
+    """(loss [B], ck): ``psi_train_fwd_ckpt_plain`` for CPU tensors, the
+    CUDA kernel ``csrc/psi_train_fwd.cu`` (its checkpoint mode) for CUDA
+    tensors."""
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision, defer_norm=defer_norm)
+    if _cuda_or_raise("psi_train_fwd_ckpt", se):
+        return psi_train_fwd_ckpt_plain(ab, bb, rb, t0, se, **kw)
+    _check_options(precision, unroll)
+    n_steps, B = se.shape
+    D = t0.shape[0] // 2
+    n = 2 * D
+    _check_inputs("psi_train_fwd_ckpt", se.device, dict(
+        ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)), t0=(t0, (n, B)),
+        se=(se, (n_steps, B))))
+    lib = _build.library()
+    _check_smem("psi_train_fwd_ckpt", lib.amt_psi_train_fwd_smem_bytes(D),
+                se.device, D)
+    loss = se.new_empty((B,))
+    ck = se.new_empty((n_blocks(n_steps, unroll), n, B))
+    if B == 0:
+        return loss, ck
+    err = lib.amt_psi_train_fwd_ckpt(
+        _ptr(ab), _ptr(bb), _ptr(rb), _ptr(t0), _ptr(se), _ptr(loss),
+        _ptr(ck), D, n_steps, B, unroll, log_eps, norm_eps,
+        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+    _build.check(lib, err, "psi_train_fwd_ckpt")
+    psi_train_fwd_ckpt.launches += 1
+    return loss, ck
+
+
+psi_train_fwd_ckpt.launches = 0
+
+
+def psi_recompute_blocks(cols: int, blocks: int, n_sms: int) -> int:
+    """Blocks a CTA of ``csrc/psi_recompute.cu`` re-runs: its load of the
+    constants costs about a block's steps, so as many as keep at least four
+    CTAs an SM over the segment's ``cols`` x ``blocks`` (one CTA fits an
+    SM), at least one and at most the segment."""
+    return max(1, min(blocks, cols * blocks // (4 * n_sms)))
+
+
+@torch.no_grad()
+def psi_recompute(ab, bb, rb, ck, se, *, norm_eps: float, unroll: int = 16,
+                  precision: str = "highest", defer_norm: bool = False):
+    """(ys, n2s) of a segment: ``psi_recompute_plain`` for CPU tensors, the
+    CUDA kernel ``csrc/psi_recompute.cu`` for CUDA tensors, a CTA a span of
+    ``psi_recompute_blocks`` blocks."""
+    kw = dict(norm_eps=norm_eps, unroll=unroll, precision=precision,
+              defer_norm=defer_norm)
+    if _cuda_or_raise("psi_recompute", se):
+        return psi_recompute_plain(ab, bb, rb, ck, se, **kw)
+    _check_options(precision, unroll)
+    n_steps, B = se.shape
+    D = ck.shape[1] // 2
+    n = 2 * D
+    _check_inputs("psi_recompute", se.device, dict(
+        ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)),
+        ck=(ck, (n_blocks(n_steps, unroll), n, B)), se=(se, (n_steps, B))))
+    lib = _build.library()
+    _check_smem("psi_recompute", lib.amt_psi_train_fwd_smem_bytes(D),
+                se.device, D)
+    ys = se.new_empty((n_steps, n, B))
+    n2s = se.new_empty((n_steps, B))
+    if B == 0 or n_steps == 0:
+        return ys, n2s
+    span = psi_recompute_blocks(
+        B, ck.shape[0],
+        torch.cuda.get_device_properties(se.device).multi_processor_count)
+    err = lib.amt_psi_recompute(
+        _ptr(ab), _ptr(bb), _ptr(rb), _ptr(ck), _ptr(se), _ptr(ys),
+        _ptr(n2s), D, n_steps, B, unroll, span, norm_eps,
+        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+    _build.check(lib, err, "psi_recompute")
+    psi_recompute.launches += 1
+    return ys, n2s
+
+
+psi_recompute.launches = 0
+
+
+@torch.no_grad()
 def psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
                   norm_eps: float, unroll: int = 16,
-                  precision: str = "highest", defer_norm: bool = False):
+                  precision: str = "highest", defer_norm: bool = False,
+                  dtfin=None):
     """(dse, dt0, dy, dehat): ``psi_train_bwd_plain`` for CPU tensors, the
     CUDA kernel ``csrc/psi_train_bwd.cu`` for CUDA tensors."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
-              precision=precision, defer_norm=defer_norm)
+              precision=precision, defer_norm=defer_norm, dtfin=dtfin)
     if _cuda_or_raise("psi_train_bwd", se):
         return psi_train_bwd_plain(ab, bb, rb, t0, se, g, ys, n2s, **kw)
     _check_options(precision, unroll)
@@ -584,6 +735,9 @@ def psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
         ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)), t0=(t0, (n, B)),
         se=(se, (n_steps, B)), g=(g, (B,)), ys=(ys, (n_steps, n, B)),
         n2s=(n2s, (n_steps, B))))
+    if dtfin is not None:
+        _check_inputs("psi_train_bwd", se.device,
+                      dict(dtfin=(dtfin, (n, B))))
     lib = _build.library()
     _check_smem("psi_train_bwd", lib.amt_psi_train_bwd_smem_bytes(D),
                 se.device, D)
@@ -595,9 +749,10 @@ def psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
         return dse, dt0, dy, dehat
     err = lib.amt_psi_train_bwd(
         _ptr(ab), _ptr(bb), _ptr(rb), _ptr(t0), _ptr(se), _ptr(g), _ptr(ys),
-        _ptr(n2s), _ptr(dse), _ptr(dt0), _ptr(dy), _ptr(dehat), D, n_steps,
-        B, unroll, log_eps, norm_eps, PRECISIONS.index(precision),
-        int(defer_norm), _stream_ptr(se.device))
+        _ptr(n2s), None if dtfin is None else _ptr(dtfin), _ptr(dse),
+        _ptr(dt0), _ptr(dy), _ptr(dehat), D, n_steps, B, unroll, log_eps,
+        norm_eps, PRECISIONS.index(precision), int(defer_norm),
+        _stream_ptr(se.device))
     _build.check(lib, err, "psi_train_bwd")
     psi_train_bwd.launches += 1
     return dse, dt0, dy, dehat
@@ -649,35 +804,154 @@ def _cotangents_kernel(counted, dy, ys, t0, se, n2s, dehat, *,
     return out[0], out[1], out[2]
 
 
+def recompute_segment_steps(n_steps: int, unroll: int,
+                            time_segment: Optional[int] = None) -> int:
+    """Steps per time segment of the recompute adjoints, whole blocks of
+    ``unroll``: ``time_segment`` rounded up to whole blocks, or, left None,
+    ceil(n_blocks / (2 unroll)) blocks, so that one segment's ys and dy
+    (twice its steps in states) take about the checkpoints' bytes (one
+    state a block): ~T / (2 unroll) steps. The port's own rule, not the
+    TPU's ``auto_time_segment``: the recompute path exists to hold memory
+    down, so the segment does not grow with free memory."""
+    nb = max(1, n_blocks(n_steps, unroll))
+    blocks = (-(-nb // (2 * unroll)) if time_segment is None
+              else -(-time_segment // unroll))
+    return max(1, min(blocks, nb)) * unroll
+
+
+def recompute_segments(n_steps: int, unroll: int,
+                       time_segment: Optional[int] = None) -> list:
+    """(k0, k1) of each time segment of the recompute adjoints, last
+    first."""
+    steps = recompute_segment_steps(n_steps, unroll, time_segment)
+    return [(k0, min(k0 + steps, n_steps))
+            for k0 in reversed(range(0, n_steps, steps))]
+
+
+def recompute_segments_bwd(step, ck, se, dse, dt, ab, unroll, segment):
+    """The segment loop of the recompute adjoints (psi, rho and the rank
+    partials): time segments of whole blocks (``recompute_segments``),
+    last first. ``step(k0, k1, cks, s, dt)`` rebuilds the states of steps
+    [k0, k1) from their checkpoints ``cks`` (``cks[0]`` the segment's
+    entry state) and increments ``s``, runs the adjoint over them with
+    ``dt`` carried in from the next segment, and returns (its dse rows, dt
+    at the segment's entry, its three [2D,2D] cotangents). The rows go into
+    ``dse``; the cotangents are added to zeros like ``ab`` in that fixed
+    order. Returns (dse, dt0, *cotangents)."""
+    cot = [torch.zeros_like(ab) for _ in range(3)]
+    for k0, k1 in recompute_segments(se.shape[0], unroll, segment):
+        b0 = k0 // unroll
+        d_s, dt, parts = step(k0, k1, ck[b0:b0 + n_blocks(k1 - k0, unroll)],
+                              se[k0:k1], dt)
+        dse[k0:k1] = d_s
+        for acc, part in zip(cot, parts):
+            acc += part
+    return (dse, dt, *cot)
+
+
+def _recompute_bwd(fns, ab, bb, cb, ck, se, g, *, log_eps, norm_eps, unroll,
+                   precision, defer_norm, segment):
+    """The recompute adjoint of psi (cb = Rb) or rho (cb = Xb) from the
+    checkpoints ck: (dse, dt0, dAb, dBb, dRb or dXb). ``fns`` = (recompute,
+    adjoint, cotangents), the family's plain versions or its kernels, run
+    a segment at a time by ``recompute_segments_bwd``. A segment ends at a
+    block exit, whose renorm seeds its last step, and the next segment's
+    first step drops its dn2_new or dtr_new, so only dt crosses."""
+    recompute, adjoint, cotangents = fns
+    kw = dict(norm_eps=norm_eps, unroll=unroll, precision=precision,
+              defer_norm=defer_norm)
+
+    def step(k0, k1, cks, s, dt):
+        ys, norms = recompute(ab, bb, cb, cks, s, **kw)
+        d_s, dt, dy, dehat = adjoint(ab, bb, cb, cks[0], s, g, ys, norms,
+                                     log_eps=log_eps, dtfin=dt, **kw)
+        return d_s, dt, cotangents(dy, ys, cks[0], s, norms, dehat, **kw)
+
+    return recompute_segments_bwd(step, ck, se, torch.empty_like(se),
+                                  ck.new_zeros(ck.shape[1:]), ab, unroll,
+                                  segment)
+
+
+@torch.no_grad()
+def psi_recompute_bwd_plain(ab, bb, rb, ck, se, g, *, log_eps: float,
+                            norm_eps: float, unroll: int = 16,
+                            precision: str = "highest",
+                            defer_norm: bool = False,
+                            segment: Optional[int] = None):
+    """The recompute adjoint of ``psi_train_fwd_ckpt`` for the loss
+    cotangent g [B]: (dse [n_steps, B], dt0 [2D, B], dAb, dBb, dRb) from the
+    checkpoints ck, with no state stream (the TPU's
+    ``_make_psi_bwd_kernel_defer`` :621, and ``_make_psi_bwd_kernel`` :529
+    at ``defer_norm=False``), over time segments of ``segment`` steps
+    (``recompute_segment_steps``): ``psi_recompute_plain``,
+    ``psi_train_bwd_plain`` and ``psi_cotangents_plain`` on each. Plain
+    PyTorch, any device."""
+    return _recompute_bwd(
+        (psi_recompute_plain, psi_train_bwd_plain, psi_cotangents_plain),
+        ab, bb, rb, ck, se, g, log_eps=log_eps, norm_eps=norm_eps,
+        unroll=unroll, precision=precision, defer_norm=defer_norm,
+        segment=segment)
+
+
+@torch.no_grad()
+def psi_recompute_bwd(ab, bb, rb, ck, se, g, *, log_eps: float,
+                      norm_eps: float, unroll: int = 16,
+                      precision: str = "highest", defer_norm: bool = False,
+                      segment: Optional[int] = None):
+    """(dse, dt0, dAb, dBb, dRb): ``psi_recompute_bwd_plain`` for CPU
+    tensors; for CUDA tensors the same segments through the kernels
+    ``psi_recompute``, ``psi_train_bwd`` (its dt carried in) and
+    ``psi_cotangents``, each counting its own launches."""
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision, defer_norm=defer_norm, segment=segment)
+    if _cuda_or_raise("psi_recompute_bwd", se):
+        return psi_recompute_bwd_plain(ab, bb, rb, ck, se, g, **kw)
+    return _recompute_bwd((psi_recompute, psi_train_bwd, psi_cotangents),
+                          ab, bb, rb, ck, se, g, **kw)
+
+
 class PsiBlockNLL(torch.autograd.Function):
     """Per-example NLL [B] over the block constants with a kernel adjoint:
     the counterpart of ``_psi_block_factory``'s custom VJP
-    (``pallas_block.py:1248-1264``). ``forward(ab, bb, rb, t0, se, opts)``
-    returns loss [B]; ``backward(g)`` returns (dAb, dBb, dRb, dt0, dse).
-    ``opts`` holds log_eps, norm_eps, unroll, precision and defer_norm.
-    Only the values handed to the kernels are detached; autograd carries
-    the cotangents on to the parameters outside."""
+    (``pallas_block.py:1248-1264``). ``forward(ab, bb, rb, t0, se, opts,
+    segment)`` returns loss [B]; ``backward(g)`` returns (dAb, dBb, dRb,
+    dt0, dse). ``opts`` holds log_eps, norm_eps, unroll, precision and
+    defer_norm. ``segment`` None runs the streamed-states pair
+    (``psi_train_fwd``, then ``psi_train_bwd`` and ``psi_cotangents`` over
+    the whole stream); an int runs the checkpoint forward
+    (``psi_train_fwd_ckpt``) and the recompute adjoint
+    (``psi_recompute_bwd``) in time segments of that many steps. Only the
+    values handed to the kernels are detached; autograd carries the
+    cotangents on to the parameters outside."""
 
     @staticmethod
-    def forward(ctx, ab, bb, rb, t0, se, opts):
+    def forward(ctx, ab, bb, rb, t0, se, opts, segment):
         ins = [_as_kernel_input(x) for x in (ab, bb, rb, t0, se)]
-        loss, ys, n2s = psi_train_fwd(*ins, **opts)
-        ctx.save_for_backward(*ins, ys, n2s)
-        ctx.opts = opts
+        ctx.opts, ctx.segment = opts, segment
+        if segment is None:
+            loss, ys, n2s = psi_train_fwd(*ins, **opts)
+            ctx.save_for_backward(*ins, ys, n2s)
+        else:
+            loss, ck = psi_train_fwd_ckpt(*ins, **opts)
+            ctx.save_for_backward(*ins, ck)
         return loss
 
     @staticmethod
     def backward(ctx, g):
+        opts, g = ctx.opts, _as_kernel_input(g)
+        if ctx.segment is not None:
+            ab, bb, rb, _, se, ck = ctx.saved_tensors
+            dse, dt0, dab, dbb, drb = psi_recompute_bwd(
+                ab, bb, rb, ck, se, g, segment=ctx.segment, **opts)
+            return dab, dbb, drb, dt0, dse, None, None
         ab, bb, rb, t0, se, ys, n2s = ctx.saved_tensors
-        opts = ctx.opts
-        dse, dt0, dy, dehat = psi_train_bwd(ab, bb, rb, t0, se,
-                                            _as_kernel_input(g), ys, n2s,
+        dse, dt0, dy, dehat = psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s,
                                             **opts)
         dab, dbb, drb = psi_cotangents(
             dy, ys, t0, se, n2s, dehat, norm_eps=opts["norm_eps"],
             unroll=opts["unroll"], precision=opts["precision"],
             defer_norm=opts["defer_norm"])
-        return dab, dbb, drb, dt0, dse, None
+        return dab, dbb, drb, dt0, dse, None, None
 
 
 def stream_bytes(D: int, cols: int, T: int) -> int:
@@ -687,18 +961,38 @@ def stream_bytes(D: int, cols: int, T: int) -> int:
     return 2 * 4 * max(T - 1, 0) * 2 * D * cols
 
 
-def auto_stream(cfg: CMPSConfig, cols: int, T: int, device) -> bool:
+def stream_policy(n_bytes: int, free_bytes: Optional[int],
+                  kernel_stream: str) -> bool:
     """Do the streamed-states kernels run? The port's own policy in place
     of the TPU's HBM budget (``pallas_block.auto_stream``): "off" never
-    streams; "auto" and "on" stream on a CPU tensor, and on the card when
-    ``stream_bytes`` fits its free memory."""
-    if cfg.kernel_stream == "off":
-        return False
+    streams; "on" always streams, skipping the budget as the TPU's does
+    (a stream past the card's memory then fails to allocate); "auto"
+    streams when the streams' ``n_bytes`` fit ``free_bytes`` (None: no
+    limit). Where nothing streams, the recompute adjoint runs, from the
+    block checkpoints."""
+    if kernel_stream != "auto":
+        return kernel_stream == "on"
+    return free_bytes is None or n_bytes <= free_bytes
+
+
+def auto_stream(cfg: CMPSConfig, cols: int, T: int, device) -> bool:
+    """``stream_policy`` for a training step on ``device``: the card's free
+    memory bounds the streams on a CUDA device, nothing on the CPU."""
     device = torch.device(device)
-    if device.type != "cuda":
-        return True
-    free, _total = torch.cuda.mem_get_info(device)
-    return stream_bytes(cfg.bond_dim, cols, T) <= free
+    free = (torch.cuda.mem_get_info(device)[0] if device.type == "cuda"
+            else None)
+    return stream_policy(stream_bytes(cfg.bond_dim, cols, T), free,
+                         cfg.kernel_stream)
+
+
+def _stream_or_segment(cfg: CMPSConfig, cols: int, T: int, device,
+                       unroll: int):
+    """The ``segment`` argument of ``PsiBlockNLL`` / ``RhoBlockNLL``: None
+    when the streamed-states pair runs (``auto_stream``), else the steps
+    per time segment of the recompute adjoint."""
+    if auto_stream(cfg, cols, T, device):
+        return None
+    return recompute_segment_steps(T - 1, unroll)
 
 
 def psi_nll_block_trainable_from_state(params, cfg: CMPSConfig, signals,
@@ -710,21 +1004,15 @@ def psi_nll_block_trainable_from_state(params, cfg: CMPSConfig, signals,
     ``pallas_block.psi_nll_block_trainable_from_state`` with
     ``reduce="none"``). The block constants, initial state and increments
     are built with autograd; the loss and its adjoint go through
-    ``PsiBlockNLL``. On a CUDA tensor a stream that is off or does not fit
-    raises ``NotImplementedError``: the recompute adjoint is not ported. On
-    a CPU tensor the plain versions run either way."""
+    ``PsiBlockNLL``: the streamed-states pair where ``auto_stream`` lets
+    the stream run, else the checkpoint forward and the recompute adjoint
+    in time segments of ``recompute_segment_steps``."""
     if not supports_block(cfg):
         raise ValueError(
             f"block layout requires bond_dim % 4 == 0, got {cfg.bond_dim}")
     _check_options(precision, unroll)
     B, T = signals.shape
-    if signals.device.type == "cuda" and not auto_stream(cfg, B, T,
-                                                         signals.device):
-        raise NotImplementedError(
-            f"psi training at D={cfg.bond_dim}, B={B}, T={T} without the "
-            f"state stream ({stream_bytes(cfg.bond_dim, B, T)} bytes; "
-            f"kernel_stream={cfg.kernel_stream!r}) needs {_STREAM_OFF}, which "
-            f"is not ported to CUDA yet")
+    segment = _stream_or_segment(cfg, B, T, signals.device, unroll)
     cc = make_constants(params, cfg)
     se = (signals[:, 1:] - signals[:, :-1]).T / cc.A      # [T-1, B]
     pr0, pi0 = psi0_pair
@@ -733,7 +1021,7 @@ def psi_nll_block_trainable_from_state(params, cfg: CMPSConfig, signals,
     log_eps = cfg.log_eps if cfg.log_eps > 0 else float("-inf")
     return PsiBlockNLL.apply(ab, bb, rb, t0, se, dict(
         log_eps=float(log_eps), norm_eps=float(cfg.norm_eps), unroll=unroll,
-        precision=precision, defer_norm=defer_norm))
+        precision=precision, defer_norm=defer_norm), segment)
 
 
 def psi_nll_block_trainable(params, cfg: CMPSConfig, signals, *,
@@ -760,13 +1048,6 @@ def psi_nll_block_trainable(params, cfg: CMPSConfig, signals, *,
 # CUDA kernel gives one CTA one example's segment, and the per-example
 # scalars (the increment s, the loss, the trace) are [*, B], not repeated
 # over the rank lanes as on the TPU.
-
-_STREAM_OFF_RHO = (
-    "audio_mps_tpu/ops/pallas_block.py _make_rho_bwd_kernel_defer (:1790) "
-    "and _make_rho_bwd_kernel_batched with stream=False (:1438), the "
-    "recompute adjoints that need no state stream (ROADMAP queue B, kernel "
-    "table row 4d)")
-
 
 def rho_factor_inputs(params, cfg: CMPSConfig, n_cols: int):
     """Normalized initial purification factor H0 = W^T / sqrt(tr(W^dag W))
@@ -962,10 +1243,11 @@ def rho_nll_inputs(params, cfg: CMPSConfig, signals) -> dict:
 
 
 def _rho_chain_plain(ab, bb, xb, t0, se, *, log_eps, norm_eps, unroll,
-                     precision, defer_norm, on_step=None):
-    """The rho forward step loop shared by the NLL and the training forward:
-    per-example NLL [B]; ``on_step(k, y, tr)`` sees each post-step state
-    y_k [2D, B*rank] and its per-example trace [B]."""
+                     precision, defer_norm, on_step=None, ck=None):
+    """The rho forward step loop shared by the NLL, the training forwards
+    and the recompute: per-example NLL [B]; ``on_step(k, y, tr)`` sees each
+    post-step state y_k [2D, B*rank] and its per-example trace [B];
+    ``ck[j]`` receives the factor entering step j * unroll."""
     prep, dotf = _make_dot_ops(precision)
     rank = _rank_of("rho NLL", t0.shape[1], se.shape[1])
     abp, bbp, xbp = prep(ab), prep(bb), prep(xb)
@@ -973,6 +1255,8 @@ def _rho_chain_plain(ab, bb, xb, t0, se, *, log_eps, norm_eps, unroll,
     acc = torch.zeros_like(se[0])
     trp = torch.ones_like(acc)
     for k in range(se.shape[0]):
+        if ck is not None and k % unroll == 0:
+            ck[k // unroll] = t
         s = se[k]
         tp = prep(t)
         y = dotf(abp, tp) + _lanes(s, rank) * dotf(bbp, tp)
@@ -1078,6 +1362,48 @@ def rho_train_fwd_plain(ab, bb, xb, t0, se, *, log_eps: float,
     return loss, ys, trs
 
 
+@torch.no_grad()
+def rho_train_fwd_ckpt_plain(ab, bb, xb, t0, se, *, log_eps: float,
+                             norm_eps: float, unroll: int = 16,
+                             precision: str = "highest",
+                             defer_norm: bool = False):
+    """(loss [B], ck [n_blocks, 2D, B*rank]): the NLL of
+    ``rho_nll_block_plain`` and the factor entering every block of
+    ``unroll`` steps, after the previous block's exit renorm (the TPU
+    forward's checkpoints). Plain PyTorch, any device."""
+    ck = se.new_empty((n_blocks(se.shape[0], unroll),) + tuple(t0.shape))
+    loss = _rho_chain_plain(ab, bb, xb, t0, se, log_eps=log_eps,
+                            norm_eps=norm_eps, unroll=unroll,
+                            precision=precision, defer_norm=defer_norm,
+                            ck=ck)
+    return loss, ck
+
+
+@torch.no_grad()
+def rho_recompute_plain(ab, bb, xb, ck, se, *, norm_eps: float,
+                        unroll: int = 16, precision: str = "highest",
+                        defer_norm: bool = False):
+    """(ys [n_steps, 2D, B*rank], trs [n_steps, B]) of a time segment that
+    starts at a block entry, every block re-run from its checkpoint ck[j]:
+    what ``rho_train_fwd_plain`` streams over those steps. Plain PyTorch,
+    any device."""
+    n_steps = se.shape[0]
+    ys = se.new_empty((n_steps,) + tuple(ck.shape[1:]))
+    trs = torch.empty_like(se)
+    for j in range(n_blocks(n_steps, unroll)):
+        k0 = j * unroll
+
+        def keep(k, y, tr):
+            ys[k0 + k] = y
+            trs[k0 + k] = tr
+
+        _rho_chain_plain(ab, bb, xb, ck[j], se[k0:k0 + unroll],
+                         log_eps=float("-inf"), norm_eps=norm_eps,
+                         unroll=unroll, precision=precision,
+                         defer_norm=defer_norm, on_step=keep)
+    return ys, trs
+
+
 def _rho_input_state(k, t0, ys, scales):
     """t_k [2D, B*rank]: t0, or y_{k-1} times its lane scale."""
     return t0 if k == 0 else ys[k - 1] * scales[k - 1]
@@ -1087,10 +1413,11 @@ def _rho_input_state(k, t0, ys, scales):
 def rho_train_bwd_plain(ab, bb, xb, t0, se, g, ys, trs, *, log_eps: float,
                         norm_eps: float, unroll: int = 16,
                         precision: str = "highest",
-                        defer_norm: bool = False):
-    """Adjoint of ``rho_train_fwd`` for the loss cotangent g [B]:
-    (dse [n_steps, B], dt0 [2D, B*rank], dy [n_steps, 2D, B*rank],
-    dehat [n_steps, B]).
+                        defer_norm: bool = False, dtfin=None):
+    """Adjoint of ``rho_train_fwd`` for the loss cotangent g [B] and dtfin
+    [2D, B*rank], the cotangent of the factor after the last step (zero
+    when None): (dse [n_steps, B], dt0 [2D, B*rank],
+    dy [n_steps, 2D, B*rank], dehat [n_steps, B]).
 
     Step k in reverse, with dt the cotangent of t_{k+1}: the chain-free
     tail (the TPU's batched precompute, ``pallas_block.py`` :1516-1562)
@@ -1107,7 +1434,7 @@ def rho_train_bwd_plain(ab, bb, xb, t0, se, g, ys, trs, *, log_eps: float,
                            unroll=unroll, defer_norm=defer_norm)
     xbp, xbtp = prep(xb), prep(xb.T)
     abT, bbT = prep(ab.T), prep(bb.T)
-    dt = torch.zeros_like(t0)
+    dt = torch.zeros_like(t0) if dtfin is None else dtfin
     dtrn = torch.zeros_like(g)
     dy_all = torch.empty_like(ys)
     dse = torch.empty_like(se)
@@ -1220,14 +1547,85 @@ rho_train_fwd.launches = 0
 
 
 @torch.no_grad()
+def rho_train_fwd_ckpt(ab, bb, xb, t0, se, *, log_eps: float,
+                       norm_eps: float, unroll: int = 16,
+                       precision: str = "highest", defer_norm: bool = False):
+    """(loss [B], ck): ``rho_train_fwd_ckpt_plain`` for CPU tensors, the
+    CUDA kernel ``csrc/rho_train_fwd.cu`` (its checkpoint mode) for CUDA
+    tensors."""
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision, defer_norm=defer_norm)
+    if _cuda_or_raise("rho_train_fwd_ckpt", se):
+        return rho_train_fwd_ckpt_plain(ab, bb, xb, t0, se, **kw)
+    n_steps, B, D, rank = _rho_fwd_checks("rho_train_fwd_ckpt", ab, bb, xb,
+                                          t0, se, precision, unroll)
+    lib = _build.library()
+    _check_smem("rho_train_fwd_ckpt",
+                lib.amt_rho_train_fwd_smem_bytes(D, rank), se.device, D)
+    loss = se.new_empty((B,))
+    ck = se.new_empty((n_blocks(n_steps, unroll),) + tuple(t0.shape))
+    if B == 0:
+        return loss, ck
+    err = lib.amt_rho_train_fwd_ckpt(
+        _ptr(ab), _ptr(bb), _ptr(xb), _ptr(t0), _ptr(se), _ptr(loss),
+        _ptr(ck), D, n_steps, B, rank, unroll, log_eps, norm_eps,
+        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+    _build.check(lib, err, "rho_train_fwd_ckpt")
+    rho_train_fwd_ckpt.launches += 1
+    return loss, ck
+
+
+rho_train_fwd_ckpt.launches = 0
+
+
+@torch.no_grad()
+def rho_recompute(ab, bb, xb, ck, se, *, norm_eps: float, unroll: int = 16,
+                  precision: str = "highest", defer_norm: bool = False):
+    """(ys, trs) of a segment: ``rho_recompute_plain`` for CPU tensors, the
+    CUDA kernel ``csrc/rho_recompute.cu`` for CUDA tensors."""
+    kw = dict(norm_eps=norm_eps, unroll=unroll, precision=precision,
+              defer_norm=defer_norm)
+    if _cuda_or_raise("rho_recompute", se):
+        return rho_recompute_plain(ab, bb, xb, ck, se, **kw)
+    _check_options(precision, unroll)
+    n_steps, B = se.shape
+    n, cols = ck.shape[1:]
+    D = n // 2
+    rank = _rank_of("rho_recompute", cols, B)
+    _check_rho_shape("rho_recompute", D, rank)
+    _check_inputs("rho_recompute", se.device, dict(
+        ab=(ab, (n, n)), bb=(bb, (n, n)), xb=(xb, (n, n)),
+        ck=(ck, (n_blocks(n_steps, unroll), n, cols)),
+        se=(se, (n_steps, B))))
+    lib = _build.library()
+    _check_smem("rho_recompute", lib.amt_rho_train_fwd_smem_bytes(D, rank),
+                se.device, D)
+    ys = se.new_empty((n_steps, n, cols))
+    trs = torch.empty_like(se)
+    if B == 0 or n_steps == 0:
+        return ys, trs
+    err = lib.amt_rho_recompute(
+        _ptr(ab), _ptr(bb), _ptr(xb), _ptr(ck), _ptr(se), _ptr(ys),
+        _ptr(trs), D, n_steps, B, rank, unroll, norm_eps,
+        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+    _build.check(lib, err, "rho_recompute")
+    rho_recompute.launches += 1
+    return ys, trs
+
+
+rho_recompute.launches = 0
+
+
+@torch.no_grad()
 def rho_train_bwd(ab, bb, xb, t0, se, g, ys, trs, *, log_eps: float,
                   norm_eps: float, unroll: int = 16,
-                  precision: str = "highest", defer_norm: bool = False):
+                  precision: str = "highest", defer_norm: bool = False,
+                  dtfin=None):
     """(dse, dt0, dy, dehat): ``rho_train_bwd_plain`` for CPU tensors, the
     CUDA kernels of ``csrc/rho_train_bwd.cu`` (the chain-free tail over all
     steps at once, then the serial chain) for CUDA tensors."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
-              precision=precision, defer_norm=defer_norm)
+              precision=precision, defer_norm=defer_norm, dtfin=dtfin)
     if _cuda_or_raise("rho_train_bwd", se):
         return rho_train_bwd_plain(ab, bb, xb, t0, se, g, ys, trs, **kw)
     n_steps, B, D, rank = _rho_fwd_checks("rho_train_bwd", ab, bb, xb, t0,
@@ -1236,6 +1634,9 @@ def rho_train_bwd(ab, bb, xb, t0, se, g, ys, trs, *, log_eps: float,
     _check_inputs("rho_train_bwd", se.device, dict(
         g=(g, (B,)), ys=(ys, (n_steps, n, B * rank)),
         trs=(trs, (n_steps, B))))
+    if dtfin is not None:
+        _check_inputs("rho_train_bwd", se.device,
+                      dict(dtfin=(dtfin, (n, B * rank))))
     lib = _build.library()
     _check_smem("rho_train_bwd", lib.amt_rho_train_bwd_smem_bytes(D, rank),
                 se.device, D)
@@ -1246,10 +1647,12 @@ def rho_train_bwd(ab, bb, xb, t0, se, g, ys, trs, *, log_eps: float,
     dtrn = torch.empty_like(se)
     if B == 0:
         return dse, dt0, dy, dehat
+    if dtfin is None:
+        dtfin = torch.zeros_like(t0)
     err = lib.amt_rho_train_bwd(
         _ptr(ab), _ptr(bb), _ptr(xb), _ptr(t0), _ptr(se), _ptr(g), _ptr(ys),
-        _ptr(trs), _ptr(dse), _ptr(dt0), _ptr(dy), _ptr(dehat), _ptr(dtrn),
-        D, n_steps, B, rank, unroll, log_eps, norm_eps,
+        _ptr(trs), _ptr(dtfin), _ptr(dse), _ptr(dt0), _ptr(dy), _ptr(dehat),
+        _ptr(dtrn), D, n_steps, B, rank, unroll, log_eps, norm_eps,
         PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
     _build.check(lib, err, "rho_train_bwd")
     rho_train_bwd.launches += 1
@@ -1282,34 +1685,81 @@ def rho_cotangents(dy, ys, t0, se, trs, dehat, *, norm_eps: float,
 rho_cotangents.launches = 0
 
 
+@torch.no_grad()
+def rho_recompute_bwd_plain(ab, bb, xb, ck, se, g, *, log_eps: float,
+                            norm_eps: float, unroll: int = 16,
+                            precision: str = "highest",
+                            defer_norm: bool = False,
+                            segment: Optional[int] = None):
+    """The recompute adjoint of ``rho_train_fwd_ckpt`` for the loss
+    cotangent g [B]: (dse [n_steps, B], dt0 [2D, B*rank], dAb, dBb, dXb)
+    from the checkpoints ck, with no state stream (the TPU's
+    ``_make_rho_bwd_kernel_batched`` with ``stream=False`` :1438 and
+    ``_make_rho_bwd_kernel_defer`` :1790, one function; and
+    ``_make_rho_bwd_kernel`` :1689 at ``defer_norm=False``), over time
+    segments of ``segment`` steps: ``rho_recompute_plain``,
+    ``rho_train_bwd_plain`` and ``rho_cotangents_plain`` on each. Plain
+    PyTorch, any device."""
+    return _recompute_bwd(
+        (rho_recompute_plain, rho_train_bwd_plain, rho_cotangents_plain),
+        ab, bb, xb, ck, se, g, log_eps=log_eps, norm_eps=norm_eps,
+        unroll=unroll, precision=precision, defer_norm=defer_norm,
+        segment=segment)
+
+
+@torch.no_grad()
+def rho_recompute_bwd(ab, bb, xb, ck, se, g, *, log_eps: float,
+                      norm_eps: float, unroll: int = 16,
+                      precision: str = "highest", defer_norm: bool = False,
+                      segment: Optional[int] = None):
+    """(dse, dt0, dAb, dBb, dXb): ``rho_recompute_bwd_plain`` for CPU
+    tensors; for CUDA tensors the same segments through the kernels
+    ``rho_recompute``, ``rho_train_bwd`` (its dt carried in) and
+    ``rho_cotangents``, each counting its own launches."""
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision, defer_norm=defer_norm, segment=segment)
+    if _cuda_or_raise("rho_recompute_bwd", se):
+        return rho_recompute_bwd_plain(ab, bb, xb, ck, se, g, **kw)
+    return _recompute_bwd((rho_recompute, rho_train_bwd, rho_cotangents),
+                          ab, bb, xb, ck, se, g, **kw)
+
+
 class RhoBlockNLL(torch.autograd.Function):
     """Per-example rho NLL [B] over the block constants with a kernel
     adjoint: the counterpart of ``_rho_block_factory``'s custom VJP
-    (``pallas_block.py:2090-2110``). ``forward(ab, bb, xb, t0, se, opts)``
-    returns loss [B] for per-example increments se [T-1, B];
-    ``backward(g)`` returns (dAb, dBb, dXb, dt0, dse). ``opts`` as in
-    ``PsiBlockNLL``."""
+    (``pallas_block.py:2090-2110``). ``forward(ab, bb, xb, t0, se, opts,
+    segment)`` returns loss [B] for per-example increments se [T-1, B];
+    ``backward(g)`` returns (dAb, dBb, dXb, dt0, dse). ``opts`` and
+    ``segment`` as in ``PsiBlockNLL``."""
 
     @staticmethod
-    def forward(ctx, ab, bb, xb, t0, se, opts):
+    def forward(ctx, ab, bb, xb, t0, se, opts, segment):
         ins = [_as_kernel_input(x) for x in (ab, bb, xb, t0, se)]
-        loss, ys, trs = rho_train_fwd(*ins, **opts)
-        ctx.save_for_backward(*ins, ys, trs)
-        ctx.opts = opts
+        ctx.opts, ctx.segment = opts, segment
+        if segment is None:
+            loss, ys, trs = rho_train_fwd(*ins, **opts)
+            ctx.save_for_backward(*ins, ys, trs)
+        else:
+            loss, ck = rho_train_fwd_ckpt(*ins, **opts)
+            ctx.save_for_backward(*ins, ck)
         return loss
 
     @staticmethod
     def backward(ctx, g):
+        opts, g = ctx.opts, _as_kernel_input(g)
+        if ctx.segment is not None:
+            ab, bb, xb, _, se, ck = ctx.saved_tensors
+            dse, dt0, dab, dbb, dxb = rho_recompute_bwd(
+                ab, bb, xb, ck, se, g, segment=ctx.segment, **opts)
+            return dab, dbb, dxb, dt0, dse, None, None
         ab, bb, xb, t0, se, ys, trs = ctx.saved_tensors
-        opts = ctx.opts
-        dse, dt0, dy, dehat = rho_train_bwd(ab, bb, xb, t0, se,
-                                            _as_kernel_input(g), ys, trs,
+        dse, dt0, dy, dehat = rho_train_bwd(ab, bb, xb, t0, se, g, ys, trs,
                                             **opts)
         dab, dbb, dxb = rho_cotangents(
             dy, ys, t0, se, trs, dehat, norm_eps=opts["norm_eps"],
             unroll=opts["unroll"], precision=opts["precision"],
             defer_norm=opts["defer_norm"])
-        return dab, dbb, dxb, dt0, dse, None
+        return dab, dbb, dxb, dt0, dse, None, None
 
 
 def rho_nll_block_trainable(params, cfg: CMPSConfig, signals, *,
@@ -1320,23 +1770,16 @@ def rho_nll_block_trainable(params, cfg: CMPSConfig, signals, *,
     ``pallas_block.rho_nll_block_trainable``) at the real rank, with no
     padding lanes. The block constants, initial factor and increments are
     built with autograd; the loss and its adjoint go through
-    ``RhoBlockNLL``. On a CUDA tensor a stream that is off or does not fit
-    raises ``NotImplementedError``: the recompute adjoints are not
-    ported."""
+    ``RhoBlockNLL``: the streamed-states pair where ``auto_stream`` lets
+    the stream run, else the checkpoint forward and the recompute adjoint
+    in time segments of ``recompute_segment_steps``."""
     if not supports_block(cfg):
         raise ValueError(
             f"block layout requires bond_dim % 4 == 0, got {cfg.bond_dim}")
     _check_options(precision, unroll)
     B, T = signals.shape
     rank = params.Wx.shape[0]
-    if signals.device.type == "cuda" and not auto_stream(
-            cfg, B * rank, T, signals.device):
-        raise NotImplementedError(
-            f"rho training at D={cfg.bond_dim}, B={B}, rank={rank}, T={T} "
-            f"without the state stream "
-            f"({stream_bytes(cfg.bond_dim, B * rank, T)} bytes; "
-            f"kernel_stream={cfg.kernel_stream!r}) needs {_STREAM_OFF_RHO}, "
-            f"which is not ported to CUDA yet")
+    segment = _stream_or_segment(cfg, B * rank, T, signals.device, unroll)
     cc = make_constants(params, cfg)
     se = (signals[:, 1:] - signals[:, :-1]).T / cc.A      # [T-1, B]
     ab, bb, xb = _rho_block_constants(cc)
@@ -1344,4 +1787,4 @@ def rho_nll_block_trainable(params, cfg: CMPSConfig, signals, *,
     log_eps = cfg.log_eps if cfg.log_eps > 0 else float("-inf")
     return RhoBlockNLL.apply(ab, bb, xb, t0, se, dict(
         log_eps=float(log_eps), norm_eps=float(cfg.norm_eps), unroll=unroll,
-        precision=precision, defer_norm=defer_norm)).mean()
+        precision=precision, defer_norm=defer_norm), segment).mean()

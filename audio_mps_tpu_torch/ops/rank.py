@@ -30,7 +30,12 @@ example in one launch, one CTA a (example, chunk) segment, and stream the
 [2D,2D] constants from global memory (they stay in the 50 MB L2) in slabs,
 so D is bounded by the CTA's thread layout, not by shared memory. Each
 comes beside its plain PyTorch version; the wrappers run the plain version
-for a CPU tensor and the kernel, or raise, for a CUDA one.
+for a CPU tensor and the kernel, or raise, for a CUDA one. Without the
+state stream (``kernel_stream="off"``) the forward keeps the block
+checkpoints (``rank_partials_fwd_ckpt``) and the recompute adjoint
+(``rank_recompute_bwd``) rebuilds one time segment's states at a time
+(``csrc/rank_partials_recompute.cu``) before the adjoint and the
+reductions run over it.
 
 Layout: the state is [2D, B*rank] as in ``ops/block.py``, example b in
 columns b*rank .. (b+1)*rank - 1, its chunk g in the rc columns from
@@ -61,12 +66,6 @@ H100_SMS = 132
 # constant slab of 4096 words staged in shared memory, double-buffered.
 PARTIALS_THREADS = 256
 SLAB_WORDS = 4096
-
-_STREAM_OFF = ("audio_mps_tpu/ops/pallas_rank.py "
-               "_make_rank_partials_bwd_kernel (:152, the recompute adjoint "
-               "that needs no state stream; ROADMAP queue B, kernel table "
-               "row 7c)")
-
 
 # ===========================================================================
 # The dispatch rule: one kernel while the constants fit, rank chunks beyond
@@ -159,6 +158,37 @@ def _exit_scales(tr, *, rc, unroll, norm_eps):
                                unroll=unroll, defer_norm=True)
 
 
+def _partials_chain_plain(ab, bb, xb, t0, se, *, rc, unroll, norm_eps,
+                          precision, ys=None, ck=None):
+    """(eh [L, S], tr [L, S], tfin): the partials forward's step loop over
+    se [L, B] from t0; ``ys[k]`` receives each post-step state and
+    ``ck[j]`` the state entering step j * unroll, where given."""
+    prep, dotf = _make_dot_ops(precision)
+    n, cols = t0.shape
+    L, B = se.shape
+    S, _ = _n_segments("rank_partials_fwd", t0, se, rc)
+    rank = cols // B
+    xbp = prep(xb)
+    eh = se.new_empty((L, S))
+    tr = se.new_empty((L, S))
+    t = t0
+    for k in range(L):
+        if ck is not None and k % unroll == 0:
+            ck[k // unroll] = t
+        m = ab + se[k][:, None, None] * bb                  # [B, 2D, 2D]
+        tb = t.reshape(n, B, rank).transpose(0, 1)          # [B, 2D, rank]
+        y = dotf(prep(m), prep(tb)).transpose(0, 1).reshape(n, cols)
+        gx = dotf(xbp, prep(y))
+        eh[k] = _segment_sum(y * gx, rc)
+        tr[k] = _segment_sum(y * y, rc)
+        if ys is not None:
+            ys[k] = y
+        if (k + 1) % unroll == 0:
+            y = y * _lanes(torch.rsqrt(torch.clamp(tr[k], min=norm_eps)), rc)
+        t = y
+    return eh, tr, t
+
+
 @torch.no_grad()
 def rank_partials_fwd_plain(ab, bb, xb, t0, se, *, rc: int, unroll: int,
                             norm_eps: float, precision: str = "highest"):
@@ -168,28 +198,45 @@ def rank_partials_fwd_plain(ab, bb, xb, t0, se, *, rc: int, unroll: int,
     tr = sum(y .* y) per segment, t = y renormalised by its segment's trace
     at every ``unroll``-th step (the math of ``pallas_rank.py:80-149``,
     with ``stream``). Plain PyTorch, any device."""
-    prep, dotf = _make_dot_ops(precision)
-    n, cols = t0.shape
-    L, B = se.shape
-    S, _ = _n_segments("rank_partials_fwd", t0, se, rc)
-    rank = cols // B
-    xbp = prep(xb)
-    ys = t0.new_empty((L, n, cols))
-    eh = se.new_empty((L, S))
-    tr = se.new_empty((L, S))
-    t = t0
-    for k in range(L):
-        m = ab + se[k][:, None, None] * bb                  # [B, 2D, 2D]
-        tb = t.reshape(n, B, rank).transpose(0, 1)          # [B, 2D, rank]
-        y = dotf(prep(m), prep(tb)).transpose(0, 1).reshape(n, cols)
-        gx = dotf(xbp, prep(y))
-        eh[k] = _segment_sum(y * gx, rc)
-        tr[k] = _segment_sum(y * y, rc)
-        ys[k] = y
-        if (k + 1) % unroll == 0:
-            y = y * _lanes(torch.rsqrt(torch.clamp(tr[k], min=norm_eps)), rc)
-        t = y
-    return eh, tr, t, ys
+    ys = t0.new_empty((se.shape[0],) + tuple(t0.shape))
+    eh, tr, tfin = _partials_chain_plain(
+        ab, bb, xb, t0, se, rc=rc, unroll=unroll, norm_eps=norm_eps,
+        precision=precision, ys=ys)
+    return eh, tr, tfin, ys
+
+
+@torch.no_grad()
+def rank_partials_fwd_ckpt_plain(ab, bb, xb, t0, se, *, rc: int,
+                                 unroll: int, norm_eps: float,
+                                 precision: str = "highest"):
+    """(eh, tr, tfin, ck [n_blocks, 2D, cols]): ``rank_partials_fwd_plain``
+    with the state entering every block of ``unroll`` steps (after the
+    previous block's exit renorm) in place of the stream (the TPU forward
+    with ``stream=False``). Plain PyTorch, any device."""
+    ck = t0.new_empty((block.n_blocks(se.shape[0], unroll),)
+                      + tuple(t0.shape))
+    eh, tr, tfin = _partials_chain_plain(
+        ab, bb, xb, t0, se, rc=rc, unroll=unroll, norm_eps=norm_eps,
+        precision=precision, ck=ck)
+    return eh, tr, tfin, ck
+
+
+@torch.no_grad()
+def rank_partials_recompute_plain(ab, bb, xb, ck, se, *, rc: int,
+                                  unroll: int, norm_eps: float,
+                                  precision: str = "highest"):
+    """ys [L, 2D, cols] of a time segment that starts at a block entry,
+    every block re-run from its checkpoint ck[j]: what
+    ``rank_partials_fwd_plain`` streams over those steps. Plain PyTorch,
+    any device."""
+    L = se.shape[0]
+    ys = ck.new_empty((L,) + tuple(ck.shape[1:]))
+    for j in range(block.n_blocks(L, unroll)):
+        k0 = j * unroll
+        _partials_chain_plain(ab, bb, xb, ck[j], se[k0:k0 + unroll], rc=rc,
+                              unroll=unroll, norm_eps=norm_eps,
+                              precision=precision, ys=ys[k0:k0 + unroll])
+    return ys
 
 
 @torch.no_grad()
@@ -298,6 +345,62 @@ rank_partials_fwd.launches = 0
 
 
 @torch.no_grad()
+def rank_partials_fwd_ckpt(ab, bb, xb, t0, se, *, rc: int, unroll: int,
+                           norm_eps: float, precision: str = "highest"):
+    """(eh, tr, tfin, ck): ``rank_partials_fwd_ckpt_plain`` for CPU tensors,
+    the CUDA kernel ``csrc/rank_partials_fwd.cu`` (its checkpoint mode) for
+    CUDA tensors."""
+    kw = dict(rc=rc, unroll=unroll, norm_eps=norm_eps, precision=precision)
+    if _cuda_or_raise("rank_partials_fwd_ckpt", se):
+        return rank_partials_fwd_ckpt_plain(ab, bb, xb, t0, se, **kw)
+    lib, L, B, D, S = _partials_checks("rank_partials_fwd_ckpt", ab, bb, xb,
+                                       t0, se, rc, precision, unroll)
+    eh = se.new_empty((L, S))
+    tr = se.new_empty((L, S))
+    tfin = torch.empty_like(t0)
+    ck = se.new_empty((block.n_blocks(L, unroll),) + tuple(t0.shape))
+    abt, bbt, xbt = (m.t().contiguous() for m in (ab, bb, xb))
+    err = lib.amt_rank_partials_fwd_ckpt(
+        _ptr(abt), _ptr(bbt), _ptr(xbt), _ptr(t0), _ptr(se), _ptr(eh),
+        _ptr(tr), _ptr(tfin), _ptr(ck), D, L, B, S, rc, unroll, norm_eps,
+        PRECISIONS.index(precision), _stream_ptr(se.device))
+    _build.check(lib, err, "rank_partials_fwd_ckpt")
+    rank_partials_fwd_ckpt.launches += 1
+    return eh, tr, tfin, ck
+
+
+rank_partials_fwd_ckpt.launches = 0
+
+
+@torch.no_grad()
+def rank_partials_recompute(ab, bb, xb, ck, se, *, rc: int, unroll: int,
+                            norm_eps: float, precision: str = "highest"):
+    """ys of a time segment: ``rank_partials_recompute_plain`` for CPU
+    tensors, the CUDA kernel ``csrc/rank_partials_recompute.cu`` for CUDA
+    tensors."""
+    kw = dict(rc=rc, unroll=unroll, norm_eps=norm_eps, precision=precision)
+    if _cuda_or_raise("rank_partials_recompute", se):
+        return rank_partials_recompute_plain(ab, bb, xb, ck, se, **kw)
+    L = se.shape[0]
+    _check_inputs("rank_partials_recompute", se.device, dict(
+        ck=(ck, (block.n_blocks(L, unroll),) + tuple(ck.shape[1:]))))
+    lib, L, B, D, S = _partials_checks("rank_partials_recompute", ab, bb,
+                                       xb, ck[0], se, rc, precision, unroll)
+    ys = se.new_empty((L,) + tuple(ck.shape[1:]))
+    abt, bbt = (m.t().contiguous() for m in (ab, bb))
+    err = lib.amt_rank_partials_recompute(
+        _ptr(abt), _ptr(bbt), _ptr(ck), _ptr(se), _ptr(ys), D, L, B, S, rc,
+        unroll, norm_eps, PRECISIONS.index(precision),
+        _stream_ptr(se.device))
+    _build.check(lib, err, "rank_partials_recompute")
+    rank_partials_recompute.launches += 1
+    return ys
+
+
+rank_partials_recompute.launches = 0
+
+
+@torch.no_grad()
 def rank_partials_bwd(ab, bb, xb, t0, se, ys, tr, deh, dtr, dtfin, *,
                       rc: int, unroll: int, norm_eps: float,
                       precision: str = "highest"):
@@ -356,33 +459,106 @@ def rank_cotangents(dy, ys, t0, se, tr, deh, *, rc: int, unroll: int,
 rank_cotangents.launches = 0
 
 
+def _rank_recompute_bwd(fns, ab, bb, xb, ck, se, tr, deh, dtr, dtfin, *,
+                        rc, unroll, norm_eps, precision, segment):
+    """The recompute adjoint of the partials from the checkpoints ck:
+    (dse [L, S], dt0, dAb, dBb, dXb). ``fns`` = (recompute, adjoint,
+    cotangents), the plain versions or the kernels, run a segment at a
+    time by ``block.recompute_segments_bwd``, each segment's adjoint with
+    its dtfin carried in from the next segment (dtfin after the last) and
+    its own rows of the cotangents deh and dtr."""
+    recompute, adjoint, cotangents = fns
+    kw = dict(rc=rc, unroll=unroll, norm_eps=norm_eps, precision=precision)
+
+    def step(k0, k1, cks, s, dt):
+        ys = recompute(ab, bb, xb, cks, s, **kw)
+        rows = [x[k0:k1] for x in (tr, deh, dtr)]
+        d_s, dt, dy = adjoint(ab, bb, xb, cks[0], s, ys, *rows, dt, **kw)
+        return d_s, dt, cotangents(dy, ys, cks[0], s, rows[0], rows[1],
+                                   **kw)
+
+    return block.recompute_segments_bwd(step, ck, se, torch.empty_like(tr),
+                                        dtfin, ab, unroll, segment)
+
+
+@torch.no_grad()
+def rank_recompute_bwd_plain(ab, bb, xb, ck, se, tr, deh, dtr, dtfin, *,
+                             rc: int, unroll: int, norm_eps: float,
+                             precision: str = "highest",
+                             segment: Optional[int] = None):
+    """The recompute adjoint of ``rank_partials_fwd_ckpt`` for the
+    cotangents deh, dtr [L, S] and dtfin [2D, cols]: (dse [L, S], dt0,
+    dAb, dBb, dXb) from the checkpoints ck, with no state stream (the TPU's
+    ``_make_rank_partials_bwd_kernel`` :152), over time segments of
+    ``segment`` steps (``block.recompute_segment_steps``):
+    ``rank_partials_recompute_plain``, ``rank_partials_bwd_plain`` and
+    ``rank_cotangents_plain`` on each. Plain PyTorch, any device."""
+    return _rank_recompute_bwd(
+        (rank_partials_recompute_plain, rank_partials_bwd_plain,
+         rank_cotangents_plain), ab, bb, xb, ck, se, tr, deh, dtr, dtfin,
+        rc=rc, unroll=unroll, norm_eps=norm_eps, precision=precision,
+        segment=segment)
+
+
+@torch.no_grad()
+def rank_recompute_bwd(ab, bb, xb, ck, se, tr, deh, dtr, dtfin, *, rc: int,
+                       unroll: int, norm_eps: float,
+                       precision: str = "highest",
+                       segment: Optional[int] = None):
+    """(dse, dt0, dAb, dBb, dXb): ``rank_recompute_bwd_plain`` for CPU
+    tensors; for CUDA tensors the same segments through the kernels
+    ``rank_partials_recompute``, ``rank_partials_bwd`` and
+    ``rank_cotangents``, each counting its own launches."""
+    kw = dict(rc=rc, unroll=unroll, norm_eps=norm_eps, precision=precision,
+              segment=segment)
+    if _cuda_or_raise("rank_recompute_bwd", se):
+        return rank_recompute_bwd_plain(ab, bb, xb, ck, se, tr, deh, dtr,
+                                        dtfin, **kw)
+    return _rank_recompute_bwd(
+        (rank_partials_recompute, rank_partials_bwd, rank_cotangents),
+        ab, bb, xb, ck, se, tr, deh, dtr, dtfin, **kw)
+
+
 class RankPartials(torch.autograd.Function):
     """(eh [L, S], tr [L, S], tfin [2D, cols]) of the segments with a
     kernel adjoint: the counterpart of ``_rank_partials_factory``'s custom
-    VJP (``pallas_rank.py:372-530``). ``forward(ab, bb, xb, t0, se, opts)``
-    for per-example increments se [L, B]; ``backward(deh, dtr, dtfin)``
-    returns (dAb, dBb, dXb, dt0, dse), dse per example (the kernel's per
-    segment dse summed over an example's chunks). ``opts`` holds rc,
-    unroll, norm_eps and precision."""
+    VJP (``pallas_rank.py:372-530``). ``forward(ab, bb, xb, t0, se, opts,
+    segment)`` for per-example increments se [L, B];
+    ``backward(deh, dtr, dtfin)`` returns (dAb, dBb, dXb, dt0, dse), dse
+    per example (the kernel's per segment dse summed over an example's
+    chunks). ``opts`` holds rc, unroll, norm_eps and precision. ``segment``
+    None runs the streamed pair (``rank_partials_fwd``, then
+    ``rank_partials_bwd`` and ``rank_cotangents`` over the whole stream);
+    an int the checkpoint forward (``rank_partials_fwd_ckpt``) and the
+    recompute adjoint (``rank_recompute_bwd``) in time segments of that
+    many steps."""
 
     @staticmethod
-    def forward(ctx, ab, bb, xb, t0, se, opts):
+    def forward(ctx, ab, bb, xb, t0, se, opts, segment):
         ins = [_as_kernel_input(x) for x in (ab, bb, xb, t0, se)]
-        eh, tr, tfin, ys = rank_partials_fwd(*ins, **opts)
-        ctx.save_for_backward(*ins, ys, tr)
-        ctx.opts = opts
+        ctx.opts, ctx.segment = opts, segment
+        fwd = rank_partials_fwd if segment is None else rank_partials_fwd_ckpt
+        eh, tr, tfin, states = fwd(*ins, **opts)
+        ctx.save_for_backward(*ins, states, tr)
         return eh, tr, tfin
 
     @staticmethod
     def backward(ctx, deh, dtr, dtfin):
-        ab, bb, xb, t0, se, ys, tr = ctx.saved_tensors
+        ab, bb, xb, t0, se, states, tr = ctx.saved_tensors
         opts = ctx.opts
         deh, dtr, dtfin = (_as_kernel_input(x) for x in (deh, dtr, dtfin))
-        dse, dt0, dy = rank_partials_bwd(ab, bb, xb, t0, se, ys, tr, deh,
-                                         dtr, dtfin, **opts)
-        dab, dbb, dxb = rank_cotangents(dy, ys, t0, se, tr, deh, **opts)
+        if ctx.segment is None:
+            dse, dt0, dy = rank_partials_bwd(ab, bb, xb, t0, se, states, tr,
+                                             deh, dtr, dtfin, **opts)
+            dab, dbb, dxb = rank_cotangents(dy, states, t0, se, tr, deh,
+                                            **opts)
+        else:
+            dse, dt0, dab, dbb, dxb = rank_recompute_bwd(
+                ab, bb, xb, states, se, tr, deh, dtr, dtfin,
+                segment=ctx.segment, **opts)
         L, B = se.shape
-        return dab, dbb, dxb, dt0, dse.reshape(L, B, -1).sum(-1), None
+        return (dab, dbb, dxb, dt0, dse.reshape(L, B, -1).sum(-1), None,
+                None)
 
 
 # ===========================================================================
@@ -457,11 +633,13 @@ def rho_nll_rank_partials(params, cfg: CMPSConfig, signals, *,
       gamma the absolute log squared norm of the chunk's rows at each
             step's block entry (log tr0 + the block exits' log traces);
       seb   the per-example increments / A.
-    The steps run in segments of ``segment_steps`` steps chained through
-    the final state; each segment's forward runs under
-    ``torch.utils.checkpoint``, so the backward holds one segment's streams
-    at a time and recomputes its forward. On a CUDA tensor
-    ``kernel_stream="off"`` raises: the recompute adjoint is not ported."""
+    With the state stream the steps run in segments of ``segment_steps``
+    steps chained through the final state; each segment's forward runs
+    under ``torch.utils.checkpoint``, so the backward holds one segment's
+    streams at a time and recomputes its forward. With
+    ``kernel_stream="off"`` the forward runs once, keeping the block
+    checkpoints, and the recompute adjoint runs in time segments of
+    ``time_segment`` steps (``block.recompute_segment_steps``)."""
     if not block.supports_block(cfg):
         raise ValueError(
             f"rank-partials kernels use the block layout (bond_dim % 4 == "
@@ -472,10 +650,6 @@ def rho_nll_rank_partials(params, cfg: CMPSConfig, signals, *,
     rc = rank if rank_chunk is None else rank_chunk
     if rc < 1 or rank % rc:
         raise ValueError(f"rank {rank} must be divisible by rank_chunk {rc}")
-    if signals.device.type == "cuda" and cfg.kernel_stream == "off":
-        raise NotImplementedError(
-            f"rank-chunked rho training with kernel_stream='off' needs "
-            f"{_STREAM_OFF}, which is not ported to CUDA yet")
     G, n_steps = rank // rc, T - 1
     cc = make_constants(params, cfg)
     se = (signals[:, 1:] - signals[:, :-1]).T / cc.A      # [T-1, B]
@@ -483,15 +657,21 @@ def rho_nll_rank_partials(params, cfg: CMPSConfig, signals, *,
     t0, c0 = _chunk_t0(params, cfg, cc, B, rc)
     opts = dict(rc=rc, unroll=unroll, norm_eps=float(cfg.norm_eps),
                 precision=precision)
+    if cfg.kernel_stream == "off":
+        eh, tr, _ = RankPartials.apply(
+            ab, bb, xb, t0, se, opts,
+            block.recompute_segment_steps(n_steps, unroll, time_segment))
+        return chunk_partials(eh, tr, c0, B, unroll=unroll,
+                              norm_eps=cfg.norm_eps) + (se,)
     steps = segment_steps(D, B * rank, n_steps, unroll, signals.device,
                           time_segment)
     if steps is None:
-        eh, tr, _ = RankPartials.apply(ab, bb, xb, t0, se, opts)
+        eh, tr, _ = RankPartials.apply(ab, bb, xb, t0, se, opts, None)
     else:
         t, ehs, trs = t0, [], []
         for k0 in range(0, n_steps, steps):
             e_s, r_s, t = checkpoint(RankPartials.apply, ab, bb, xb, t,
-                                     se[k0:k0 + steps], opts,
+                                     se[k0:k0 + steps], opts, None,
                                      use_reentrant=False)
             ehs.append(e_s)
             trs.append(r_s)

@@ -46,11 +46,26 @@ failure (the script then exits non-zero):
    forward, adjoint and reductions vs their plain versions on a T=2049
    prefix (with controls at ``default``), the chunked path vs the
    monolithic kernels at D=64, rank 64, T=16385 (loss and six gradients),
-   the train CLI (a refusal while it would sample, then 2 Adam steps with
+   the train CLI (a refusal while it would sample, then 1 Adam step with
    ``--visualize=false``, a restore and one more; the partials kernels'
    launch counts must move, the monolithic ones' must not), one step's
    time and peak memory, and each kernel's CUDA-event time per time
-   segment and over the whole run beside its bound.
+   segment and over the whole run beside its bound;
+9. training without the state stream (``kernel_stream="off"``), for psi and
+   rho after their training phases (``recompute_phases``) and for the rank
+   partials after theirs (``rank_recompute_phases``): the checkpoint
+   forward, the segment recompute and the whole recompute adjoint vs their
+   plain versions on the T=2048 (rank: 2049) prefix, with controls at
+   ``default``; the recompute path vs the streamed path on the card (the
+   recomputed states and the loss bit for bit, two runs of the recompute
+   adjoint bit for bit, the loss and six gradients at the training
+   headline, the rank path on the prefix); the train CLI with
+   ``kernel_stream=off`` at psi D=64, B=1024, T=16384 and rho D=64, rank
+   64, B=8, T=16384 (2 steps, a restore and 1 more) and at the rank
+   partials' D=256 (1 + 1), where the checkpoint forward must launch once
+   a step and the recompute, adjoint and reductions once a time segment,
+   and the streamed forward never; the kernels' CUDA-event times beside
+   their bounds, and one step's time and peak memory, off and streamed.
 
 It prints each phase's measurements, the card line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -161,8 +176,9 @@ RANK_D = 256
 RANK_B = 8
 RANK_T = 16385
 RANK_T_PREFIX = 2049   # the kernels vs their plain versions
-RANK_TRAIN_STEPS = 2   # the train CLI's first call; the second takes one more
+RANK_TRAIN_STEPS = 1   # the train CLI's first call; the second takes one more
 RANK_KERNELS = ("rank_partials_fwd", "rank_partials_bwd", "rank_cotangents")
+RANK_RECOMPUTE_KERNELS = ("rank_partials_fwd_ckpt", "rank_partials_recompute")
 # chunked vs monolithic on the card, both branches at D=64, rank 64, B=8,
 # T=16385: the chunked path forced with chunks of 16 rows. The chunked loss
 # to 1e-5 relative of its value in float64 (the monolithic kernel's loss,
@@ -171,6 +187,39 @@ RANK_KERNELS = ("rank_partials_fwd", "rank_partials_bwd", "rank_cotangents")
 # fp32 arithmetic in another order).
 RANK_CHECK_CHUNK = 16
 TOL_CHUNKED = (1e-5, 1e-4)
+
+
+# The training path without the state stream (kernel_stream="off"): the
+# checkpoint forwards, the segment recomputes and the recompute adjoints.
+# Kernels vs plain on the T=2048 prefix (rank: T=2049), each kernel fed the
+# plain version's inputs, max|kernel - plain| <= TOL * max|plain|:
+# checkpoint forward (loss, ck): 1e-5 at highest (its states drift from the
+#   plain loop's by the fp32 rounding of 2047 steps, a few 1e-6 at that
+#   length); at high the training forward's 1e-3;
+# segment recompute (ys and the norms from the plain checkpoints, at most
+#   16 steps from each): 1e-5 at highest, 1e-4 at high (a bf16 split of a
+#   state a last bit apart can round the other way, ~1e-5 a step);
+# the whole recompute adjoint (dse, dt0 and the cotangents, fed the plain
+#   checkpoints; each segment's reductions run on the kernels' own dy): the
+#   adjoint's 1e-4 at highest, 1e-3 at high.
+# Control: the kernels at default against the plain versions at high must
+#   miss the high limits of the forward and the recompute.
+TOL_CKPT = {"highest": 1e-5, "high": 1e-3}
+TOL_RECOMPUTE = {"highest": 1e-5, "high": 1e-4}
+TOL_RECOMPUTE_BWD = {"highest": 1e-4, "high": 1e-3}
+# the recompute path against the streamed path on the card, both through
+# the kernels: the forward is one template, so the loss is the same to the
+# bit, held at 1e-6 relative; the recomputed states are the stream's to
+# the bit, so the gradients differ only by the order of the reductions'
+# sums, held at 1e-5 of each gradient's largest element
+TOL_OFF = (1e-6, 1e-5)
+# the train CLI without the stream at the full widths: psi at the TPU's
+# saturated batch (README "saturated batch", D=64, B=1024, T=16384), rho
+# at its headline (D=64, rank 64, B=8, T=16384), 2 Adam steps, a restore
+# and 1 more; the rank partials at D=256 (1 + 1)
+PSI_OFF_B = 1024
+OFF_STEPS = 2
+RANK_OFF_STEPS = 1
 
 
 def check(cond, msg):
@@ -261,7 +310,8 @@ class Family:
     seed: int              # of its batch; the step timing's data uses seed+1
     ref_cols: int          # examples of the check against autograd
     reference: object      # the eager loss that autograd runs through
-    replaces: dict         # "fwd" / "bwd" / "cot" -> the TPU kernel
+    replaces: dict         # "fwd" / "bwd" / "cot" / "ckpt" / "rec" -> the
+                           # TPU kernel
     dehat_scale: float     # the third reduction's weight on dehat
 
 
@@ -270,27 +320,43 @@ def _train_kernel_names(family: str) -> dict:
             "cot": f"{family}_cotangents"}
 
 
-def train_cli_phase(dev, mps_model, cfg, T, steps, moving, exact,
-                    flags=()):
-    """The train CLI on damped-sine batches at ``cfg``'s width: ``steps``
-    Adam steps, then a second call that restores step ``steps`` and takes
-    one more. Checks the checkpoints, the restored Adam state, params.npz,
-    the family of the weights and that metrics and weights are finite; of
-    every training wrapper (both families' and the rank partials'), those
-    in ``moving`` must count each step once (``exact``) or at least once,
-    the others not at all. Returns the launch counts."""
-    from audio_mps_tpu_torch.models.params import PsiParams, RhoParams
-    from audio_mps_tpu_torch.ops import block, rank
-    from audio_mps_tpu_torch.train import parse_args, train
+def _recompute_kernel_names(family: str) -> dict:
+    return {"ckpt": f"{family}_train_fwd_ckpt",
+            "rec": f"{family}_recompute"}
 
+
+def _training_wrappers() -> dict:
+    """Every training kernel wrapper, both families' and the rank
+    partials', streamed and recompute path, by name."""
+    from audio_mps_tpu_torch.ops import block, rank
     counted = {k: getattr(block, k) for f in ("psi", "rho")
                for k in _train_kernel_names(f).values()}
-    counted.update((k, getattr(rank, k)) for k in RANK_KERNELS)
+    counted.update((k, getattr(block, k)) for f in ("psi", "rho")
+                   for k in _recompute_kernel_names(f).values())
+    counted.update((k, getattr(rank, k)) for k in RANK_KERNELS
+                   + RANK_RECOMPUTE_KERNELS)
+    return counted
+
+
+def train_cli_phase(dev, mps_model, cfg, T, steps, per_step, flags=()):
+    """The train CLI on damped-sine batches at ``cfg``'s width and
+    ``kernel_stream``: ``steps`` Adam steps, then a second call that
+    restores step ``steps`` and takes one more. Checks the checkpoints, the
+    restored Adam state, params.npz, the family of the weights and that
+    metrics and weights are finite; of every training wrapper
+    (``_training_wrappers``), those in ``per_step`` must launch that many
+    times a step (None: at least once a step), the others not at all.
+    Returns the launch counts."""
+    from audio_mps_tpu_torch.models.params import PsiParams, RhoParams
+    from audio_mps_tpu_torch.train import parse_args, train
+
+    counted = _training_wrappers()
     with tempfile.TemporaryDirectory() as tmp:
         argv = [f"--mps_model={mps_model}", "--dataset=damped_sine",
                 f"--sample_duration={T}",
                 f"--hparams=bond_dim={cfg.bond_dim},"
-                f"minibatch_size={cfg.minibatch_size}",
+                f"minibatch_size={cfg.minibatch_size},"
+                f"kernel_stream={cfg.kernel_stream}",
                 f"--logdir={tmp}", f"--device={dev.type}", *flags]
         for w in counted.values():
             w.launches = 0
@@ -311,10 +377,11 @@ def train_cli_phase(dev, mps_model, cfg, T, steps, moving, exact,
                            map_location="cpu", weights_only=True)
         has_npz = os.path.exists(os.path.join(run.run_logdir(cfg),
                                               "params.npz"))
+    moved = {k: v for k, v in launches.items() if v}
     print(f"  first call: {steps} steps in {t_first * 1e3:.1f} ms, "
           f"checkpoints {first_ckpts}; second call: restore + 1 step in "
           f"{t_second * 1e3:.1f} ms (host clock, set-up included); final "
-          f"loss {float(m_last['model_loss']):.6f}; launches {launches}",
+          f"loss {float(m_last['model_loss']):.6f}; launches {moved}",
           flush=True)
     check(first_ckpts == [f"ckpt_{steps}.pt"],
           f"first call left {first_ckpts}")
@@ -331,13 +398,15 @@ def train_cli_phase(dev, mps_model, cfg, T, steps, moving, exact,
     check(all(bool(torch.isfinite(x).all()) for x in p_last.parameters()),
           "non-finite parameters")
     for name, count in launches.items():
-        if name not in moving:
+        if name not in per_step:
             check(count == 0, f"{name} launched {count} times on the "
                               f"{mps_model} training path")
         else:
-            check(count == steps + 1 if exact else count >= steps + 1,
+            n = per_step[name]
+            check(count >= steps + 1 if n is None
+                  else count == n * (steps + 1),
                   f"{name} launched {count} times in {steps + 1} steps of "
-                  f"the {mps_model} training path")
+                  f"the {mps_model} training path ({n} a step expected)")
     return launches
 
 
@@ -500,7 +569,7 @@ def train_phases(dev, fam: Family):
     phase(f"{fam.name} training path: train CLI ({shape}, T={T}), "
           f"{TRAIN_STEPS} steps, then a restore and one more step")
     launches = train_cli_phase(dev, f"{fam.name}_mps", cfg, T, TRAIN_STEPS,
-                               set(names.values()), exact=True)
+                               {k: 1 for k in names.values()})
     reps = 5
     step_ms, _ = time_train_step(dev, f"{fam.name}_mps", cfg, fam.params, T,
                                  fam.seed + 1, reps)
@@ -584,6 +653,362 @@ def train_phases(dev, fam: Family):
     print(f"  torch.matmul of the three reductions: {library_ms:.3f} ms; "
           f"{fam.name} train step {step_ms:.2f} ms, of which the three "
           f"kernels {sum(ms.values()):.2f} ms", flush=True)
+    return entries
+
+
+# FLOPs of the recompute path's kernels, as TRAIN_PRODUCTS and TRAIN_BUILDS
+# count them: the checkpoint forward does the streamed forward's work; the
+# recompute needs the update alone (its expectation feeds only the loss):
+# psi 2 products (Ab t, Bb t; each column has its own s), rho and the rank
+# partials 1 ((Ab + s Bb) t) after the 2 n^2 build an example-step.
+RECOMPUTE_PRODUCTS = {"psi": 2, "rho": 1}
+RECOMPUTE_BUILDS = {"psi": 0, "rho": 2}
+
+
+def _adjoint_bound(family, n, lane_steps, ex_steps, ck_elems, cols, B):
+    """(bound ms, bound_by) of the whole recompute adjoint over a run: the
+    recompute's products, the adjoint's and the reductions', the fewest
+    each needs; bytes of its inputs (ck, se, g, the constants) and outputs
+    (dse, dt0, the three cotangents) once."""
+    flops = ((RECOMPUTE_PRODUCTS[family] + TRAIN_PRODUCTS[family]["bwd"]
+              + TRAIN_PRODUCTS[family]["cot"]) * 2 * n * n * lane_steps
+             + (RECOMPUTE_BUILDS[family] + TRAIN_BUILDS[family]["bwd"]
+                + TRAIN_BUILDS[family]["cot"]) * n * n * ex_steps)
+    nbytes = ck_elems + 2 * ex_steps + B + 6 * n * n + n * cols
+    return bound_ms(flops, 4 * nbytes)
+
+
+def _segment_inputs(con, ck, se, segments, unroll):
+    """The segment recompute's inputs for each of ``segments``, as the
+    recompute adjoint slices them."""
+    return [dict(con, ck=ck[k0 // unroll:-(-k1 // unroll)], se=se[k0:k1])
+            for k0, k1 in segments]
+
+
+def _recompute_run(recompute, con, ck, se, segments, **o):
+    """The segment recompute over a whole run, a segment at a time, as the
+    recompute adjoint calls it; keeps nothing."""
+    for args in _segment_inputs(con, ck, se, segments, o["unroll"]):
+        recompute(**args, **o)
+
+
+def _recompute_bounds(family, n, lane_steps, ex_steps, ck_elems, cols,
+                      ckpt_out):
+    """{"ckpt", "rec"}: (bound ms, bound_by) of the checkpoint forward and
+    of the segment recompute over a run; bytes of each input read once and
+    each output written once (``ckpt_out``: the forward's elements besides
+    ck: the loss, or the partials and the final state)."""
+    mats = 3 * n * n
+    flops = {
+        "ckpt": (TRAIN_PRODUCTS[family]["fwd"] * 2 * n * n * lane_steps
+                 + TRAIN_BUILDS[family]["fwd"] * n * n * ex_steps),
+        "rec": (RECOMPUTE_PRODUCTS[family] * 2 * n * n * lane_steps
+                + RECOMPUTE_BUILDS[family] * n * n * ex_steps)}
+    nbytes = {"ckpt": ck_elems + ex_steps + mats + n * cols + ckpt_out,
+              "rec": ck_elems + 2 * ex_steps + lane_steps * n
+              + 2 * n * n}
+    return {r: bound_ms(flops[r], 4 * nbytes[r]) for r in flops}
+
+
+def _hold_outputs(tag, labels, got, want, tol):
+    """Each kernel output of ``got`` finite and within ``tol`` of max|plain|
+    of its ``want``. Returns {label: (abs err, rel err)}."""
+    res = {}
+    for label, a, b in zip(labels, got, want):
+        check(bool(torch.isfinite(a).all()), f"{tag} {label}: non-finite")
+        res[label] = rel_err(a, b)
+        check(res[label][1] <= tol, f"{tag} {label}: rel err "
+                                    f"{res[label][1]:.3e} (tol {tol:g})")
+    return res
+
+
+def _readings(prefix, res):
+    """(the readings of ``_hold_outputs``' ``res`` for a printed line, the
+    worst absolute error)."""
+    return ([f"{prefix} {k} {rel:.2e}" for k, (_, rel) in res.items()],
+            max(err for err, _ in res.values()))
+
+
+def _hold_to_plain(tag, prec, o, calls, want, labels, tols, err_at, ctrl,
+                   line):
+    """Each kernel call of ``calls`` (role -> fn(**o)) against the plain
+    versions' ``want[role]`` at ``prec``: finite and within
+    ``tols[role][prec]`` of max|plain|, each reading added to ``line``. At
+    highest the worst absolute error goes to ``err_at``; at high the
+    control (the kernel at default) of every role but the whole adjoint to
+    ``ctrl``."""
+    for role, fn in calls.items():
+        got = fn(**o)
+        torch.cuda.synchronize()
+        readings, worst = _readings(prec, _hold_outputs(
+            f"{tag} {role} {prec}", labels[role], got, want[role],
+            tols[role][prec]))
+        line += readings
+        if prec == "highest":
+            err_at[role] = worst
+        elif role != "adj":
+            ctrl[role] = _control(
+                f"{tag} {role}", lambda: fn(**dict(o, precision="default")),
+                want[role], tols[role]["high"])
+        del got
+
+
+def _off_vs_streamed(tag, nll, params, from_numpy, cfg, dev):
+    """The loss and six gradients of ``nll(q, cfg)`` (the streamed path)
+    and of ``nll(q, cfg with kernel_stream="off")``, each on a fresh copy
+    of ``params``, held to each other at TOL_OFF; returns the readings."""
+    from audio_mps_tpu_torch import weights
+    res = {}
+    for label, c in (("streamed", cfg),
+                     ("off", dataclasses.replace(cfg, kernel_stream="off"))):
+        q = from_numpy(weights.params_to_numpy(params), dev)
+        loss = nll(q, c)
+        loss.backward()
+        res[label] = (loss.detach(), q)
+    torch.cuda.synchronize()
+    _, rel = rel_err(res["off"][0], res["streamed"][0])
+    line = [f"loss {rel:.2e}"]
+    check(rel <= TOL_OFF[0], f"{tag} off vs streamed loss: {rel:.3e}")
+    for pname in q.NAMES:
+        _, rel = rel_err(getattr(res["off"][1], pname).grad,
+                         getattr(res["streamed"][1], pname).grad)
+        line.append(f"d{pname} {rel:.2e}")
+        check(rel <= TOL_OFF[1], f"{tag} off vs streamed gradient of "
+                                 f"{pname}: {rel:.3e}")
+    return line
+
+
+def recompute_phases(dev, fam: Family, cli_B: int):
+    """The training path without the state stream (kernel_stream="off") of
+    one family: its checkpoint forward, segment recompute and recompute
+    adjoint vs their plain versions on the T=2048 prefix (with controls at
+    ``default``); the recompute path vs the streamed path on the card at
+    the family's training headline; the train CLI at batch ``cli_B``; and
+    at that batch the kernels' CUDA-event times beside their bounds and one
+    step's time and peak memory, off and streamed. Returns the two kernels'
+    entries of the {"kernels": [...]} line."""
+    from audio_mps_tpu_torch import weights
+    from audio_mps_tpu_torch.data import damped_sine_batch
+    from audio_mps_tpu_torch.ops import block
+    from audio_mps_tpu_torch.ops.scan import DEFAULT_UNROLL
+
+    cfg, T, name = fam.cfg, fam.T, fam.name
+    rank = fam.params.Wx.shape[0] if name == "rho" else 1
+    n = 2 * D
+    names = _recompute_kernel_names(name)
+    ckpt = getattr(block, names["ckpt"])
+    recompute = getattr(block, names["rec"])
+    recompute_bwd = getattr(block, f"{name}_recompute_bwd")
+
+    def plain(fn):
+        return getattr(block, fn.__name__ + "_plain")
+
+    cb, aux = ("rb", "n2s") if name == "psi" else ("xb", "trs")
+    unroll = DEFAULT_UNROLL
+    main = dict(precision=cfg.kernel_precision, defer_norm=cfg.defer_norm,
+                unroll=unroll)
+    shape = f"D={D}" + (f", rank {rank}" if name == "rho" else "")
+
+    def inputs(B, seed):
+        sig = damped_sine_batch(torch.Generator(dev).manual_seed(seed), B, T,
+                                cfg.delta_t)
+        ins = getattr(block, f"{name}_nll_inputs")(fam.params, cfg, sig)
+        eps = dict(log_eps=ins.pop("log_eps"), norm_eps=ins.pop("norm_eps"))
+        return sig, ins, {k: ins[k] for k in ("ab", "bb", cb)}, eps
+
+    labels = {"ckpt": ("loss", "ck"), "rec": ("ys", aux),
+              "adj": ("dse", "dt0", "dAb", "dBb",
+                      "dRb" if name == "psi" else "dXb")}
+    tols = {"ckpt": TOL_CKPT, "rec": TOL_RECOMPUTE, "adj": TOL_RECOMPUTE_BWD}
+
+    # at the headline's batch and at the train CLI's: psi's recompute CTAs
+    # take spans of blocks that depend on the batch (31 of a 128-block
+    # prefix at B=128, all of it at B=1024), so the CLI's batch is held too
+    for B in sorted({fam.B, cli_B}):
+        sig, t_in, con, eps = inputs(B, fam.seed + (4 if B != fam.B else 0))
+        pre = dict(t_in, se=t_in["se"][:T_PREFIX - 1].contiguous())
+        g = torch.full((B,), 1.0 / B, device=dev)
+        phase(f"{name} recompute kernels vs plain ({shape}, B={B}, "
+              f"T={T_PREFIX} prefix, defer_norm={cfg.defer_norm})")
+        err_at, ctrl, line = {}, {}, []
+        for prec in ("highest", "high"):
+            o = dict(main, precision=prec)
+            f_p = plain(ckpt)(**pre, **eps, **o)
+            rec = dict(con, ck=f_p[1], se=pre["se"])
+            want = {"ckpt": f_p,
+                    "rec": plain(recompute)(**rec, norm_eps=eps["norm_eps"],
+                                            **o),
+                    "adj": plain(recompute_bwd)(**rec, g=g, **eps, **o)}
+            calls = {"ckpt": lambda **x: ckpt(**pre, **eps, **x),
+                     "rec": lambda **x: recompute(
+                         **rec, norm_eps=eps["norm_eps"], **x),
+                     "adj": lambda **x: recompute_bwd(**rec, g=g, **eps, **x)}
+            _hold_to_plain(name, prec, o, calls, want, labels, tols, err_at,
+                           ctrl, line)
+            del f_p, rec, want
+            _free()
+        print("  x max|plain| (tol " + ", ".join(
+            f"{r} {t['highest']:g}/{t['high']:g}" for r, t in tols.items())
+              + "): " + ", ".join(line), flush=True)
+        print(f"  control, kernels at default vs plain at high (must exceed "
+              f"the high limits): checkpoint forward {ctrl['ckpt']:.2e}, "
+              f"recompute {ctrl['rec']:.2e}", flush=True)
+        del sig, t_in, pre, con, g
+        _free()
+
+    sig, t_in, con, eps = inputs(fam.B, fam.seed)
+    g = torch.full((fam.B,), 1.0 / fam.B, device=dev)
+    phase(f"{name} recompute path vs the streamed path on the card ({shape}, "
+          f"B={fam.B}, T={T})")
+    stream_fwd = getattr(block, f"{name}_train_fwd")
+    loss_s, ys, norms = stream_fwd(**t_in, **eps, **main)
+    loss_c, ck = ckpt(**t_in, **eps, **main)
+    r_ys, r_norms = recompute(**con, ck=ck, se=t_in["se"],
+                              norm_eps=eps["norm_eps"], **main)
+    torch.cuda.synchronize()
+    check(torch.equal(loss_s, loss_c), f"{name}: the checkpoint forward's "
+                                       f"loss is not the streamed forward's")
+    check(torch.equal(r_ys, ys) and torch.equal(r_norms, norms),
+          f"{name}: the recomputed states are not the streamed forward's")
+    del ys, norms, r_ys, r_norms, loss_s, loss_c
+    _free()
+    runs = [recompute_bwd(**con, ck=ck, se=t_in["se"], g=g, **eps, **main)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          f"{name}: two runs of the recompute adjoint differ")
+    del runs, ck
+    _free()
+    trainable = getattr(block, f"{name}_nll_block_trainable")
+    line = _off_vs_streamed(
+        name, lambda q, c: trainable(q, c, sig,
+                                     precision=cfg.kernel_precision,
+                                     defer_norm=cfg.defer_norm),
+        fam.params, getattr(weights, f"{name}_params_from_numpy"), cfg, dev)
+    print(f"  the checkpoint forward's loss and the recomputed ys and {aux} "
+          f"equal the streamed forward's bit for bit; two runs of the "
+          f"recompute adjoint equal bit for bit; off vs streamed x "
+          f"max|streamed| (tol {TOL_OFF[0]:g} / {TOL_OFF[1]:g}): "
+          + ", ".join(line), flush=True)
+    del sig, t_in, con, g
+    _free()
+
+    cfg_off = dataclasses.replace(cfg, minibatch_size=cli_B,
+                                  kernel_stream="off")
+    segments = block.recompute_segments(T - 1, unroll)
+    n_seg = len(segments)
+    cli_shape = f"{shape}, B={cli_B}, T={T}"
+    phase(f"{name} training without the stream: train CLI ({cli_shape}, "
+          f"kernel_stream=off), {OFF_STEPS} steps, then a restore and one "
+          f"more step")
+    launches = train_cli_phase(
+        dev, f"{name}_mps", cfg_off, T, OFF_STEPS,
+        {names["ckpt"]: 1, names["rec"]: n_seg, f"{name}_train_bwd": n_seg,
+         f"{name}_cotangents": n_seg})
+
+    phase(f"{name} recompute timings and the kernels vs plain over the run "
+          f"({cli_shape}: CUDA events, median of 5 after 1 warm-up, plain "
+          f"one run; one step's time and peak memory, off and streamed)")
+    _, c_in, c_con, _ = inputs(cli_B, fam.seed + 2)
+    g_c = torch.full((cli_B,), 1.0 / cli_B, device=dev)
+    rec_o = dict(main, norm_eps=eps["norm_eps"])
+    prec = main["precision"]
+    ms = {"ckpt": median_ms(lambda: ckpt(**c_in, **eps, **main))}
+    got = ckpt(**c_in, **eps, **main)
+    ck = got[1]
+    ms["rec"] = median_ms(lambda: _recompute_run(
+        recompute, c_con, ck, c_in["se"], segments, **rec_o))
+    adj_ms = median_ms(lambda: recompute_bwd(**c_con, ck=ck, se=c_in["se"],
+                                             g=g_c, **eps, **main))
+    # the kernels against their plain versions over the whole run at the
+    # CLI's batch: the forward at the streamed forward's full-length limit
+    # (its states drift from the plain loop's over the 16383 steps, as the
+    # stream's do); the recompute, a segment at a time, and the whole
+    # recompute adjoint, both sides from the kernel's checkpoints, at the
+    # prefix's limits
+    plain_ms, full = {}, {}
+    plain_ms["ckpt"], want = timed(lambda: plain(ckpt)(**c_in, **eps, **main))
+    full["ckpt"] = _hold_outputs(f"{name} ckpt {prec} T={T}", labels["ckpt"],
+                                 got, want, TOL_TRAIN[prec]["fwd"])
+    del got, want
+    plain_ms["rec"], full["rec"] = 0.0, {}
+    for args in _segment_inputs(c_con, ck, c_in["se"], segments, unroll):
+        t, want = timed(lambda: plain(recompute)(**args, **rec_o))
+        plain_ms["rec"] += t
+        res = _hold_outputs(f"{name} rec {prec} T={T} segment",
+                            labels["rec"], recompute(**args, **rec_o), want,
+                            TOL_RECOMPUTE[prec])
+        for k, v in res.items():
+            full["rec"][k] = tuple(map(max, full["rec"].get(k, v), v))
+        del want, args   # args holds a view of ck
+    adj_plain_ms, want = timed(lambda: plain(recompute_bwd)(
+        **c_con, ck=ck, se=c_in["se"], g=g_c, **eps, **main))
+    full["adj"] = _hold_outputs(
+        f"{name} adj {prec} T={T}", labels["adj"], recompute_bwd(
+            **c_con, ck=ck, se=c_in["se"], g=g_c, **eps, **main), want,
+        TOL_RECOMPUTE_BWD[prec])
+    del want
+    line = []
+    for role in ("ckpt", "rec", "adj"):
+        readings, worst = _readings(role, full[role])
+        line += readings
+        if role != "adj":
+            err_at[role] = max(err_at[role], worst)
+    print(f"  {prec}, x max|plain| over the run (tol ckpt "
+          f"{TOL_TRAIN[prec]['fwd']:g}, rec {TOL_RECOMPUTE[prec]:g} (worst "
+          f"segment), adj {TOL_RECOMPUTE_BWD[prec]:g}): " + ", ".join(line),
+          flush=True)
+    ck_elems = ck.numel()
+    del c_in, c_con, ck
+    _free()
+    stream_fwd.launches = 0
+    step_ms, peak = {}, {}
+    for label, c in (("off", cfg_off),
+                     ("streamed", dataclasses.replace(cfg_off,
+                                                      kernel_stream="auto"))):
+        step_ms[label], peak[label] = time_train_step(
+            dev, f"{name}_mps", c, fam.params, T, fam.seed + 3, reps=2)
+    check(stream_fwd.launches == 3, f"the streamed step timing launched "
+                                    f"{name}_train_fwd {stream_fwd.launches} "
+                                    f"times")
+    s_bytes = block.stream_bytes(D, cli_B * rank, T)
+    check(peak["off"] < s_bytes / 4, f"{name} off: peak memory {peak['off']} "
+                                     f"not below a quarter of the stream's "
+                                     f"{s_bytes} bytes")
+    sizes = (n, (T - 1) * cli_B * rank, (T - 1) * cli_B, ck_elems,
+             cli_B * rank)
+    bounds = _recompute_bounds(name, *sizes, cli_B)
+    adj_bound = _adjoint_bound(name, *sizes, cli_B)
+    entries = []
+    src = {"ckpt": f"{name}_train_fwd.cu", "rec": f"{name}_recompute.cu"}
+    for role, kname in names.items():
+        bound, by = bounds[role]
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": f"audio_mps_tpu_torch/csrc/{src[role]}",
+            "replaces": fam.replaces[role], "launches": launches[kname],
+            "max_abs_err": err_at[role], "ms": ms[role],
+            "plain_ms": plain_ms[role], "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+        print(f"  {kname}: {ms[role]:.3f} ms over the run"
+              + (f" ({n_seg} segments, {ms[role] / n_seg:.3f} ms each)"
+                 if role == "rec" else "")
+              + f", {bound / ms[role] * 100:.1f}% of its bound {bound:.3f} "
+              f"ms by {by}; launches in the CLI's {OFF_STEPS + 1} steps "
+              f"{launches[kname]}; plain {plain_ms[role]:.1f} ms (one run)",
+              flush=True)
+    print(f"  the whole recompute adjoint (recompute, adjoint and reductions "
+          f"in {n_seg} segments) {adj_ms:.3f} ms, "
+          f"{adj_bound[0] / adj_ms * 100:.1f}% of its bound "
+          f"{adj_bound[0]:.3f} ms by {adj_bound[1]} (plain {adj_plain_ms:.1f}"
+          f" ms, one run); one step (make_train_step, "
+          f"batch draw included, host clock, mean of 2 after a warm-up): off "
+          f"{step_ms['off']:.2f} ms, peak {peak['off'] / 1e9:.3f} GB; "
+          f"streamed {step_ms['streamed']:.2f} ms, peak "
+          f"{peak['streamed'] / 1e9:.3f} GB; the stream {s_bytes / 1e9:.3f} "
+          f"GB, the checkpoints {4 * ck_elems / 1e9:.3f} GB; "
+          f"{cli_B * (T - 1) / step_ms['off'] * 1e3:.4e} frames/s off",
+          flush=True)
     return entries
 
 
@@ -707,12 +1132,17 @@ def rho_phases(dev):
     for name, count in serve.items():
         check(count > 0, f"{name} was not launched on the rho serving path")
 
-    train_entries = train_phases(dev, Family(
+    fam = Family(
         name="rho", params=params, cfg=cfg, B=RHO_B, T=RHO_T, seed=12,
         ref_cols=2, reference=core.rho_nll_factor, dehat_scale=1.0,
         replaces={"fwd": "audio_mps_tpu/ops/pallas_block.py:1366",
                   "bwd": "audio_mps_tpu/ops/pallas_block.py:1438",
-                  "cot": "audio_mps_tpu/ops/pallas_block.py:1583"}))
+                  "cot": "audio_mps_tpu/ops/pallas_block.py:1583",
+                  "ckpt": "audio_mps_tpu/ops/pallas_block.py:1366",
+                  "rec": "audio_mps_tpu/ops/pallas_block.py:1790"})
+    train_entries = train_phases(dev, fam)
+    _free()
+    train_entries += recompute_phases(dev, fam, RHO_B)
 
     # device time by kernel of one rho training step's three launches (the
     # adjoint's call runs two kernels: the tail and the chain). The script
@@ -788,6 +1218,20 @@ def rho_phases(dev):
     return entries + train_entries
 
 
+def _combination_cotangents(f_out, c0, se, cfg, unroll):
+    """The combination's cotangents of the partials forward's eh and tr (as
+    the training path's backward hands them over) and a zero dtfin (the
+    last time segment's)."""
+    from audio_mps_tpu_torch.ops import rank
+    eh, tr = (x.detach().clone().requires_grad_(True) for x in f_out[:2])
+    with torch.enable_grad():
+        loss = rank.combine_rank_partials(
+            *rank.chunk_partials(eh, tr, c0, se.shape[1], unroll=unroll,
+                                 norm_eps=float(cfg.norm_eps)), se, cfg)
+        deh, dtr = torch.autograd.grad(loss, (eh, tr))
+    return dict(deh=deh, dtr=dtr, dtfin=torch.zeros_like(f_out[2]))
+
+
 def rank_phases(dev):
     """Phase 8, rank-chunked rho training at D=256, full rank; returns the
     partials kernels' entries of the {"kernels": [...]} line."""
@@ -826,16 +1270,7 @@ def rank_phases(dev):
         return ins, c0
 
     def cotangents(f_out, c0, se):
-        """The combination's cotangents of the forward's eh and tr (as the
-        training path's backward hands them over) and a zero dtfin (the
-        last time segment's)."""
-        eh, tr = (x.detach().clone().requires_grad_(True) for x in f_out[:2])
-        with torch.enable_grad():
-            loss = rank.combine_rank_partials(
-                *rank.chunk_partials(eh, tr, c0, RANK_B, unroll=kw["unroll"],
-                                     norm_eps=kw["norm_eps"]), se, cfg)
-            deh, dtr = torch.autograd.grad(loss, (eh, tr))
-        return dict(deh=deh, dtr=dtr, dtfin=torch.zeros_like(f_out[2]))
+        return _combination_cotangents(f_out, c0, se, cfg, kw["unroll"])
 
     def call(role, ins, cot, f_out, b_out, plain=False, **o):
         fn = (plains if plain else kernels)[role]
@@ -978,7 +1413,7 @@ def rank_phases(dev):
           "the refused train CLI launched a kernel")
     print(f"  with visualize on, refused: {refused[:90]}...", flush=True)
     launches = train_cli_phase(dev, "rho_mps", cfg, RANK_T, RANK_TRAIN_STEPS,
-                               set(RANK_KERNELS), exact=False,
+                               dict.fromkeys(RANK_KERNELS),
                                flags=("--visualize=false",))
     step_ms, peak = time_train_step(dev, "rho_mps", cfg, params, RANK_T, 25,
                                     reps=1)
@@ -1094,6 +1529,184 @@ def rank_phases(dev):
     print(f"  rank-chunked train step {step_ms:.1f} ms, of which one pass of "
           f"the three kernels {sum(ms.values()):.1f} ms and the recomputed "
           f"forward {ms['fwd'] if n_seg > 1 else 0.0:.1f} ms", flush=True)
+    return entries, (step_ms, peak)
+
+
+def rank_recompute_phases(dev, streamed):
+    """The rank-chunked training path without the state stream at D=256,
+    full rank, B=8: the checkpoint forward, segment recompute and recompute
+    adjoint vs their plain versions on the T=2049 prefix (with controls at
+    ``default``), the recompute path vs the streamed path on that prefix,
+    the train CLI with kernel_stream=off at T=16385, and over the whole run
+    each kernel's CUDA-event time (one run) beside its bound and one step's
+    time and peak memory beside the streamed path's (``streamed``: its
+    (step ms, peak bytes) from ``rank_phases``). Returns the two kernels'
+    entries of the {"kernels": [...]} line."""
+    from audio_mps_tpu_torch import weights
+    from audio_mps_tpu_torch.config import CMPSConfig
+    from audio_mps_tpu_torch.data import damped_sine_batch
+    from audio_mps_tpu_torch.models.params import init_rho
+    from audio_mps_tpu_torch.ops import block, rank
+    from audio_mps_tpu_torch.ops.scan import DEFAULT_UNROLL
+
+    cfg = CMPSConfig(bond_dim=RANK_D, minibatch_size=RANK_B)    # rank D
+    params = init_rho(torch.Generator(dev).manual_seed(20), cfg, device=dev)
+    rank_ = params.Wx.shape[0]
+    n = 2 * RANK_D
+    cols = RANK_B * rank_
+    rc = rank.rho_train_chunk(RANK_D, RANK_B, rank_, *rank.device_limits(dev))
+    S = cols // rc
+    unroll = DEFAULT_UNROLL
+    kw = dict(rc=rc, unroll=unroll, norm_eps=float(cfg.norm_eps))
+    shape = f"D={RANK_D}, rank {rank_}, B={RANK_B}, chunks of {rc} rows"
+    signals = damped_sine_batch(torch.Generator(dev).manual_seed(21), RANK_B,
+                                RANK_T, cfg.delta_t)
+    names = dict(zip(("ckpt", "rec"), RANK_RECOMPUTE_KERNELS))
+
+    def inputs(steps):
+        ins, c0 = rank.partials_inputs(params, cfg, signals[:, :steps + 1],
+                                       rc)
+        del ins["rc"], ins["norm_eps"]
+        return ins, c0, {k: ins[k] for k in ("ab", "bb", "xb")}
+
+    labels = {"ckpt": ("eh", "tr", "tfin", "ck"), "rec": ("ys",),
+              "adj": ("dse", "dt0", "dAb", "dBb", "dXb")}
+    tols = {"ckpt": TOL_CKPT, "rec": TOL_RECOMPUTE, "adj": TOL_RECOMPUTE_BWD}
+    phase(f"rank-partials recompute kernels vs plain ({shape}, "
+          f"T={RANK_T_PREFIX})")
+    pre, c0, con = inputs(RANK_T_PREFIX - 1)
+    err_at, ctrl, plain_ms, line = {}, {}, {}, []
+    for prec in ("highest", "high"):
+        o = dict(kw, precision=prec)
+        t_f, f_p = timed(lambda: rank.rank_partials_fwd_ckpt_plain(**pre,
+                                                                   **o))
+        rec = dict(con, ck=f_p[3], se=pre["se"])
+        t_r, r_p = timed(lambda: rank.rank_partials_recompute_plain(**rec,
+                                                                    **o))
+        cot = _combination_cotangents(f_p, c0, pre["se"], cfg, unroll)
+        t_a, w_a = timed(lambda: rank.rank_recompute_bwd_plain(
+            **rec, tr=f_p[1], **cot, **o))
+        want = {"ckpt": f_p, "rec": (r_p,), "adj": w_a}
+        calls = {
+            "ckpt": lambda **x: rank.rank_partials_fwd_ckpt(**pre, **x),
+            "rec": lambda **x: (rank.rank_partials_recompute(**rec, **x),),
+            "adj": lambda **x: rank.rank_recompute_bwd(**rec, tr=f_p[1],
+                                                       **cot, **x)}
+        _hold_to_plain("rank", prec, o, calls, want, labels, tols, err_at,
+                       ctrl, line)
+        if prec == "highest":
+            plain_ms.update(ckpt=t_f, rec=t_r, adj=t_a)
+        del f_p, r_p, w_a, rec, want, cot
+        _free()
+    print("  x max|plain| (tol " + ", ".join(
+        f"{r} {t['highest']:g}/{t['high']:g}" for r, t in tols.items())
+          + "): " + ", ".join(line), flush=True)
+    print(f"  control, kernels at default vs plain at high (must exceed the "
+          f"high limits): checkpoint forward {ctrl['ckpt']:.2e}, recompute "
+          f"{ctrl['rec']:.2e}; plain at T={RANK_T_PREFIX} (one run): "
+          f"checkpoint forward {plain_ms['ckpt']:.1f} ms, recompute "
+          f"{plain_ms['rec']:.1f} ms, the whole recompute adjoint "
+          f"{plain_ms['adj']:.1f} ms", flush=True)
+
+    phase(f"rank-chunked recompute path vs the streamed path on the card "
+          f"({shape}, T={RANK_T_PREFIX})")
+    o = dict(kw, precision=cfg.kernel_precision)
+    f_s = rank.rank_partials_fwd(**pre, **o)
+    f_c = rank.rank_partials_fwd_ckpt(**pre, **o)
+    r_ys = rank.rank_partials_recompute(**con, ck=f_c[3], se=pre["se"], **o)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(f_s[:3], f_c[:3])),
+          "rank: the checkpoint forward's partials are not the streamed "
+          "forward's")
+    check(torch.equal(r_ys, f_s[3]), "rank: the recomputed states are not "
+                                     "the streamed forward's")
+    cot = _combination_cotangents(f_s, c0, pre["se"], cfg, unroll)
+    del f_s, r_ys
+    _free()
+    runs = [rank.rank_recompute_bwd(**con, ck=f_c[3], se=pre["se"],
+                                    tr=f_c[1], **cot, **o) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "rank: two runs of the recompute adjoint differ")
+    del runs, f_c, cot, pre, con
+    _free()
+    line = _off_vs_streamed(
+        "rank", lambda q, c: rank.rho_nll_rank_chunked(
+            q, c, signals[:, :RANK_T_PREFIX], rank_chunk=rc,
+            precision=cfg.kernel_precision),
+        params, weights.rho_params_from_numpy, cfg, dev)
+    print(f"  the checkpoint forward's partials and the recomputed ys equal "
+          f"the streamed forward's bit for bit; two runs of the recompute "
+          f"adjoint equal bit for bit; off vs streamed x max|streamed| (tol "
+          f"{TOL_OFF[0]:g} / {TOL_OFF[1]:g}): " + ", ".join(line), flush=True)
+    _free()
+
+    cfg_off = dataclasses.replace(cfg, kernel_stream="off")
+    segments = block.recompute_segments(RANK_T - 1, unroll)
+    n_seg = len(segments)
+    phase(f"rank-chunked training without the stream: train CLI ({shape}, "
+          f"T={RANK_T}, kernel_stream=off), {RANK_OFF_STEPS} step, then a "
+          f"restore and one more")
+    launches = train_cli_phase(
+        dev, "rho_mps", cfg_off, RANK_T, RANK_OFF_STEPS,
+        {names["ckpt"]: 1, names["rec"]: n_seg, "rank_partials_bwd": n_seg,
+         "rank_cotangents": n_seg}, flags=("--visualize=false",))
+
+    phase(f"rank-partials recompute timings ({shape}, T={RANK_T}, "
+          f"{n_seg} segments; CUDA events, one run each) and one step's time "
+          f"and peak memory")
+    full, c0, f_con = inputs(RANK_T - 1)
+    o = dict(kw, precision=cfg.kernel_precision)
+    ms = {}
+    ms["ckpt"], f_out = timed(lambda: rank.rank_partials_fwd_ckpt(**full,
+                                                                  **o))
+    ms["rec"], _ = timed(lambda: _recompute_run(
+        rank.rank_partials_recompute, f_con, f_out[3], full["se"], segments,
+        **o))
+    cot = _combination_cotangents(f_out, c0, full["se"], cfg, unroll)
+    adj_ms, _ = timed(lambda: rank.rank_recompute_bwd(
+        **f_con, ck=f_out[3], se=full["se"], tr=f_out[1], **cot, **o))
+    ck_elems = f_out[3].numel()
+    del full, f_con, f_out, cot
+    _free()
+    step_ms, peak = time_train_step(dev, "rho_mps", cfg_off, params, RANK_T,
+                                    26, reps=1)
+    s_bytes = block.stream_bytes(RANK_D, cols, RANK_T)
+    check(peak < s_bytes / 4, f"rank off: peak memory {peak} not below a "
+                              f"quarter of the stream's {s_bytes} bytes")
+    n_steps = RANK_T - 1
+    sizes = (n, n_steps * cols, n_steps * RANK_B, ck_elems, cols)
+    bounds = _recompute_bounds("rho", *sizes, 2 * n_steps * S + n * cols)
+    adj_bound = _adjoint_bound("rho", *sizes, RANK_B)
+    replaces = {"ckpt": "audio_mps_tpu/ops/pallas_rank.py:80",
+                "rec": "audio_mps_tpu/ops/pallas_rank.py:152"}
+    src = {"ckpt": "rank_partials_fwd.cu", "rec": "rank_partials_recompute.cu"}
+    entries = []
+    for role, kname in names.items():
+        bound, by = bounds[role]
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": f"audio_mps_tpu_torch/csrc/{src[role]}",
+            "replaces": replaces[role], "launches": launches[kname],
+            "max_abs_err": err_at[role], "ms": ms[role],
+            "plain_ms": plain_ms[role], "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+        print(f"  {kname}: {ms[role]:.1f} ms over T={RANK_T}, "
+              f"{bound / ms[role] * 100:.1f}% of its bound {bound:.3f} ms by "
+              f"{by}; launches in the CLI's {RANK_OFF_STEPS + 1} steps "
+              f"{launches[kname]}; plain {plain_ms[role]:.1f} ms at "
+              f"T={RANK_T_PREFIX}", flush=True)
+    print(f"  the whole recompute adjoint ({n_seg} segments) {adj_ms:.1f} ms,"
+          f" {adj_bound[0] / adj_ms * 100:.1f}% of its bound "
+          f"{adj_bound[0]:.3f} ms by {adj_bound[1]} (plain "
+          f"{plain_ms['adj']:.1f} ms at T={RANK_T_PREFIX}); "
+          f"one step (make_train_step, batch draw included, host clock, one "
+          f"after a warm-up): off {step_ms:.1f} ms, peak "
+          f"{peak / 2 ** 30:.2f} GiB; streamed (checkpointed segments) "
+          f"{streamed[0]:.1f} ms, peak {streamed[1] / 2 ** 30:.2f} GiB; the "
+          f"stream {s_bytes / 1e9:.1f} GB, the checkpoints "
+          f"{4 * ck_elems / 1e9:.2f} GB; "
+          f"{RANK_B * n_steps / step_ms * 1e3:.4e} frames/s off", flush=True)
     return entries
 
 
@@ -1225,12 +1838,17 @@ def main() -> int:
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the serving path")
 
-    train_entries = train_phases(dev, Family(
+    fam = Family(
         name="psi", params=params, cfg=cfg, B=B_NLL, T=T_NLL, seed=4,
         ref_cols=8, reference=core.psi_nll, dehat_scale=2.0,
         replaces={"fwd": "audio_mps_tpu/ops/pallas_block.py:875",
                   "bwd": "audio_mps_tpu/ops/pallas_block.py:935",
-                  "cot": "audio_mps_tpu/ops/pallas_block.py:1035"}))
+                  "cot": "audio_mps_tpu/ops/pallas_block.py:1035",
+                  "ckpt": "audio_mps_tpu/ops/pallas_block.py:461",
+                  "rec": "audio_mps_tpu/ops/pallas_block.py:621"})
+    train_entries = train_phases(dev, fam)
+    _free()
+    train_entries += recompute_phases(dev, fam, PSI_OFF_B)
 
     phase("timings (CUDA events, median of 5 after 1 warm-up)")
     n = 2 * D
@@ -1290,7 +1908,9 @@ def main() -> int:
     _free()
     rho_entries = rho_phases(dev)
     _free()
-    rank_entries = rank_phases(dev)
+    rank_entries, streamed = rank_phases(dev)
+    _free()
+    rank_entries += rank_recompute_phases(dev, streamed)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels + train_entries + rho_entries

@@ -142,15 +142,14 @@ def test_train_path_runs_the_three_kernels_at_d64(dev):
         _close(getattr(p, name).grad.cpu(), getattr(q, name).grad, 1e-3)
 
 
-@pytest.mark.parametrize("case", ["stream_off", "D72"])
+@pytest.mark.parametrize("case", ["D72"])
 def test_train_path_raises_without_a_kernel(dev, case):
-    """kernel_stream="off" (the recompute adjoint is not ported) and D=72
-    (the constants overflow shared memory) raise NotImplementedError on the
-    card before any launch."""
+    """D=72 (the constants overflow shared memory) raises
+    NotImplementedError on the card before any launch. kernel_stream="off"
+    runs: test_train_path_runs_without_the_stream."""
     from audio_mps_tpu_torch.training import nll_fn_for
-    D = 72 if case == "D72" else 8
-    cfg = CMPSConfig(bond_dim=D, kernel_stream="off" if case == "stream_off"
-                     else "auto")
+    D = 72
+    cfg = CMPSConfig(bond_dim=D)
     p = init_psi(torch.Generator(dev).manual_seed(0), cfg, device=dev)
     sig = torch.zeros(2, 17, device=dev)
     before = _counts()
@@ -593,8 +592,10 @@ def test_rank_partials_index_past_2_pow_31_elements(dev):
 def test_rho_train_path_runs_chunked_past_d64(dev):
     """rho training at D=68 (past the monolithic kernels) goes through the
     partials kernels once each, no monolithic rho training kernel, and
-    matches the same call on CPU copies; kernel_stream="off" raises,
-    launching nothing."""
+    matches the same call on CPU copies; kernel_stream="off" runs the
+    checkpoint forward once and the segment recompute, adjoint and
+    reductions once a segment (16 of one block), and matches the same call
+    on CPU copies."""
     import dataclasses
     from audio_mps_tpu_torch.ops import grad
     from audio_mps_tpu_torch.weights import (params_to_numpy,
@@ -615,9 +616,19 @@ def test_rho_train_path_runs_chunked_past_d64(dev):
     for name in q.NAMES:
         _close(getattr(p, name).grad.cpu(), getattr(q, name).grad, 1e-3)
     off = dataclasses.replace(cfg, kernel_stream="off")
-    with pytest.raises(NotImplementedError, match="pallas_rank.py"):
-        grad.rho_nll_fused_trainable(p, off, sig)
-    assert _rank_counts() == tuple(c + 1 for c in before)
+    for x in list(p.parameters()) + list(q.parameters()):
+        x.grad = None
+    before, rec = _rank_counts(), _recompute_counts()
+    loss = grad.rho_nll_fused_trainable(p, off, sig)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert _rank_counts() == (before[0], before[1] + 16, before[2] + 16)
+    assert _recompute_counts()[4:] == (rec[4] + 1, rec[5] + 16)
+    want = grad.rho_nll_fused_trainable(q, off, sig.cpu())
+    want.backward()
+    assert abs(loss.item() - want.item()) <= 1e-4 * abs(want.item())
+    for name in q.NAMES:
+        _close(getattr(p, name).grad.cpu(), getattr(q, name).grad, 1e-3)
 
 
 def test_rho_train_cli_refuses_the_sampler_past_d64(dev, tmp_path,
@@ -641,3 +652,270 @@ def test_rho_train_cli_refuses_the_sampler_past_d64(dev, tmp_path,
     with pytest.raises(NotImplementedError, match="--visualize=false"):
         train(run, device=device)
     assert _rank_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the recompute path (kernel_stream="off"): the checkpoint forwards (kCkpt
+# mode of the forward templates), the segment recomputes (csrc/*_recompute.cu)
+# and the streamed adjoints run a segment at a time with dt carried in
+# ---------------------------------------------------------------------------
+
+def _recompute_counts():
+    from audio_mps_tpu_torch.ops import rank
+    return (block.psi_train_fwd_ckpt.launches, block.psi_recompute.launches,
+            block.rho_train_fwd_ckpt.launches, block.rho_recompute.launches,
+            rank.rank_partials_fwd_ckpt.launches,
+            rank.rank_partials_recompute.launches)
+
+
+# unroll 7 over the steps, segments of 3 blocks: the last block and the
+# last segment are short
+UNROLL, SEGMENT = 7, 21
+
+
+def _psi_family(dev, D, steps):
+    inputs, g = _train_inputs(dev, D, steps)
+    con = dict(ab=inputs["ab"], bb=inputs["bb"], rb=inputs["rb"])
+    return inputs, g, con, (block.psi_train_fwd, block.psi_train_fwd_ckpt,
+                            block.psi_recompute, block.psi_recompute_bwd,
+                            block.psi_train_bwd, block.psi_cotangents)
+
+
+def _rho_family(dev, D, rank_, steps):
+    p, cfg = _rho_params(dev, D, rank_)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(2), 3,
+                            steps + 1, cfg.delta_t)
+    inputs = block.rho_nll_inputs(p, cfg, sig)
+    g = torch.rand(3, generator=torch.Generator(dev).manual_seed(5),
+                   device=dev) + 0.5
+    con = dict(ab=inputs["ab"], bb=inputs["bb"], xb=inputs["xb"])
+    return inputs, g, con, (block.rho_train_fwd, block.rho_train_fwd_ckpt,
+                            block.rho_recompute, block.rho_recompute_bwd,
+                            block.rho_train_bwd, block.rho_cotangents)
+
+
+def _family(dev, family, D, rank_, steps):
+    return (_psi_family(dev, D, steps) if family == "psi"
+            else _rho_family(dev, D, rank_, steps))
+
+
+def _plain(fn):
+    return getattr(block, fn.__name__ + "_plain")
+
+
+@pytest.mark.parametrize("family, D, rank_", [
+    ("psi", 8, 1), ("psi", 12, 1), ("psi", 64, 1), ("rho", 8, 3),
+    ("rho", 16, 64), ("rho", 64, 64)])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_recompute_kernels_match_plain(dev, family, D, rank_, precision,
+                                       defer):
+    """The checkpoint forward (loss, ck), the segment recompute on the plain
+    checkpoints (ys and the norms) and the whole recompute adjoint on the
+    plain checkpoints (dse, dt0 and the three cotangents: the recompute,
+    the adjoint with dt carried in and the reductions, a segment at a time)
+    each against its plain version on the same inputs."""
+    inputs, g, con, fns = _family(dev, family, D, rank_, STEPS[precision])
+    _, ckpt, recompute, recompute_bwd, _, _ = fns
+    kw = dict(norm_eps=inputs.pop("norm_eps"), precision=precision,
+              defer_norm=defer, unroll=UNROLL)
+    log_eps = inputs.pop("log_eps")
+    before = _recompute_counts()
+    want = _plain(ckpt)(**inputs, log_eps=log_eps, **kw)
+    for a, b in zip(ckpt(**inputs, log_eps=log_eps, **kw), want):
+        _close(a, b, TOL[precision])
+    rec = dict(con, ck=want[1], se=inputs["se"])
+    for a, b in zip(recompute(**rec, **kw), _plain(recompute)(**rec, **kw)):
+        _close(a, b, TOL[precision])
+    got = recompute_bwd(**rec, g=g, log_eps=log_eps, segment=SEGMENT, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, _plain(recompute_bwd)(**rec, g=g, log_eps=log_eps,
+                                               segment=SEGMENT, **kw)):
+        _close(a, b, TOL[precision])
+    n_seg = len(block.recompute_segments(STEPS[precision], UNROLL, SEGMENT))
+    moved = [a - b for a, b in zip(_recompute_counts(), before)]
+    assert moved[:4] == ([1, 1 + n_seg, 0, 0] if family == "psi"
+                         else [0, 0, 1, 1 + n_seg])
+
+
+@pytest.mark.parametrize("family, D, rank_", [("psi", 64, 1),
+                                               ("rho", 64, 64)])
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_recompute_is_the_stream_bit_for_bit(dev, family, D, rank_,
+                                             precision, defer):
+    """On the card: the checkpoint forward's loss is the streamed forward's
+    bit for bit; the states the recompute rebuilds from the checkpoints, in
+    one launch over the run and a segment at a time, are the streamed
+    forward's ys and norms bit for bit; the recompute adjoint's dse and dt0
+    are the streamed adjoint's bit for bit (only dt crosses a segment
+    boundary) and its cotangents within 1e-5 of their largest element (the
+    reductions' sums split otherwise); two runs of it are equal bit for
+    bit."""
+    inputs, g, con, fns = _family(dev, family, D, rank_, 300)
+    stream, ckpt, recompute, recompute_bwd, adjoint, cotangents = fns
+    norm_eps, log_eps = inputs.pop("norm_eps"), inputs.pop("log_eps")
+    kw = dict(norm_eps=norm_eps, precision=precision, defer_norm=defer,
+              unroll=UNROLL)
+    loss, ys, norms = stream(**inputs, log_eps=log_eps, **kw)
+    loss_c, ck = ckpt(**inputs, log_eps=log_eps, **kw)
+    assert torch.equal(loss, loss_c)
+    se = inputs["se"]
+    for a, b in zip(recompute(**con, ck=ck, se=se, **kw), (ys, norms)):
+        assert torch.equal(a, b)
+    for k0, k1 in block.recompute_segments(se.shape[0], UNROLL, SEGMENT):
+        seg = recompute(**con, ck=ck[k0 // UNROLL:-(-k1 // UNROLL)],
+                        se=se[k0:k1], **kw)
+        for a, b in zip(seg, (ys[k0:k1], norms[k0:k1])):
+            assert torch.equal(a, b)
+    aux = "n2s" if family == "psi" else "trs"
+    dse, dt0, dy, dehat = adjoint(**inputs, g=g, ys=ys, **{aux: norms},
+                                  log_eps=log_eps, **kw)
+    cot = cotangents(dy, ys, inputs["t0"], se, norms, dehat, **kw)
+    runs = [recompute_bwd(**con, ck=ck, se=se, g=g, log_eps=log_eps,
+                          segment=SEGMENT, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][0], dse) and torch.equal(runs[0][1], dt0)
+    for a, b in zip(runs[0][2:], cot):
+        _close(a, b, 1e-5)
+
+
+def test_psi_recompute_spans_are_the_stream_bit_for_bit(dev):
+    """At B=264 a psi recompute CTA re-runs a span of several blocks
+    (psi_recompute_blocks on the H100's 132 SMs: 21 of the 43 blocks of 300
+    steps at unroll 7, so the last span is one block): the states are still
+    the streamed forward's bit for bit; and every block of a span restarts
+    from its own checkpoint, as the plain recompute's do: from checkpoints
+    that are not the forward's (every other block's halved) the kernel
+    matches the plain version within 1e-5 of its largest element."""
+    inputs, _ = _train_inputs(dev, 8, 300, B=264)
+    kw = dict(norm_eps=inputs.pop("norm_eps"), unroll=UNROLL,
+              defer_norm=True)
+    log_eps = inputs.pop("log_eps")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert block.psi_recompute_blocks(264, 43, sms) > 1
+    _, ys, n2s = block.psi_train_fwd(**inputs, log_eps=log_eps, **kw)
+    _, ck = block.psi_train_fwd_ckpt(**inputs, log_eps=log_eps, **kw)
+    got = block.psi_recompute(inputs["ab"], inputs["bb"], inputs["rb"], ck,
+                              inputs["se"], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ys) and torch.equal(got[1], n2s)
+    ck[1::2] *= 0.5
+    con = (inputs["ab"], inputs["bb"], inputs["rb"], ck, inputs["se"])
+    for a, b in zip(block.psi_recompute(*con, **kw),
+                    block.psi_recompute_plain(*con, **kw)):
+        _close(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("D, rank_, rc", [(8, 6, 3), (68, 68, 17),
+                                          (256, 32, 4)])
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_rank_recompute_kernels_match_plain_and_the_stream(dev, D, rank_, rc,
+                                                           precision):
+    """The partials checkpoint forward (eh, tr, tfin, ck) and the segment
+    recompute against their plain versions; the recomputed states, in one
+    launch and a segment at a time, equal the streamed forward's bit for
+    bit; the recompute adjoint against its plain version, its dse and dt0
+    equal to the streamed adjoint's bit for bit and its cotangents within
+    1e-5; two runs equal bit for bit."""
+    from audio_mps_tpu_torch.ops import rank
+    steps = 120
+    inputs, cot = _rank_inputs(dev, D, rank_, rc, steps)
+    kw = dict(rc=inputs.pop("rc"), norm_eps=inputs.pop("norm_eps"),
+              precision=precision, unroll=UNROLL)
+    con = dict(ab=inputs["ab"], bb=inputs["bb"], xb=inputs["xb"])
+    se = inputs["se"]
+    want = rank.rank_partials_fwd_ckpt_plain(**inputs, **kw)
+    got = rank.rank_partials_fwd_ckpt(**inputs, **kw)
+    for a, b in zip(got, want):
+        _close(a, b, TOL[precision])
+    eh, tr, tfin, ys = rank.rank_partials_fwd(**inputs, **kw)
+    ck = got[3]
+    assert torch.equal(got[1], tr) and torch.equal(got[2], tfin)
+    _close(rank.rank_partials_recompute(**con, ck=want[3], se=se, **kw),
+           rank.rank_partials_recompute_plain(**con, ck=want[3], se=se, **kw),
+           TOL[precision])
+    assert torch.equal(rank.rank_partials_recompute(**con, ck=ck, se=se,
+                                                    **kw), ys)
+    for k0, k1 in block.recompute_segments(steps, UNROLL, SEGMENT):
+        assert torch.equal(rank.rank_partials_recompute(
+            **con, ck=ck[k0 // UNROLL:-(-k1 // UNROLL)], se=se[k0:k1], **kw),
+            ys[k0:k1])
+    dse, dt0, dy = rank.rank_partials_bwd(**inputs, ys=ys, tr=tr, **cot,
+                                          **kw)
+    streamed = rank.rank_cotangents(dy, ys, inputs["t0"], se, tr, cot["deh"],
+                                    **kw)
+    args = dict(con, ck=ck, se=se, tr=tr, **cot)
+    runs = [rank.rank_recompute_bwd(**args, segment=SEGMENT, **kw)
+            for _ in range(2)]
+    plain = rank.rank_recompute_bwd_plain(**dict(args, ck=want[3]),
+                                          segment=SEGMENT, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    for a, b in zip(runs[0], plain):
+        _close(a, b, TOL[precision])
+    assert torch.equal(runs[0][0], dse) and torch.equal(runs[0][1], dt0)
+    for a, b in zip(runs[0][2:], streamed):
+        _close(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("family", ["psi", "rho", "rank"])
+def test_train_path_runs_without_the_stream(dev, family):
+    """kernel_stream="off" on the card (it raised NotImplementedError before
+    the recompute adjoints were ported): one value-and-gradient at D=64
+    (rho: rank 64; the rank partials: D=68) over 256 steps launches the
+    checkpoint forward once and the segment recompute, the adjoint and the
+    reductions once a segment (16 segments of one block), never the
+    streamed forward; its loss equals the streamed path's bit for bit, its
+    six gradients that path's within 1e-5 of their largest element, and
+    both match the same call on CPU copies."""
+    import dataclasses
+
+    from audio_mps_tpu_torch.ops import grad, rank
+    from audio_mps_tpu_torch.weights import (params_to_numpy,
+                                             psi_params_from_numpy,
+                                             rho_params_from_numpy)
+    if family == "psi":
+        cfg = CMPSConfig(bond_dim=64, minibatch_size=4)
+        p = init_psi(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+        nll, from_np = grad.psi_nll_fused_trainable, psi_params_from_numpy
+        wrappers = (block.psi_train_fwd, block.psi_train_fwd_ckpt,
+                    block.psi_recompute, block.psi_train_bwd,
+                    block.psi_cotangents)
+    else:
+        p, cfg = _rho_params(dev, 64 if family == "rho" else 68,
+                             64 if family == "rho" else 68)
+        nll, from_np = grad.rho_nll_fused_trainable, rho_params_from_numpy
+        wrappers = ((block.rho_train_fwd, block.rho_train_fwd_ckpt,
+                     block.rho_recompute, block.rho_train_bwd,
+                     block.rho_cotangents) if family == "rho" else
+                    (rank.rank_partials_fwd, rank.rank_partials_fwd_ckpt,
+                     rank.rank_partials_recompute, rank.rank_partials_bwd,
+                     rank.rank_cotangents))
+    off = dataclasses.replace(cfg, kernel_stream="off")
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(1), 2, 257,
+                            cfg.delta_t)
+    results = []
+    for c in (cfg, off):
+        q = from_np(params_to_numpy(p), dev)
+        before = [w.launches for w in wrappers]
+        loss = nll(q, c, sig, defer_norm=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        results.append((loss, q, [w.launches - b
+                                  for w, b in zip(wrappers, before)]))
+    assert results[1][2] == [0, 1, 16, 16, 16]
+    assert torch.equal(results[0][0], results[1][0])
+    for name in p.NAMES:
+        _close(getattr(results[1][1], name).grad,
+               getattr(results[0][1], name).grad, 1e-5)
+    q = from_np(params_to_numpy(p), "cpu")
+    want = nll(q, off, sig.cpu(), defer_norm=True)
+    want.backward()
+    loss, p_off, _ = results[1]
+    assert abs(loss.item() - want.item()) <= 1e-4 * abs(want.item())
+    for name in q.NAMES:
+        _close(getattr(p_off, name).grad.cpu(), getattr(q, name).grad, 1e-3)

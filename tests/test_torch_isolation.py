@@ -26,7 +26,8 @@ from audio_mps_tpu_torch.sample import SampleConfig, sample
 from audio_mps_tpu_torch.train import main as train_main
 from audio_mps_tpu_torch.train import train
 from audio_mps_tpu_torch.training import make_train_step
-from audio_mps_tpu_torch.weights import (load_params, psi_params_from_numpy,
+from audio_mps_tpu_torch.weights import (load_params, params_to_numpy,
+                                         psi_params_from_numpy,
                                          rho_params_from_numpy, save_params)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -152,9 +153,22 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     S = 6
     k_cot = dict(ys=rys, tr=torch.ones(5, S), deh=torch.ones(5, S),
                  dtr=torch.ones(5, S), dtfin=k_in["t0"])
+    # one checkpoint for the 5 steps at unroll 16 (psi, rho), two at 4 (rank)
+    rec = dict(ab=n_in["ab"], bb=n_in["bb"], rb=n_in["rb"],
+               ck=n_in["t0"][None], se=n_in["se"], norm_eps=n_in["norm_eps"])
+    rrec = dict(ab=rn_in["ab"], bb=rn_in["bb"], xb=rn_in["xb"],
+                ck=rn_in["t0"][None], se=rn_in["se"],
+                norm_eps=rn_in["norm_eps"])
+    k_rec = dict(ab=k_in["ab"], bb=k_in["bb"], xb=k_in["xb"],
+                 ck=torch.stack([k_in["t0"]] * 2), se=k_in["se"], rc=1,
+                 norm_eps=k_in["norm_eps"])
     calls = [
         (rank_ops.rank_partials_fwd, lambda d: rank_ops.rank_partials_fwd(
             **d(k_in), unroll=4)),
+        (rank_ops.rank_partials_fwd_ckpt,
+         lambda d: rank_ops.rank_partials_fwd_ckpt(**d(k_in), unroll=4)),
+        (rank_ops.rank_partials_recompute,
+         lambda d: rank_ops.rank_partials_recompute(**d(k_rec), unroll=4)),
         (rank_ops.rank_partials_bwd, lambda d: rank_ops.rank_partials_bwd(
             **d(dict(k_in, **k_cot)), unroll=4)),
         (rank_ops.rank_cotangents, lambda d: rank_ops.rank_cotangents(
@@ -164,12 +178,18 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
         (block.rho_sample_block, lambda d: block.rho_sample_block(**d(rs_in))),
         (block.rho_nll_block, lambda d: block.rho_nll_block(**d(rn_in))),
         (block.rho_train_fwd, lambda d: block.rho_train_fwd(**d(rn_in))),
+        (block.rho_train_fwd_ckpt,
+         lambda d: block.rho_train_fwd_ckpt(**d(rn_in))),
+        (block.rho_recompute, lambda d: block.rho_recompute(**d(rrec))),
         (block.rho_train_bwd, lambda d: block.rho_train_bwd(
             **d(dict(rn_in, g=g, ys=rys, trs=trs)))),
         (block.rho_cotangents, lambda d: block.rho_cotangents(**d(rcot))),
         (block.psi_sample_block, lambda d: block.psi_sample_block(**d(s_in))),
         (block.psi_nll_block, lambda d: block.psi_nll_block(**d(n_in))),
         (block.psi_train_fwd, lambda d: block.psi_train_fwd(**d(n_in))),
+        (block.psi_train_fwd_ckpt,
+         lambda d: block.psi_train_fwd_ckpt(**d(n_in))),
+        (block.psi_recompute, lambda d: block.psi_recompute(**d(rec))),
         (block.psi_train_bwd, lambda d: block.psi_train_bwd(
             **d(dict(n_in, g=g, ys=ys, n2s=n2s)))),
         (block.psi_cotangents, lambda d: block.psi_cotangents(**d(cot))),
@@ -179,13 +199,25 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
         return {k: v.to("meta") if isinstance(v, torch.Tensor) else v
                 for k, v in d.items()}
 
+    # the recompute adjoints chain three wrappers each over time segments
+    calls += [
+        (None, lambda d: block.psi_recompute_bwd(
+            **d(dict(rec, g=g, log_eps=n_in["log_eps"])))),
+        (None, lambda d: block.rho_recompute_bwd(
+            **d(dict(rrec, g=g, log_eps=rn_in["log_eps"])))),
+        (None, lambda d: rank_ops.rank_recompute_bwd(
+            **d(dict(k_rec, tr=k_cot["tr"], deh=k_cot["deh"],
+                     dtr=k_cot["dtr"], dtfin=k_cot["dtfin"])), unroll=4)),
+    ]
+    counted = [fn for fn, _call in calls if fn is not None]
+
     for _fn, call in calls:
         with pytest.raises(ValueError, match="no kernel"):
             call(meta)
-    launches = [fn.launches for fn, _call in calls]
+    launches = [fn.launches for fn in counted]
     for _fn, call in calls:
         call(dict)
-    assert [fn.launches for fn, _call in calls] == launches
+    assert [fn.launches for fn in counted] == launches
 
 
 @pytest.mark.parametrize("where", ["alone", "repo"])
@@ -236,21 +268,18 @@ def test_cuda_path_raises_for_unported_shapes(kind, D):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind, D, rank", [
     ("sample", 12, 3), ("nll", 6, 3), ("train", 6, 3), ("nll", 72, 3),
-    ("train", 1028, 1), ("train_stream_off", 8, 3),
-    ("train_stream_off", 128, 4)])
+    ("train", 1028, 1)])
 def test_cuda_rho_path_raises_for_unported_shapes(kind, D, rank):
     """On a CUDA tensor the rho entry points raise NotImplementedError,
     launching nothing: the split layout (sampler D % 8 != 0, NLL and
     training D % 4 != 0: table rows 13, 11, 9), scoring past the kernels'
-    layout (D > 64), training past what even a rank chunk of one row takes
-    (D/4 > 256 threads), and training without the state stream (the
-    recompute adjoints, rows 4d and, chunked, 7c)."""
+    layout (D > 64), and training past what even a rank chunk of one row
+    takes (D/4 > 256 threads). Training without the state stream runs:
+    test_cuda_rho_path_trains_without_the_stream."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA path has no CPU mode")
     dev = torch.device("cuda")
-    cfg = CMPSConfig(bond_dim=D, initial_rank=rank,
-                     kernel_stream="off" if kind == "train_stream_off"
-                     else "auto")
+    cfg = CMPSConfig(bond_dim=D, initial_rank=rank)
     p = init_rho(torch.Generator(dev).manual_seed(0), cfg, device=dev)
     wrappers = (block.rho_sample_block, block.rho_nll_block,
                 block.rho_train_fwd, block.rho_train_bwd,
@@ -266,3 +295,42 @@ def test_cuda_rho_path_raises_for_unported_shapes(kind, D, rank):
             grad.rho_nll_fused_trainable(p, cfg,
                                          torch.zeros(2, 17, device=dev))
     assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D, rank", [(8, 3), (128, 4)])
+def test_cuda_rho_path_trains_without_the_stream(D, rank):
+    """kernel_stream="off" on a CUDA tensor (these two shapes raised
+    NotImplementedError before the recompute adjoints, table rows 4d and
+    7c, were ported): D=8 runs the monolithic rho kernels and D=128 the
+    rank partials, each through its checkpoint forward and segment
+    recompute and never its streamed forward; the loss and the gradients
+    are finite and match the same call on CPU copies (the plain recompute
+    path): the loss within 1e-4 relative, each gradient within 1e-3 of its
+    largest element."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA path has no CPU mode")
+    dev = torch.device("cuda")
+    cfg = CMPSConfig(bond_dim=D, initial_rank=rank, kernel_stream="off")
+    p = init_rho(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    chunked = D > 64
+    ckpt, recompute, stream = (
+        (rank_ops.rank_partials_fwd_ckpt, rank_ops.rank_partials_recompute,
+         rank_ops.rank_partials_fwd) if chunked else
+        (block.rho_train_fwd_ckpt, block.rho_recompute, block.rho_train_fwd))
+    before = [w.launches for w in (ckpt, recompute, stream)]
+    sig = torch.linspace(-0.1, 0.1, 2 * 17, device=dev).reshape(2, 17)
+    loss = grad.rho_nll_fused_trainable(p, cfg, sig)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip((ckpt, recompute, stream),
+                                           before)] == [1, 1, 0]
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(x.grad).all() for x in p.parameters())
+    q = rho_params_from_numpy(params_to_numpy(p), "cpu")
+    want = grad.rho_nll_fused_trainable(q, cfg, sig.cpu())
+    want.backward()
+    assert abs(loss.item() - want.item()) <= 1e-4 * abs(want.item())
+    for name in q.NAMES:
+        got, ref = getattr(p, name).grad.cpu(), getattr(q, name).grad
+        assert (got - ref).abs().max() <= 1e-3 * ref.abs().max(), name

@@ -364,9 +364,11 @@ def test_damped_sine_iterator_draws_fresh_batches():
     assert torch.equal(a, again) and not torch.equal(a, b)
 
 
-def test_stream_policy_on_cpu():
+def test_stream_policy_on_cpu(monkeypatch):
     """auto_stream: "off" never streams; "auto" and "on" stream on a CPU
-    tensor, whose plain versions run either way."""
+    tensor (no memory bound there). With "off" the loss comes from the
+    checkpoint forward and the recompute adjoint's plain versions, whose
+    loop is the streamed forward's: the same value, bit for bit."""
     hp, _ = configs()
     assert block.auto_stream(hp, 4, T, "cpu")
     assert block.auto_stream(dataclasses.replace(hp, kernel_stream="on"), 4,
@@ -376,7 +378,16 @@ def test_stream_policy_on_cpu():
     assert block.stream_bytes(64, 128, 16384) == 2 * 4 * 16383 * 128 * 128
     tp = psi_params_from_numpy(np_params(8), "cpu")
     sig = torch.as_tensor(np_signals(4, T))
+    calls = []
+    ckpt = block.psi_train_fwd_ckpt_plain
+
+    def spy(*args, **kwargs):
+        calls.append(args[4].shape[0])
+        return ckpt(*args, **kwargs)
+
+    monkeypatch.setattr(block, "psi_train_fwd_ckpt_plain", spy)
     off = block.psi_nll_block_trainable(
         tp, dataclasses.replace(hp, kernel_stream="off"), sig)
+    assert calls == [T - 1]
     np.testing.assert_allclose(off.item(), block.psi_nll_block_trainable(
         tp, hp, sig).item(), rtol=0)
