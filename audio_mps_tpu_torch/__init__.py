@@ -2,9 +2,11 @@
 
 The psi and rho families' generation, forward scoring and training, with
 the block kernels of the TPU package (SDE samplers, forward-only NLLs, the
-training forwards and their adjoints) written by hand in CUDA for Hopper
-(``csrc/``). The kernels are built on first use, never at import. The JAX
-package stays the reference; this package imports neither it nor jax.
+training forwards and their adjoints), and psi's split-layout kernels,
+written by hand in CUDA for Hopper (``csrc/``). The kernels are built on
+first use, never at import. The legacy estimator's entry point is
+``python -m audio_mps_tpu_torch.estimator``. The JAX package stays the
+reference; this package imports neither it nor jax.
 """
 from .config import CMPSConfig, RunConfig
 from .models.cmps import PsiCMPS, RhoCMPS

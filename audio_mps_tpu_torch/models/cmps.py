@@ -159,7 +159,9 @@ class PsiCMPS(_CMPS):
                generator: Optional[torch.Generator] = None,
                fused: bool = False) -> np.ndarray:
         """[N, length] waveforms (reference: model.py:242-251). ``fused``
-        runs the block sampler kernel (``ops/scan.psi_sample_fused``)."""
+        runs the sampler kernel of the layout ``ops/scan.psi_sample_fused``
+        resolves: the block sampler at D % 8 == 0, the split one
+        elsewhere."""
         noise = self._noise(num_samples, length, temp, generator)
         with torch.no_grad():
             if fused:

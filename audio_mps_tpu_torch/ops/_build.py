@@ -26,9 +26,12 @@ SOURCES = ("psi_sample.cu", "psi_nll.cu", "psi_train_fwd.cu",
            "psi_recompute.cu", "psi_train_bwd.cu", "psi_cotangents.cu",
            "rho_sample.cu", "rho_nll.cu", "rho_train_fwd.cu",
            "rho_recompute.cu", "rho_train_bwd.cu", "rank_partials_fwd.cu",
-           "rank_partials_recompute.cu", "rank_partials_bwd.cu")
+           "rank_partials_recompute.cu", "rank_partials_bwd.cu",
+           "psi_split_sample.cu", "psi_split_nll.cu", "psi_split_fwd.cu",
+           "psi_split_bwd.cu")
 HEADERS = ("common.cuh", "psi_fwd.cuh", "rho_tile.cuh", "rho_fwd.cuh",
-           "rank_partials.cuh", "rank_partials_fwd.cuh")
+           "rank_partials.cuh", "rank_partials_fwd.cuh",
+           "psi_split_fwd.cuh")
 ROOT = Path(__file__).resolve().parents[2]
 LIB_NAME = "libamt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -95,6 +98,18 @@ _SIGNATURES = {
     # xbt, xb, ab, bb, t0, se, ys, tr, deh, dtr, dtfin, dse, dt0, dys, D,
     # n_steps, B, S, rc, unroll, norm_eps, precision, stream
     "amt_rank_partials_bwd": ([_P] * 14 + [_I] * 6 + [_F, _I, _P], _I),
+    # cr, ci, rr, ri, pc, ps, s0r, s0i, noise, inv_a, wave, D, T, N, dt,
+    # norm_eps, precision, stream
+    "amt_psi_split_sample": ([_P] * 11 + [_I, _I, _I, _F, _F, _I, _P], _I),
+    # cr, ci, rr, ri, pc, ps, s0r, s0i, se, loss, D, n_steps, B, unroll,
+    # log_eps, norm_eps, precision, defer_norm, stream
+    "amt_psi_split_nll": ([_P] * 10 + [_I] * 4 + [_F, _F, _I, _I, _P], _I),
+    # cr, ci, rr, ri, pc, ps, s0r, s0i, se, loss, ckr, cki, D, n_steps, B,
+    # unroll, log_eps, norm_eps, precision, defer_norm, stream
+    "amt_psi_split_fwd": ([_P] * 12 + [_I] * 4 + [_F, _F, _I, _I, _P], _I),
+    # cr, ci, rr, ri, pc, ps, se, g, ckr, cki, dse, dp0r, dp0i, part, D,
+    # n_steps, B, unroll, log_eps, norm_eps, precision, defer_norm, stream
+    "amt_psi_split_bwd": ([_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _P], _I),
     "amt_psi_sample_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_nll_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_train_fwd_smem_bytes": ([_I], ctypes.c_size_t),
@@ -105,6 +120,9 @@ _SIGNATURES = {
     "amt_rho_train_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_rho_train_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_rank_partials_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "amt_psi_split_sample_smem_bytes": ([_I], ctypes.c_size_t),
+    "amt_psi_split_fwd_smem_bytes": ([_I], ctypes.c_size_t),
+    "amt_psi_split_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -177,14 +177,14 @@ def _cuda_or_raise(name, x):
 
 
 def _check_smem(name, need: int, device, D: int):
-    """Raise when the [2D,2D] constants do not fit one block's shared
-    memory (streaming them is queued work)."""
+    """Raise when a kernel's constants (with what else its CTA keeps) do not
+    fit one block's shared memory (streaming them is queued work)."""
     have = torch.cuda.get_device_properties(device) \
         .shared_memory_per_block_optin
     if need > have:
         raise NotImplementedError(
             f"{name} at D={D} needs {need} bytes of shared memory for its "
-            f"[2D,2D] constants; the card allows {have} per block. Streaming "
+            f"constants; the card allows {have} per block. Streaming "
             f"the constants is not ported yet (ROADMAP queue B)")
 
 

@@ -2,12 +2,14 @@
 entry points of ``audio_mps_tpu/ops/pallas_grad.py``).
 
 Layout resolution is the forward NLL's (``ops/scan.py``), as in the JAX
-package: the block kernels (``ops/block.py``) take D % 4 == 0. The
-split-layout training kernels are not ported yet: on a CUDA tensor the
-split layout raises ``NotImplementedError`` naming the queued kernel, and
-on a CPU tensor it runs the eager reference (``models/core.psi_nll``,
-``core.rho_nll_factor``), as the forward-only dispatch of ``ops/scan.py``
-does.
+package: the block kernels (``ops/block.py``) take D % 4 == 0; other D,
+and ``kernel_layout="split"``, resolve to the split layout. psi's split
+training kernels are ported (``ops/split.psi_nll_split_trainable``: a CUDA
+tensor launches them, a CPU tensor runs their plain versions). rho's are
+not yet: on a CUDA tensor a rho split request raises
+``NotImplementedError`` naming the queued kernel, and on a CPU tensor it
+runs the eager reference (``models/core.rho_nll_factor``), as the
+forward-only dispatch of ``ops/scan.py`` does.
 """
 from __future__ import annotations
 
@@ -15,13 +17,10 @@ from typing import Optional
 
 from ..config import CMPSConfig
 from ..models import core
-from . import block
+from . import block, split
 from .rank import device_limits, rho_nll_rank_chunked, rho_train_chunk
 from .scan import DEFAULT_UNROLL, _nll_layout
 
-_SPLIT_TRAIN = ("audio_mps_tpu/ops/pallas_grad.py _psi_fused_nll_factory "
-                "(:478, split-layout psi training, ROADMAP queue B, kernel "
-                "table row 8)")
 _SPLIT_RHO_TRAIN = ("audio_mps_tpu/ops/pallas_grad.py _rho_fused_nll_factory "
                     "(:1201, split-layout rho training, ROADMAP queue B, "
                     "kernel table row 9)")
@@ -35,20 +34,16 @@ def psi_nll_fused_trainable(params, cfg: CMPSConfig, signals, *,
     """Differentiable mean NLL of waveforms [B, T] on the signals' device
     (stands for ``pallas_grad.psi_nll_pallas_trainable``; semantics of
     ``core.psi_nll``): gradients reach every parameter through the block
-    constants, the initial state and the increments."""
+    constants, the initial state and the increments: the block layout's
+    ``PsiBlockNLL`` or the split layout's ``PsiSplitNLL`` (which raises
+    ``ValueError`` at ``high``)."""
     if _nll_layout(cfg, layout) == "block":
         return block.psi_nll_block_trainable(
             params, cfg, signals, unroll=unroll, precision=precision,
             defer_norm=defer_norm)
-    if precision == "high":
-        raise ValueError(
-            "kernel_precision='high' (bf16x3) is only implemented in the "
-            "block kernel layout (ops/block.py)")
-    if signals.device.type != "cpu":
-        raise NotImplementedError(
-            f"psi training at D={cfg.bond_dim} needs the split-layout kernel "
-            f"{_SPLIT_TRAIN}, which is not ported to CUDA yet")
-    return core.psi_nll(params, cfg, signals)
+    return split.psi_nll_split_trainable(params, cfg, signals, unroll=unroll,
+                                         precision=precision,
+                                         defer_norm=defer_norm)
 
 
 def rho_nll_fused_trainable(params, cfg: CMPSConfig, signals, *,

@@ -3,10 +3,14 @@
 
 Layout resolution follows the JAX package: the block kernels
 (``ops/block.py``) take D % 8 == 0 for the sampler and D % 4 == 0 for the
-NLL; other D resolve to the split layout. The split-layout kernels are not
-ported yet: on a CUDA tensor a split request raises ``NotImplementedError``
-naming the queued kernel, and on a CPU tensor it runs the split kernel's
-plain twin, the eager reference in ``models/core.py``.
+NLL; other D, and ``kernel_layout="split"``, resolve to the split layout.
+psi's split kernels are ported (``ops/split.py``): a CUDA tensor launches
+them, a CPU tensor runs their plain versions, so that the CPU tests pin the
+function the card runs. The split sampler takes ``highest`` where ``high``
+is asked for, with a warning, as JAX's does. rho's split kernels are not
+ported yet: on a CUDA tensor a rho split request raises
+``NotImplementedError`` naming the queued kernel, and on a CPU tensor it
+runs the eager reference in ``models/core.py``.
 """
 from __future__ import annotations
 
@@ -17,14 +21,10 @@ import torch
 
 from ..config import CMPSConfig
 from ..models import core
-from . import block
+from . import _build, block, split
 
 DEFAULT_UNROLL = 16
 
-_SPLIT_SAMPLER = ("audio_mps_tpu/ops/pallas_scan.py _make_psi_sample_kernel "
-                  "(split-layout psi sampler, ROADMAP queue B)")
-_SPLIT_NLL = ("audio_mps_tpu/ops/pallas_scan.py _make_psi_nll_kernel "
-              "(split-layout forward psi NLL, ROADMAP queue B)")
 _SPLIT_RHO_SAMPLER = ("audio_mps_tpu/ops/pallas_scan.py "
                       "_make_rho_sample_kernel (:657, split-layout rho "
                       "sampler, ROADMAP queue B, kernel table row 13)")
@@ -52,6 +52,20 @@ def _sampler_layout(cfg: CMPSConfig, layout: Optional[str]) -> str:
     return "split"
 
 
+def psi_sampler_fits(cfg: CMPSConfig, device) -> bool:
+    """Does a psi sampler kernel take ``cfg``'s D on the CUDA ``device``:
+    the block sampler where the layout resolves to block, else the split
+    one, each within one block's shared memory?"""
+    lib = _build.library()
+    D = cfg.bond_dim
+    block_layout = (cfg.kernel_layout != "split"
+                    and block.supports_block_sampler(cfg))
+    need = (lib.amt_psi_sample_smem_bytes(D) if block_layout
+            else lib.amt_psi_split_sample_smem_bytes(D))
+    return need <= torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
 def _nll_layout(cfg: CMPSConfig, layout: Optional[str]) -> str:
     """"auto" picks block when D % 4 == 0, else split; an explicit "block"
     on an unsupported D flows into the block path, which raises."""
@@ -69,7 +83,9 @@ def psi_sample_fused(params, cfg: CMPSConfig, noise, *,
                      layout: Optional[str] = None):
     """Waveforms [N, T] from noise [T, N] on the noise's device (stands for
     ``audio_mps_tpu.ops.pallas_scan.psi_sample_pallas``; semantics of
-    ``core.sample_psi_with_noise``). ``precision=None`` follows
+    ``core.sample_psi_with_noise``): the block sampler
+    (``block.psi_sample_block``) or the split one
+    (``split.psi_sample_split``). ``precision=None`` follows
     ``cfg.kernel_precision``."""
     if precision is None:
         precision = cfg.kernel_precision
@@ -77,12 +93,17 @@ def psi_sample_fused(params, cfg: CMPSConfig, noise, *,
         inputs = block.psi_sample_inputs(params, cfg, noise)
         wave = block.psi_sample_block(**inputs, precision=precision)
         return params.A.detach() * wave.T
-    if noise.device.type != "cpu":
-        raise NotImplementedError(
-            f"psi sampler at D={cfg.bond_dim} needs the split-layout kernel "
-            f"{_SPLIT_SAMPLER}, which is not ported to CUDA yet")
-    with torch.no_grad():
-        return core.sample_psi_with_noise(params, cfg, noise)
+    if precision == "high":
+        # bf16x3 exists only in the block kernels; a model trained in the
+        # block layout at e.g. D=12 must still sample (as JAX's does)
+        warnings.warn(
+            f"sampler precision='high' (bf16x3) exists only in the block "
+            f"kernels; split fallback at D={cfg.bond_dim} runs full fp32 "
+            f"('highest') instead", stacklevel=2)
+        precision = "highest"
+    inputs = split.psi_split_inputs(params, cfg, noise, noise=True)
+    wave = split.psi_sample_split(**inputs, precision=precision)
+    return params.A.detach() * wave.T
 
 
 def psi_sample_fused_keyed(params, cfg: CMPSConfig, generator,
@@ -99,22 +120,17 @@ def psi_nll_fused(params, cfg: CMPSConfig, signals, *,
                   defer_norm: bool = False, layout: Optional[str] = None):
     """Mean NLL [scalar] of waveforms [B, T] on the signals' device (stands
     for ``audio_mps_tpu.ops.pallas_scan.psi_nll_pallas``; semantics of
-    ``core.psi_nll``)."""
+    ``core.psi_nll``): the block NLL (``block.psi_nll_block``) or the split
+    one (``split.psi_nll_split``, which raises ``ValueError`` at
+    ``high``)."""
     if _nll_layout(cfg, layout) == "block":
         inputs = block.psi_nll_inputs(params, cfg, signals)
         return block.psi_nll_block(**inputs, unroll=unroll,
                                    precision=precision,
                                    defer_norm=defer_norm).mean()
-    if precision == "high":
-        raise ValueError(
-            "kernel_precision='high' (bf16x3) is only implemented in the "
-            "block kernel layout (ops/block.py)")
-    if signals.device.type != "cpu":
-        raise NotImplementedError(
-            f"psi NLL at D={cfg.bond_dim} needs the split-layout kernel "
-            f"{_SPLIT_NLL}, which is not ported to CUDA yet")
-    with torch.no_grad():
-        return core.psi_nll(params, cfg, signals)
+    inputs = split.psi_split_inputs(params, cfg, signals)
+    return split.psi_nll_split(**inputs, unroll=unroll, precision=precision,
+                               defer_norm=defer_norm).mean()
 
 
 def rho_sample_fused(params, cfg: CMPSConfig, noise, *,

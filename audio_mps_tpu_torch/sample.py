@@ -9,8 +9,9 @@ writes) and the weights ``{modeldir}/params.npz`` of the run's family, psi
 or rho (``--mps_model`` or the config's; see ``weights.py``; README,
 "PyTorch/CUDA port", shows the JAX lines that export a checkpoint).
 Without ``params.npz`` it warns and samples from a random init, as the JAX
-CLI does without a checkpoint. ``--fused`` runs the family's block sampler
-kernel; ``--device`` defaults to ``cuda``.
+CLI does without a checkpoint. ``--fused`` runs the family's sampler
+kernel (psi: the block sampler at D % 8 == 0, the split one elsewhere;
+rho: the block sampler); ``--device`` defaults to ``cuda``.
 
 Randomness: the init draws from a generator seeded with ``--seed`` and the
 SDE noise from one seeded with ``--seed`` + 1, both on ``--device``.
@@ -45,7 +46,7 @@ class SampleConfig:
     seed: int = 0
     out: str = "samples.npz"
     wav: bool = True
-    fused: bool = False          # block sampler kernel (ops/block.py)
+    fused: bool = False          # sampler kernel (ops/block.py, split.py)
     mesh: str = ""               # multi-device sampling: not ported yet
     device: str = "cuda"
 

@@ -20,9 +20,11 @@ latest checkpoint.
 Randomness: the init draws from a generator seeded with ``--seed``, the
 damped-sine batches from one seeded with ``--seed`` + 1, the summaries'
 samples from one seeded with ``--seed`` + 2, all on ``--device``. The
-summaries' samples go through the family's sampler kernel on a card (at
-D % 8 == 0, its layout) and through the eager ``core.sample_psi`` /
-``core.sample_rho``, as in the JAX CLI, elsewhere. rho past D=64 or
+summaries' samples go through the family's sampler kernel on a card where
+one takes the shape (psi: the block sampler at D % 8 == 0, the split one
+elsewhere, each within its shared memory; rho: the block sampler at
+D % 8 == 0) and through the eager ``core.sample_psi`` / ``core.sample_rho``,
+as in the JAX CLI, elsewhere. rho past D=64 or
 rank 64 trains rank-chunked, but its sampler kernel is not ported there:
 on a card the run then raises before its first step unless the summaries
 draw no samples (``--visualize=false``). ``--mesh`` and
@@ -87,8 +89,8 @@ def train(run: RunConfig, cfg: CMPSConfig = None, verbose: bool = True,
     writer = summaries_lib.make_writer(logdir)
     sample_gen = torch.Generator(dev).manual_seed(run.seed + 2)
     # the eager loop launches ~30 small ops a sample step on a card
-    kernel = dev.type == "cuda" and block.supports_block_sampler(cfg)
     if run.mps_model == "rho_mps":
+        kernel = dev.type == "cuda" and block.supports_block_sampler(cfg)
         sample_fn = scan.rho_sample_fused_keyed if kernel else core.sample_rho
         rank = params.Wx.shape[0]
         if (dev.type == "cuda" and run.visualize and run.num_samples > 0
@@ -105,6 +107,7 @@ def train(run: RunConfig, cfg: CMPSConfig = None, verbose: bool = True,
                 f"--num_samples=0, or a bond_dim and initial_rank the "
                 f"sampler takes")
     else:
+        kernel = dev.type == "cuda" and scan.psi_sampler_fits(cfg, dev)
         sample_fn = scan.psi_sample_fused_keyed if kernel else core.sample_psi
 
     metrics = {}

@@ -5,7 +5,8 @@ The step is eager PyTorch: total loss (NLL + h_reg/r_reg, reference:
 train.py:55-60), ``backward()``, and ``torch.optim.Adam`` at
 ``cfg.learning_rate`` (the update of ``optax.adam``; reference:
 train.py:88-89). On a card the NLL and its gradient go through the CUDA
-kernels of ``ops/block.py``; there is no fallback to another path.
+kernels of ``ops/block.py``, ``ops/split.py`` or ``ops/rank.py``; there is
+no fallback to another path.
 Checkpoints are torch state dicts saved on the reference's time cadence
 (``save_checkpoint_secs=60``, reference: train.py:93), the latest three
 kept, restored on restart.
@@ -53,12 +54,16 @@ def nll_fn_for(mps_model: str, fused: Optional[bool] = None):
     ``fused=None`` runs the kernels when the signals lie on a CUDA device
     and the eager loss (``core.psi_nll``, ``core.rho_nll_factor``) on the
     CPU; ``fused=True`` runs the kernel path (its plain versions on the
-    CPU); ``fused=False`` runs the eager loss anywhere. Past the monolithic
-    rho kernels' shared-memory ceiling (D > 64 or rank > 64) rho training
+    CPU); ``fused=False`` runs the eager loss anywhere. psi trains through
+    the block kernels at D % 4 == 0 (``ops/block.py``, to D=68) and through
+    the split kernels elsewhere or with ``kernel_layout="split"``
+    (``ops/split.py``, to D=73 at unroll 16); past a layout's shared-memory
+    ceiling the kernel path raises ``NotImplementedError``. Past the
+    monolithic rho kernels' ceiling (D > 64 or rank > 64) rho training
     runs rank-chunked through the partials kernels (``ops/rank.py``), as
-    the JAX package does past its VMEM ceiling; past psi's (D > 68) the
-    kernel path raises ``NotImplementedError``. Unlike the JAX package,
-    nothing falls back to the scan."""
+    the JAX package does past its VMEM ceiling; rho at D % 4 != 0 (its
+    split kernels, not ported yet) raises on the card. Unlike the JAX
+    package, nothing falls back to the scan."""
     eager, kernel, _init = _family(mps_model)
 
     def nll(params, cfg: CMPSConfig, signals):

@@ -65,7 +65,19 @@ failure (the script then exits non-zero):
    partials' D=256 (1 + 1), where the checkpoint forward must launch once
    a step and the recompute, adjoint and reductions once a time segment,
    and the streamed forward never; the kernels' CUDA-event times beside
-   their bounds, and one step's time and peak memory, off and streamed.
+   their bounds, and one step's time and peak memory, off and streamed;
+10. psi's split layout (``split_phases``, after psi's phases) at the legacy
+   estimator's published shape (D=10, B=32, dt=1e-3, T=65536): the sampler
+   (N=8 chains) held to its plain version on the T=4096 prefix and over the
+   whole run, the NLL (both norms) on a T=4096 prefix, the training forward
+   and adjoint on the T=16384 (deferred norm) and T=2048 (per-step norm)
+   prefixes, each with a control at ``default``, and all four at D=8 with
+   ``kernel_layout="split"``; the training path vs autograd through the
+   eager reference; the estimator CLI at its defaults (4 steps, then 2
+   more resuming at step 4: the split forward and adjoint launch once a
+   step, no other kernel); the sample CLI and ``psi_nll_fused`` at D=10
+   through the split sampler and NLL; the four kernels' CUDA-event times
+   beside their bounds and one estimator step's time.
 
 It prints each phase's measurements, the card line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -327,14 +339,17 @@ def _recompute_kernel_names(family: str) -> dict:
 
 def _training_wrappers() -> dict:
     """Every training kernel wrapper, both families' and the rank
-    partials', streamed and recompute path, by name."""
-    from audio_mps_tpu_torch.ops import block, rank
+    partials', streamed and recompute path, and psi's split pair, by
+    name."""
+    from audio_mps_tpu_torch.ops import block, rank, split
     counted = {k: getattr(block, k) for f in ("psi", "rho")
                for k in _train_kernel_names(f).values()}
     counted.update((k, getattr(block, k)) for f in ("psi", "rho")
                    for k in _recompute_kernel_names(f).values())
     counted.update((k, getattr(rank, k)) for k in RANK_KERNELS
                    + RANK_RECOMPUTE_KERNELS)
+    counted.update((k, getattr(split, k)) for k in ("psi_split_fwd",
+                                                    "psi_split_bwd"))
     return counted
 
 
@@ -1710,6 +1725,452 @@ def rank_recompute_phases(dev, streamed):
     return entries
 
 
+# The split layout (ops/split.py; PERF.md kernel table rows 8, 10 and 12):
+# psi at the legacy estimator's published shape (the reference's
+# training_estimators.py:16-31, SURVEY.md:305; audio_mps_tpu/estimator.py
+# :35-49): bond_d=10, batch_size=32, dt=1e-3, sample_duration=2**16, psi
+# (discr=False). D=10 is no multiple of 4, so every path of it takes the
+# split kernels.
+SPLIT_D = 10
+SPLIT_B = 32
+SPLIT_DT = 1e-3
+SPLIT_T = 65536
+SPLIT_N_CHAINS = 8
+# prefixes the plain versions run on (their step loops launch ~35 small ops
+# a step); the kernels are held to them at TOL["highest"] and TOL_TRAIN
+SPLIT_T_SAMPLE_CHECK = 4096   # the sampler's prefix (its full run: 1e-3)
+SPLIT_T_NLL = 4096            # the NLL, both norms
+SPLIT_T_TRAIN = {True: 16384, False: 2048}   # the training pair, by defer
+SPLIT_T_REF = 512             # autograd through the eager reference
+SPLIT_T_D8 = 1024             # D=8 asked for with kernel_layout="split"
+SPLIT_CLI_STEPS = (4, 2)      # the estimator CLI's two calls
+SPLIT_NAMES = ("cr", "ci", "rr", "ri", "pc", "ps", "s0r", "s0i", "se")
+# FLOPs: the complex [D,D] x [D] products (4 real ones, 8 D^2 FLOPs) an
+# example-step (chain-step) the function needs: the sampler 2 (R psi,
+# C psi), the NLL and the training forward 3 (and R y), the adjoint 8 (its
+# re-run of the forward from the checkpoints, 3; R^T dru, C^T dy and R^T dy,
+# 3; the outer products dy x^T and dru y^T, 2) and 4 D^2 more (s dy x^T
+# added into dR)
+SPLIT_PRODUCTS = {"sample": 2, "nll": 3, "fwd": 3, "bwd": 8}
+SPLIT_KERNELS = {
+    "sample": ("psi_sample_split", "psi_split_sample.cu",
+               "audio_mps_tpu/ops/pallas_scan.py:485"),
+    "nll": ("psi_nll_split", "psi_split_nll.cu",
+            "audio_mps_tpu/ops/pallas_scan.py:113"),
+    "fwd": ("psi_split_fwd", "psi_split_fwd.cu",
+            "audio_mps_tpu/ops/pallas_grad.py:107"),
+    "bwd": ("psi_split_bwd", "psi_split_bwd.cu",
+            "audio_mps_tpu/ops/pallas_grad.py:320")}
+SPLIT_FWD_LABELS = ("loss", "ckr", "cki")
+SPLIT_BWD_LABELS = ("dse", "dcr", "dci", "drr", "dri", "dpc", "dps", "dp0r",
+                    "dp0i")
+# which TOL_TRAIN limit each adjoint output takes: the per-step and
+# initial-state cotangents the adjoint's, the [D,D] / [D] parameter
+# cotangents the reductions'
+SPLIT_BWD_ROLE = {k: "bwd" if k in ("dse", "dp0r", "dp0i") else "cot"
+                  for k in SPLIT_BWD_LABELS}
+
+
+def _split_args(inputs, steps=None):
+    """The tensor inputs of psi_nll_split / psi_split_fwd in order (se cut
+    to ``steps`` - 1 rows) and their eps options."""
+    args = [inputs[k] for k in SPLIT_NAMES]
+    if steps is not None:
+        args[8] = args[8][:steps - 1].contiguous()
+    return args, dict(log_eps=inputs["log_eps"],
+                      norm_eps=inputs["norm_eps"])
+
+
+def _split_bwd(fn, args, g, ck, **o):
+    return fn(*args[:6], args[8], g, ck[0], ck[1], **o)
+
+
+def _split_hold(tag, labels, tols, got, want):
+    """Each output finite and within its limit of max|plain|; returns
+    (readings, worst absolute error)."""
+    line, worst = [], 0.0
+    for label, a, b in zip(labels, got, want):
+        check(bool(torch.isfinite(a).all()), f"{tag} {label}: non-finite")
+        err, rel = rel_err(a, b)
+        tol = tols[label]
+        check(rel <= tol, f"{tag} {label}: rel err {rel:.3e} (tol {tol:g})")
+        line.append(f"{label} {rel:.2e}")
+        worst = max(worst, err)
+    return line, worst
+
+
+def _split_miss(tag, labels, tols, got, want):
+    """The control: for each limit, the worst of the outputs it holds must
+    exceed it. Returns the readings."""
+    by_tol = {}
+    for label, a, b in zip(labels, got, want):
+        tol = tols[label]
+        by_tol[tol] = max(by_tol.get(tol, 0.0), rel_err(a, b)[1])
+    for tol, worst in by_tol.items():
+        check(worst > tol, f"control: {tag} at default is within {tol:g} of "
+                           f"plain at highest ({worst:.3e})")
+    return [f"{worst:.2e} (limit {tol:g})" for tol, worst in by_tol.items()]
+
+
+def split_phases(dev):
+    """Phase 10, psi's split layout at the legacy estimator's shape;
+    returns its four kernels' entries of the {"kernels": [...]} line."""
+    from audio_mps_tpu_torch import estimator
+    from audio_mps_tpu_torch.config import CMPSConfig
+    from audio_mps_tpu_torch.data import damped_sine_batch
+    from audio_mps_tpu_torch.models import core
+    from audio_mps_tpu_torch.models.params import init_psi
+    from audio_mps_tpu_torch.ops import block, grad, scan, split
+    from audio_mps_tpu_torch.ops.scan import DEFAULT_UNROLL
+    from audio_mps_tpu_torch.sample import SampleConfig, sample
+    from audio_mps_tpu_torch.weights import (load_params, params_to_numpy,
+                                             psi_params_from_numpy,
+                                             save_params)
+
+    cfg = CMPSConfig(bond_dim=SPLIT_D, minibatch_size=SPLIT_B,
+                     delta_t=SPLIT_DT)
+    params = init_psi(torch.Generator(dev).manual_seed(20), cfg, device=dev)
+    kernels = {r: getattr(split, k[0]) for r, k in SPLIT_KERNELS.items()}
+    plains = {r: getattr(split, k[0] + "_plain")
+              for r, k in SPLIT_KERNELS.items()}
+    err_at, plain_ms, ctrl = {}, {}, {}
+    fwd_tols = {k: TOL_TRAIN["highest"]["fwd"] for k in SPLIT_FWD_LABELS}
+    bwd_tols = {k: TOL_TRAIN["highest"][SPLIT_BWD_ROLE[k]]
+                for k in SPLIT_BWD_LABELS}
+
+    phase(f"split sampler kernel vs plain (D={SPLIT_D}, N={SPLIT_N_CHAINS}, "
+          f"T={SPLIT_T})")
+    noise = core._sample_noise(cfg, torch.Generator(dev).manual_seed(21),
+                               SPLIT_N_CHAINS, SPLIT_T, 1.0)
+    s_in = split.psi_split_inputs(params, cfg, noise, noise=True)
+    wave = kernels["sample"](**s_in)
+    _free()
+    check(bool(torch.isfinite(wave).all()), "split sampler: non-finite")
+    plain_ms["sample"], want = timed(lambda: plains["sample"](**s_in))
+    k = SPLIT_T_SAMPLE_CHECK
+    _, rel_pre = rel_err(wave[:k], want[:k])
+    err, rel = rel_err(wave, want)
+    err_at["sample"] = err
+    check(rel_pre <= TOL["highest"], f"split sampler, first {k} steps: rel "
+                                     f"err {rel_pre:.3e}")
+    check(rel <= RHO_TOL_SAMPLE_FULL, f"split sampler: rel err {rel:.3e}")
+    pre = dict(s_in, noise=s_in["noise"][:k].contiguous())
+    ctrl["sample"] = _split_miss(
+        "split sampler", ("wave",), {"wave": TOL["highest"]},
+        (kernels["sample"](**pre, precision="default"),), (want[:k],))
+    print(f"  highest: {rel_pre:.3e} x max|plain| over the first {k} steps "
+          f"(tol {TOL['highest']:g}); max|d| {err:.3e} = {rel:.3e} x "
+          f"max|plain| over all {SPLIT_T} (tol {RHO_TOL_SAMPLE_FULL:g}); "
+          f"plain {plain_ms['sample']:.1f} ms (one run); control at default "
+          f"on the prefix {ctrl['sample'][0]}", flush=True)
+    del wave, want, pre
+
+    phase(f"split NLL kernel vs plain (D={SPLIT_D}, B={SPLIT_B}): the kernel "
+          f"at T={SPLIT_T}, held to plain on a T={SPLIT_T_NLL} prefix")
+    signals = damped_sine_batch(torch.Generator(dev).manual_seed(22), SPLIT_B,
+                                SPLIT_T, SPLIT_DT)
+    n_in = split.psi_split_inputs(params, cfg, signals)
+    full, eps = _split_args(n_in)
+    short, _ = _split_args(n_in, SPLIT_T_NLL)
+    nll_full = {}
+    for defer in (False, True):
+        o = dict(eps, defer_norm=defer)
+        nll_full[defer] = kernels["nll"](*full, **o)
+        check(bool(torch.isfinite(nll_full[defer]).all()),
+              f"split NLL defer={defer} at T={SPLIT_T}: non-finite")
+        got = kernels["nll"](*short, **o)
+        t_p, want = timed(lambda: plains["nll"](*short, **o))
+        err, rel = rel_err(got, want)
+        check(rel <= TOL["highest"], f"split NLL defer={defer}: rel err "
+                                     f"{rel:.3e}")
+        c = _split_miss(f"split NLL defer={defer}", ("loss",),
+                        {"loss": TOL["highest"]},
+                        (kernels["nll"](*short, **o, precision="default"),),
+                        (want,))
+        if not defer:
+            err_at["nll"], plain_ms["nll"], ctrl["nll"] = err, t_p, c
+        print(f"  highest defer_norm={defer}: max|d| {err:.3e} = {rel:.3e} x "
+              f"max|plain| (tol {TOL['highest']:g}), plain {t_p:.1f} ms; "
+              f"control at default {c[0]}; mean loss at T={SPLIT_T} "
+              f"{nll_full[defer].mean().item():.6f}", flush=True)
+
+    phase(f"split training pair vs plain (D={SPLIT_D}, B={SPLIT_B}): "
+          f"defer_norm=True on a T={SPLIT_T_TRAIN[True]} prefix, False on "
+          f"T={SPLIT_T_TRAIN[False]}; the adjoint fed the plain forward's "
+          f"checkpoints")
+    g = torch.full((SPLIT_B,), 1.0 / SPLIT_B, device=dev)
+    for defer in (True, False):
+        args, _ = _split_args(n_in, SPLIT_T_TRAIN[defer])
+        o = dict(eps, defer_norm=defer)
+        t_f, f_p = timed(lambda: plains["fwd"](*args, **o))
+        t_b, b_p = timed(lambda: _split_bwd(plains["bwd"], args, g, f_p[1:],
+                                            **o))
+        line, e_f = _split_hold(f"psi_split_fwd defer={defer}",
+                                   SPLIT_FWD_LABELS, fwd_tols,
+                                   kernels["fwd"](*args, **o), f_p)
+        b_k = _split_bwd(kernels["bwd"], args, g, f_p[1:], **o)
+        torch.cuda.synchronize()
+        lb, e_b = _split_hold(f"psi_split_bwd defer={defer}",
+                                 SPLIT_BWD_LABELS, bwd_tols, b_k, b_p)
+        d = dict(o, precision="default")
+        c_f = _split_miss(f"psi_split_fwd defer={defer}", SPLIT_FWD_LABELS,
+                          fwd_tols, kernels["fwd"](*args, **d), f_p)
+        c_b = _split_miss(f"psi_split_bwd defer={defer}", SPLIT_BWD_LABELS,
+                          bwd_tols, _split_bwd(kernels["bwd"], args, g,
+                                               f_p[1:], **d), b_p)
+        if defer:
+            err_at.update(fwd=e_f, bwd=e_b)
+            plain_ms.update(fwd=t_f, bwd=t_b)
+            ctrl.update(fwd=c_f, bwd=c_b)
+        print(f"  defer_norm={defer}, T={SPLIT_T_TRAIN[defer]} (tol fwd "
+              f"{TOL_TRAIN['highest']['fwd']:g}, adjoint "
+              f"{TOL_TRAIN['highest']['bwd']:g}, parameter cotangents "
+              f"{TOL_TRAIN['highest']['cot']:g}), x max|plain|: "
+              + ", ".join(line + lb) + f"; plain fwd {t_f:.1f} ms, bwd "
+              f"{t_b:.1f} ms; control at default: fwd " + ", ".join(c_f)
+              + "; bwd " + ", ".join(c_b), flush=True)
+        del f_p, b_p, b_k
+        _free()
+
+    phase(f"split kernels at D=8 with kernel_layout=split (B={SPLIT_B}, "
+          f"T={SPLIT_T_D8}, highest, defer_norm=True)")
+    cfg8 = dataclasses.replace(cfg, bond_dim=8, kernel_layout="split")
+    p8 = init_psi(torch.Generator(dev).manual_seed(23), cfg8, device=dev)
+    noise8 = noise[:SPLIT_T_D8].contiguous()
+    sig8 = signals[:, :SPLIT_T_D8].contiguous()
+    s8 = split.psi_split_inputs(p8, cfg8, noise8, noise=True)
+    args8, eps8 = _split_args(split.psi_split_inputs(p8, cfg8, sig8))
+    o8 = dict(eps8, defer_norm=True)
+    f8 = plains["fwd"](*args8, **o8)
+    line8 = []
+    for tag, labels, tols, got, want in (
+            ("psi_sample_split", ("wave",), {"wave": TOL["highest"]},
+             (kernels["sample"](**s8),), (plains["sample"](**s8),)),
+            ("psi_nll_split", ("loss",), {"loss": TOL["highest"]},
+             (kernels["nll"](*args8, **o8),), (plains["nll"](*args8, **o8),)),
+            ("psi_split_fwd", SPLIT_FWD_LABELS, fwd_tols,
+             kernels["fwd"](*args8, **o8), f8),
+            ("psi_split_bwd", SPLIT_BWD_LABELS, bwd_tols,
+             _split_bwd(kernels["bwd"], args8, g, f8[1:], **o8),
+             _split_bwd(plains["bwd"], args8, g, f8[1:], **o8))):
+        readings, _ = _split_hold(f"D=8 split {tag}", labels, tols, got,
+                                     want)
+        line8.append(f"{tag}: " + ", ".join(readings))
+    before = [w.launches for w in kernels.values()]
+    with torch.no_grad():
+        scan.psi_nll_fused(p8, cfg8, sig8)
+    check([w.launches - b for w, b in zip(kernels.values(), before)]
+          == [0, 1, 0, 0], "psi_nll_fused at D=8, kernel_layout=split, did "
+                           "not launch the split NLL alone")
+    print("  x max|plain|: " + "; ".join(line8) + "; psi_nll_fused took the "
+          "split NLL", flush=True)
+    del p8, s8, args8, f8
+    _free()
+
+    phase(f"split training path vs autograd through the eager reference "
+          f"(D={SPLIT_D}, {SPLIT_B} examples, T={SPLIT_T_REF})")
+    short_sig = signals[:, :SPLIT_T_REF].contiguous()
+    pk = psi_params_from_numpy(params_to_numpy(params), dev)
+    pr = psi_params_from_numpy(params_to_numpy(params), dev)
+    loss_k = grad.psi_nll_fused_trainable(pk, cfg, short_sig,
+                                          precision="highest",
+                                          defer_norm=cfg.defer_norm)
+    loss_k.backward()
+    loss_r = core.psi_nll(pr, cfg, short_sig)
+    loss_r.backward()
+    _, rel = rel_err(loss_k.detach(), loss_r.detach())
+    line = [f"loss {rel:.2e}"]
+    check(rel <= TOL_TRAIN_REFERENCE[0], f"split train loss vs reference: "
+                                         f"{rel:.3e}")
+    for name in pk.NAMES:
+        _, rel = rel_err(getattr(pk, name).grad, getattr(pr, name).grad)
+        line.append(f"d{name} {rel:.2e}")
+        check(rel <= TOL_TRAIN_REFERENCE[1], f"split gradient of {name} vs "
+                                             f"reference: {rel:.3e}")
+    print(f"  x max|reference| (tol {TOL_TRAIN_REFERENCE[0]:g} / "
+          f"{TOL_TRAIN_REFERENCE[1]:g}): " + ", ".join(line), flush=True)
+    del pk, pr, loss_k, loss_r
+
+    first, second = SPLIT_CLI_STEPS
+    phase(f"split training path: the estimator CLI at its defaults (psi, "
+          f"D={SPLIT_D}, B={SPLIT_B}, T={SPLIT_T}, dt={SPLIT_DT}), "
+          f"--max_steps={first} --viz_steps=2, then --max_steps={second} "
+          f"resuming at step {first}")
+    counted = dict(_training_wrappers(), **{
+        k: getattr(block, k) for k in ("psi_sample_block", "psi_nll_block",
+                                       "rho_sample_block", "rho_nll_block")},
+        psi_sample_split=kernels["sample"], psi_nll_split=kernels["nll"])
+    for w in counted.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [f"--model_dir={tmp}", "--viz_steps=2",
+                f"--device={dev.type}"]
+        t0 = time.perf_counter()
+        est1 = estimator.main(argv + [f"--max_steps={first}"])
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        ckdir = os.path.join(tmp, "checkpoints")
+        first_ckpts = sorted(os.listdir(ckdir))
+        t0 = time.perf_counter()
+        est2 = estimator.main(argv + [f"--max_steps={second}"])
+        torch.cuda.synchronize()
+        t_second = time.perf_counter() - t0
+        cli = {k: w.launches for k, w in counted.items()}
+        state = torch.load(os.path.join(ckdir, f"ckpt_{first + second}.pt"),
+                           map_location="cpu", weights_only=True)
+        last_ckpts = sorted(os.listdir(ckdir))
+    moved = {k: v for k, v in cli.items() if v}
+    print(f"  first call: {first} steps in {t_first * 1e3:.1f} ms, "
+          f"checkpoints {first_ckpts}; second call: resumed at step "
+          f"{est2.global_step - second}, {second} steps in "
+          f"{t_second * 1e3:.1f} ms (host clock, set-up included), "
+          f"checkpoints {last_ckpts}; launches {moved}", flush=True)
+    check(est1.global_step == first and est2.global_step == first + second,
+          f"global steps {est1.global_step}, {est2.global_step}")
+    check(first_ckpts == [f"ckpt_{s}.pt" for s in range(2, first + 1, 2)],
+          f"first call left {first_ckpts}")
+    check(state["step"] == first + second, f"final step {state['step']}")
+    check(all(float(s["step"]) == first + second
+              for s in state["optimizer"]["state"].values()),
+          "the Adam state was not restored")
+    check(all(bool(torch.isfinite(x).all()) for x in est2.params.parameters()),
+          "non-finite parameters")
+    for name, count in cli.items():
+        want_n = (first + second if name in ("psi_split_fwd", "psi_split_bwd")
+                  else 0)
+        check(count == want_n, f"{name} launched {count} times in "
+                               f"{first + second} estimator steps ({want_n} "
+                               f"expected)")
+    ec = estimator.parse_args([f"--device={dev.type}"])
+    with tempfile.TemporaryDirectory() as tmp:
+        est = estimator.Estimator("psi_mps", est2.cfg, tmp, device=dev)
+        input_fn = estimator.build_input_fn(ec, est2.cfg)
+        est.train(input_fn, steps=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.train(input_fn, steps=3)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 3 * 1e3
+        del est
+    print(f"  estimator train step: {step_ms:.2f} ms host clock (mean of 3 "
+          f"after a warm-up step, its checkpoint save included); "
+          f"{SPLIT_B * (SPLIT_T - 1) / step_ms * 1e3:.4e} frames/s",
+          flush=True)
+
+    phase(f"split serving path: sample CLI (fused, D={SPLIT_D}, "
+          f"{SPLIT_N_CHAINS} x {SPLIT_T}) + psi_nll_fused (B={SPLIT_B}, "
+          f"T={SPLIT_T})")
+    for w in counted.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({"cfg": dataclasses.asdict(cfg),
+                       "run": {"mps_model": "psi_mps"}}, f)
+        save_params(os.path.join(tmp, "params.npz"), params)
+        out = os.path.join(tmp, "samples.npz")
+        t0 = time.perf_counter()
+        waves = sample(SampleConfig(modeldir=tmp, num_samples=SPLIT_N_CHAINS,
+                                    sample_duration=SPLIT_T, fused=True,
+                                    device=dev.type, out=out))
+        t_sample = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scored = load_params(os.path.join(tmp, "params.npz"), dev)
+        batch = damped_sine_batch(torch.Generator(dev).manual_seed(24),
+                                  SPLIT_B, SPLIT_T, SPLIT_DT)
+        nll = scan.psi_nll_fused(scored, cfg, batch).item()
+        t_score = time.perf_counter() - t0
+        serve = {k: w.launches for k, w in counted.items()}
+        n_wav = sum(os.path.exists(os.path.join(tmp, f"samples_{i}.wav"))
+                    for i in range(SPLIT_N_CHAINS))
+    print(f"  sample CLI: {waves.shape} in {t_sample * 1e3:.1f} ms, {n_wav} "
+          f"wav files; NLL {nll:.6f} in {t_score * 1e3:.1f} ms (host clock); "
+          f"launches { {k: v for k, v in serve.items() if v} }", flush=True)
+    check(waves.shape == (SPLIT_N_CHAINS, SPLIT_T), f"waves {waves.shape}")
+    check(bool(torch.isfinite(torch.as_tensor(waves)).all()),
+          "sampled waveforms are not finite")
+    check(n_wav == SPLIT_N_CHAINS, f"{n_wav} wav files written")
+    check(torch.isfinite(torch.tensor(nll)).item(), f"NLL {nll}")
+    for name, count in serve.items():
+        want_n = 1 if name in ("psi_sample_split", "psi_nll_split") else 0
+        check(count == want_n, f"{name} launched {count} times on the split "
+                               f"serving path ({want_n} expected)")
+
+    phase("split timings (CUDA events, median of 5 after 1 warm-up)")
+    o = dict(eps, defer_norm=cfg.defer_norm)
+    loss_f, ckr, cki = kernels["fwd"](*full, **o)
+    check(torch.equal(loss_f, nll_full[cfg.defer_norm]),
+          "the training forward's loss is not the NLL's bit for bit")
+    ms = {"sample": median_ms(lambda: kernels["sample"](**s_in)),
+          "nll": median_ms(lambda: kernels["nll"](*full, **eps)),
+          "fwd": median_ms(lambda: kernels["fwd"](*full, **o)),
+          "bwd": median_ms(lambda: _split_bwd(kernels["bwd"], full, g,
+                                              (ckr, cki), **o))}
+    # the same kernels on the prefixes their plain versions ran on
+    pre_ms = {}
+    for role, steps, oo in (("nll", SPLIT_T_NLL, eps),
+                            ("fwd", SPLIT_T_TRAIN[True], o)):
+        args, _ = _split_args(n_in, steps)
+        pre_ms[role] = median_ms(lambda: kernels[role](*args, **oo))
+    args, _ = _split_args(n_in, SPLIT_T_TRAIN[True])
+    ck_pre = kernels["fwd"](*args, **o)[1:]
+    pre_ms["bwd"] = median_ms(lambda: _split_bwd(kernels["bwd"], args, g,
+                                                 ck_pre, **o))
+    del ck_pre
+    variants = {
+        "psi_nll_split/defer=True": median_ms(
+            lambda: kernels["nll"](*full, **o)),
+        "psi_sample_split/default": median_ms(
+            lambda: kernels["sample"](**s_in, precision="default")),
+        "psi_split_fwd/defer=False": median_ms(
+            lambda: kernels["fwd"](*full, **eps, defer_norm=False))}
+    for name, t in variants.items():
+        print(f"  {name}: {t:.3f} ms", flush=True)
+    n_steps = SPLIT_T - 1
+    ex_steps = n_steps * SPLIT_B
+    chain_steps = SPLIT_T * SPLIT_N_CHAINS
+    nb = -(-n_steps // DEFAULT_UNROLL)
+    mats = 4 * SPLIT_D * SPLIT_D + 2 * SPLIT_D
+    state = 2 * SPLIT_D * SPLIT_B
+    ck = 2 * nb * SPLIT_D * SPLIT_B
+    c = 8 * SPLIT_D * SPLIT_D
+    cost = {"sample": (SPLIT_PRODUCTS["sample"] * c * chain_steps,
+                       2 * chain_steps + mats + 2 * SPLIT_D * SPLIT_N_CHAINS
+                       + 1),
+            "nll": (SPLIT_PRODUCTS["nll"] * c * ex_steps,
+                    ex_steps + mats + state + SPLIT_B),
+            "fwd": (SPLIT_PRODUCTS["fwd"] * c * ex_steps,
+                    ex_steps + mats + state + SPLIT_B + ck),
+            "bwd": ((SPLIT_PRODUCTS["bwd"] * c + 4 * SPLIT_D * SPLIT_D)
+                    * ex_steps,
+                    2 * ex_steps + SPLIT_B + ck + 2 * mats + state)}
+    launches = {"sample": serve["psi_sample_split"],
+                "nll": serve["psi_nll_split"],
+                "fwd": cli["psi_split_fwd"], "bwd": cli["psi_split_bwd"]}
+    pre_t = {"sample": SPLIT_T, "nll": SPLIT_T_NLL,
+             "fwd": SPLIT_T_TRAIN[True], "bwd": SPLIT_T_TRAIN[True]}
+    entries = []
+    for role, (name, src, rep) in SPLIT_KERNELS.items():
+        flops, words = cost[role]
+        bound, by = bound_ms(flops, 4 * words)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"audio_mps_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": launches[role], "max_abs_err": err_at[role],
+            "ms": ms[role], "plain_ms": plain_ms[role], "bound_ms": bound,
+            "bound_by": by, "library_ms": None})
+        same = (f"the kernel {pre_ms[role]:.3f} ms on it" if role in pre_ms
+                else "the kernel's own length")
+        print(f"  {name}: {ms[role]:.3f} ms at T={SPLIT_T}, launches "
+              f"{launches[role]} on its main path (plain {plain_ms[role]:.1f}"
+              f" ms at T={pre_t[role]}, {same}; bound {bound:.3f} ms by "
+              f"{by}, {bound / ms[role] * 100:.2f}% of it; control at default "
+              + ", ".join(ctrl[role]) + ")", flush=True)
+    print(f"  estimator step {step_ms:.2f} ms, of which the forward and "
+          f"adjoint kernels {ms['fwd'] + ms['bwd']:.2f} ms; {card_line()}",
+          flush=True)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1906,6 +2367,8 @@ def main() -> int:
               flush=True)
     del s_in, n_in, noise, signals, wave
     _free()
+    split_entries = split_phases(dev)
+    _free()
     rho_entries = rho_phases(dev)
     _free()
     rank_entries, streamed = rank_phases(dev)
@@ -1913,8 +2376,8 @@ def main() -> int:
     rank_entries += rank_recompute_phases(dev, streamed)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)
-    print(json.dumps({"kernels": kernels + train_entries + rho_entries
-                      + rank_entries}), flush=True)
+    print(json.dumps({"kernels": kernels + train_entries + split_entries
+                      + rho_entries + rank_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -190,7 +190,8 @@ def test_layout_resolution_and_guards():
 def test_split_layouts_run_their_plain_twin_on_cpu():
     """D=4: the NLL takes the block layout, the sampler resolves to split
     (D % 8 != 0) even when block is asked for, and on a CPU tensor the split
-    layout runs the eager reference, equal to the JAX split kernels."""
+    layout runs its kernels' plain versions (ops/split.py), equal to the JAX
+    split kernels and to the eager reference."""
     hp, jhp = configs(4)
     jp, tp = both(np_params(4))
     noise = np_noise(3)

@@ -919,3 +919,141 @@ def test_train_path_runs_without_the_stream(dev, family):
     assert abs(loss.item() - want.item()) <= 1e-4 * abs(want.item())
     for name in q.NAMES:
         _close(getattr(p_off, name).grad.cpu(), getattr(q, name).grad, 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The split layout (ops/split.py, csrc/psi_split_*.cu)
+# ---------------------------------------------------------------------------
+
+SPLIT_SHAPES = [(6, "auto"), (10, "auto"), (8, "split")]
+
+
+def _split_counts():
+    from audio_mps_tpu_torch.ops import split
+    return (split.psi_sample_split.launches, split.psi_nll_split.launches,
+            split.psi_split_fwd.launches, split.psi_split_bwd.launches)
+
+
+def _split_inputs(dev, D, layout, steps, B=5):
+    from audio_mps_tpu_torch.ops import split
+    cfg = CMPSConfig(bond_dim=D, kernel_layout=layout)
+    p = init_psi(torch.Generator(dev).manual_seed(D), cfg, device=dev)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(2), B,
+                            steps + 1, cfg.delta_t)
+    inputs = split.psi_split_inputs(p, cfg, sig)
+    noise = core._sample_noise(cfg, torch.Generator(dev).manual_seed(1), 3,
+                               steps, 1.0)
+    g = torch.rand(B, generator=torch.Generator(dev).manual_seed(5),
+                   device=dev) + 0.5
+    return (split.psi_split_inputs(p, cfg, noise, noise=True), inputs, g)
+
+
+@pytest.mark.parametrize("D, layout", SPLIT_SHAPES)
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_split_kernels_match_plain(dev, D, layout, precision, defer):
+    """Each split kernel against its plain version on the same inputs (the
+    adjoint fed the plain forward's checkpoints; unroll 7, so the last
+    block is ragged): D=6 and D=10 (the layouts' rule sends them to split)
+    and D=8 asked for with kernel_layout="split", each launching once."""
+    from audio_mps_tpu_torch.ops import split
+    s_in, inputs, g = _split_inputs(dev, D, layout, STEPS[precision])
+    names = ("cr", "ci", "rr", "ri", "pc", "ps", "s0r", "s0i", "se")
+    args = [inputs[k] for k in names]
+    kw = dict(log_eps=inputs["log_eps"], norm_eps=inputs["norm_eps"],
+              unroll=7, precision=precision, defer_norm=defer)
+    before = _split_counts()
+    got = split.psi_sample_split(**s_in, precision=precision)
+    _close(got, split.psi_sample_split_plain(**s_in, precision=precision),
+           TOL[precision])
+    _close(split.psi_nll_split(*args, **kw),
+           split.psi_nll_split_plain(*args, **kw), TOL[precision])
+    fwd = split.psi_split_fwd_plain(*args, **kw)
+    for a, b in zip(split.psi_split_fwd(*args, **kw), fwd):
+        _close(a, b, TOL[precision])
+    bwd_args = args[:6] + [args[8], g, fwd[1], fwd[2]]
+    got = split.psi_split_bwd(*bwd_args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, split.psi_split_bwd_plain(*bwd_args, **kw)):
+        _close(a, b, TOL[precision])
+    assert _split_counts() == tuple(c + 1 for c in before)
+
+
+def test_split_adjoint_is_reproducible_bit_for_bit(dev):
+    """The adjoint's per-column cotangent sums are added in a fixed order
+    (no atomics): two runs at D=10, B=32 over 2048 steps are equal to the
+    bit in all nine outputs."""
+    from audio_mps_tpu_torch.ops import split
+    _, inputs, g = _split_inputs(dev, 10, "auto", 2048, B=32)
+    names = ("cr", "ci", "rr", "ri", "pc", "ps", "s0r", "s0i", "se")
+    args = [inputs[k] for k in names]
+    kw = dict(log_eps=inputs["log_eps"], norm_eps=inputs["norm_eps"],
+              defer_norm=True)
+    _, ckr, cki = split.psi_split_fwd(*args, **kw)
+    runs = [split.psi_split_bwd(*args[:6], args[8], g, ckr, cki, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("defer", [False, True])
+def test_split_train_path_runs_its_two_kernels(dev, defer):
+    """One value-and-gradient of the training NLL at D=10 on the card
+    launches the split forward and adjoint once each and no block
+    training kernel, and matches the same call on CPU copies (the plain
+    versions): the loss within 1e-4 relative, each gradient within 1e-3 of
+    its largest element."""
+    from audio_mps_tpu_torch.ops import grad
+    from audio_mps_tpu_torch.weights import (psi_params_from_numpy,
+                                             psi_params_to_numpy)
+    cfg = CMPSConfig(bond_dim=10, minibatch_size=8)
+    p = init_psi(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(1), 8, 257,
+                            cfg.delta_t)
+    block_kernels = (block.psi_train_fwd, block.psi_train_fwd_ckpt,
+                     block.psi_recompute, block.psi_train_bwd,
+                     block.psi_cotangents)
+    before, block_before = _split_counts(), [w.launches
+                                             for w in block_kernels]
+    loss = grad.psi_nll_fused_trainable(p, cfg, sig, defer_norm=defer)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert _split_counts() == (before[0], before[1], before[2] + 1,
+                               before[3] + 1)
+    assert [w.launches for w in block_kernels] == block_before
+    q = psi_params_from_numpy(psi_params_to_numpy(p), "cpu")
+    want = grad.psi_nll_fused_trainable(q, cfg, sig.cpu(), defer_norm=defer)
+    want.backward()
+    assert abs(loss.item() - want.item()) <= 1e-4 * abs(want.item())
+    for name in q.NAMES:
+        _close(getattr(p, name).grad.cpu(), getattr(q, name).grad, 1e-3)
+
+
+def test_train_cli_summaries_sample_through_the_split_kernel(dev, tmp_path,
+                                                             monkeypatch):
+    """The train CLI's summary samples at D=10 (no multiple of 8) go
+    through the split sampler kernel on the card, not the eager loop; the
+    step through the split training pair."""
+    from audio_mps_tpu_torch import summaries
+    from audio_mps_tpu_torch.ops import split
+    from audio_mps_tpu_torch.train import parse_args, train
+
+    class Writer:
+        def close(self):
+            pass
+
+    drawn = []
+    monkeypatch.setattr(summaries, "make_writer", lambda logdir: Writer())
+    monkeypatch.setattr(summaries, "write_step_summaries",
+                        lambda *a, samples=None, **k: drawn.append(samples))
+    run, device = parse_args([
+        "--mps_model=psi_mps", "--dataset=damped_sine",
+        "--sample_duration=65", "--hparams=bond_dim=10,minibatch_size=2",
+        f"--logdir={tmp_path}", "--max_steps=1", "--num_samples=2"])
+    before = _split_counts()
+    train(run, device=device, verbose=False)
+    torch.cuda.synchronize()
+    assert _split_counts() == (before[0] + 1, before[1], before[2] + 1,
+                               before[3] + 1)
+    assert drawn[0].shape == (2, 65) and torch.isfinite(drawn[0]).all()

@@ -20,7 +20,8 @@ import torch
 
 from audio_mps_tpu_torch import (CMPSConfig, PsiCMPS, RhoCMPS, RunConfig,
                                  init_psi, init_rho)
-from audio_mps_tpu_torch.ops import block, grad, scan
+from audio_mps_tpu_torch.estimator import main as estimator_main
+from audio_mps_tpu_torch.ops import block, grad, scan, split
 from audio_mps_tpu_torch.ops import rank as rank_ops
 from audio_mps_tpu_torch.sample import SampleConfig, sample
 from audio_mps_tpu_torch.train import main as train_main
@@ -45,6 +46,8 @@ def port_modules():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    assert {"audio_mps_tpu_torch.ops.split",
+            "audio_mps_tpu_torch.estimator"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {port_modules()!r}:\n"
@@ -96,7 +99,7 @@ def _np_rho_weights(D=8, rank=3):
                                    "train_cli", "make_train_step",
                                    "RhoCMPS", "init_rho", "rho_from_numpy",
                                    "rho_sample_cli", "rho_train_cli",
-                                   "rho_make_train_step"])
+                                   "rho_make_train_step", "estimator"])
 def test_default_device_entry_points_raise_without_a_card(entry, tmp_path,
                                                           monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -127,6 +130,8 @@ def test_default_device_entry_points_raise_without_a_card(entry, tmp_path,
         "rho_make_train_step": lambda: make_train_step(
             "rho_mps", CMPSConfig(),
             rho_params_from_numpy(_np_rho_weights(), "cpu")),
+        "estimator": lambda: estimator_main([f"--model_dir={tmp_path}",
+                                             "--max_steps=1"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
@@ -162,7 +167,17 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     k_rec = dict(ab=k_in["ab"], bb=k_in["bb"], xb=k_in["xb"],
                  ck=torch.stack([k_in["t0"]] * 2), se=k_in["se"], rc=1,
                  norm_eps=k_in["norm_eps"])
+    sp_in = split.psi_split_inputs(p, cfg, torch.zeros(2, 6))
+    ss_in = split.psi_split_inputs(p, cfg, torch.zeros(5, 2), noise=True)
+    sp_ck = torch.zeros(1, 8, 2)
+    sp_bwd = {k: sp_in[k] for k in ("cr", "ci", "rr", "ri", "pc", "ps", "se",
+                                    "log_eps", "norm_eps")}
+    sp_bwd.update(g=g, ckr=sp_ck, cki=sp_ck)
     calls = [
+        (split.psi_sample_split, lambda d: split.psi_sample_split(**d(ss_in))),
+        (split.psi_nll_split, lambda d: split.psi_nll_split(**d(sp_in))),
+        (split.psi_split_fwd, lambda d: split.psi_split_fwd(**d(sp_in))),
+        (split.psi_split_bwd, lambda d: split.psi_split_bwd(**d(sp_bwd))),
         (rank_ops.rank_partials_fwd, lambda d: rank_ops.rank_partials_fwd(
             **d(k_in), unroll=4)),
         (rank_ops.rank_partials_fwd_ckpt,
@@ -244,25 +259,37 @@ def test_chip_smoke_fails_without_the_port_or_a_card(where, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind, D", [("sample", 12), ("sample", 96),
-                                     ("nll", 2), ("nll", 72)])
+@pytest.mark.parametrize("kind, D", [("sample", 96), ("nll", 72),
+                                     ("sample", 121), ("nll", 122),
+                                     ("train", 74)])
 def test_cuda_path_raises_for_unported_shapes(kind, D):
-    """On a CUDA tensor: the split-layout D (sampler D % 8 != 0, NLL
-    D % 4 != 0) and a D whose constants overflow shared memory raise
-    NotImplementedError instead of running anything else."""
+    """On a CUDA tensor a psi D whose constants overflow one block's shared
+    memory raises NotImplementedError instead of running anything else,
+    launching nothing: the block layout (sampler D=96, NLL D=72) and the
+    split layout (sampler D=121 and NLL D=122 past its 119; training D=74
+    past its adjoint's 73, refused before the forward launches). The split
+    D below those ceilings runs (tests/test_torch_cuda.py); here they were
+    ("sample", 12) and ("nll", 2) while the split kernels were not
+    ported."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA path has no CPU mode")
     dev = torch.device("cuda")
     cfg = CMPSConfig(bond_dim=D)
     p = init_psi(torch.Generator(dev).manual_seed(0), cfg, device=dev)
-    before = (block.psi_sample_block.launches, block.psi_nll_block.launches)
+    wrappers = (block.psi_sample_block, block.psi_nll_block,
+                block.psi_train_fwd, block.psi_train_bwd,
+                split.psi_sample_split, split.psi_nll_split,
+                split.psi_split_fwd, split.psi_split_bwd)
+    before = [w.launches for w in wrappers]
     with pytest.raises(NotImplementedError):
         if kind == "sample":
             scan.psi_sample_fused(p, cfg, torch.zeros(16, 2, device=dev))
-        else:
+        elif kind == "nll":
             scan.psi_nll_fused(p, cfg, torch.zeros(2, 17, device=dev))
-    assert (block.psi_sample_block.launches,
-            block.psi_nll_block.launches) == before
+        else:
+            grad.psi_nll_fused_trainable(
+                p, cfg, torch.zeros(2, 17, device=dev)).backward()
+    assert [w.launches for w in wrappers] == before
 
 
 @pytest.mark.cuda

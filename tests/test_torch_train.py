@@ -26,7 +26,7 @@ from audio_mps_tpu_torch.config import CMPSConfig
 from audio_mps_tpu_torch.data import get_audio
 from audio_mps_tpu_torch.models import core
 from audio_mps_tpu_torch.models.params import PsiParams
-from audio_mps_tpu_torch.ops import block, grad
+from audio_mps_tpu_torch.ops import block, grad, split
 from audio_mps_tpu_torch.train import train
 from audio_mps_tpu_torch.weights import (adam_state_from_numpy, load_params,
                                          psi_params_from_numpy)
@@ -329,8 +329,11 @@ def test_regularized_loss_matches_jax():
 def test_dispatch_and_unported_paths_on_cpu():
     """nll_fn_for: fused=None runs the eager core on a CPU tensor, fused=True
     the kernel path's plain versions; latent raises NotImplementedError
-    (rho_mps is ported: tests/test_torch_rho_train.py); the split layout (D % 4 != 0) runs the eager core
-    on the CPU; the file datasets raise NotImplementedError."""
+    (rho_mps is ported: tests/test_torch_rho_train.py); the split layout
+    (D % 4 != 0) runs the split kernels' plain versions on the CPU
+    (ops/split.py, held to JAX in tests/test_torch_split.py), which agree
+    with the eager core as the block path does; the file datasets raise
+    NotImplementedError."""
     hp, _ = configs()
     tp = psi_params_from_numpy(np_params(8), "cpu")
     sig = torch.as_tensor(np_signals(4, T))
@@ -345,8 +348,11 @@ def test_dispatch_and_unported_paths_on_cpu():
         training.nll_fn_for("mps")
     hp6 = dataclasses.replace(hp, bond_dim=6)
     p6 = psi_params_from_numpy(np_params(6), "cpu")
-    assert grad.psi_nll_fused_trainable(p6, hp6, sig).item() == \
-        core.psi_nll(p6, hp6, sig).item()
+    got6 = grad.psi_nll_fused_trainable(p6, hp6, sig).item()
+    assert got6 == split.psi_nll_split_trainable(
+        p6, hp6, sig, defer_norm=False).item()
+    np.testing.assert_allclose(got6, core.psi_nll(p6, hp6, sig).item(),
+                               rtol=VALUE_RTOL)
     with pytest.raises(NotImplementedError):
         get_audio("data", "nsynth", hp, device="cpu")
     with pytest.raises(ValueError):
