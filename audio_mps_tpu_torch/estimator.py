@@ -16,12 +16,11 @@ CLI (flags mirror training_estimators.py:16-39, plus ``--device``, default
 
 At its defaults (psi, D=10, B=32, T=65536) the NLL and its gradient go
 through the split-layout kernels on a card (``ops/split.py``: D=10 is no
-multiple of 4). ``--discr=true`` trains rho; at D=10 that needs rho's
-split-layout training kernels, which are not ported yet, so it raises
-``NotImplementedError`` on the card at its first step (PERF.md kernel
-table row 9). Not ported either, and refused before anything runs: the
-latent family (ROADMAP queue A item 5) and ``--data_dir``, whose TFRecord
-reader is the data plane of ROADMAP queue A item 1.
+multiple of 4). ``--discr=true`` trains rho (full rank 10 there) through
+rho's split-layout kernels, ``ops/split.rho_nll_split_trainable``. Not
+ported, and refused before anything runs: the latent family (ROADMAP
+queue A item 5) and ``--data_dir``, whose TFRecord reader is the data
+plane of ROADMAP queue A item 1.
 
 Randomness: the init draws from a generator seeded with ``--seed``, the
 damped-sine batches from one seeded with ``--seed``, on ``--device``.

@@ -28,10 +28,11 @@ SOURCES = ("psi_sample.cu", "psi_nll.cu", "psi_train_fwd.cu",
            "rho_recompute.cu", "rho_train_bwd.cu", "rank_partials_fwd.cu",
            "rank_partials_recompute.cu", "rank_partials_bwd.cu",
            "psi_split_sample.cu", "psi_split_nll.cu", "psi_split_fwd.cu",
-           "psi_split_bwd.cu")
+           "psi_split_bwd.cu", "rho_split_sample.cu", "rho_split_nll.cu",
+           "rho_split_fwd.cu", "rho_split_bwd.cu")
 HEADERS = ("common.cuh", "psi_fwd.cuh", "rho_tile.cuh", "rho_fwd.cuh",
            "rank_partials.cuh", "rank_partials_fwd.cuh",
-           "psi_split_fwd.cuh")
+           "psi_split_fwd.cuh", "rho_split_fwd.cuh")
 ROOT = Path(__file__).resolve().parents[2]
 LIB_NAME = "libamt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -110,6 +111,18 @@ _SIGNATURES = {
     # cr, ci, rr, ri, pc, ps, se, g, ckr, cki, dse, dp0r, dp0i, part, D,
     # n_steps, B, unroll, log_eps, norm_eps, precision, defer_norm, stream
     "amt_psi_split_bwd": ([_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _P], _I),
+    # ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, noise, inv_a, wave, D,
+    # T, N, rank, dt, norm_eps, precision, stream
+    "amt_rho_split_sample": ([_P] * 13 + [_I] * 4 + [_F, _F, _I, _P], _I),
+    # ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, se, loss, D, n_steps,
+    # B, rank, unroll, log_eps, norm_eps, precision, defer_norm, stream
+    "amt_rho_split_nll": ([_P] * 12 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    # ... as amt_rho_split_nll with ckr, cki after loss
+    "amt_rho_split_fwd": ([_P] * 14 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    # ccr, cci, rcr, rci, xtr, xti, pc, ps, se, g, ckr, cki, dse, dh0r, dh0i,
+    # part, ws, D, n_steps, B, rank, unroll, log_eps, norm_eps, precision,
+    # defer_norm, stream
+    "amt_rho_split_bwd": ([_P] * 17 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
     "amt_psi_sample_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_nll_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_train_fwd_smem_bytes": ([_I], ctypes.c_size_t),
@@ -123,6 +136,10 @@ _SIGNATURES = {
     "amt_psi_split_sample_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_split_fwd_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_split_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "amt_rho_split_sample_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "amt_rho_split_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "amt_rho_split_bwd_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "amt_rho_split_bwd_workspace_floats": ([_I, _I, _I], ctypes.c_size_t),
     "amt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -4,27 +4,19 @@ entry points of ``audio_mps_tpu/ops/pallas_grad.py``).
 Layout resolution is the forward NLL's (``ops/scan.py``), as in the JAX
 package: the block kernels (``ops/block.py``) take D % 4 == 0; other D,
 and ``kernel_layout="split"``, resolve to the split layout. psi's split
-training kernels are ported (``ops/split.psi_nll_split_trainable``: a CUDA
-tensor launches them, a CPU tensor runs their plain versions). rho's are
-not yet: on a CUDA tensor a rho split request raises
-``NotImplementedError`` naming the queued kernel, and on a CPU tensor it
-runs the eager reference (``models/core.rho_nll_factor``), as the
-forward-only dispatch of ``ops/scan.py`` does.
+training kernels and rho's are ported (``ops/split.psi_nll_split_trainable``
+and ``ops/split.rho_nll_split_trainable``: a CUDA tensor launches them, a
+CPU tensor runs their plain versions; both raise ``ValueError`` at
+``high``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from ..config import CMPSConfig
-from ..models import core
 from . import block, split
 from .rank import device_limits, rho_nll_rank_chunked, rho_train_chunk
 from .scan import DEFAULT_UNROLL, _nll_layout
-
-_SPLIT_RHO_TRAIN = ("audio_mps_tpu/ops/pallas_grad.py _rho_fused_nll_factory "
-                    "(:1201, split-layout rho training, ROADMAP queue B, "
-                    "kernel table row 9)")
-
 
 def psi_nll_fused_trainable(params, cfg: CMPSConfig, signals, *,
                             unroll: int = DEFAULT_UNROLL,
@@ -60,7 +52,8 @@ def rho_nll_fused_trainable(params, cfg: CMPSConfig, signals, *,
     one block holds the constants beside an example's segment; past that
     (``rank.rho_train_chunk`` on the card's limits: D > 64 or rank > 64 on
     an H100) the rank-chunked partials (``rank.rho_nll_rank_chunked``),
-    which renormalise at block exits whatever ``defer_norm`` says."""
+    which renormalise at block exits whatever ``defer_norm`` says. In the
+    split layout, ``RhoSplitNLL`` (``split.rho_nll_split_trainable``)."""
     if _nll_layout(cfg, layout) == "block":
         B, rank = signals.shape[0], params.Wx.shape[0]
         chunk = rho_train_chunk(cfg.bond_dim, B, rank,
@@ -71,12 +64,6 @@ def rho_nll_fused_trainable(params, cfg: CMPSConfig, signals, *,
                 defer_norm=defer_norm)
         return rho_nll_rank_chunked(params, cfg, signals, rank_chunk=chunk,
                                     unroll=unroll, precision=precision)
-    if precision == "high":
-        raise ValueError(
-            "kernel_precision='high' (bf16x3) is only implemented in the "
-            "block kernel layout (ops/block.py)")
-    if signals.device.type != "cpu":
-        raise NotImplementedError(
-            f"rho training at D={cfg.bond_dim} needs the split-layout kernel "
-            f"{_SPLIT_RHO_TRAIN}, which is not ported to CUDA yet")
-    return core.rho_nll_factor(params, cfg, signals)
+    return split.rho_nll_split_trainable(params, cfg, signals, unroll=unroll,
+                                         precision=precision,
+                                         defer_norm=defer_norm)

@@ -4,13 +4,12 @@
 Layout resolution follows the JAX package: the block kernels
 (``ops/block.py``) take D % 8 == 0 for the sampler and D % 4 == 0 for the
 NLL; other D, and ``kernel_layout="split"``, resolve to the split layout.
-psi's split kernels are ported (``ops/split.py``): a CUDA tensor launches
-them, a CPU tensor runs their plain versions, so that the CPU tests pin the
-function the card runs. The split sampler takes ``highest`` where ``high``
-is asked for, with a warning, as JAX's does. rho's split kernels are not
-ported yet: on a CUDA tensor a rho split request raises
-``NotImplementedError`` naming the queued kernel, and on a CPU tensor it
-runs the eager reference in ``models/core.py``.
+The split kernels of both families are ported (``ops/split.py``): a CUDA
+tensor launches them, a CPU tensor runs their plain versions, so that the
+CPU tests pin the function the card runs; a shape past a kernel's shared
+memory raises ``NotImplementedError`` on the card. The split samplers take
+``highest`` where ``high`` is asked for, with a warning, as JAX's do; the
+split NLLs raise ``ValueError`` at ``high``.
 """
 from __future__ import annotations
 
@@ -24,14 +23,6 @@ from ..models import core
 from . import _build, block, split
 
 DEFAULT_UNROLL = 16
-
-_SPLIT_RHO_SAMPLER = ("audio_mps_tpu/ops/pallas_scan.py "
-                      "_make_rho_sample_kernel (:657, split-layout rho "
-                      "sampler, ROADMAP queue B, kernel table row 13)")
-_SPLIT_RHO_NLL = ("audio_mps_tpu/ops/pallas_scan.py _make_rho_nll_kernel "
-                  "(:289, split-layout forward rho NLL, ROADMAP queue B, "
-                  "kernel table row 11)")
-
 
 def _sampler_layout(cfg: CMPSConfig, layout: Optional[str]) -> str:
     """The block sampler needs D % 8 == 0, so even an explicit "block"
@@ -66,6 +57,35 @@ def psi_sampler_fits(cfg: CMPSConfig, device) -> bool:
         device).shared_memory_per_block_optin
 
 
+def rho_sampler_fits(cfg: CMPSConfig, rank: int, device) -> bool:
+    """Does a rho sampler kernel take ``cfg``'s D at ``rank`` on the CUDA
+    ``device``: the block sampler where the layout resolves to block
+    (D % 8 == 0, within ``block.rho_block_fits``), else the split one, each
+    within one block's shared memory?"""
+    lib = _build.library()
+    D = cfg.bond_dim
+    if cfg.kernel_layout != "split" and block.supports_block_sampler(cfg):
+        if not block.rho_block_fits(D, rank):
+            return False
+        need = lib.amt_rho_sample_smem_bytes(D, rank)
+    else:
+        need = lib.amt_rho_split_sample_smem_bytes(D, rank)
+    return need <= torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
+def _downgrade_high(cfg: CMPSConfig) -> str:
+    """bf16x3 exists only in the block kernels; a model trained in the
+    block layout at e.g. D=12 must still sample (as JAX's does,
+    ``pallas_scan.py:566-574``): the split sampler runs ``highest``, with a
+    warning."""
+    warnings.warn(
+        f"sampler precision='high' (bf16x3) exists only in the block "
+        f"kernels; split fallback at D={cfg.bond_dim} runs full fp32 "
+        f"('highest') instead", stacklevel=3)
+    return "highest"
+
+
 def _nll_layout(cfg: CMPSConfig, layout: Optional[str]) -> str:
     """"auto" picks block when D % 4 == 0, else split; an explicit "block"
     on an unsupported D flows into the block path, which raises."""
@@ -94,13 +114,7 @@ def psi_sample_fused(params, cfg: CMPSConfig, noise, *,
         wave = block.psi_sample_block(**inputs, precision=precision)
         return params.A.detach() * wave.T
     if precision == "high":
-        # bf16x3 exists only in the block kernels; a model trained in the
-        # block layout at e.g. D=12 must still sample (as JAX's does)
-        warnings.warn(
-            f"sampler precision='high' (bf16x3) exists only in the block "
-            f"kernels; split fallback at D={cfg.bond_dim} runs full fp32 "
-            f"('highest') instead", stacklevel=2)
-        precision = "highest"
+        precision = _downgrade_high(cfg)
     inputs = split.psi_split_inputs(params, cfg, noise, noise=True)
     wave = split.psi_sample_split(**inputs, precision=precision)
     return params.A.detach() * wave.T
@@ -147,12 +161,11 @@ def rho_sample_fused(params, cfg: CMPSConfig, noise, *,
         inputs = block.rho_sample_inputs(params, cfg, noise)
         wave = block.rho_sample_block(**inputs, precision=precision)
         return params.A.detach() * wave.T
-    if noise.device.type != "cpu":
-        raise NotImplementedError(
-            f"rho sampler at D={cfg.bond_dim} needs the split-layout kernel "
-            f"{_SPLIT_RHO_SAMPLER}, which is not ported to CUDA yet")
-    with torch.no_grad():
-        return core.sample_rho_with_noise(params, cfg, noise)
+    if precision == "high":
+        precision = _downgrade_high(cfg)
+    inputs = split.rho_split_inputs(params, cfg, noise, noise=True)
+    wave = split.rho_sample_split(**inputs, precision=precision)
+    return params.A.detach() * wave.T
 
 
 def rho_sample_fused_keyed(params, cfg: CMPSConfig, generator,
@@ -175,13 +188,6 @@ def rho_nll_fused(params, cfg: CMPSConfig, signals, *,
         return block.rho_nll_block(**inputs, unroll=unroll,
                                    precision=precision,
                                    defer_norm=defer_norm).mean()
-    if precision == "high":
-        raise ValueError(
-            "kernel_precision='high' (bf16x3) is only implemented in the "
-            "block kernel layout (ops/block.py)")
-    if signals.device.type != "cpu":
-        raise NotImplementedError(
-            f"rho NLL at D={cfg.bond_dim} needs the split-layout kernel "
-            f"{_SPLIT_RHO_NLL}, which is not ported to CUDA yet")
-    with torch.no_grad():
-        return core.rho_nll_factor(params, cfg, signals)
+    inputs = split.rho_split_inputs(params, cfg, signals)
+    return split.rho_nll_split(**inputs, unroll=unroll, precision=precision,
+                               defer_norm=defer_norm).mean()

@@ -1,17 +1,19 @@
-"""Split-layout kernels for Hopper, psi: the SDE sampler, the forward-only
-NLL and the training NLL with its adjoint (port of the split halves of
-``audio_mps_tpu/ops/pallas_scan.py`` and ``audio_mps_tpu/ops/pallas_grad.py``;
-the sibling of ``ops/block.py``).
+"""Split-layout kernels for Hopper, psi and rho: the SDE samplers, the
+forward-only NLLs and the training NLLs with their adjoints (port of the
+split halves of ``audio_mps_tpu/ops/pallas_scan.py`` and
+``audio_mps_tpu/ops/pallas_grad.py``; the sibling of ``ops/block.py``).
 
 Layout (as in the JAX package): the state is split into real and imaginary
-columns ``pr, pi`` [D, cols], and each complex product ``M v`` is four real
-[D,D] x [D] products. The frame rotation is not folded into the constants:
-each step normalises (or, with the deferred norm, does not) and then rotates
-by conj(p) with ``pc, ps`` [D]. Nothing needs D % 4 == 0, so this layout runs
-every D the block layout refuses (training and scoring at D % 4 != 0, the
-sampler at D % 8 != 0) and any D asked for with ``kernel_layout="split"``.
+parts, psi's columns ``pr, pi`` [D, B] and rho's purification factor
+``hr, hi`` [D, B * rank] (an example's rank lanes side by side), and each
+complex product ``M v`` is four real [D,D] x [D] products. The frame
+rotation is not folded into the constants: each step normalises (or, with
+the deferred norm, does not) and then rotates by conj(p) (psi) or p (rho)
+with ``pc, ps`` [D]. Nothing needs D % 4 == 0, so this layout runs every D
+the block layout refuses (training and scoring at D % 4 != 0, the
+samplers at D % 8 != 0) and any D asked for with ``kernel_layout="split"``.
 Like the TPU's split kernels it takes only the ``highest`` and ``default``
-precisions; ``high`` raises ``ValueError`` (the sampler's dispatch in
+precisions; ``high`` raises ``ValueError`` (the samplers' dispatch in
 ``ops/scan.py`` runs ``highest`` instead, with a warning, as JAX's does).
 
 Each kernel comes as a pair:
@@ -19,23 +21,35 @@ Each kernel comes as a pair:
 * ``*_plain``: the step loop in plain PyTorch. It is the CPU path and the
   version the CUDA kernel is held to on the card.
 * the wrapper (``psi_sample_split``, ``psi_nll_split``, ``psi_split_fwd``,
-  ``psi_split_bwd``): a CPU tensor goes to the plain version; a CUDA tensor
-  launches the hand-written kernel from ``csrc/`` (built by
-  ``ops/_build.py``) or raises. The wrapper counts its launches in
-  ``.launches``.
+  ``psi_split_bwd`` and their ``rho_*`` counterparts): a CPU tensor goes to
+  the plain version; a CUDA tensor launches the hand-written kernel from
+  ``csrc/`` (built by ``ops/_build.py``) or raises. The wrapper counts its
+  launches in ``.launches``.
 
-The training pair sits under ``PsiSplitNLL``, a ``torch.autograd.Function``
-(the counterpart of ``_psi_fused_nll_factory``'s custom VJP,
-``pallas_grad.py:577-593``): the forward keeps the state entering each block
-of ``unroll`` steps, and the adjoint re-runs each block from its checkpoint
-and sweeps back through it, as the TPU kernels do. ``default`` rounds both
-operands of every product to bf16 once and sums in fp32.
+The training pairs sit under ``PsiSplitNLL`` and ``RhoSplitNLL``,
+``torch.autograd.Function``s (the counterparts of the custom VJPs of
+``_psi_fused_nll_factory``, ``pallas_grad.py:577-593``, and
+``_rho_fused_nll_factory``, ``:1309-1331``): the forward keeps the state
+entering each block of ``unroll`` steps, and the adjoint re-runs each block
+from its checkpoint and sweeps back through it, as the TPU kernels do.
+``default`` rounds both operands of every product to bf16 once and sums in
+fp32.
 
 Shared-memory ceilings on an H100 (232,448 bytes a block), checked before
-any launch (``_check_smem``): the sampler, the NLL and the training
-forward hold C and R (16 D^2 bytes) and run to D=119; the adjoint also
-holds the [D,D] cotangent sums and 12 [D] vectors a step of its block, so
-at unroll 16 it runs to D=73 (``csrc/psi_split_bwd.cu``).
+any launch (``_check_smem``), from the kernels' own byte counts
+(``amt_*_smem_bytes``):
+
+* psi: the sampler, the NLL and the training forward hold C and R
+  (16 D^2 bytes) and run to D=119; the adjoint also holds the [D,D]
+  cotangent sums and 12 [D] vectors a step of its block, so at unroll 16
+  it runs to D=73 (``csrc/psi_split_bwd.cu``).
+* rho: the sampler, the NLL and the training forward hold conj(C),
+  conj(R) and X^T (24 D^2 bytes) and eight [D, rank] vectors
+  (32 D rank bytes), so at full rank they run to D=64; the adjoint holds
+  the constants at a row pitch of D + 1 words and 14 [D, rank] vectors
+  (its block's saved vectors go to a device workspace), so at full rank
+  it runs to D=53 (``csrc/rho_split_bwd.cu``). Lower ranks go further.
+  ``rho_nll_split_trainable`` checks both before the forward launches.
 """
 from __future__ import annotations
 
@@ -46,8 +60,9 @@ from ..models import core
 from ..models.cell import make_constants
 from . import _build
 from .block import (PRECISIONS, _as_kernel_input, _check_inputs,
-                    _check_smem, _cuda_or_raise, _make_dot_ops, _ptr,
-                    _stream_ptr, n_blocks)
+                    _check_smem, _cuda_or_raise, _lanes, _make_dot_ops, _ptr,
+                    _rank_of, _segment_sum, _stream_ptr, n_blocks,
+                    rho_factor_inputs)
 
 SPLIT_PRECISIONS = ("highest", "default")
 
@@ -577,6 +592,554 @@ def psi_nll_split_trainable(params, cfg: CMPSConfig, signals, *,
     loss = PsiSplitNLL.apply(
         cc.Cr, cc.Ci, cc.Rr, cc.Ri, cc.p_c, cc.p_s, pr0[:, None].expand(D, B),
         pi0[:, None].expand(D, B), se,
+        dict(log_eps=float(log_eps), norm_eps=float(cfg.norm_eps),
+             unroll=unroll, precision=precision, defer_norm=defer_norm))
+    return loss.mean()
+
+
+# ===========================================================================
+# rho in the split layout: the purification factor H = G^T, [D, B * rank]
+# (pallas_scan._make_rho_sample_kernel :657, _make_rho_nll_kernel :289,
+# pallas_grad._rho_fused_nll_factory :1201)
+# ===========================================================================
+#
+# One step on an example's segment H [D, rank] (its rank lanes), with s the
+# increment / A shared by the lanes:
+#   y  = conj(C) H + s conj(R) H              (four real products each)
+#   gx = X^T y,  ehat = sum(y_r gx_r + y_i gx_i),  tr = |y|^2   (segment sums)
+#   per-step norm:  loss -= log(max(1 + ehat s, log_eps));
+#                   H = p .* (y rsqrt(max(tr, eps)))
+#   deferred norm:  e = ehat / max(tr_prev, eps), the same loss;
+#                   H = p .* y, tr_prev = tr, and at every unroll-th step
+#                   H *= rsqrt(max(tr, eps)), tr_prev = 1.
+# The expectation is taken on the unnormalised y, as the reference's is
+# (model.py:160-170). The per-example scalars are computed once an example,
+# not repeated over its lanes as the TPU's [1, B * rank] rows are.
+
+RHO_SPLIT_NAMES = ("ccr", "cci", "rcr", "rci", "xtr", "xti", "pc", "ps",
+                   "h0r", "h0i")
+
+
+def rho_split_inputs(params, cfg: CMPSConfig, x, *, noise: bool = False
+                     ) -> dict:
+    """Kernel inputs from rho parameters (the TPU wrappers' preambles,
+    ``pallas_grad.py:1357-1375``, ``pallas_scan.py:435-474`` and
+    ``:746-786``): conj(C), conj(R) and X^T as real pairs, ``pc, ps`` [D],
+    the normalised initial factor ``h0r, h0i`` [D, cols * rank]
+    (``block.rho_factor_inputs``), and, for ``x`` = waveforms [B, T],
+    ``se`` = the increments / A [T-1, B], one column an example (the
+    TPU's repeat over the rank lanes, ``pallas_scan.py:441``, is a lane
+    artefact); with ``noise=True``, ``x`` is the noise [T, N] of
+    ``rho_sample_split``."""
+    with torch.no_grad():
+        cc = make_constants(params, cfg)
+        h0r, h0i = rho_factor_inputs(params, cfg, x.shape[1 if noise else 0])
+        out = dict(ccr=cc.Cr, cci=-cc.Ci, rcr=cc.Rr, rci=-cc.Ri,
+                   xtr=cc.Xr.T, xti=cc.Xi.T, pc=cc.p_c, ps=cc.p_s, h0r=h0r,
+                   h0i=h0i)
+        if noise:
+            out.update(noise=x, inv_a=(1.0 / cc.A).reshape(1))
+        else:
+            out["se"] = (x[:, 1:] - x[:, :-1]).T / cc.A
+        out = {k: _as_kernel_input(v) for k, v in out.items()}
+        if noise:
+            out["dt"] = float(cfg.delta_t)
+        else:
+            out["log_eps"] = float(cfg.log_eps if cfg.log_eps > 0
+                                   else float("-inf"))
+        out["norm_eps"] = float(cfg.norm_eps)
+        return out
+
+
+def _rotate_p(yr, yi, pc, ps):
+    """p .* y, the rho frame rotation H <- P H (a row scale)."""
+    return yr * pc - yi * ps, yr * ps + yi * pc
+
+
+def _rho_update(dotf, ccp, rcp, xr, xi, s):
+    """(y, conj(R) x) for prepped x: y = conj(C) x + s conj(R) x."""
+    a1r, a1i = _cdot(dotf, *ccp, xr, xi)
+    a2r, a2i = _cdot(dotf, *rcp, xr, xi)
+    return a1r + s * a2r, a1i + s * a2i, a2r, a2i
+
+
+def _rho_split_shapes(D, ccr, cci, rcr, rci, xtr, xti, pc, ps):
+    return dict(ccr=(ccr, (D, D)), cci=(cci, (D, D)), rcr=(rcr, (D, D)),
+                rci=(rci, (D, D)), xtr=(xtr, (D, D)), xti=(xti, (D, D)),
+                pc=(pc, (D,)), ps=(ps, (D,)))
+
+
+@torch.no_grad()
+def rho_sample_split_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i,
+                           noise, inv_a, *, dt: float, norm_eps: float,
+                           precision: str = "highest"):
+    """Running waveform [T, N] of N chains whose factors are h0 [D, N *
+    rank] (the caller scales by A and transposes), the TPU's
+    ``pallas_scan._make_rho_sample_kernel``: the expectation e = sum(H . X^T
+    H) on the current factor, ``inc = e dt + noise``, the update with the
+    realised increment / A, renormalise by the trace, rotate by p. Plain
+    PyTorch, any device."""
+    _check_split_options(precision)
+    prep, dotf = _make_dot_ops(precision)
+    rank = _rank_of("rho_sample_split", h0r.shape[1], noise.shape[1])
+    ccp = (prep(ccr), prep(cci))
+    rcp = (prep(rcr), prep(rci))
+    xtp = (prep(xtr), prep(xti))
+    pc, ps = pc[:, None], ps[:, None]
+    hr, hi = h0r, h0i
+    samp = torch.zeros_like(noise[0])
+    out = torch.empty_like(noise)
+    for k in range(noise.shape[0]):
+        xr, xi = prep(hr), prep(hi)
+        gxr, gxi = _cdot(dotf, *xtp, xr, xi)
+        e = _segment_sum(hr * gxr + hi * gxi, rank)
+        inc = e * dt + noise[k]
+        samp = samp + inc
+        out[k] = samp
+        yr, yi, _, _ = _rho_update(dotf, ccp, rcp, xr, xi,
+                                   _lanes(inc * inv_a, rank))
+        inv = _lanes(torch.rsqrt(torch.clamp(
+            _segment_sum(yr * yr + yi * yi, rank), min=norm_eps)), rank)
+        hr, hi = _rotate_p(yr * inv, yi * inv, pc, ps)
+    return out
+
+
+@torch.no_grad()
+def rho_sample_split(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, noise,
+                     inv_a, *, dt: float, norm_eps: float,
+                     precision: str = "highest"):
+    """Running waveform [T, N]: ``rho_sample_split_plain`` for CPU tensors,
+    the CUDA kernel ``csrc/rho_split_sample.cu`` for CUDA tensors."""
+    if _cuda_or_raise("rho_sample_split", noise):
+        return rho_sample_split_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps,
+                                      h0r, h0i, noise, inv_a, dt=dt,
+                                      norm_eps=norm_eps, precision=precision)
+    _check_split_options(precision)
+    T, N = noise.shape
+    D = ccr.shape[0]
+    rank = _rank_of("rho_sample_split", h0r.shape[1], N)
+    shapes = _rho_split_shapes(D, ccr, cci, rcr, rci, xtr, xti, pc, ps)
+    shapes.update(h0r=(h0r, (D, N * rank)), h0i=(h0i, (D, N * rank)),
+                  noise=(noise, (T, N)), inv_a=(inv_a, (1,)))
+    _check_inputs("rho_sample_split", noise.device, shapes)
+    lib = _build.library()
+    _check_smem("rho_sample_split",
+                lib.amt_rho_split_sample_smem_bytes(D, rank), noise.device, D)
+    wave = torch.empty_like(noise)
+    if T == 0 or N == 0:
+        return wave
+    err = lib.amt_rho_split_sample(
+        *[_ptr(x) for x in (ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i,
+                            noise, inv_a, wave)],
+        D, T, N, rank, dt, norm_eps, PRECISIONS.index(precision),
+        _stream_ptr(noise.device))
+    _build.check(lib, err, "rho_sample_split")
+    rho_sample_split.launches += 1
+    return wave
+
+
+rho_sample_split.launches = 0
+
+
+def _rho_split_chain_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i,
+                           se, *, log_eps, norm_eps, unroll, precision,
+                           defer_norm, ck=None):
+    """Per-example NLL [B] (``pallas_scan._make_rho_nll_kernel`` and
+    ``pallas_grad._make_rho_fwd_kernel``); ``ck`` = (ckr, cki) receives
+    the factor entering each block of ``unroll`` steps."""
+    _check_split_options(precision, unroll)
+    prep, dotf = _make_dot_ops(precision)
+    rank = _rank_of("rho split NLL", h0r.shape[1], se.shape[1])
+    ccp = (prep(ccr), prep(cci))
+    rcp = (prep(rcr), prep(rci))
+    xtp = (prep(xtr), prep(xti))
+    pc, ps = pc[:, None], ps[:, None]
+    hr, hi = h0r, h0i
+    acc = torch.zeros_like(se[0])
+    trp = torch.ones_like(acc)
+    for k in range(se.shape[0]):
+        if ck is not None and k % unroll == 0:
+            ck[0][k // unroll], ck[1][k // unroll] = hr, hi
+        s = se[k]
+        yr, yi, _, _ = _rho_update(dotf, ccp, rcp, prep(hr), prep(hi),
+                                   _lanes(s, rank))
+        gxr, gxi = _cdot(dotf, *xtp, prep(yr), prep(yi))
+        ehat = _segment_sum(yr * gxr + yi * gxi, rank)
+        tr = _segment_sum(yr * yr + yi * yi, rank)
+        if defer_norm:
+            e = ehat / torch.clamp(trp, min=norm_eps)
+            acc = acc - torch.log(torch.clamp(1.0 + e * s, min=log_eps))
+            hr, hi = _rotate_p(yr, yi, pc, ps)
+            if (k + 1) % unroll == 0:
+                inv = _lanes(torch.rsqrt(torch.clamp(tr, min=norm_eps)), rank)
+                hr, hi = hr * inv, hi * inv
+                trp = torch.ones_like(acc)
+            else:
+                trp = tr
+        else:
+            acc = acc - torch.log(torch.clamp(1.0 + ehat * s, min=log_eps))
+            inv = _lanes(torch.rsqrt(torch.clamp(tr, min=norm_eps)), rank)
+            hr, hi = _rotate_p(yr * inv, yi * inv, pc, ps)
+    return acc
+
+
+@torch.no_grad()
+def rho_nll_split_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, se,
+                        *, log_eps: float, norm_eps: float, unroll: int = 16,
+                        precision: str = "highest", defer_norm: bool = False):
+    """Per-example NLL [B] over the increments se [T-1, B] (already divided
+    by A) of factors h0 [D, B * rank]. Plain PyTorch, any device."""
+    return _rho_split_chain_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r,
+                                  h0i, se, log_eps=log_eps, norm_eps=norm_eps,
+                                  unroll=unroll, precision=precision,
+                                  defer_norm=defer_norm)
+
+
+@torch.no_grad()
+def rho_split_fwd_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, se,
+                        *, log_eps: float, norm_eps: float, unroll: int = 16,
+                        precision: str = "highest", defer_norm: bool = False):
+    """(loss [B], ckr, cki [n_blocks, D, B * rank]): the NLL of
+    ``rho_nll_split_plain`` and the factor entering every block of
+    ``unroll`` steps, normalised in both norm modes (the TPU forward's
+    checkpoints, ``pallas_grad.py:841-842``, ``:856-859``). Plain PyTorch,
+    any device."""
+    shape = (n_blocks(se.shape[0], unroll),) + tuple(h0r.shape)
+    ck = (se.new_empty(shape), se.new_empty(shape))
+    loss = _rho_split_chain_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r,
+                                  h0i, se, log_eps=log_eps, norm_eps=norm_eps,
+                                  unroll=unroll, precision=precision,
+                                  defer_norm=defer_norm, ck=ck)
+    return (loss,) + ck
+
+
+def _launch_rho_fwd(name, entry, args, se, ck, *, log_eps, norm_eps, unroll,
+                    precision, defer_norm):
+    """Launch the rho forward template (``csrc/rho_split_fwd.cuh``) through
+    its C entry ``entry``; ``args`` are the ten inputs before ``se``, ``ck``
+    None for the NLL, else the checkpoints to write. Returns the loss
+    [B]."""
+    _check_split_options(precision, unroll)
+    n_steps, B = se.shape
+    D = args[0].shape[0]
+    rank = _rank_of(name, args[8].shape[1], B)
+    shapes = _rho_split_shapes(D, *args[:8])
+    shapes.update(h0r=(args[8], (D, B * rank)), h0i=(args[9], (D, B * rank)),
+                  se=(se, (n_steps, B)))
+    _check_inputs(name, se.device, shapes)
+    lib = _build.library()
+    _check_smem(name, lib.amt_rho_split_fwd_smem_bytes(D, rank), se.device, D)
+    loss = se.new_empty((B,))
+    if B == 0:
+        return loss
+    ptrs = [_ptr(x) for x in (*args, se, loss)]
+    if ck is not None:
+        ptrs += [_ptr(ck[0]), _ptr(ck[1])]
+    err = getattr(lib, entry)(
+        *ptrs, D, n_steps, B, rank, unroll, log_eps, norm_eps,
+        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+    _build.check(lib, err, name)
+    return loss
+
+
+@torch.no_grad()
+def rho_nll_split(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, se, *,
+                  log_eps: float, norm_eps: float, unroll: int = 16,
+                  precision: str = "highest", defer_norm: bool = False):
+    """Per-example NLL [B]: ``rho_nll_split_plain`` for CPU tensors, the
+    CUDA kernel ``csrc/rho_split_nll.cu`` for CUDA tensors."""
+    args = (ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i)
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision, defer_norm=defer_norm)
+    if _cuda_or_raise("rho_nll_split", se):
+        return rho_nll_split_plain(*args, se, **kw)
+    loss = _launch_rho_fwd("rho_nll_split", "amt_rho_split_nll", args, se,
+                           None, **kw)
+    rho_nll_split.launches += 1
+    return loss
+
+
+rho_nll_split.launches = 0
+
+
+@torch.no_grad()
+def rho_split_fwd(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, se, *,
+                  log_eps: float, norm_eps: float, unroll: int = 16,
+                  precision: str = "highest", defer_norm: bool = False):
+    """(loss [B], ckr, cki): ``rho_split_fwd_plain`` for CPU tensors, the
+    CUDA kernel ``csrc/rho_split_fwd.cu`` for CUDA tensors."""
+    args = (ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i)
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision, defer_norm=defer_norm)
+    if _cuda_or_raise("rho_split_fwd", se):
+        return rho_split_fwd_plain(*args, se, **kw)
+    shape = (n_blocks(se.shape[0], unroll),) + tuple(h0r.shape)
+    ck = (se.new_empty(shape), se.new_empty(shape))
+    loss = _launch_rho_fwd("rho_split_fwd", "amt_rho_split_fwd", args, se,
+                           ck, **kw)
+    rho_split_fwd.launches += 1
+    return (loss,) + ck
+
+
+rho_split_fwd.launches = 0
+
+
+def _rho_recompute_blocks(ccp, rcp, xtp, pc, ps, se, ckr, cki, *, rank,
+                          unroll, norm_eps, prep, dotf, defer_norm):
+    """Every block re-run from its checkpoint, the blocks side by side as a
+    leading axis: per step [n_steps, ...] the prepped entry factor x,
+    conj(R) x, y, X^T y, the segment sums ehat and tr, and the trace of
+    the step before inside a deferred block (1 at a block's first
+    step)."""
+    n, B = se.shape
+    nb = ckr.shape[0]
+    sp = torch.cat([se, se.new_zeros(nb * unroll - n, B)]).reshape(
+        nb, unroll, B)
+    hr, hi = ckr, cki
+    trp = torch.ones_like(sp[:, 0])
+    keep = {k: [] for k in ("xr", "xi", "a2r", "a2i", "yr", "yi", "gxr",
+                            "gxi", "ehat", "tr", "trp")}
+    for k in range(unroll):
+        xr, xi = prep(hr), prep(hi)
+        yr, yi, a2r, a2i = _rho_update(dotf, ccp, rcp, xr, xi,
+                                       _lanes(sp[:, k, None], rank))
+        gxr, gxi = _cdot(dotf, *xtp, prep(yr), prep(yi))
+        ehat = _segment_sum(yr * gxr + yi * gxi, rank)
+        tr = _segment_sum(yr * yr + yi * yi, rank)
+        for name, v in (("xr", xr), ("xi", xi), ("a2r", a2r), ("a2i", a2i),
+                        ("yr", yr), ("yi", yi), ("gxr", gxr), ("gxi", gxi),
+                        ("ehat", ehat), ("tr", tr), ("trp", trp)):
+            keep[name].append(v)
+        if defer_norm:
+            hr, hi = _rotate_p(yr, yi, pc, ps)
+            trp = tr
+        else:
+            inv = _lanes(torch.rsqrt(torch.clamp(tr, min=norm_eps)), rank)
+            hr, hi = _rotate_p(yr * inv[:, None], yi * inv[:, None], pc, ps)
+    return {k: torch.stack(v, dim=1).flatten(0, 1)[:n]
+            for k, v in keep.items()}
+
+
+@torch.no_grad()
+def rho_split_bwd_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps, se, g, ckr,
+                        cki, *, log_eps: float, norm_eps: float,
+                        unroll: int = 16, precision: str = "highest",
+                        defer_norm: bool = False):
+    """Adjoint of ``rho_split_fwd`` for the per-example loss cotangent g
+    [B]: (dse [n_steps, B], dccr, dcci, drcr, drci, dxtr, dxti [D,D], dpc,
+    dps [D], dh0r, dh0i [D, B * rank]).
+
+    The TPU's adjoints (``_make_rho_bwd_kernel_defer`` :1032 with the
+    deferred norm, ``_make_rho_bwd_kernel`` :879 without) re-run each block
+    from its checkpoint and sweep back through it. Here the blocks are
+    re-run side by side, the work that does not depend on the carried
+    cotangent (the loss tail, X (dehat y)) runs over all steps at once,
+    the loop is the serial chain dH <- conj(C)^T dy + s conj(R)^T dy with
+    the rotation and normalise adjoints, and the [D,D] cotangents are
+    products over all steps and lanes at the end. The deferred norm seeds
+    (dH, dtr) at each block's exit from its renormalisation and carries dtr
+    back through e = ehat / tr_prev. dse sums an example's lanes (the
+    TPU's VJP of its repeat over them). Plain PyTorch, any device."""
+    _check_split_options(precision, unroll)
+    prep, dotf = _make_dot_ops(precision)
+    rank = _rank_of("rho_split_bwd", ckr.shape[2], se.shape[1])
+    ccp = (prep(ccr), prep(cci))
+    rcp = (prep(rcr), prep(rci))
+    xtp = (prep(xtr), prep(xti))
+    cct = (prep(ccr.T), prep(cci.T))
+    rct = (prep(rcr.T), prep(rci.T))
+    xtt = (prep(xtr.T), prep(xti.T))
+    pc, ps = pc[:, None], ps[:, None]
+    n, B = se.shape
+    D = ccr.shape[0]
+    f = _rho_recompute_blocks(ccp, rcp, xtp, pc, ps, se, ckr, cki, rank=rank,
+                              unroll=unroll, norm_eps=norm_eps, prep=prep,
+                              dotf=dotf, defer_norm=defer_norm)
+    # the loss tail, every step at once ([n, B])
+    trp_c = torch.clamp(f["trp"], min=norm_eps)
+    e = f["ehat"] / trp_c if defer_norm else f["ehat"]
+    arg = torch.clamp(1.0 + e * se, min=log_eps)
+    darg = torch.where(arg > log_eps, -g / arg, torch.zeros_like(arg))
+    de = darg * se
+    ds0 = darg * e
+    dehat = de / trp_c if defer_norm else de
+    dtr_new = torch.where(f["trp"] > norm_eps, -de * e / trp_c,
+                          torch.zeros_like(de))
+    q = _lanes(dehat, rank)[:, None, :]
+    dgr, dgi = prep(q * f["yr"]), prep(q * f["yi"])
+    xadj_r, xadj_i = _cdot_t(dotf, *xtt, dgr, dgi)
+    fix_r, fix_i = q * f["gxr"] + xadj_r, q * f["gxi"] + xadj_i
+    inv_all = torch.rsqrt(torch.clamp(f["tr"], min=norm_eps))
+    # the serial chain
+    dhr = dhi = torch.zeros_like(ckr[0])
+    dtr = torch.zeros_like(g)
+    dpc_sum = torch.zeros_like(pc[:, 0])
+    dps_sum = torch.zeros_like(dpc_sum)
+    dse = torch.empty_like(se)
+    dyr_all, dyi_all = torch.empty_like(f["yr"]), torch.empty_like(f["yi"])
+    for k in reversed(range(n)):
+        yr, yi, tr, inv = f["yr"][k], f["yi"][k], f["tr"][k], inv_all[k]
+        if defer_norm and (k % unroll == unroll - 1 or k == n - 1):
+            # block exit: the renormalisation adjoint seeds (dH, dtr)
+            er, ei = _rotate_p(yr, yi, pc, ps)
+            dinv = _segment_sum(dhr * er + dhi * ei, rank)
+            dhr, dhi = dhr * _lanes(inv, rank), dhi * _lanes(inv, rank)
+            dtr = torch.where(tr > norm_eps, -0.5 * dinv * inv ** 3,
+                              torch.zeros_like(dinv))
+        if defer_norm:
+            tyr, tyi = yr, yi
+        else:
+            tyr, tyi = yr * _lanes(inv, rank), yi * _lanes(inv, rank)
+        dtyr, dtyi = dhr * pc + dhi * ps, dhi * pc - dhr * ps
+        dpc_sum = dpc_sum + torch.sum(dhr * tyr + dhi * tyi, dim=1)
+        dps_sum = dps_sum + torch.sum(dhi * tyr - dhr * tyi, dim=1)
+        if defer_norm:
+            dyr, dyi = dtyr, dtyi
+        else:
+            dyr, dyi = dtyr * _lanes(inv, rank), dtyi * _lanes(inv, rank)
+            dinv = _segment_sum(dtyr * yr + dtyi * yi, rank)
+            dtr = torch.where(tr > norm_eps, -0.5 * dinv * inv ** 3,
+                              torch.zeros_like(dinv))
+        dtl = _lanes(dtr, rank)
+        dyr = dyr + 2.0 * yr * dtl + fix_r[k]
+        dyi = dyi + 2.0 * yi * dtl + fix_i[k]
+        dse[k] = ds0[k] + _segment_sum(dyr * f["a2r"][k] + dyi * f["a2i"][k],
+                                       rank)
+        pyr, pyi = prep(dyr), prep(dyi)
+        dyr_all[k], dyi_all[k] = pyr, pyi
+        c_r, c_i = _cdot_t(dotf, *cct, pyr, pyi)
+        r_r, r_i = _cdot_t(dotf, *rct, pyr, pyi)
+        s = _lanes(se[k], rank)
+        dhr, dhi = c_r + s * r_r, c_i + s * r_i
+        if defer_norm:
+            dtr = dtr_new[k]
+
+    def lanes(x):                               # [D, n_steps * B * rank]
+        return x.transpose(0, 1).reshape(D, -1)
+
+    s_l = _lanes(se, rank)[:, None, :]
+    xr, xi = lanes(f["xr"]), lanes(f["xi"])
+    dyr, dyi = lanes(dyr_all), lanes(dyi_all)
+    sdyr, sdyi = lanes(s_l * dyr_all), lanes(s_l * dyi_all)
+    wr, wi = lanes(prep(f["yr"])), lanes(prep(f["yi"]))
+    ur, ui = lanes(dgr), lanes(dgi)
+    return (dse, dyr @ xr.T + dyi @ xi.T, dyi @ xr.T - dyr @ xi.T,
+            sdyr @ xr.T + sdyi @ xi.T, sdyi @ xr.T - sdyr @ xi.T,
+            ur @ wr.T + ui @ wi.T, ui @ wr.T - ur @ wi.T, dpc_sum, dps_sum,
+            dhr, dhi)
+
+
+@torch.no_grad()
+def rho_split_bwd(ccr, cci, rcr, rci, xtr, xti, pc, ps, se, g, ckr, cki, *,
+                  log_eps: float, norm_eps: float, unroll: int = 16,
+                  precision: str = "highest", defer_norm: bool = False):
+    """(dse, dccr, dcci, drcr, drci, dxtr, dxti, dpc, dps, dh0r, dh0i):
+    ``rho_split_bwd_plain`` for CPU tensors, the CUDA kernel
+    ``csrc/rho_split_bwd.cu`` for CUDA tensors. The kernel writes each
+    example's cotangent sums ([D,D] x 6 and [D] x 2) to its own row of a
+    [B, ...] buffer; their sum over the examples here is a fixed-order
+    reduction, so two runs are equal bit for bit."""
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision, defer_norm=defer_norm)
+    mats = (ccr, cci, rcr, rci, xtr, xti, pc, ps)
+    if _cuda_or_raise("rho_split_bwd", se):
+        return rho_split_bwd_plain(*mats, se, g, ckr, cki, **kw)
+    _check_split_options(precision, unroll)
+    n_steps, B = se.shape
+    D = ccr.shape[0]
+    rank = _rank_of("rho_split_bwd", ckr.shape[2], B)
+    nb = n_blocks(n_steps, unroll)
+    shapes = _rho_split_shapes(D, *mats)
+    shapes.update(se=(se, (n_steps, B)), g=(g, (B,)),
+                  ckr=(ckr, (nb, D, B * rank)), cki=(cki, (nb, D, B * rank)))
+    _check_inputs("rho_split_bwd", se.device, shapes)
+    lib = _build.library()
+    _check_smem("rho_split_bwd",
+                lib.amt_rho_split_bwd_smem_bytes(D, rank, unroll), se.device,
+                D)
+    dse = torch.empty_like(se)
+    dh0r = se.new_empty((D, B * rank))
+    dh0i = se.new_empty((D, B * rank))
+    width = 6 * D * D + 2 * D
+    part = se.new_empty((B, width))
+    if B == 0:
+        part = se.new_zeros((1, width))
+    else:
+        ws = se.new_empty(
+            (B, lib.amt_rho_split_bwd_workspace_floats(D, rank, unroll)))
+        err = lib.amt_rho_split_bwd(
+            *[_ptr(x) for x in (*mats, se, g, ckr, cki, dse, dh0r, dh0i, part,
+                                ws)],
+            D, n_steps, B, rank, unroll, log_eps, norm_eps,
+            PRECISIONS.index(precision), int(defer_norm),
+            _stream_ptr(se.device))
+        _build.check(lib, err, "rho_split_bwd")
+        rho_split_bwd.launches += 1
+    tot = part.sum(dim=0)
+    m = tot[:6 * D * D].reshape(6, D, D)
+    return (dse, m[0], m[1], m[2], m[3], m[4], m[5], tot[6 * D * D:][:D],
+            tot[6 * D * D + D:], dh0r, dh0i)
+
+
+rho_split_bwd.launches = 0
+
+
+class RhoSplitNLL(torch.autograd.Function):
+    """Per-example rho NLL [B] over the split constants with a kernel
+    adjoint: the counterpart of ``_rho_fused_nll_factory``'s custom VJP
+    (``pallas_grad.py:1309-1331``; its segment matrices z, zt have no
+    counterpart here). ``forward(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r,
+    h0i, se, opts)`` returns loss [B] and keeps the block checkpoints;
+    ``backward(g)`` takes the per-example cotangent g [B] and returns the
+    cotangents of the eleven inputs. ``opts`` holds log_eps, norm_eps,
+    unroll, precision and defer_norm."""
+
+    @staticmethod
+    def forward(ctx, ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, se,
+                opts):
+        ins = [_as_kernel_input(x) for x in
+               (ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, se)]
+        loss, ckr, cki = rho_split_fwd(*ins, **opts)
+        ctx.opts = opts
+        ctx.save_for_backward(*ins[:8], ins[10], ckr, cki)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        (ccr, cci, rcr, rci, xtr, xti, pc, ps, se, ckr,
+         cki) = ctx.saved_tensors
+        out = rho_split_bwd(ccr, cci, rcr, rci, xtr, xti, pc, ps, se,
+                            _as_kernel_input(g), ckr, cki, **ctx.opts)
+        return out[1:] + (out[0], None)
+
+
+def rho_nll_split_trainable(params, cfg: CMPSConfig, signals, *,
+                            unroll: int = 16, precision: str = "highest",
+                            defer_norm: bool = False):
+    """Differentiable mean rho NLL of waveforms [B, T] through the split
+    kernels (the TPU's ``pallas_grad.rho_nll_pallas_trainable`` in its
+    split layout; semantics of ``core.rho_nll``). The constants, initial
+    factor and increments are built with autograd; the loss and its
+    adjoint go through ``RhoSplitNLL``. On the card both kernels' shared
+    memory is checked before the forward launches, so a shape past the
+    adjoint's ceiling raises having launched nothing."""
+    _check_split_options(precision, unroll)
+    B = signals.shape[0]
+    D, rank = cfg.bond_dim, params.Wx.shape[0]
+    if signals.device.type == "cuda":
+        lib = _build.library()
+        _check_smem("rho_split_fwd", lib.amt_rho_split_fwd_smem_bytes(D, rank),
+                    signals.device, D)
+        _check_smem("rho_split_bwd",
+                    lib.amt_rho_split_bwd_smem_bytes(D, rank, unroll),
+                    signals.device, D)
+    cc = make_constants(params, cfg)
+    se = (signals[:, 1:] - signals[:, :-1]).T / cc.A      # [T-1, B]
+    h0r, h0i = rho_factor_inputs(params, cfg, B)
+    log_eps = cfg.log_eps if cfg.log_eps > 0 else float("-inf")
+    loss = RhoSplitNLL.apply(
+        cc.Cr, -cc.Ci, cc.Rr, -cc.Ri, cc.Xr.T, cc.Xi.T, cc.p_c, cc.p_s, h0r,
+        h0i, se,
         dict(log_eps=float(log_eps), norm_eps=float(cfg.norm_eps),
              unroll=unroll, precision=precision, defer_norm=defer_norm))
     return loss.mean()

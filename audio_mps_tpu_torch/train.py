@@ -20,14 +20,14 @@ latest checkpoint.
 Randomness: the init draws from a generator seeded with ``--seed``, the
 damped-sine batches from one seeded with ``--seed`` + 1, the summaries'
 samples from one seeded with ``--seed`` + 2, all on ``--device``. The
-summaries' samples go through the family's sampler kernel on a card where
-one takes the shape (psi: the block sampler at D % 8 == 0, the split one
-elsewhere, each within its shared memory; rho: the block sampler at
-D % 8 == 0) and through the eager ``core.sample_psi`` / ``core.sample_rho``,
-as in the JAX CLI, elsewhere. rho past D=64 or
-rank 64 trains rank-chunked, but its sampler kernel is not ported there:
-on a card the run then raises before its first step unless the summaries
-draw no samples (``--visualize=false``). ``--mesh`` and
+summaries' samples go through the family's sampler kernel on a card (the
+block sampler at D % 8 == 0, the split one elsewhere, each within its
+shared memory: ``scan.psi_sampler_fits``, ``scan.rho_sampler_fits``) and
+through the eager ``core.sample_psi`` / ``core.sample_rho``, as in the JAX
+CLI, on the CPU (psi also on a card where no sampler kernel fits). Where no
+rho sampler kernel takes the shape (rho past D=64 at full rank, which
+trains rank-chunked), the run raises on a card before its first step
+unless the summaries draw no samples (``--visualize=false``). ``--mesh`` and
 ``--profile_steps`` are not ported and raise.
 
     python -m audio_mps_tpu_torch.train --mps_model=rho_mps \
@@ -48,7 +48,7 @@ from .config import CMPSConfig, RunConfig, parse_argv
 from .data import get_audio
 from .device import resolve_device
 from .models import core
-from .ops import block, scan
+from .ops import scan
 from .training import Checkpointer, init_params_for, make_train_step
 from .weights import save_params
 
@@ -90,22 +90,21 @@ def train(run: RunConfig, cfg: CMPSConfig = None, verbose: bool = True,
     sample_gen = torch.Generator(dev).manual_seed(run.seed + 2)
     # the eager loop launches ~30 small ops a sample step on a card
     if run.mps_model == "rho_mps":
-        kernel = dev.type == "cuda" and block.supports_block_sampler(cfg)
-        sample_fn = scan.rho_sample_fused_keyed if kernel else core.sample_rho
         rank = params.Wx.shape[0]
-        if (dev.type == "cuda" and run.visualize and run.num_samples > 0
-                and writer is not None
-                and not block.rho_block_fits(cfg.bond_dim, rank)):
+        kernel = dev.type == "cuda" and scan.rho_sampler_fits(cfg, rank, dev)
+        sample_fn = scan.rho_sample_fused_keyed if kernel else core.sample_rho
+        if (dev.type == "cuda" and not kernel and run.visualize
+                and run.num_samples > 0 and writer is not None):
             # no rho sampler kernel takes this shape, and the summaries do
             # not fall back to the eager loop on the card
             writer.close()
             raise NotImplementedError(
-                f"rho training at D={cfg.bond_dim}, rank={rank} trains "
-                f"rank-chunked, but the summaries' rho sampler kernel takes "
-                f"D <= 64 and rank <= 64 (the sampler past that is not "
-                f"ported yet, ROADMAP queue B); pass --visualize=false or "
-                f"--num_samples=0, or a bond_dim and initial_rank the "
-                f"sampler takes")
+                f"no rho sampler kernel takes D={cfg.bond_dim}, rank={rank} "
+                f"within shared memory (the block sampler D % 8 == 0, D <= 64 "
+                f"and rank <= 64; the split one 24 D^2 + 32 D rank bytes; "
+                f"streaming its constants is not ported yet, ROADMAP queue "
+                f"B); pass --visualize=false or --num_samples=0, or a "
+                f"bond_dim and initial_rank the sampler takes")
     else:
         kernel = dev.type == "cuda" and scan.psi_sampler_fits(cfg, dev)
         sample_fn = scan.psi_sample_fused_keyed if kernel else core.sample_psi

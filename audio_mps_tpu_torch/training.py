@@ -61,8 +61,9 @@ def nll_fn_for(mps_model: str, fused: Optional[bool] = None):
     ceiling the kernel path raises ``NotImplementedError``. Past the
     monolithic rho kernels' ceiling (D > 64 or rank > 64) rho training
     runs rank-chunked through the partials kernels (``ops/rank.py``), as
-    the JAX package does past its VMEM ceiling; rho at D % 4 != 0 (its
-    split kernels, not ported yet) raises on the card. Unlike the JAX
+    the JAX package does past its VMEM ceiling; rho at D % 4 != 0 or with
+    ``kernel_layout="split"`` trains through its split kernels
+    (``ops/split.py``, to D=53 at full rank and unroll 16). Unlike the JAX
     package, nothing falls back to the scan."""
     eager, kernel, _init = _family(mps_model)
 

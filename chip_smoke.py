@@ -77,7 +77,19 @@ failure (the script then exits non-zero):
    more resuming at step 4: the split forward and adjoint launch once a
    step, no other kernel); the sample CLI and ``psi_nll_fused`` at D=10
    through the split sampler and NLL; the four kernels' CUDA-event times
-   beside their bounds and one estimator step's time.
+   beside their bounds and one estimator step's time;
+11. rho's split layout (``rho_split_phases``, after psi's) at the same
+   shape with ``--discr=true`` (full rank 10, 320 factor lanes): the
+   sampler (N=8 chains) on the T=4096 prefix, the NLL (both norms) on a
+   T=4096 prefix, the training forward and adjoint on the T=16384 and
+   T=2048 prefixes, each held to its plain version with a control at
+   ``default``; the training path vs autograd through the eager
+   ``core.rho_nll_factor``; the estimator CLI with ``--discr=true`` (4 + 2
+   steps: the rho split pair once a step, no other kernel); the sample
+   CLI with ``mps_model=rho_mps`` and ``rho_nll_fused`` through the split
+   sampler and NLL; the four kernels' CUDA-event times beside their
+   bounds, one estimator step's time, and the bounds of the kernel
+   table's unported rows.
 
 It prints each phase's measurements, the card line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -339,7 +351,7 @@ def _recompute_kernel_names(family: str) -> dict:
 
 def _training_wrappers() -> dict:
     """Every training kernel wrapper, both families' and the rank
-    partials', streamed and recompute path, and psi's split pair, by
+    partials', streamed and recompute path, and both split pairs, by
     name."""
     from audio_mps_tpu_torch.ops import block, rank, split
     counted = {k: getattr(block, k) for f in ("psi", "rho")
@@ -348,8 +360,8 @@ def _training_wrappers() -> dict:
                    for k in _recompute_kernel_names(f).values())
     counted.update((k, getattr(rank, k)) for k in RANK_KERNELS
                    + RANK_RECOMPUTE_KERNELS)
-    counted.update((k, getattr(split, k)) for k in ("psi_split_fwd",
-                                                    "psi_split_bwd"))
+    counted.update((k, getattr(split, k)) for k in (
+        "psi_split_fwd", "psi_split_bwd", "rho_split_fwd", "rho_split_bwd"))
     return counted
 
 
@@ -1771,18 +1783,20 @@ SPLIT_BWD_ROLE = {k: "bwd" if k in ("dse", "dp0r", "dp0i") else "cot"
                   for k in SPLIT_BWD_LABELS}
 
 
-def _split_args(inputs, steps=None):
-    """The tensor inputs of psi_nll_split / psi_split_fwd in order (se cut
-    to ``steps`` - 1 rows) and their eps options."""
-    args = [inputs[k] for k in SPLIT_NAMES]
+def _split_args(inputs, steps=None, names=SPLIT_NAMES):
+    """The tensor inputs of a split NLL / training forward in order, ``se``
+    last (cut to ``steps`` - 1 rows), and their eps options."""
+    args = [inputs[k] for k in names]
     if steps is not None:
-        args[8] = args[8][:steps - 1].contiguous()
+        args[-1] = args[-1][:steps - 1].contiguous()
     return args, dict(log_eps=inputs["log_eps"],
                       norm_eps=inputs["norm_eps"])
 
 
 def _split_bwd(fn, args, g, ck, **o):
-    return fn(*args[:6], args[8], g, ck[0], ck[1], **o)
+    """A split adjoint on the constants of ``_split_args`` (all but the
+    initial state and ``se``), ``se``, g and the checkpoints."""
+    return fn(*args[:-3], args[-1], g, ck[0], ck[1], **o)
 
 
 def _split_hold(tag, labels, tols, got, want):
@@ -2171,6 +2185,382 @@ def split_phases(dev):
     return entries
 
 
+# rho's split layout at the same published shape: the legacy estimator's
+# --discr=true (training_estimators.py:16-31 of the reference;
+# audio_mps_tpu/estimator.py:43, :178) trains the mixed-state model at
+# D=10, B=32, dt=1e-3, T=65536, full purification rank 10 (320 factor
+# lanes); its sample CLI and scoring take the split sampler and NLL.
+# Prefixes for the plain versions as psi's (SPLIT_T_*).
+RHO_SPLIT_RANK = SPLIT_D
+# FLOPs: the complex [D,D] x [D] products (8 D^2 FLOPs) a lane-step, plus
+# the complex [D,D] matrix work an example-step (4 D^2 FLOPs each): an
+# example's rank lanes share one s, so conj(C) + s conj(R) is one product
+# after one such build. The sampler 2 (X^T H, then the update) + 1 build;
+# the NLL and the training forward 2 (the update, X^T y) + 1; the adjoint 6
+# (its re-run's 2; X (dehat y) and the built matrix's transpose on dy, 2;
+# the outer products dy x^T and (dehat y) y^T, 2) + 2 (the build, and
+# s dy x^T added into d conj(R) from the first outer product).
+RHO_SPLIT_PRODUCTS = {"sample": 2, "nll": 2, "fwd": 2, "bwd": 6}
+RHO_SPLIT_BUILDS = {"sample": 1, "nll": 1, "fwd": 1, "bwd": 2}
+RHO_SPLIT_KERNELS = {
+    "sample": ("rho_sample_split", "rho_split_sample.cu",
+               "audio_mps_tpu/ops/pallas_scan.py:657"),
+    "nll": ("rho_nll_split", "rho_split_nll.cu",
+            "audio_mps_tpu/ops/pallas_scan.py:289"),
+    "fwd": ("rho_split_fwd", "rho_split_fwd.cu",
+            "audio_mps_tpu/ops/pallas_grad.py:815"),
+    "bwd": ("rho_split_bwd", "rho_split_bwd.cu",
+            "audio_mps_tpu/ops/pallas_grad.py:1032")}
+RHO_SPLIT_BWD_LABELS = ("dse", "dccr", "dcci", "drcr", "drci", "dxtr",
+                        "dxti", "dpc", "dps", "dh0r", "dh0i")
+RHO_SPLIT_BWD_ROLE = {k: "bwd" if k in ("dse", "dh0r", "dh0i") else "cot"
+                      for k in RHO_SPLIT_BWD_LABELS}
+
+
+def rho_split_phases(dev):
+    """Phase 11, rho's split layout at the legacy estimator's --discr=true
+    shape; returns its four kernels' entries of the {"kernels": [...]}
+    line."""
+    from audio_mps_tpu_torch import estimator
+    from audio_mps_tpu_torch.config import CMPSConfig
+    from audio_mps_tpu_torch.data import damped_sine_batch
+    from audio_mps_tpu_torch.models import core
+    from audio_mps_tpu_torch.models.params import init_rho
+    from audio_mps_tpu_torch.ops import block, grad, scan, split
+    from audio_mps_tpu_torch.ops.scan import DEFAULT_UNROLL
+    from audio_mps_tpu_torch.sample import SampleConfig, sample
+    from audio_mps_tpu_torch.weights import (load_params, params_to_numpy,
+                                             rho_params_from_numpy,
+                                             save_params)
+
+    cfg = CMPSConfig(bond_dim=SPLIT_D, minibatch_size=SPLIT_B,
+                     delta_t=SPLIT_DT)
+    params = init_rho(torch.Generator(dev).manual_seed(30), cfg, device=dev)
+    check(params.Wx.shape[0] == RHO_SPLIT_RANK, f"rank {params.Wx.shape}")
+    kernels = {r: getattr(split, k[0]) for r, k in RHO_SPLIT_KERNELS.items()}
+    plains = {r: getattr(split, k[0] + "_plain")
+              for r, k in RHO_SPLIT_KERNELS.items()}
+    err_at, plain_ms, ctrl = {}, {}, {}
+    fwd_tols = {k: TOL_TRAIN["highest"]["fwd"] for k in SPLIT_FWD_LABELS}
+    bwd_tols = {k: TOL_TRAIN["highest"][RHO_SPLIT_BWD_ROLE[k]]
+                for k in RHO_SPLIT_BWD_LABELS}
+    shape = f"D={SPLIT_D}, rank {RHO_SPLIT_RANK}"
+
+    phase(f"rho split sampler kernel vs plain ({shape}, N={SPLIT_N_CHAINS}, "
+          f"T={SPLIT_T})")
+    noise = core._sample_noise(cfg, torch.Generator(dev).manual_seed(31),
+                               SPLIT_N_CHAINS, SPLIT_T, 1.0)
+    s_in = split.rho_split_inputs(params, cfg, noise, noise=True)
+    wave = kernels["sample"](**s_in)
+    _free()
+    check(bool(torch.isfinite(wave).all()), "rho split sampler: non-finite")
+    k = SPLIT_T_SAMPLE_CHECK
+    pre = dict(s_in, noise=s_in["noise"][:k].contiguous())
+    plain_ms["sample"], want = timed(lambda: plains["sample"](**pre))
+    err, rel = rel_err(wave[:k], want)
+    err_at["sample"] = err
+    check(rel <= TOL["highest"], f"rho split sampler, first {k} steps: rel "
+                                 f"err {rel:.3e}")
+    ctrl["sample"] = _split_miss(
+        "rho split sampler", ("wave",), {"wave": TOL["highest"]},
+        (kernels["sample"](**pre, precision="default"),), (want,))
+    print(f"  highest: max|d| {err:.3e} = {rel:.3e} x max|plain| over the "
+          f"first {k} steps (tol {TOL['highest']:g}); plain "
+          f"{plain_ms['sample']:.1f} ms on them; control at default "
+          f"{ctrl['sample'][0]}", flush=True)
+    del wave, want, pre
+
+    phase(f"rho split NLL kernel vs plain ({shape}, B={SPLIT_B}): the kernel "
+          f"at T={SPLIT_T}, held to plain on a T={SPLIT_T_NLL} prefix")
+    signals = damped_sine_batch(torch.Generator(dev).manual_seed(32), SPLIT_B,
+                                SPLIT_T, SPLIT_DT)
+    n_in = split.rho_split_inputs(params, cfg, signals)
+    names = split.RHO_SPLIT_NAMES + ("se",)
+    full, eps = _split_args(n_in, names=names)
+    short, _ = _split_args(n_in, SPLIT_T_NLL, names)
+    nll_full = {}
+    for defer in (False, True):
+        o = dict(eps, defer_norm=defer)
+        nll_full[defer] = kernels["nll"](*full, **o)
+        check(bool(torch.isfinite(nll_full[defer]).all()),
+              f"rho split NLL defer={defer} at T={SPLIT_T}: non-finite")
+        got = kernels["nll"](*short, **o)
+        t_p, want = timed(lambda: plains["nll"](*short, **o))
+        err, rel = rel_err(got, want)
+        check(rel <= TOL["highest"], f"rho split NLL defer={defer}: rel err "
+                                     f"{rel:.3e}")
+        c = _split_miss(f"rho split NLL defer={defer}", ("loss",),
+                        {"loss": TOL["highest"]},
+                        (kernels["nll"](*short, **o, precision="default"),),
+                        (want,))
+        if not defer:
+            err_at["nll"], plain_ms["nll"], ctrl["nll"] = err, t_p, c
+        print(f"  highest defer_norm={defer}: max|d| {err:.3e} = {rel:.3e} x "
+              f"max|plain| (tol {TOL['highest']:g}), plain {t_p:.1f} ms; "
+              f"control at default {c[0]}; mean loss at T={SPLIT_T} "
+              f"{nll_full[defer].mean().item():.6f}", flush=True)
+
+    phase(f"rho split training pair vs plain ({shape}, B={SPLIT_B}): "
+          f"defer_norm=True on a T={SPLIT_T_TRAIN[True]} prefix, False on "
+          f"T={SPLIT_T_TRAIN[False]}; the adjoint fed the plain forward's "
+          f"checkpoints")
+    g = torch.full((SPLIT_B,), 1.0 / SPLIT_B, device=dev)
+    for defer in (True, False):
+        args, _ = _split_args(n_in, SPLIT_T_TRAIN[defer], names)
+        o = dict(eps, defer_norm=defer)
+        t_f, f_p = timed(lambda: plains["fwd"](*args, **o))
+        t_b, b_p = timed(lambda: _split_bwd(plains["bwd"], args, g,
+                                                f_p[1:], **o))
+        line, e_f = _split_hold(f"rho_split_fwd defer={defer}",
+                                SPLIT_FWD_LABELS, fwd_tols,
+                                kernels["fwd"](*args, **o), f_p)
+        b_k = _split_bwd(kernels["bwd"], args, g, f_p[1:], **o)
+        torch.cuda.synchronize()
+        lb, e_b = _split_hold(f"rho_split_bwd defer={defer}",
+                              RHO_SPLIT_BWD_LABELS, bwd_tols, b_k, b_p)
+        d = dict(o, precision="default")
+        c_f = _split_miss(f"rho_split_fwd defer={defer}", SPLIT_FWD_LABELS,
+                          fwd_tols, kernels["fwd"](*args, **d), f_p)
+        c_b = _split_miss(f"rho_split_bwd defer={defer}",
+                          RHO_SPLIT_BWD_LABELS, bwd_tols,
+                          _split_bwd(kernels["bwd"], args, g, f_p[1:],
+                                         **d), b_p)
+        if defer:
+            err_at.update(fwd=e_f, bwd=e_b)
+            plain_ms.update(fwd=t_f, bwd=t_b)
+            ctrl.update(fwd=c_f, bwd=c_b)
+        print(f"  defer_norm={defer}, T={SPLIT_T_TRAIN[defer]} (tol fwd "
+              f"{TOL_TRAIN['highest']['fwd']:g}, adjoint "
+              f"{TOL_TRAIN['highest']['bwd']:g}, parameter cotangents "
+              f"{TOL_TRAIN['highest']['cot']:g}), x max|plain|: "
+              + ", ".join(line + lb) + f"; plain fwd {t_f:.1f} ms, bwd "
+              f"{t_b:.1f} ms; control at default: fwd " + ", ".join(c_f)
+              + "; bwd " + ", ".join(c_b), flush=True)
+        del f_p, b_p, b_k
+        _free()
+
+    phase(f"rho split training path vs autograd through the eager reference "
+          f"({shape}, {SPLIT_B} examples, T={SPLIT_T_REF})")
+    short_sig = signals[:, :SPLIT_T_REF].contiguous()
+    pk = rho_params_from_numpy(params_to_numpy(params), dev)
+    pr = rho_params_from_numpy(params_to_numpy(params), dev)
+    loss_k = grad.rho_nll_fused_trainable(pk, cfg, short_sig,
+                                          precision="highest",
+                                          defer_norm=cfg.defer_norm)
+    loss_k.backward()
+    loss_r = core.rho_nll_factor(pr, cfg, short_sig)
+    loss_r.backward()
+    _, rel = rel_err(loss_k.detach(), loss_r.detach())
+    line = [f"loss {rel:.2e}"]
+    check(rel <= TOL_TRAIN_REFERENCE[0], f"rho split train loss vs "
+                                         f"reference: {rel:.3e}")
+    for name in pk.NAMES:
+        _, rel = rel_err(getattr(pk, name).grad, getattr(pr, name).grad)
+        line.append(f"d{name} {rel:.2e}")
+        check(rel <= TOL_TRAIN_REFERENCE[1], f"rho split gradient of {name} "
+                                             f"vs reference: {rel:.3e}")
+    print(f"  x max|reference| (tol {TOL_TRAIN_REFERENCE[0]:g} / "
+          f"{TOL_TRAIN_REFERENCE[1]:g}): " + ", ".join(line), flush=True)
+    del pk, pr, loss_k, loss_r
+
+    first, second = SPLIT_CLI_STEPS
+    phase(f"rho split training path: the estimator CLI with --discr=true "
+          f"({shape}, B={SPLIT_B}, T={SPLIT_T}, dt={SPLIT_DT}), "
+          f"--max_steps={first} --viz_steps=2, then --max_steps={second} "
+          f"resuming at step {first}")
+    counted = dict(_training_wrappers(), **{
+        k: getattr(block, k) for k in ("psi_sample_block", "psi_nll_block",
+                                       "rho_sample_block", "rho_nll_block")},
+        **{k: getattr(split, k) for k in ("psi_sample_split", "psi_nll_split",
+                                          "rho_sample_split",
+                                          "rho_nll_split")})
+    for w in counted.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [f"--model_dir={tmp}", "--viz_steps=2", "--discr=true",
+                f"--device={dev.type}"]
+        t0 = time.perf_counter()
+        est1 = estimator.main(argv + [f"--max_steps={first}"])
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        est2 = estimator.main(argv + [f"--max_steps={second}"])
+        torch.cuda.synchronize()
+        t_second = time.perf_counter() - t0
+        cli = {k: w.launches for k, w in counted.items()}
+        state = torch.load(os.path.join(tmp, "checkpoints",
+                                        f"ckpt_{first + second}.pt"),
+                           map_location="cpu", weights_only=True)
+    print(f"  first call: {first} steps in {t_first * 1e3:.1f} ms; second "
+          f"call: resumed at step {est2.global_step - second}, {second} steps "
+          f"in {t_second * 1e3:.1f} ms (host clock, set-up included); "
+          f"launches { {k: v for k, v in cli.items() if v} }", flush=True)
+    check(est1.global_step == first and est2.global_step == first + second,
+          f"global steps {est1.global_step}, {est2.global_step}")
+    check(est2.params.Wx.shape == (RHO_SPLIT_RANK, SPLIT_D),
+          f"the estimator trained {type(est2.params).__name__} "
+          f"{tuple(est2.params.Wx.shape)}")
+    check(state["step"] == first + second, f"final step {state['step']}")
+    check(all(float(s["step"]) == first + second
+              for s in state["optimizer"]["state"].values()),
+          "the Adam state was not restored")
+    check(all(bool(torch.isfinite(x).all()) for x in est2.params.parameters()),
+          "non-finite parameters")
+    for name, count in cli.items():
+        want_n = (first + second if name in ("rho_split_fwd", "rho_split_bwd")
+                  else 0)
+        check(count == want_n, f"{name} launched {count} times in "
+                               f"{first + second} estimator steps ({want_n} "
+                               f"expected)")
+    ec = estimator.parse_args([f"--device={dev.type}", "--discr=true"])
+    with tempfile.TemporaryDirectory() as tmp:
+        est = estimator.Estimator("rho_mps", est2.cfg, tmp, device=dev)
+        input_fn = estimator.build_input_fn(ec, est2.cfg)
+        est.train(input_fn, steps=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.train(input_fn, steps=3)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 3 * 1e3
+        del est
+    print(f"  estimator --discr=true train step: {step_ms:.2f} ms host clock "
+          f"(mean of 3 after a warm-up step, its checkpoint save included); "
+          f"{SPLIT_B * (SPLIT_T - 1) / step_ms * 1e3:.4e} frames/s",
+          flush=True)
+
+    phase(f"rho split serving path: sample CLI (mps_model=rho_mps, fused, "
+          f"{shape}, {SPLIT_N_CHAINS} x {SPLIT_T}) + rho_nll_fused "
+          f"(B={SPLIT_B}, T={SPLIT_T})")
+    for w in counted.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({"cfg": dataclasses.asdict(cfg),
+                       "run": {"mps_model": "rho_mps"}}, f)
+        save_params(os.path.join(tmp, "params.npz"), params)
+        out = os.path.join(tmp, "samples.npz")
+        t0 = time.perf_counter()
+        waves = sample(SampleConfig(modeldir=tmp, num_samples=SPLIT_N_CHAINS,
+                                    sample_duration=SPLIT_T, fused=True,
+                                    device=dev.type, out=out))
+        t_sample = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scored = load_params(os.path.join(tmp, "params.npz"), dev)
+        batch = damped_sine_batch(torch.Generator(dev).manual_seed(34),
+                                  SPLIT_B, SPLIT_T, SPLIT_DT)
+        nll = scan.rho_nll_fused(scored, cfg, batch).item()
+        t_score = time.perf_counter() - t0
+        serve = {k: w.launches for k, w in counted.items()}
+        n_wav = sum(os.path.exists(os.path.join(tmp, f"samples_{i}.wav"))
+                    for i in range(SPLIT_N_CHAINS))
+    print(f"  sample CLI: {waves.shape} in {t_sample * 1e3:.1f} ms, {n_wav} "
+          f"wav files; NLL {nll:.6f} in {t_score * 1e3:.1f} ms (host clock); "
+          f"launches { {k: v for k, v in serve.items() if v} }", flush=True)
+    check(waves.shape == (SPLIT_N_CHAINS, SPLIT_T), f"waves {waves.shape}")
+    check(bool(torch.isfinite(torch.as_tensor(waves)).all()),
+          "sampled waveforms are not finite")
+    check(n_wav == SPLIT_N_CHAINS, f"{n_wav} wav files written")
+    check(torch.isfinite(torch.tensor(nll)).item(), f"rho NLL {nll}")
+    for name, count in serve.items():
+        want_n = 1 if name in ("rho_sample_split", "rho_nll_split") else 0
+        check(count == want_n, f"{name} launched {count} times on the rho "
+                               f"split serving path ({want_n} expected)")
+
+    phase("rho split timings (CUDA events, median of 5 after 1 warm-up)")
+    o = dict(eps, defer_norm=cfg.defer_norm)
+    loss_f, ckr, cki = kernels["fwd"](*full, **o)
+    check(torch.equal(loss_f, nll_full[cfg.defer_norm]),
+          "the training forward's loss is not the NLL's bit for bit")
+    ms = {"sample": median_ms(lambda: kernels["sample"](**s_in)),
+          "nll": median_ms(lambda: kernels["nll"](*full, **eps)),
+          "fwd": median_ms(lambda: kernels["fwd"](*full, **o)),
+          "bwd": median_ms(lambda: _split_bwd(kernels["bwd"], full, g,
+                                                  (ckr, cki), **o))}
+    variants = {
+        "rho_nll_split/defer=True": median_ms(
+            lambda: kernels["nll"](*full, **o)),
+        "rho_split_fwd/defer=False": median_ms(
+            lambda: kernels["fwd"](*full, **eps, defer_norm=False))}
+    for name, t in variants.items():
+        print(f"  {name}: {t:.3f} ms", flush=True)
+    n_steps = SPLIT_T - 1
+    ex_steps = n_steps * SPLIT_B
+    lane_steps = ex_steps * RHO_SPLIT_RANK
+    chain_steps = SPLIT_T * SPLIT_N_CHAINS
+    nb = -(-n_steps // DEFAULT_UNROLL)
+    mats = 6 * SPLIT_D * SPLIT_D + 2 * SPLIT_D
+    lanes = SPLIT_B * RHO_SPLIT_RANK
+    state = 2 * SPLIT_D * lanes
+    ck = 2 * nb * SPLIT_D * lanes
+    c = 8 * SPLIT_D * SPLIT_D
+    b = 4 * SPLIT_D * SPLIT_D
+
+    def flops(role, lane_n, ex_n):
+        return (RHO_SPLIT_PRODUCTS[role] * c * lane_n
+                + RHO_SPLIT_BUILDS[role] * b * ex_n)
+
+    cost = {"sample": (flops("sample", chain_steps * RHO_SPLIT_RANK,
+                             chain_steps),
+                       2 * chain_steps + mats
+                       + 2 * SPLIT_D * SPLIT_N_CHAINS * RHO_SPLIT_RANK + 1),
+            "nll": (flops("nll", lane_steps, ex_steps),
+                    ex_steps + mats + state + SPLIT_B),
+            "fwd": (flops("fwd", lane_steps, ex_steps),
+                    ex_steps + mats + state + SPLIT_B + ck),
+            "bwd": (flops("bwd", lane_steps, ex_steps),
+                    2 * ex_steps + SPLIT_B + ck + 2 * mats + state)}
+    launches = {"sample": serve["rho_sample_split"],
+                "nll": serve["rho_nll_split"],
+                "fwd": cli["rho_split_fwd"], "bwd": cli["rho_split_bwd"]}
+    pre_t = {"sample": SPLIT_T_SAMPLE_CHECK, "nll": SPLIT_T_NLL,
+             "fwd": SPLIT_T_TRAIN[True], "bwd": SPLIT_T_TRAIN[True]}
+    entries = []
+    for role, (name, src, rep) in RHO_SPLIT_KERNELS.items():
+        flops_n, words = cost[role]
+        bound, by = bound_ms(flops_n, 4 * words)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"audio_mps_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": launches[role], "max_abs_err": err_at[role],
+            "ms": ms[role], "plain_ms": plain_ms[role], "bound_ms": bound,
+            "bound_by": by, "library_ms": None})
+        print(f"  {name}: {ms[role]:.3f} ms at T={SPLIT_T} "
+              f"({ms[role] / SPLIT_T * 1e3:.2f} us a step), launches "
+              f"{launches[role]} on its main path (plain "
+              f"{plain_ms[role]:.1f} ms at T={pre_t[role]}; bound "
+              f"{bound:.3f} ms by {by}, {bound / ms[role] * 100:.2f}% of it; "
+              f"control at default " + ", ".join(ctrl[role]) + ")",
+              flush=True)
+    print(f"  estimator --discr=true step {step_ms:.2f} ms, of which the "
+          f"forward and adjoint kernels {ms['fwd'] + ms['bwd']:.2f} ms; "
+          f"{card_line()}", flush=True)
+    return entries
+
+
+def unported_bounds():
+    """Print the bounds of the kernel table's unported rows at the shapes of
+    the ported rows they mirror (no card work): row 3e, the spine/limbs psi
+    training pair (pallas_block.py:276, :338), at row 3a's D=64, B=128,
+    T=16384, with the products of rows 3a (forward 3) and 3b + 3b' (adjoint
+    and reductions 4 + 3); row 14, the probe's forward-only psi NLL
+    (tools/probe8_psi_floor.py:62), at row 2's, 3 products (2 in its
+    chain-only diagnostic)."""
+    n = 2 * D
+    lane_steps = (T_NLL - 1) * B_NLL
+    fwd_words = lane_steps + 3 * n * n + n * B_NLL + B_NLL
+    line = []
+    for name, products, words in (
+            ("row 3e forward", 3, fwd_words),
+            ("row 3e adjoint and reductions", 7,
+             2 * lane_steps + 6 * n * n + 2 * n * B_NLL + B_NLL),
+            ("row 14 NLL", 3, fwd_words),
+            ("row 14 chain-only diagnostic", 2, fwd_words)):
+        bound, by = bound_ms(products * 2 * n * n * lane_steps, 4 * words)
+        line.append(f"{name} {bound:.3f} ms by {by}")
+    print("  bounds of the unported rows (D=64, B=128, T=16384): "
+          + "; ".join(line), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2369,11 +2759,14 @@ def main() -> int:
     _free()
     split_entries = split_phases(dev)
     _free()
+    split_entries += rho_split_phases(dev)
+    _free()
     rho_entries = rho_phases(dev)
     _free()
     rank_entries, streamed = rank_phases(dev)
     _free()
     rank_entries += rank_recompute_phases(dev, streamed)
+    unported_bounds()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels + train_entries + split_entries

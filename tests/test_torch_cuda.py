@@ -1057,3 +1057,258 @@ def test_train_cli_summaries_sample_through_the_split_kernel(dev, tmp_path,
     assert _split_counts() == (before[0] + 1, before[1], before[2] + 1,
                                before[3] + 1)
     assert drawn[0].shape == (2, 65) and torch.isfinite(drawn[0]).all()
+
+
+# ---------------------------------------------------------------------------
+# rho's split layout (ops/split.py, csrc/rho_split_*.cu)
+# ---------------------------------------------------------------------------
+
+# (D, rank, layout): D=6 at rank 3 and D=10 at full rank (the layouts' rule
+# sends them to split), D=8 asked for with kernel_layout="split", and a
+# segment of two warps and more (D=33, rank 2: 66 threads)
+RHO_SPLIT_SHAPES = [(6, 3, "auto"), (10, 10, "auto"), (8, 3, "split"),
+                    (33, 2, "auto")]
+
+
+def _rho_split_counts():
+    from audio_mps_tpu_torch.ops import split
+    return (split.rho_sample_split.launches, split.rho_nll_split.launches,
+            split.rho_split_fwd.launches, split.rho_split_bwd.launches)
+
+
+def _rho_split_inputs(dev, D, rank, layout, steps, B=5):
+    """(sampler inputs for 3 chains, NLL inputs for B examples, a
+    non-uniform per-example g, the config)."""
+    from audio_mps_tpu_torch.models.params import init_rho
+    from audio_mps_tpu_torch.ops import split
+    cfg = CMPSConfig(bond_dim=D, initial_rank=rank, kernel_layout=layout)
+    p = init_rho(torch.Generator(dev).manual_seed(D + rank), cfg, device=dev)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(2), B,
+                            steps + 1, cfg.delta_t)
+    noise = core._sample_noise(cfg, torch.Generator(dev).manual_seed(1), 3,
+                               steps, 1.0)
+    g = torch.rand(B, generator=torch.Generator(dev).manual_seed(5),
+                   device=dev) + 0.5
+    return (split.rho_split_inputs(p, cfg, noise, noise=True),
+            split.rho_split_inputs(p, cfg, sig), g, cfg)
+
+
+@pytest.mark.parametrize("D, rank, layout", RHO_SPLIT_SHAPES)
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_rho_split_kernels_match_plain(dev, D, rank, layout, precision,
+                                       defer):
+    """Each rho split kernel against its plain version on the same inputs
+    (the adjoint fed the plain forward's checkpoints; unroll 7, so the last
+    block is ragged), each launching once: highest over 300 steps at TOL,
+    default over 16."""
+    from audio_mps_tpu_torch.ops import split
+    s_in, inputs, g, _ = _rho_split_inputs(dev, D, rank, layout,
+                                           STEPS[precision])
+    args = [inputs[k] for k in split.RHO_SPLIT_NAMES + ("se",)]
+    kw = dict(log_eps=inputs["log_eps"], norm_eps=inputs["norm_eps"],
+              unroll=7, precision=precision, defer_norm=defer)
+    before = _rho_split_counts()
+    _close(split.rho_sample_split(**s_in, precision=precision),
+           split.rho_sample_split_plain(**s_in, precision=precision),
+           TOL[precision])
+    _close(split.rho_nll_split(*args, **kw),
+           split.rho_nll_split_plain(*args, **kw), TOL[precision])
+    fwd = split.rho_split_fwd_plain(*args, **kw)
+    for a, b in zip(split.rho_split_fwd(*args, **kw), fwd):
+        _close(a, b, TOL[precision])
+    bwd_args = args[:8] + [args[10], g, fwd[1], fwd[2]]
+    got = split.rho_split_bwd(*bwd_args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, split.rho_split_bwd_plain(*bwd_args, **kw)):
+        _close(a, b, TOL[precision])
+    assert _rho_split_counts() == tuple(c + 1 for c in before)
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_rho_split_sampler_at_d12_matches_plain(dev, precision):
+    """D=12: the rho NLL takes the block layout (D % 4 == 0), the sampler
+    the split one (D % 8 != 0): scan.rho_sample_fused launches the split
+    sampler once, and it matches its plain version."""
+    from audio_mps_tpu_torch.models.params import init_rho
+    from audio_mps_tpu_torch.ops import scan, split
+    s_in, _, _, cfg = _rho_split_inputs(dev, 12, 3, "auto", STEPS[precision])
+    _close(split.rho_sample_split(**s_in, precision=precision),
+           split.rho_sample_split_plain(**s_in, precision=precision),
+           TOL[precision])
+    p = init_rho(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    before = _rho_split_counts()
+    wave = scan.rho_sample_fused(p, cfg, s_in["noise"])
+    assert wave.shape == (3, STEPS[precision]) and torch.isfinite(wave).all()
+    assert _rho_split_counts() == (before[0] + 1,) + before[1:]
+
+
+def test_rho_split_adjoint_is_reproducible_bit_for_bit(dev):
+    """The adjoint's per-example cotangent sums are added in a fixed order
+    (no atomics): two runs at D=10, full rank, B=32 over 2048 steps are
+    equal to the bit in all eleven outputs."""
+    from audio_mps_tpu_torch.ops import split
+    _, inputs, g, _ = _rho_split_inputs(dev, 10, 10, "auto", 2048, B=32)
+    args = [inputs[k] for k in split.RHO_SPLIT_NAMES + ("se",)]
+    kw = dict(log_eps=inputs["log_eps"], norm_eps=inputs["norm_eps"],
+              defer_norm=True)
+    _, ckr, cki = split.rho_split_fwd(*args, **kw)
+    runs = [split.rho_split_bwd(*args[:8], args[10], g, ckr, cki, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_rho_split_ceilings_raise_before_any_launch(dev):
+    """The stated ceilings (ops/split.py) are the kernels' own byte counts
+    on this card: at full rank the sampler, NLL and training forward take
+    D=64 and not 65, the adjoint (unroll 16) D=53 and not 54; past them
+    each wrapper raises NotImplementedError and no launch counter moves;
+    scan.rho_sampler_fits agrees (true at D=10 full rank and D=12, false
+    at D=66 full rank)."""
+    from audio_mps_tpu_torch.ops import _build, scan, split
+    lib = _build.library()
+    have = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for fn, ok, past in (
+            (lib.amt_rho_split_sample_smem_bytes, (64, 64), (65, 65)),
+            (lib.amt_rho_split_fwd_smem_bytes, (64, 64), (65, 65)),
+            (lambda D, r: lib.amt_rho_split_bwd_smem_bytes(D, r, 16),
+             (53, 53), (54, 54))):
+        assert fn(*ok) <= have < fn(*past)
+    before = _rho_split_counts()
+    for D in (65, 54):
+        s_in, inputs, g, _ = _rho_split_inputs(dev, D, D, "auto", 20, B=2)
+        args = [inputs[k] for k in split.RHO_SPLIT_NAMES + ("se",)]
+        kw = dict(log_eps=inputs["log_eps"], norm_eps=inputs["norm_eps"])
+        ck = torch.zeros(2, D, 2 * D, device=dev)
+        calls = [lambda: split.rho_split_bwd(*args[:8], args[10], g, ck, ck,
+                                             **kw)]
+        if D == 65:
+            calls += [lambda: split.rho_sample_split(**s_in),
+                      lambda: split.rho_nll_split(*args, **kw),
+                      lambda: split.rho_split_fwd(*args, **kw)]
+        for call in calls:
+            with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+                call()
+    assert _rho_split_counts() == before
+    for D, rank, fits in ((10, 10, True), (12, 12, True), (66, 66, False)):
+        assert scan.rho_sampler_fits(CMPSConfig(bond_dim=D), rank,
+                                     dev) is fits
+
+
+@pytest.mark.parametrize("defer", [False, True])
+def test_rho_split_train_path_runs_its_two_kernels(dev, defer):
+    """One value-and-gradient of the rho training NLL at D=10, full rank on
+    the card launches the split forward and adjoint once each and no block
+    or rank-chunked training kernel, and matches the same call on CPU
+    copies (the plain versions): the loss within 1e-4 relative, each
+    gradient within 1e-3 of its largest element."""
+    from audio_mps_tpu_torch.models.params import init_rho
+    from audio_mps_tpu_torch.ops import grad, rank
+    from audio_mps_tpu_torch.weights import (params_to_numpy,
+                                             rho_params_from_numpy)
+    cfg = CMPSConfig(bond_dim=10, minibatch_size=8)
+    p = init_rho(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(1), 8, 257,
+                            cfg.delta_t)
+    others = (block.rho_train_fwd, block.rho_train_fwd_ckpt,
+              block.rho_recompute, block.rho_train_bwd, block.rho_cotangents,
+              rank.rank_partials_fwd, rank.rank_partials_bwd)
+    before, other_before = _rho_split_counts(), [w.launches for w in others]
+    loss = grad.rho_nll_fused_trainable(p, cfg, sig, defer_norm=defer)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert _rho_split_counts() == (before[0], before[1], before[2] + 1,
+                                   before[3] + 1)
+    assert [w.launches for w in others] == other_before
+    q = rho_params_from_numpy(params_to_numpy(p), "cpu")
+    want = grad.rho_nll_fused_trainable(q, cfg, sig.cpu(), defer_norm=defer)
+    want.backward()
+    assert abs(loss.item() - want.item()) <= 1e-4 * abs(want.item())
+    for name in q.NAMES:
+        _close(getattr(p, name).grad.cpu(), getattr(q, name).grad, 1e-3)
+
+
+def test_rho_train_cli_summaries_sample_through_the_split_kernel(
+        dev, tmp_path, monkeypatch):
+    """The train CLI at rho D=10 (no multiple of 4 or 8) takes its step
+    through the split training pair and draws its summary samples through
+    the split sampler kernel (scan.rho_sample_fused_keyed), not the eager
+    loop."""
+    from audio_mps_tpu_torch import summaries
+    from audio_mps_tpu_torch.train import parse_args, train
+
+    class Writer:
+        def close(self):
+            pass
+
+    drawn = []
+    monkeypatch.setattr(summaries, "make_writer", lambda logdir: Writer())
+    monkeypatch.setattr(summaries, "write_step_summaries",
+                        lambda *a, samples=None, **k: drawn.append(samples))
+    run, device = parse_args([
+        "--mps_model=rho_mps", "--dataset=damped_sine",
+        "--sample_duration=65", "--hparams=bond_dim=10,minibatch_size=4",
+        f"--logdir={tmp_path}", "--max_steps=1", "--num_samples=2"])
+    before = _rho_split_counts()
+    train(run, device=device, verbose=False)
+    torch.cuda.synchronize()
+    assert _rho_split_counts() == (before[0] + 1, before[1], before[2] + 1,
+                                   before[3] + 1)
+    assert drawn[0].shape == (2, 65) and torch.isfinite(drawn[0]).all()
+
+
+# ---------------------------------------------------------------------------
+# "default" over a whole run (ROADMAP section C): one bf16 pass a product,
+# as on the TPU, against highest, at each NLL kernel's main-path shape
+# ---------------------------------------------------------------------------
+
+# (D, rank or None for psi, B, T, delta_t): psi block at the training
+# headline, rho block at D=64, rank 64, the split pair at the estimator's
+# published shape
+DEFAULT_RUN_SHAPES = {"psi_nll_block": (64, None, 128, 16384, 1 / 16000),
+                      "rho_nll_block": (64, 64, 8, 16384, 1 / 16000),
+                      "psi_nll_split": (10, None, 32, 65536, 1e-3),
+                      "rho_nll_split": (10, 10, 32, 65536, 1e-3)}
+# max|default - highest| <= bound * max|highest| over a run's per-example
+# losses: twice the worst gap of 8 seeds that this test prints, measured
+# on an H100 80GB HBM3 at 700 W (PERF.md §6)
+DEFAULT_RUN_BOUND = {"psi_nll_block": 0.880, "rho_nll_block": 0.752,
+                     "psi_nll_split": 0.161, "rho_nll_split": 0.0403}
+
+
+@pytest.mark.parametrize("kernel", list(DEFAULT_RUN_SHAPES))
+def test_default_precision_over_a_run_stays_within_its_bound(dev, kernel):
+    """Each NLL kernel at default against itself at highest over a whole
+    run at its main-path shape, for 8 seeds (parameters and batch): the
+    worst relative gap of the per-example losses within the committed
+    bound. The samplers have none: one rounding that falls the other way
+    sends an SDE path elsewhere (held over 16 steps above)."""
+    from audio_mps_tpu_torch.models.params import init_rho
+    from audio_mps_tpu_torch.ops import split
+    D, rank, B, T, dt = DEFAULT_RUN_SHAPES[kernel]
+    cfg = CMPSConfig(bond_dim=D, initial_rank=rank, minibatch_size=B,
+                     delta_t=dt)
+    fn = getattr(split if kernel.endswith("split") else block, kernel)
+    make = {"psi_nll_block": block.psi_nll_inputs,
+            "rho_nll_block": block.rho_nll_inputs,
+            "psi_nll_split": split.psi_split_inputs,
+            "rho_nll_split": split.rho_split_inputs}[kernel]
+    gaps = []
+    for seed in range(8):
+        p = (init_rho if rank else init_psi)(
+            torch.Generator(dev).manual_seed(100 + seed), cfg, device=dev)
+        sig = damped_sine_batch(torch.Generator(dev).manual_seed(200 + seed),
+                                B, T, dt)
+        inputs = make(p, cfg, sig)
+        hi = fn(**inputs, precision="highest")
+        lo = fn(**inputs, precision="default")
+        assert torch.isfinite(hi).all() and torch.isfinite(lo).all()
+        gaps.append(((lo - hi).abs().max() / hi.abs().max()).item())
+        del inputs, sig
+    print(f"{kernel} default vs highest, D={D}, B={B}, T={T}: worst "
+          f"{max(gaps):.3e} x max|highest| over 8 seeds "
+          f"({', '.join(f'{x:.3e}' for x in gaps)}); "
+          f"{torch.cuda.get_device_name(dev)}")
+    assert max(gaps) <= DEFAULT_RUN_BOUND[kernel]

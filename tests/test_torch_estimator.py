@@ -97,3 +97,51 @@ def test_unported_branches_raise(tmp_path):
         estimator.main([f"--model_dir={tmp_path}", "--device=cpu",
                         "--data_dir=data/pitch_30.tfrecords"])
     assert not os.path.exists(tmp_path / "checkpoints")
+
+
+def test_discr_trains_rho_through_the_split_kernel_path(tmp_path,
+                                                        monkeypatch):
+    """--discr=true trains the mixed-state model: on the CPU through the
+    kernel path (the Estimator's step and loss built with fused=True:
+    RhoSplitNLL over the plain versions of the split kernels, since D=6 is
+    no multiple of 4), whose first-step loss under the per-step norm is the
+    eager core.rho_nll_factor's (the CPU default) from the same seed to
+    rtol 1e-5; two chunks of two steps and an evaluation through it; and
+    main(--discr=true) on the CPU trains rho."""
+    import functools
+
+    from audio_mps_tpu_torch import training
+    from audio_mps_tpu_torch.models.params import RhoParams
+    from audio_mps_tpu_torch.ops import split
+    calls = []
+    plain = split.rho_split_fwd_plain
+    monkeypatch.setattr(split, "rho_split_fwd_plain",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    cfg = CMPSConfig(minibatch_size=2, bond_dim=6, defer_norm=False)
+    ec = estimator.EstimatorConfig(sample_duration=256, batch_size=2,
+                                   bond_d=6, discr=True, device="cpu")
+    input_fn = estimator.build_input_fn(ec, cfg)
+    eager = estimator.Estimator("rho_mps", cfg, str(tmp_path / "eager"),
+                                device="cpu")
+    want = eager.train(input_fn, steps=1)["model_loss"]
+    assert not calls
+    for name in ("make_train_step", "make_loss_fn"):
+        monkeypatch.setattr(estimator, name, functools.partial(
+            getattr(training, name), fused=True))
+    est = estimator.Estimator("rho_mps", cfg, str(tmp_path / "kernels"),
+                              save_checkpoints_steps=2, device="cpu")
+    assert isinstance(est.params, RhoParams)
+    got = est.train(input_fn, steps=1)["model_loss"]
+    assert len(calls) == 1
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    m = est.train(input_fn, steps=2)
+    m = est.train(input_fn, steps=1)
+    assert est.global_step == 4 and np.isfinite(m["model_loss"])
+    assert np.isfinite(est.evaluate(input_fn, steps=1)["loss"])
+    assert len(calls) == 1 + 3 + 1
+    monkeypatch.undo()
+    est = estimator.main(["--discr=true", "--bond_d=3", "--batch_size=2",
+                          "--sample_duration=64", "--viz_steps=1",
+                          "--max_steps=1", f"--model_dir={tmp_path / 'cli'}",
+                          "--device=cpu"])
+    assert isinstance(est.params, RhoParams) and est.global_step == 1

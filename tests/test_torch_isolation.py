@@ -173,7 +173,17 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     sp_bwd = {k: sp_in[k] for k in ("cr", "ci", "rr", "ri", "pc", "ps", "se",
                                     "log_eps", "norm_eps")}
     sp_bwd.update(g=g, ckr=sp_ck, cki=sp_ck)
+    rp_in = split.rho_split_inputs(r, cfg, torch.zeros(2, 6))
+    rps_in = split.rho_split_inputs(r, cfg, torch.zeros(5, 2), noise=True)
+    rp_ck = torch.zeros(1, 8, 6)
+    rp_bwd = {k: rp_in[k] for k in split.RHO_SPLIT_NAMES[:8] + (
+        "se", "log_eps", "norm_eps")}
+    rp_bwd.update(g=g, ckr=rp_ck, cki=rp_ck)
     calls = [
+        (split.rho_sample_split, lambda d: split.rho_sample_split(**d(rps_in))),
+        (split.rho_nll_split, lambda d: split.rho_nll_split(**d(rp_in))),
+        (split.rho_split_fwd, lambda d: split.rho_split_fwd(**d(rp_in))),
+        (split.rho_split_bwd, lambda d: split.rho_split_bwd(**d(rp_bwd))),
         (split.psi_sample_split, lambda d: split.psi_sample_split(**d(ss_in))),
         (split.psi_nll_split, lambda d: split.psi_nll_split(**d(sp_in))),
         (split.psi_split_fwd, lambda d: split.psi_split_fwd(**d(sp_in))),
@@ -294,15 +304,18 @@ def test_cuda_path_raises_for_unported_shapes(kind, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind, D, rank", [
-    ("sample", 12, 3), ("nll", 6, 3), ("train", 6, 3), ("nll", 72, 3),
+    ("sample", 66, 66), ("nll", 66, 66), ("train", 54, 54), ("nll", 72, 3),
     ("train", 1028, 1)])
 def test_cuda_rho_path_raises_for_unported_shapes(kind, D, rank):
     """On a CUDA tensor the rho entry points raise NotImplementedError,
-    launching nothing: the split layout (sampler D % 8 != 0, NLL and
-    training D % 4 != 0: table rows 13, 11, 9), scoring past the kernels'
-    layout (D > 64), and training past what even a rank chunk of one row
-    takes (D/4 > 256 threads). Training without the state stream runs:
-    test_cuda_rho_path_trains_without_the_stream."""
+    launching nothing: the split layout past its shared memory (sampler and
+    NLL D=66 at full rank past their D=64; training D=54 past the adjoint's
+    53, refused before the forward launches), scoring past the block
+    kernels' layout (D > 64), and training past what even a rank chunk of
+    one row takes (D/4 > 256 threads). The split shapes this pinned while
+    the split kernels were not ported (sampler D=12, NLL and training D=6,
+    rank 3) run: tests/test_torch_cuda.py. Training without the state
+    stream runs: test_cuda_rho_path_trains_without_the_stream."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA path has no CPU mode")
     dev = torch.device("cuda")
@@ -311,7 +324,9 @@ def test_cuda_rho_path_raises_for_unported_shapes(kind, D, rank):
     wrappers = (block.rho_sample_block, block.rho_nll_block,
                 block.rho_train_fwd, block.rho_train_bwd,
                 block.rho_cotangents, rank_ops.rank_partials_fwd,
-                rank_ops.rank_partials_bwd, rank_ops.rank_cotangents)
+                rank_ops.rank_partials_bwd, rank_ops.rank_cotangents,
+                split.rho_sample_split, split.rho_nll_split,
+                split.rho_split_fwd, split.rho_split_bwd)
     before = [w.launches for w in wrappers]
     with pytest.raises(NotImplementedError):
         if kind == "sample":

@@ -257,10 +257,12 @@ def test_default_is_one_bf16_pass():
     assert np.abs(got - fp32).max() > 1e-4 * scale
 
 
-def test_split_layouts_run_the_eager_reference_on_cpu():
+def test_split_layouts_run_the_plain_kernels_on_cpu():
     """D=4: the NLL takes the block layout, the sampler resolves to split
     (D % 8 != 0); D=6: the NLL resolves to split. On a CPU tensor the split
-    layout runs the eager reference, equal to the JAX split kernels."""
+    layout runs the plain versions of the split kernels
+    (split.rho_sample_split_plain, split.rho_nll_split_plain), equal to the
+    JAX split kernels."""
     from audio_mps_tpu.ops.pallas_scan import rho_nll_pallas
     hp4, jhp4 = rho_configs(D=4, rank=3)
     jp, tp = rho_both(np_rho_params(4, 3))
