@@ -41,8 +41,10 @@ enum Precision { kHighest = 0, kHigh = 1, kDefault = 2 };
 // nothing (kNll), every step's state (kStream), the state entering each
 // unroll-step block (kCkpt), or, with one CTA per (column group, block),
 // the states of a segment's blocks re-run from those checkpoints
-// (kRecompute).
-enum FwdMode { kNll = 0, kStream = 1, kCkpt = 2, kRecompute = 3 };
+// (kRecompute). kBatched (psi_fwd.cuh only) writes kCkpt's checkpoints
+// from the spine/limbs split of each block.
+enum FwdMode { kNll = 0, kStream = 1, kCkpt = 2, kRecompute = 3,
+               kBatched = 4 };
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -185,6 +187,91 @@ __device__ __forceinline__ float row_dot(const uint32_t* mt, const float* vh,
   return dot_strided<P>(mt + i, n, vh, vl, n);
 }
 
+// The chunk of state columns that one walk of a matrix row serves in the
+// batched ("limb") products of psi_fwd.cuh's kBatched mode,
+// psi_batched_bwd.cu and psi_probe.cu.
+constexpr int kLimb = 8;
+
+// out[q] = sum_j m[j*stride] v_q[j] over j < n for the kLimb vectors
+// v_q[j] = y[j*kp + q] of a [n, kp] shared buffer: each 4-byte load of the
+// matrix feeds kLimb products (3 kLimb at kHigh), and each row of the
+// chunk comes in two 16-byte broadcast loads. PREPPED: y holds the prepped
+// values of store_vec (yl the kHigh lo parts); otherwise y holds fp32 values
+// and each is prepped as it is loaded (yl unused), to the same bits. Per
+// vector, the sum runs over j in order as dot_strided's does, so out[q] is
+// the same bits as dot_strided<P>(m, stride, v_q) would give. y + j*kp must
+// be 16-byte aligned.
+template <int P, bool PREPPED>
+__device__ __forceinline__ void dot_chunk(const uint32_t* m, int stride,
+                                          const float* y, const float* yl,
+                                          int kp, int n,
+                                          float (&out)[kLimb]) {
+  float a1[kLimb], a2[kLimb], a3[kLimb];
+#pragma unroll
+  for (int q = 0; q < kLimb; ++q) a1[q] = a2[q] = a3[q] = 0.f;
+#pragma unroll 2
+  for (int j = 0; j < n; ++j) {
+    const uint32_t w = m[j * stride];
+    float h[kLimb], l[kLimb];
+    const float4* row = reinterpret_cast<const float4*>(y + j * kp);
+#pragma unroll
+    for (int c = 0; c < kLimb / 4; ++c) {
+      const float4 v = row[c];
+      h[4 * c] = v.x;
+      h[4 * c + 1] = v.y;
+      h[4 * c + 2] = v.z;
+      h[4 * c + 3] = v.w;
+    }
+    if (P == kHigh && PREPPED) {
+      const float4* lrow = reinterpret_cast<const float4*>(yl + j * kp);
+#pragma unroll
+      for (int c = 0; c < kLimb / 4; ++c) {
+        const float4 v = lrow[c];
+        l[4 * c] = v.x;
+        l[4 * c + 1] = v.y;
+        l[4 * c + 2] = v.z;
+        l[4 * c + 3] = v.w;
+      }
+    }
+    if (!PREPPED) {
+#pragma unroll
+      for (int q = 0; q < kLimb; ++q) {
+        if (P == kHigh) {
+          const float x = h[q];
+          split_bf16(x, h[q], l[q]);
+        } else if (P == kDefault) {
+          h[q] = bf16_round(h[q]);
+        }
+      }
+    }
+    if (P == kHigh) {
+      const float mh = __uint_as_float(w & 0xffff0000u);
+      const float ml = __uint_as_float(w << 16);
+#pragma unroll
+      for (int q = 0; q < kLimb; ++q) {
+        a1[q] = fmaf(mh, h[q], a1[q]);
+        a2[q] = fmaf(mh, l[q], a2[q]);
+        a3[q] = fmaf(ml, h[q], a3[q]);
+      }
+    } else {
+      const float mv = __uint_as_float(w);
+#pragma unroll
+      for (int q = 0; q < kLimb; ++q) a1[q] = fmaf(mv, h[q], a1[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kLimb; ++q)
+    out[q] = P == kHigh ? (a1[q] + a2[q]) + a3[q] : a1[q];
+}
+
+// Row pitch in words of a [n, K] state buffer of the batched kernels: K
+// rounded up to whole chunks (so dot_chunk's loads stay in the row), plus 4,
+// so rows start 16-byte aligned and a pitch = 4 (mod 8) keeps eight threads'
+// 16-byte loads of eight consecutive rows on distinct banks.
+__host__ __device__ inline int chunk_pitch(int K) {
+  return (K + kLimb - 1) / kLimb * kLimb + 4;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -221,6 +308,30 @@ __device__ __forceinline__ void block_sum2(float v, float u, float* red,
   }
   sv = a;
   su = b;
+}
+
+// The CTA sums of N values at once: out[q] = sum over threads of v[q].
+// Each value takes block_sum's path (a warp_sum, then the warp partials
+// added in warp order from 0), so a value's sum is the same bits as
+// block_sum / block_sum2 give it. `red` holds N x (warps) floats and must
+// not be written again before every thread has passed a later
+// __syncthreads().
+template <int N>
+__device__ __forceinline__ void block_sum_n(const float (&v)[N], float* red,
+                                            float (&out)[N]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    const float w = warp_sum(v[q]);
+    if (lane == 0) red[warp * N + q] = w;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    float a = 0.f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) a += red[w * N + q];
+    out[q] = a;
+  }
 }
 
 // max(x, floor) that keeps a NaN x (as jnp.maximum / torch.clamp do).

@@ -52,14 +52,135 @@
 // about a block of 16 steps, and a span of several blocks amortises it.
 // Several examples per CTA, reusing each loaded constant
 // across columns (a warpgroup MMA over the batch), is later work.
+//
+// kBatched (psi_batched_fwd.cu; the TPU's _make_psi_fwd_kernel_batched,
+// pallas_block.py :276, deferred norm only): the spine/limbs split. Per
+// unroll-step block the serial "spine" is the state recurrence alone,
+// y_k = Ab t_k + s_k (Bb t_k) with t_{k+1} = y_k, one CTA barrier a step
+// (the prepped state ping-pongs between two vectors); each y_k also goes to
+// [2D, K] shared buffers (raw and prepped). The "limb" then runs once a
+// block: thread i walks row i of Rb once for a chunk of kLimb states
+// (dot_chunk: each 4-byte load of Rb feeds kLimb FMAs where the step loop
+// feeds one), and one block_sum_n gives the chunk's ehat_k and n2_k. The
+// loss and the exit renorm follow in step order. Every sum runs in the
+// order of the kCkpt mode's (dot_chunk's per-state order is row_dot's,
+// block_sum_n's is block_sum2's), so loss and ck equal psi_train_fwd_ckpt's
+// bit for bit. Shared memory: the three constants, three [2D, K] buffers
+// at a row pitch of chunk_pitch(K) words, two prepped vectors and the
+// reductions (229,792 bytes at D=64, K=16, of the 232,448 a block may opt
+// into).
 #pragma once
 
 #include "common.cuh"
 
 namespace amt {
 
+// Dynamic shared memory of one kBatched CTA (see the layout in
+// psi_fwd_batched below).
+inline size_t batched_fwd_smem_bytes(int D, int unroll) {
+  const size_t n = 2 * static_cast<size_t>(D);
+  const size_t kp = chunk_pitch(unroll);
+  const size_t warps = threads_for(D) / 32;
+  return 3 * n * n * 4 +
+         (3 * n * kp + 4 * n + 2 * kp + 2 * kLimb * warps) * 4;
+}
+
+// The kBatched body of psi_fwd_kernel (deferred norm): loss[col] and the
+// block checkpoints ck, one block at a time.
+template <int P>
+__device__ void psi_fwd_batched(const uint32_t* abt, const uint32_t* bbt,
+                                const uint32_t* rbt, uint32_t* free_smem,
+                                const float* __restrict__ t0,
+                                const float* __restrict__ se,
+                                float* __restrict__ loss,
+                                float* __restrict__ ck, int n, int n_steps,
+                                int B, int unroll, float log_eps,
+                                float norm_eps) {
+  const int kp = chunk_pitch(unroll);
+  // [n, kp] buffers first: 16-byte aligned after the 3 n^2 words
+  float* yh = reinterpret_cast<float*>(free_smem);  // prepped y_k, hi
+  float* yl = yh + n * kp;                            // kHigh lo parts
+  float* yr = yl + n * kp;                            // fp32 y_k
+  float* pv = yr + n * kp;              // two prepped states (hi, lo)
+  float* sums = pv + 4 * n;             // [kp] x (ehat, n2)
+  float* red = sums + 2 * kp;           // 2 kLimb x warps partials
+
+  const int col = blockIdx.x;
+  const int i = threadIdx.x;
+  const bool active = i < n;
+  const size_t stride = static_cast<size_t>(B);
+  const size_t plane = static_cast<size_t>(n) * B;
+  const int n_blocks = (n_steps + unroll - 1) / unroll;
+
+  float t = active ? t0[i * stride + col] : 0.f;
+  float acc = 0.f;
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    const int k0 = blk * unroll;
+    const int kn = min(unroll, n_steps - k0);
+    if (active) ck[blk * plane + i * stride + col] = t;
+    __syncthreads();   // the last block's limb has read the buffers
+    if (active) store_vec<P>(pv, pv + n, i, t);
+    // --- the spine: the state chain only
+    float s = se[k0 * stride + col];
+    float y = 0.f;
+    for (int k = 0; k < kn; ++k) {
+      __syncthreads();
+      const float s_next = k + 1 < kn ? se[(k0 + k + 1) * stride + col] : 0.f;
+      const float* ih = pv + 2 * n * (k & 1);
+      float* oh = pv + 2 * n * ((k + 1) & 1);
+      if (active) {
+        float a, b;
+        row_dot2<P>(abt, bbt, ih, ih + n, n, i, a, b);
+        y = a + s * b;
+        store_vec<P>(oh, oh + n, i, y);
+        store_vec<P>(yh + i * kp, yl + i * kp, k, y);
+        yr[i * kp + k] = y;
+      }
+      s = s_next;
+    }
+    __syncthreads();
+    // --- the limb: Rb [y_c0 .. y_c0+7] a chunk at a time, then the sums
+    for (int c0 = 0; c0 < kn; c0 += kLimb) {
+      float ru[kLimb], v[2 * kLimb], out[2 * kLimb];
+      if (active) {
+        dot_chunk<P, true>(rbt + i, n, yh + c0, yl + c0, kp, n, ru);
+      }
+#pragma unroll
+      for (int q = 0; q < kLimb; ++q) {
+        const float yq = active ? yr[i * kp + c0 + q] : 0.f;
+        v[2 * q] = active ? yq * ru[q] : 0.f;
+        v[2 * q + 1] = yq * yq;
+      }
+      block_sum_n<2 * kLimb>(v, red, out);
+      if (i == 0) {
+        for (int q = 0; q < kLimb && c0 + q < kn; ++q) {
+          sums[2 * (c0 + q)] = out[2 * q];
+          sums[2 * (c0 + q) + 1] = out[2 * q + 1];
+        }
+      }
+      __syncthreads();   // red is written again by the next chunk
+    }
+    // --- the loss tail in step order, then the exit renorm
+    if (i == 0) {
+      float n2p = 1.f;
+      for (int k = 0; k < kn; ++k) {
+        const float sk = se[(k0 + k) * stride + col];
+        float ehat = sums[2 * k];
+        ehat *= 2.f;
+        const float e = ehat / floor_at(n2p, norm_eps);
+        acc -= logf(floor_at(1.f + e * sk, log_eps));
+        n2p = sums[2 * k + 1];
+      }
+    }
+    t = y * rsqrtf(floor_at(sums[2 * (kn - 1) + 1], norm_eps));
+  }
+  if (i == 0) loss[col] = acc;
+}
+
+// kBatched fits shared memory to D=66 (160 threads), so it is compiled for
+// at most 256 threads a CTA, which leaves its chunk accumulators registers.
 template <int P, bool DEFER, int MODE>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(MODE == kBatched ? 256 : 1024)
     psi_fwd_kernel(const float* __restrict__ ab, const float* __restrict__ bb,
                    const float* __restrict__ rb, const float* __restrict__ t0,
                    const float* __restrict__ se, float* __restrict__ loss,
@@ -72,6 +193,14 @@ __global__ void __launch_bounds__(1024)
   uint32_t* abt = smem;
   uint32_t* bbt = abt + n * n;
   uint32_t* rbt = bbt + n * n;
+  if constexpr (MODE == kBatched) {
+    load_matrix_t<P>(abt, ab, n);
+    load_matrix_t<P>(bbt, bb, n);
+    load_matrix_t<P>(rbt, rb, n);
+    psi_fwd_batched<P>(abt, bbt, rbt, rbt + n * n, t0, se, loss, ck, n,
+                       n_steps, B, unroll, log_eps, norm_eps);
+    return;
+  }
   float* th = reinterpret_cast<float*>(rbt + n * n);  // prepped state t
   float* tl = th + n;
   float* yh = tl + n;                                 // prepped y
@@ -157,6 +286,7 @@ inline size_t fwd_smem_bytes(int D) {
 // Launch the forward for the runtime precision and norm flag: B CTAs, or,
 // with kRecompute, B x ceil(n_steps / span) (t0 then holds the segment's
 // checkpoints; span, the steps of one CTA, is a whole number of blocks).
+// kBatched takes the deferred norm only and writes loss and ck.
 // The pointers a MODE does not write may be null.
 template <int MODE>
 cudaError_t launch_fwd(const float* ab, const float* bb, const float* rb,
@@ -168,13 +298,17 @@ cudaError_t launch_fwd(const float* ab, const float* bb, const float* rb,
   if (unroll < 1 || span < unroll || span % unroll) {
     return cudaErrorInvalidValue;
   }
+  // the batched mode has the deferred norm only
+  if (MODE == kBatched && !defer) return cudaErrorInvalidValue;
   const dim3 grid(B, MODE == kRecompute ? (n_steps + span - 1) / span : 1);
   if (grid.y == 0) return cudaSuccess;
+  const size_t smem = MODE == kBatched ? batched_fwd_smem_bytes(D, unroll)
+                                       : fwd_smem_bytes(D);
   return dispatch(precision, defer, [&](auto p, auto d) {
     return launch_smem(
         psi_fwd_kernel<decltype(p)::value, decltype(d)::value, MODE>, grid,
-        threads_for(D), fwd_smem_bytes(D), stream, ab, bb, rb, t0, se, loss,
-        ys, n2s, ck, D, n_steps, B, unroll, span, log_eps, norm_eps);
+        threads_for(D), smem, stream, ab, bb, rb, t0, se, loss, ys, n2s, ck,
+        D, n_steps, B, unroll, span, log_eps, norm_eps);
   });
 }
 

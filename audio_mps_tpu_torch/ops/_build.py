@@ -29,7 +29,8 @@ SOURCES = ("psi_sample.cu", "psi_nll.cu", "psi_train_fwd.cu",
            "rank_partials_recompute.cu", "rank_partials_bwd.cu",
            "psi_split_sample.cu", "psi_split_nll.cu", "psi_split_fwd.cu",
            "psi_split_bwd.cu", "rho_split_sample.cu", "rho_split_nll.cu",
-           "rho_split_fwd.cu", "rho_split_bwd.cu")
+           "rho_split_fwd.cu", "rho_split_bwd.cu", "psi_batched_fwd.cu",
+           "psi_batched_bwd.cu", "psi_probe.cu")
 HEADERS = ("common.cuh", "psi_fwd.cuh", "rho_tile.cuh", "rho_fwd.cuh",
            "rank_partials.cuh", "rank_partials_fwd.cuh",
            "psi_split_fwd.cuh", "rho_split_fwd.cuh")
@@ -123,6 +124,15 @@ _SIGNATURES = {
     # part, ws, D, n_steps, B, rank, unroll, log_eps, norm_eps, precision,
     # defer_norm, stream
     "amt_rho_split_bwd": ([_P] * 17 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    # ab, bb, rb, t0, se, loss, ck, D, n_steps, B, unroll, log_eps,
+    # norm_eps, precision, stream
+    "amt_psi_batched_fwd": ([_P] * 7 + [_I] * 4 + [_F, _F, _I, _P], _I),
+    # ab, bb, rb, ck, se, g, dse, dt0, part, D, n_steps, B, unroll, log_eps,
+    # norm_eps, precision, stream
+    "amt_psi_batched_bwd": ([_P] * 9 + [_I] * 4 + [_F, _F, _I, _P], _I),
+    # ab, bb, rb, prod_t, t0, se, out, D, t_pad, B, unroll, G, mode,
+    # log_eps, norm_eps, precision, stream
+    "amt_psi_probe": ([_P] * 7 + [_I] * 6 + [_F, _F, _I, _P], _I),
     "amt_psi_sample_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_nll_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_train_fwd_smem_bytes": ([_I], ctypes.c_size_t),
@@ -140,6 +150,9 @@ _SIGNATURES = {
     "amt_rho_split_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_rho_split_bwd_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "amt_rho_split_bwd_workspace_floats": ([_I, _I, _I], ctypes.c_size_t),
+    "amt_psi_batched_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "amt_psi_batched_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "amt_psi_probe_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "amt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -14,7 +14,8 @@ Each kernel comes as a pair:
   version the CUDA kernel is held to on the card.
 * the wrapper (``psi_sample_block``, ``psi_nll_block``, ``psi_train_fwd``,
   ``psi_train_fwd_ckpt``, ``psi_recompute``, ``psi_train_bwd``,
-  ``psi_cotangents`` and their ``rho_*`` counterparts): a CPU tensor goes
+  ``psi_cotangents``, their ``rho_*`` counterparts, and psi's batched pair
+  ``psi_batched_fwd`` / ``psi_batched_bwd``): a CPU tensor goes
   to the plain version; a CUDA tensor launches the hand-written kernel
   from ``csrc/`` (built by ``ops/_build.py``) or raises. The wrapper counts
   its launches in ``.launches``. ``psi_recompute_bwd`` /
@@ -910,6 +911,227 @@ def psi_recompute_bwd(ab, bb, rb, ck, se, g, *, log_eps: float,
                           ab, bb, rb, ck, se, g, **kw)
 
 
+# ===========================================================================
+# Training: the spine/limbs pair (the TPU's batched=True knob)
+# ===========================================================================
+#
+# The TPU's _make_psi_fwd_kernel_batched (:276) and
+# _make_psi_bwd_kernel_batched (:338), deferred norm only: the serial
+# "spine" of each unroll-step block is the state recurrence alone, and the
+# "limbs" (the expectations Rb y, the loss tail, Rb^T dru and the three
+# parameter cotangents) run once a block over all of its states. The
+# forward keeps the block checkpoints, as psi_train_fwd_ckpt does; the
+# adjoint re-runs each block from its checkpoint inside the same CTA, so
+# neither ys nor dy reaches device memory. Off by default, as on the TPU.
+
+
+def _block_states(abp, bbp, t, s, prep, dotf):
+    """[K + 1, 2D, B]: t, then the block's spine y_k = Ab t_k + s_k Bb t_k
+    with t_{k+1} = y_k (unnormalised inside a block)."""
+    states = [t]
+    tp = prep(t)
+    for k in range(s.shape[0]):
+        y = dotf(abp, tp) + s[k:k + 1] * dotf(bbp, tp)
+        tp = prep(y)
+        states.append(y)
+    return torch.stack(states)
+
+
+def _block_tail(rbp, ys, prep, dotf):
+    """The block's batched limb: (RU = Rb Y, ehat [K, B], n2 [K, B], n2p
+    [K, B], the squared norm each step's e divides by: 1 at the block's
+    first step, after the entry renorm)."""
+    ru = dotf(rbp, prep(ys))
+    ehat = 2.0 * torch.sum(ys * ru, dim=1)
+    n2 = torch.sum(ys * ys, dim=1)
+    n2p = torch.cat([torch.ones_like(n2[:1]), n2[:-1]])
+    return ru, ehat, n2, n2p
+
+
+@torch.no_grad()
+def psi_batched_fwd_plain(ab, bb, rb, t0, se, *, log_eps: float,
+                          norm_eps: float, unroll: int = 16,
+                          precision: str = "highest"):
+    """(loss [B], ck [n_blocks, 2D, B]) of the deferred-norm NLL, a block at
+    a time: the K-step spine keeps the block's states, one Rb [y_1 .. y_K]
+    product gives every ehat, then the per-step loss and the exit renorm
+    (``pallas_block.py:307-333``). The last block may be partial. Plain
+    PyTorch, any device."""
+    prep, dotf = _make_dot_ops(precision)
+    abp, bbp, rbp = prep(ab), prep(bb), prep(rb)
+    n_steps = se.shape[0]
+    ck = se.new_empty((n_blocks(n_steps, unroll),) + tuple(t0.shape))
+    t = t0
+    acc = torch.zeros_like(t0[0])
+    for j in range(ck.shape[0]):
+        s = se[j * unroll:(j + 1) * unroll]
+        ck[j] = t
+        ys = _block_states(abp, bbp, t, s, prep, dotf)[1:]
+        _, ehat, n2, n2p = _block_tail(rbp, ys, prep, dotf)
+        e = ehat / torch.clamp(n2p, min=norm_eps)
+        for k in range(s.shape[0]):
+            acc = acc - torch.log(torch.clamp(1.0 + e[k] * s[k],
+                                              min=log_eps))
+        t = ys[-1] * torch.rsqrt(torch.clamp(n2[-1], min=norm_eps))
+    return acc, ck
+
+
+@torch.no_grad()
+def psi_batched_bwd_plain(ab, bb, rb, ck, se, g, *, log_eps: float,
+                          norm_eps: float, unroll: int = 16,
+                          precision: str = "highest"):
+    """Adjoint of ``psi_batched_fwd`` for the loss cotangent g [B]: (dse
+    [n_steps, B], dt0 [2D, B], dAb, dBb, dRb), blocks last first
+    (``pallas_block.py:338-458``): the spine re-run from ck; the batched
+    tail (Rb Y, the forward-computable e, arg, darg, dehat and dn2 rows,
+    then Rb^T dRU); the serial reverse spine dy -> (Ab^T dy, Bb^T dy); and
+    per block the three lane contractions dy t^T, dy (s t)^T and dru y^T.
+    The dn2 bookkeeping is ``psi_train_bwd_plain``'s: the block-exit
+    renorm seeds the block's last step, a block's first step drops its
+    dn2_new, and with no cotangent after the last real step its dn2 is 0.
+    dse has the real steps' rows only. Plain PyTorch, any device."""
+    prep, dotf, dotnt = _make_dot_ops_bwd(precision)
+    abp, bbp, rbp = prep(ab), prep(bb), prep(rb)
+    abT, bbT, rbT = prep(ab.T), prep(bb.T), prep(rb.T)
+    n = ab.shape[0]
+
+    def lanes(x):                                       # [2D, K * B]
+        return x.transpose(0, 1).reshape(n, -1)
+
+    dse = torch.empty_like(se)
+    dt = torch.zeros_like(ck[0])
+    dab, dbb, drb = (torch.zeros_like(ab) for _ in range(3))
+    for j in reversed(range(ck.shape[0])):
+        k0 = j * unroll
+        s = se[k0:k0 + unroll]
+        states = _block_states(abp, bbp, ck[j], s, prep, dotf)
+        ts, ys = states[:-1], states[1:]
+        ru, ehat, n2, n2p = _block_tail(rbp, ys, prep, dotf)
+        # the block-exit renorm's adjoint seeds the last step
+        inv = torch.rsqrt(torch.clamp(n2[-1], min=norm_eps))
+        dinv = torch.sum(dt * ys[-1], dim=0)
+        dn2_exit = torch.where(n2[-1] > norm_eps,
+                               -0.5 * dinv * inv * inv * inv,
+                               torch.zeros_like(dinv))
+        dt = dt * inv
+        n2p_c = torch.clamp(n2p, min=norm_eps)
+        e = ehat / n2p_c
+        arg = torch.clamp(1.0 + e * s, min=log_eps)
+        darg = torch.where(arg > log_eps, -g / arg, torch.zeros_like(arg))
+        de = darg * s
+        dehat = de / n2p_c
+        dn2_new = torch.where(n2p > norm_eps, -de * e / n2p_c,
+                              torch.zeros_like(de))
+        # the dn2 used at step k: step k+1's dn2_new, the exit's at the last
+        dn2 = torch.cat([dn2_new[1:], dn2_exit[None]])
+        dru = (2.0 * dehat)[:, None, :] * ys
+        c = ((ys * (2.0 * dn2)[:, None, :] + ru * (2.0 * dehat)[:, None, :])
+             + dotf(rbT, prep(dru)))
+        dys = torch.empty_like(ys)
+        for k in reversed(range(s.shape[0])):
+            dy = dt + c[k]
+            dys[k] = dy
+            pdy = prep(dy)
+            du = dotf(bbT, pdy)
+            dse[k0 + k] = darg[k] * e[k] + torch.sum(du * ts[k], dim=0)
+            dt = dotf(abT, pdy) + s[k] * du
+        pdy = prep(lanes(dys))
+        dab += dotnt(pdy, prep(lanes(ts)))
+        dbb += dotnt(pdy, prep(lanes(s[:, None, :] * ts)))
+        drb += dotnt(prep(lanes(dru)), prep(lanes(ys)))
+    return dse, dt, dab, dbb, drb
+
+
+def _batched_opts(opts: dict) -> dict:
+    """``PsiBlockNLL``'s opts without defer_norm (the batched pair has the
+    deferred norm only)."""
+    return {k: v for k, v in opts.items() if k != "defer_norm"}
+
+
+def _batched_checks(name, ab, bb, rb, se, precision, unroll, **more):
+    """Check the batched pair's inputs; returns (n_steps, B, D)."""
+    _check_options(precision, unroll)
+    n_steps, B = se.shape
+    n = ab.shape[0]
+    _check_inputs(name, se.device, dict(
+        ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)),
+        se=(se, (n_steps, B)), **{k: (x, shape(n, B)) for k, (x, shape)
+                                  in more.items()}))
+    return n_steps, B, n // 2
+
+
+@torch.no_grad()
+def psi_batched_fwd(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
+                    unroll: int = 16, precision: str = "highest"):
+    """(loss [B], ck): ``psi_batched_fwd_plain`` for CPU tensors, the CUDA
+    kernel ``csrc/psi_batched_fwd.cu`` (the kBatched mode of
+    ``psi_fwd.cuh``) for CUDA tensors."""
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision)
+    if _cuda_or_raise("psi_batched_fwd", se):
+        return psi_batched_fwd_plain(ab, bb, rb, t0, se, **kw)
+    n_steps, B, D = _batched_checks(
+        "psi_batched_fwd", ab, bb, rb, se, precision, unroll,
+        t0=(t0, lambda n, b: (n, b)))
+    lib = _build.library()
+    _check_smem("psi_batched_fwd",
+                lib.amt_psi_batched_fwd_smem_bytes(D, unroll), se.device, D)
+    loss = se.new_empty((B,))
+    ck = se.new_empty((n_blocks(n_steps, unroll), 2 * D, B))
+    if B == 0:
+        return loss, ck
+    err = lib.amt_psi_batched_fwd(
+        _ptr(ab), _ptr(bb), _ptr(rb), _ptr(t0), _ptr(se), _ptr(loss),
+        _ptr(ck), D, n_steps, B, unroll, log_eps, norm_eps,
+        PRECISIONS.index(precision), _stream_ptr(se.device))
+    _build.check(lib, err, "psi_batched_fwd")
+    psi_batched_fwd.launches += 1
+    return loss, ck
+
+
+psi_batched_fwd.launches = 0
+
+
+@torch.no_grad()
+def psi_batched_bwd(ab, bb, rb, ck, se, g, *, log_eps: float,
+                    norm_eps: float, unroll: int = 16,
+                    precision: str = "highest"):
+    """(dse, dt0, dAb, dBb, dRb): ``psi_batched_bwd_plain`` for CPU tensors,
+    the CUDA kernel ``csrc/psi_batched_bwd.cu`` for CUDA tensors. Each CTA
+    writes its column's three [2D,2D] sums to its own row of a [B, 3, 2D,
+    2D] buffer, which is summed here over the columns in a fixed order, so
+    two runs are equal bit for bit."""
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision)
+    if _cuda_or_raise("psi_batched_bwd", se):
+        return psi_batched_bwd_plain(ab, bb, rb, ck, se, g, **kw)
+    n_steps, B, D = _batched_checks(
+        "psi_batched_bwd", ab, bb, rb, se, precision, unroll,
+        ck=(ck, lambda n, b: (n_blocks(se.shape[0], unroll), n, b)),
+        g=(g, lambda n, b: (b,)))
+    lib = _build.library()
+    _check_smem("psi_batched_bwd",
+                lib.amt_psi_batched_bwd_smem_bytes(D, unroll), se.device, D)
+    n = 2 * D
+    dse = torch.empty_like(se)
+    dt0 = se.new_empty((n, B))
+    # zeros: over no step the kernel writes no row (and dt0 = 0)
+    part = se.new_zeros((B, 3, n, n))
+    if B > 0:
+        err = lib.amt_psi_batched_bwd(
+            _ptr(ab), _ptr(bb), _ptr(rb), _ptr(ck), _ptr(se), _ptr(g),
+            _ptr(dse), _ptr(dt0), _ptr(part), D, n_steps, B, unroll,
+            log_eps, norm_eps, PRECISIONS.index(precision),
+            _stream_ptr(se.device))
+        _build.check(lib, err, "psi_batched_bwd")
+        psi_batched_bwd.launches += 1
+    tot = part.sum(dim=0)
+    return dse, dt0, tot[0], tot[1], tot[2]
+
+
+psi_batched_bwd.launches = 0
+
+
 class PsiBlockNLL(torch.autograd.Function):
     """Per-example NLL [B] over the block constants with a kernel adjoint:
     the counterpart of ``_psi_block_factory``'s custom VJP
@@ -920,15 +1142,23 @@ class PsiBlockNLL(torch.autograd.Function):
     (``psi_train_fwd``, then ``psi_train_bwd`` and ``psi_cotangents`` over
     the whole stream); an int runs the checkpoint forward
     (``psi_train_fwd_ckpt``) and the recompute adjoint
-    (``psi_recompute_bwd``) in time segments of that many steps. Only the
-    values handed to the kernels are detached; autograd carries the
-    cotangents on to the parameters outside."""
+    (``psi_recompute_bwd``) in time segments of that many steps;
+    ``"batched"`` runs the spine/limbs pair (``psi_batched_fwd``,
+    ``psi_batched_bwd``; the TPU factory's ``batched=True``), which needs
+    ``defer_norm``. Only the values handed to the kernels are detached;
+    autograd carries the cotangents on to the parameters outside."""
 
     @staticmethod
     def forward(ctx, ab, bb, rb, t0, se, opts, segment):
         ins = [_as_kernel_input(x) for x in (ab, bb, rb, t0, se)]
         ctx.opts, ctx.segment = opts, segment
-        if segment is None:
+        if segment == "batched":
+            if not opts["defer_norm"]:
+                raise ValueError("the batched kernels implement the "
+                                 "deferred-normalization semantics only")
+            loss, ck = psi_batched_fwd(*ins, **_batched_opts(opts))
+            ctx.save_for_backward(*ins, ck)
+        elif segment is None:
             loss, ys, n2s = psi_train_fwd(*ins, **opts)
             ctx.save_for_backward(*ins, ys, n2s)
         else:
@@ -939,6 +1169,11 @@ class PsiBlockNLL(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         opts, g = ctx.opts, _as_kernel_input(g)
+        if ctx.segment == "batched":
+            ab, bb, rb, _, se, ck = ctx.saved_tensors
+            dse, dt0, dab, dbb, drb = psi_batched_bwd(
+                ab, bb, rb, ck, se, g, **_batched_opts(opts))
+            return dab, dbb, drb, dt0, dse, None, None
         if ctx.segment is not None:
             ab, bb, rb, _, se, ck = ctx.saved_tensors
             dse, dt0, dab, dbb, drb = psi_recompute_bwd(
@@ -998,7 +1233,8 @@ def _stream_or_segment(cfg: CMPSConfig, cols: int, T: int, device,
 def psi_nll_block_trainable_from_state(params, cfg: CMPSConfig, signals,
                                        psi0_pair, *, unroll: int = 16,
                                        precision: str = "highest",
-                                       defer_norm: bool = False):
+                                       defer_norm: bool = False,
+                                       batched: bool = False):
     """Differentiable block-layout per-example NLL [B] of waveforms [B, T]
     from per-example initial states (pr0, pi0) [B, D] (the TPU's
     ``pallas_block.psi_nll_block_trainable_from_state`` with
@@ -1006,13 +1242,16 @@ def psi_nll_block_trainable_from_state(params, cfg: CMPSConfig, signals,
     are built with autograd; the loss and its adjoint go through
     ``PsiBlockNLL``: the streamed-states pair where ``auto_stream`` lets
     the stream run, else the checkpoint forward and the recompute adjoint
-    in time segments of ``recompute_segment_steps``."""
+    in time segments of ``recompute_segment_steps``. ``batched`` runs the
+    spine/limbs pair instead (the TPU factory's ``batched=True``; off by
+    default there and here, and only with ``defer_norm``)."""
     if not supports_block(cfg):
         raise ValueError(
             f"block layout requires bond_dim % 4 == 0, got {cfg.bond_dim}")
     _check_options(precision, unroll)
     B, T = signals.shape
-    segment = _stream_or_segment(cfg, B, T, signals.device, unroll)
+    segment = ("batched" if batched
+               else _stream_or_segment(cfg, B, T, signals.device, unroll))
     cc = make_constants(params, cfg)
     se = (signals[:, 1:] - signals[:, :-1]).T / cc.A      # [T-1, B]
     pr0, pi0 = psi0_pair
@@ -1026,7 +1265,7 @@ def psi_nll_block_trainable_from_state(params, cfg: CMPSConfig, signals,
 
 def psi_nll_block_trainable(params, cfg: CMPSConfig, signals, *,
                             unroll: int = 16, precision: str = "highest",
-                            defer_norm: bool = False):
+                            defer_norm: bool = False, batched: bool = False):
     """Differentiable mean NLL with the model's own initial state
     (semantics of ``core.psi_nll``; the TPU's
     ``pallas_block.psi_nll_block_trainable``)."""
@@ -1035,7 +1274,7 @@ def psi_nll_block_trainable(params, cfg: CMPSConfig, signals, *,
     pair = (pr0[None].expand(B, -1), pi0[None].expand(B, -1))
     return psi_nll_block_trainable_from_state(
         params, cfg, signals, pair, unroll=unroll, precision=precision,
-        defer_norm=defer_norm).mean()
+        defer_norm=defer_norm, batched=batched).mean()
 
 
 # ===========================================================================

@@ -88,8 +88,24 @@ failure (the script then exits non-zero):
    steps: the rho split pair once a step, no other kernel); the sample
    CLI with ``mps_model=rho_mps`` and ``rho_nll_fused`` through the split
    sampler and NLL; the four kernels' CUDA-event times beside their
-   bounds, one estimator step's time, and the bounds of the kernel
-   table's unported rows.
+   bounds and one estimator step's time;
+12. psi's spine/limbs training pair (``batched_phases``, after psi's
+   recompute phases; the TPU factory's ``batched=True``, off by default) at
+   D=64, B=128, T=16384, highest, deferred norm: the batched forward held
+   to its plain version over the whole run and on the T=2048 prefix, and
+   to the checkpoint forward bit for bit; the adjoint on the prefix; both
+   at highest and high with controls at ``default``; the batched pair vs
+   the streamed pair (loss and six gradients); two adjoint runs bit for
+   bit; three Adam steps through the batched loss (only the batched pair
+   launches); one step's time and peak memory beside the streamed and
+   recompute steps'; the two kernels' CUDA-event times beside their
+   bounds;
+13. the floor probe (``probe_phases``; ``tools/probe8_psi_floor.py``'s
+   kernel): the port tool's card correctness pass (every variant against
+   ``core.psi_nll`` at D=64, B=128, T=257) and timing pass (T=16385, high
+   and highest); each variant and the chain-only diagnostic held to its
+   plain version per column at T=257, with controls at ``default``; each
+   variant's CUDA-event time and ns a step beside its bound.
 
 It prints each phase's measurements, the card line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -98,6 +114,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -351,8 +368,8 @@ def _recompute_kernel_names(family: str) -> dict:
 
 def _training_wrappers() -> dict:
     """Every training kernel wrapper, both families' and the rank
-    partials', streamed and recompute path, and both split pairs, by
-    name."""
+    partials', streamed and recompute path, both split pairs and psi's
+    batched pair, by name."""
     from audio_mps_tpu_torch.ops import block, rank, split
     counted = {k: getattr(block, k) for f in ("psi", "rho")
                for k in _train_kernel_names(f).values()}
@@ -362,6 +379,7 @@ def _training_wrappers() -> dict:
                    + RANK_RECOMPUTE_KERNELS)
     counted.update((k, getattr(split, k)) for k in (
         "psi_split_fwd", "psi_split_bwd", "rho_split_fwd", "rho_split_bwd"))
+    counted.update((k, getattr(block, k)) for k in BATCHED_KERNELS)
     return counted
 
 
@@ -780,27 +798,30 @@ def _hold_to_plain(tag, prec, o, calls, want, labels, tols, err_at, ctrl,
         del got
 
 
-def _off_vs_streamed(tag, nll, params, from_numpy, cfg, dev):
+def _off_vs_streamed(tag, nll, params, from_numpy, cfg, dev, other=None,
+                     label="off"):
     """The loss and six gradients of ``nll(q, cfg)`` (the streamed path)
-    and of ``nll(q, cfg with kernel_stream="off")``, each on a fresh copy
-    of ``params``, held to each other at TOL_OFF; returns the readings."""
+    and of ``nll(q, cfg with kernel_stream="off")`` (or, given, of
+    ``other(q, cfg)``, read as ``label``), each on a fresh copy of
+    ``params``, held to each other at TOL_OFF; returns the readings."""
     from audio_mps_tpu_torch import weights
     res = {}
-    for label, c in (("streamed", cfg),
-                     ("off", dataclasses.replace(cfg, kernel_stream="off"))):
+    off = dataclasses.replace(cfg, kernel_stream="off")
+    for path, fn, c in (("streamed", nll, cfg),
+                        ("off", other or nll, cfg if other else off)):
         q = from_numpy(weights.params_to_numpy(params), dev)
-        loss = nll(q, c)
+        loss = fn(q, c)
         loss.backward()
-        res[label] = (loss.detach(), q)
+        res[path] = (loss.detach(), q)
     torch.cuda.synchronize()
     _, rel = rel_err(res["off"][0], res["streamed"][0])
     line = [f"loss {rel:.2e}"]
-    check(rel <= TOL_OFF[0], f"{tag} off vs streamed loss: {rel:.3e}")
+    check(rel <= TOL_OFF[0], f"{tag} {label} vs streamed loss: {rel:.3e}")
     for pname in q.NAMES:
         _, rel = rel_err(getattr(res["off"][1], pname).grad,
                          getattr(res["streamed"][1], pname).grad)
         line.append(f"d{pname} {rel:.2e}")
-        check(rel <= TOL_OFF[1], f"{tag} off vs streamed gradient of "
+        check(rel <= TOL_OFF[1], f"{tag} {label} vs streamed gradient of "
                                  f"{pname}: {rel:.3e}")
     return line
 
@@ -2537,28 +2558,370 @@ def rho_split_phases(dev):
     return entries
 
 
-def unported_bounds():
-    """Print the bounds of the kernel table's unported rows at the shapes of
-    the ported rows they mirror (no card work): row 3e, the spine/limbs psi
-    training pair (pallas_block.py:276, :338), at row 3a's D=64, B=128,
-    T=16384, with the products of rows 3a (forward 3) and 3b + 3b' (adjoint
-    and reductions 4 + 3); row 14, the probe's forward-only psi NLL
-    (tools/probe8_psi_floor.py:62), at row 2's, 3 products (2 in its
-    chain-only diagnostic)."""
+# psi's spine/limbs training pair (row 3e: the TPU factory's batched=True,
+# deferred norm only; off on the default path) at the training headline.
+# Holds, max|kernel - plain| <= TOL * max|plain|: the forward (loss, ck)
+# over the whole run at the streamed forward's full-length limit
+# (TOL_TRAIN fwd, as row 3d's checkpoint forward is held over its run) and
+# on the T=2048 prefix at TOL_CKPT; the adjoint (dse, dt0 and the three
+# cotangents, fed the plain checkpoints) on the prefix at TOL_RECOMPUTE_BWD,
+# both at highest and high, with the kernels at default as the controls of
+# the high limits. The batched pair against the streamed pair: TOL_OFF.
+BATCHED_KERNELS = ("psi_batched_fwd", "psi_batched_bwd")
+BATCHED_STEPS = 3      # Adam steps through the batched loss
+
+
+def _adam_steps(dev, cfg, params, T, seed, steps, batched):
+    """``steps`` Adam steps (``training.make_optimizer``) on a copy of
+    ``params`` through the mean block NLL (``psi_nll_block_trainable``,
+    the streamed or recompute pair as ``cfg.kernel_stream`` picks, or the
+    batched pair), on damped-sine batches: (host-clock ms a step after the
+    first, synchronised; peak device memory of those steps; the losses)."""
+    from audio_mps_tpu_torch import weights
+    from audio_mps_tpu_torch.data import damped_sine_iterator
+    from audio_mps_tpu_torch.ops import block
+    from audio_mps_tpu_torch.training import make_optimizer
+
+    p = weights.psi_params_from_numpy(weights.params_to_numpy(params), dev)
+    opt = make_optimizer(cfg, p)
+    data = damped_sine_iterator(cfg, T, seed=seed, device=dev)
+    losses, times = [], []
+    for k in range(steps):
+        batch = next(data)
+        if k == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = block.psi_nll_block_trainable(
+            p, cfg, batch, precision=cfg.kernel_precision,
+            defer_norm=cfg.defer_norm, batched=batched)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(x) for x in losses),
+          f"non-finite losses {losses}")
+    check(all(bool(torch.isfinite(getattr(p, k)).all()) for k in p.NAMES),
+          "non-finite parameters after the Adam steps")
+    del p, opt, data
+    _free()
+    return statistics.mean(times[1:]), peak, losses
+
+
+def batched_phases(dev, fam: Family, library_ms: float):
+    """Row 3e at psi's training headline (D=64, B=128, T=16384, highest,
+    unroll 16, deferred norm): the batched forward and adjoint vs their
+    plain versions (the forward over the whole run and the prefix, the
+    adjoint on the T=2048 prefix, highest and high, controls at default);
+    vs the checkpoint forward bit for bit and the streamed pair (loss and
+    six gradients); two adjoint runs bit for bit; three Adam steps through
+    the batched loss, in which only the batched pair launches; the kernels'
+    CUDA-event times beside their bounds, and one step's time and peak
+    memory beside the streamed and recompute steps'. ``library_ms``: the
+    three reductions as ``torch.matmul`` at this shape, measured in
+    ``train_phases``. Returns the two kernels' entries."""
+    from audio_mps_tpu_torch import weights
+    from audio_mps_tpu_torch.data import damped_sine_batch
+    from audio_mps_tpu_torch.ops import block
+    from audio_mps_tpu_torch.ops.scan import DEFAULT_UNROLL
+
+    cfg, B, T = fam.cfg, fam.B, fam.T
+    check(cfg.defer_norm, "the batched pair needs the deferred norm")
+    unroll = DEFAULT_UNROLL
     n = 2 * D
-    lane_steps = (T_NLL - 1) * B_NLL
-    fwd_words = lane_steps + 3 * n * n + n * B_NLL + B_NLL
-    line = []
-    for name, products, words in (
-            ("row 3e forward", 3, fwd_words),
-            ("row 3e adjoint and reductions", 7,
-             2 * lane_steps + 6 * n * n + 2 * n * B_NLL + B_NLL),
-            ("row 14 NLL", 3, fwd_words),
-            ("row 14 chain-only diagnostic", 2, fwd_words)):
-        bound, by = bound_ms(products * 2 * n * n * lane_steps, 4 * words)
-        line.append(f"{name} {bound:.3f} ms by {by}")
-    print("  bounds of the unported rows (D=64, B=128, T=16384): "
-          + "; ".join(line), flush=True)
+    fwd, bwd = block.psi_batched_fwd, block.psi_batched_bwd
+    fwd_p, bwd_p = block.psi_batched_fwd_plain, block.psi_batched_bwd_plain
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(fam.seed + 5),
+                            B, T, cfg.delta_t)
+    ins = block.psi_nll_inputs(fam.params, cfg, sig)
+    eps = dict(log_eps=ins.pop("log_eps"), norm_eps=ins.pop("norm_eps"))
+    con = (ins["ab"], ins["bb"], ins["rb"])
+    pre = dict(ins, se=ins["se"][:T_PREFIX - 1].contiguous())
+    g = torch.full((B,), 1.0 / B, device=dev)
+    shape = f"D={D}, B={B}"
+
+    phase(f"psi batched pair (row 3e) vs plain ({shape}): the forward at "
+          f"T={T} and on the T={T_PREFIX} prefix, the adjoint on the prefix")
+    o = dict(unroll=unroll, precision="highest")
+    plain_ms = {}
+    plain_ms["fwd"], want = timed(lambda: fwd_p(**ins, **eps, **o))
+    got = fwd(**ins, **eps, **o)
+    ckpt = block.psi_train_fwd_ckpt(**ins, **eps, **o, defer_norm=True)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], ckpt[0]) and torch.equal(got[1], ckpt[1]),
+          "the batched forward's loss and ck are not the checkpoint "
+          "forward's bits")
+    tol = TOL_TRAIN["highest"]["fwd"]
+    readings, err_fwd = _readings(f"highest T={T}", _hold_outputs(
+        f"psi_batched_fwd highest T={T}", ("loss", "ck"), got, want, tol))
+    print(f"  highest T={T} (tol {tol:g}), x max|plain|: "
+          + ", ".join(readings) + f"; equal to psi_train_fwd_ckpt's bits; "
+          f"plain {plain_ms['fwd']:.1f} ms", flush=True)
+    del want, got, ckpt
+    _free()
+    err_at, ctrl = {"fwd": err_fwd}, {}
+    labels = {"fwd": ("loss", "ck"),
+              "bwd": ("dse", "dt0", "dAb", "dBb", "dRb")}
+    tols = {"fwd": TOL_CKPT, "bwd": TOL_RECOMPUTE_BWD}
+    for prec in ("highest", "high"):
+        o = dict(unroll=unroll, precision=prec)
+        f_p = fwd_p(**pre, **eps, **o)
+        t_b, b_p = timed(lambda: bwd_p(*con, f_p[1], pre["se"], g, **eps,
+                                       **o))
+        if prec == "highest":
+            plain_ms["bwd"] = t_b
+        want = {"fwd": f_p, "bwd": b_p}
+        calls = {"fwd": lambda **x: fwd(**pre, **eps, **x),
+                 "bwd": lambda **x: bwd(*con, f_p[1], pre["se"], g, **eps,
+                                        **x)}
+        line = []
+        for role, fn in calls.items():
+            got = fn(**o)
+            torch.cuda.synchronize()
+            readings, worst = _readings(prec, _hold_outputs(
+                f"psi_batched_{role} {prec}", labels[role], got, want[role],
+                tols[role][prec]))
+            line += readings
+            if prec == "highest":
+                err_at[role] = max(err_at.get(role, 0.0), worst)
+            else:
+                ctrl[role] = _control(
+                    f"psi_batched_{role}",
+                    lambda: fn(**dict(o, precision="default")), want[role],
+                    tols[role]["high"])
+            del got
+        print(f"  T={T_PREFIX} {prec} (tol fwd {tols['fwd'][prec]:g}, bwd "
+              f"{tols['bwd'][prec]:g}), x max|plain|: " + ", ".join(line),
+              flush=True)
+        del f_p, b_p, want
+        _free()
+    print(f"  control, kernels at default vs plain at high (must exceed the "
+          f"high limits): forward {ctrl['fwd']:.2e}, adjoint "
+          f"{ctrl['bwd']:.2e}; plain adjoint {plain_ms['bwd']:.1f} ms at "
+          f"T={T_PREFIX}", flush=True)
+
+    phase(f"psi batched pair vs the streamed pair on the card ({shape}, "
+          f"T={T})")
+    _, ck = fwd(**ins, **eps, unroll=unroll)
+    runs = [bwd(*con, ck, ins["se"], g, **eps, unroll=unroll)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "two runs of the batched adjoint differ")
+    del runs
+    _free()
+
+    def nll(q, c, batched=False):
+        return block.psi_nll_block_trainable(
+            q, c, sig, precision=cfg.kernel_precision,
+            defer_norm=cfg.defer_norm, batched=batched)
+
+    line = _off_vs_streamed(
+        "psi", nll, fam.params, weights.psi_params_from_numpy, cfg, dev,
+        other=lambda q, c: nll(q, c, batched=True), label="batched")
+    print(f"  two runs of the batched adjoint equal bit for bit; batched vs "
+          f"streamed x max|streamed| (tol {TOL_OFF[0]:g} / {TOL_OFF[1]:g}): "
+          + ", ".join(line), flush=True)
+
+    phase(f"psi batched pair: {BATCHED_STEPS} Adam steps through the batched "
+          f"loss ({shape}, T={T}), then the streamed and recompute steps")
+    counted = _training_wrappers()
+    for fn in counted.values():
+        fn.launches = 0
+    step_ms, peak, losses = {}, {}, {}
+    step_ms["batched"], peak["batched"], losses["batched"] = _adam_steps(
+        dev, cfg, fam.params, T, fam.seed + 6, BATCHED_STEPS, True)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    for k, count in launches.items():
+        want_n = BATCHED_STEPS if k in BATCHED_KERNELS else 0
+        check(count == want_n, f"{k} launched {count} times in the "
+                               f"{BATCHED_STEPS} batched Adam steps")
+    for label, kind in (("streamed", "on"), ("recompute", "off")):
+        c = dataclasses.replace(cfg, kernel_stream=kind)
+        step_ms[label], peak[label], losses[label] = _adam_steps(
+            dev, c, fam.params, T, fam.seed + 6, BATCHED_STEPS, False)
+    # the same batches from the same weights: the first step's loss is the
+    # same function on each path
+    for label in ("streamed", "recompute"):
+        _, rel = rel_err(torch.tensor(losses["batched"][0]),
+                         torch.tensor(losses[label][0]))
+        check(rel <= TOL_OFF[0], f"batched vs {label}: first loss {rel:.3e}")
+    print(f"  launches in the {BATCHED_STEPS} steps: "
+          + ", ".join(f"{k} {launches[k]}" for k in BATCHED_KERNELS)
+          + ", every other training kernel 0; losses "
+          + ", ".join(f"{x:.6f}" for x in losses["batched"]), flush=True)
+    print("  one step (host clock, mean of steps 2-3, synchronised): "
+          + "; ".join(f"{k} {step_ms[k]:.2f} ms, peak {peak[k] / 1e9:.3f} GB"
+                      for k in ("batched", "streamed", "recompute"))
+          + f"; {B * (T - 1) / step_ms['batched'] * 1e3:.4e} frames/s "
+          f"batched", flush=True)
+
+    phase(f"psi batched pair timings ({shape}, T={T}, CUDA events, median "
+          f"of 5 after 1 warm-up)")
+    ms = {}
+    for prec in ("highest", "high"):
+        _, ck_p = fwd(**ins, **eps, unroll=unroll, precision=prec)
+        t_f = median_ms(lambda: fwd(**ins, **eps, unroll=unroll,
+                                    precision=prec))
+        t_b = median_ms(lambda: bwd(*con, ck_p, ins["se"], g, **eps,
+                                    unroll=unroll, precision=prec))
+        if prec == "highest":
+            ms = {"fwd": t_f, "bwd": t_b}
+        print(f"  {prec}: forward {t_f:.3f} ms, adjoint {t_b:.3f} ms",
+              flush=True)
+        del ck_p
+    ex_steps = (T - 1) * B
+    ck_elems = ck.numel()
+    del ck
+    _free()
+    # forward: the three products of the streamed forward; bytes of se,
+    # the constants, t0, loss and ck once. Adjoint: the recompute adjoint's
+    # bound (row 3d): re-run, adjoint and reductions, 2 + 4 + 3 products
+    f_bound = bound_ms(TRAIN_PRODUCTS["psi"]["fwd"] * 2 * n * n * ex_steps,
+                       4 * (ex_steps + 3 * n * n + n * B + B + ck_elems))
+    bounds = {"fwd": f_bound,
+              "bwd": _adjoint_bound("psi", n, ex_steps, ex_steps, ck_elems,
+                                    B, B)}
+    no_rerun = bounds["bwd"][0] * (
+        (TRAIN_PRODUCTS["psi"]["bwd"] + TRAIN_PRODUCTS["psi"]["cot"])
+        / (RECOMPUTE_PRODUCTS["psi"] + TRAIN_PRODUCTS["psi"]["bwd"]
+           + TRAIN_PRODUCTS["psi"]["cot"]))
+    entries = []
+    for role, name in zip(("fwd", "bwd"), BATCHED_KERNELS):
+        bound, by = bounds[role]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"audio_mps_tpu_torch/csrc/{name}.cu",
+            "replaces": "audio_mps_tpu/ops/pallas_block.py:"
+                        + ("276" if role == "fwd" else "338"),
+            "launches": launches[name], "max_abs_err": err_at[role],
+            "ms": ms[role], "plain_ms": plain_ms[role], "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": library_ms if role == "bwd" else None})
+        print(f"  {name}: {ms[role]:.3f} ms, {bound / ms[role] * 100:.2f}% "
+              f"of its bound {bound:.3f} ms by {by}; launches "
+              f"{launches[name]}; plain {plain_ms[role]:.1f} ms at T="
+              f"{T if role == 'fwd' else T_PREFIX}; control at default "
+              f"{ctrl[role]:.2e}"
+              + (f"; torch.matmul of the three reductions {library_ms:.3f} "
+                 f"ms; {no_rerun:.3f} ms without the re-run's two products"
+                 if role == "bwd" else ""), flush=True)
+    return entries
+
+
+# The floor probe (row 14, tools/probe8_psi_floor.py): the port tool's
+# card passes, then each variant against its plain version at the
+# correctness shape (D=64, B=128, T=257, K=16), max|kernel - plain| <= TOL
+# x max|plain| of the per-column values at highest and high, controls at
+# default; then the tool's time of each variant at the timing shape
+# (D=64, B=128, T=16385, K=16) beside its bound.
+def probe_phases(dev):
+    """Row 14: returns the probe kernel's entry of the {"kernels": [...]}
+    line (its time: the G=1 variant at highest)."""
+    from audio_mps_tpu_torch.config import CMPSConfig
+    from audio_mps_tpu_torch.data import damped_sine_batch
+    from audio_mps_tpu_torch.models.params import init_psi
+    from audio_mps_tpu_torch.ops import block, probe
+    from audio_mps_tpu_torch.tools import probe8_psi_floor as tool
+
+    phase("floor probe (row 14): the port tool's card passes, correctness "
+          f"at (D, B, T, K) = {tool.CARD_SHAPE}, timing at "
+          f"{tool.TIMING_SHAPE}")
+    probe.psi_probe_columns.launches = 0
+    tool.check_variants(dev)
+    timings = tool.time_variants(dev)
+    launches = probe.psi_probe_columns.launches
+    # one run a variant and precision in the correctness pass; 2 warm-ups
+    # and 8 timed runs in the timing pass
+    check(launches == len(tool.VARIANTS) * len(tool.PRECISIONS)
+          + len(tool.TIMED) * len(tool.PRECISIONS) * (2 + 8),
+          f"the tool launched the probe kernel {launches} times")
+
+    def inputs(shape):
+        Dp, Bp, Tp, _ = shape
+        cfg = CMPSConfig(bond_dim=Dp, minibatch_size=Bp)
+        params = init_psi(torch.Generator(dev).manual_seed(0), cfg,
+                          device=dev)
+        sig = damped_sine_batch(torch.Generator(dev).manual_seed(1), Bp, Tp,
+                                cfg.delta_t)
+        ins = block.psi_nll_inputs(params, cfg, sig)
+        consts = (ins["ab"], ins["bb"], ins["rb"]) + probe.probe_products(
+            ins["ab"], ins["bb"])
+        return consts, ins
+
+    variants = [(g, p, False) for g, p in tool.VARIANTS] + [(1, False, True)]
+    phase(f"floor probe kernel vs plain per column, T={tool.CARD_SHAPE[2]}")
+    consts, ins = inputs(tool.CARD_SHAPE)
+    K = tool.CARD_SHAPE[3]
+    worst, ctrl = 0.0, float("inf")
+    for G, paired, noloss in variants:
+        line = []
+        for prec in ("highest", "high"):
+            kw = dict(G=G, paired=paired, noloss=noloss, unroll=K,
+                      log_eps=ins["log_eps"], norm_eps=ins["norm_eps"])
+            want = probe.psi_probe_columns_plain(consts, ins["t0"], ins["se"],
+                                                 precision=prec, **kw)
+            got = probe.psi_probe_columns(consts, ins["t0"], ins["se"],
+                                          precision=prec, **kw)
+            torch.cuda.synchronize()
+            res = _hold_outputs(f"probe {tool.tag(G, paired, noloss)} {prec}",
+                                ("values",), (got,), (want,), TOL[prec])
+            line.append(f"{prec} {res['values'][1]:.2e}")
+            if prec == "highest":
+                worst = max(worst, res["values"][0])
+            else:
+                c = _control(f"probe {tool.tag(G, paired, noloss)}",
+                             lambda: probe.psi_probe_columns(
+                                 consts, ins["t0"], ins["se"],
+                                 precision="default", **kw), want,
+                             TOL["high"])
+                ctrl = min(ctrl, c)
+                line.append(f"control {c:.2e}")
+        print(f"  {tool.tag(G, paired, noloss)} (tol {TOL['highest']:g} / "
+              f"{TOL['high']:g}), x max|plain|: " + ", ".join(line),
+              flush=True)
+    del consts, ins
+    _free()
+
+    Dt, Bt, Tt, Kt = tool.TIMING_SHAPE
+    phase(f"floor probe timings (D={Dt}, B={Bt}, T={Tt}, K={Kt}): the "
+          f"tool's (CUDA events, the mean of 8 runs of its run(), inputs "
+          f"built in each) beside the bounds; the G=1 kernel alone (median "
+          f"of 5 after 1 warm-up) and its plain version (one run)")
+    consts, ins = inputs(tool.TIMING_SHAPE)
+    n = 2 * Dt
+    ex_steps = (Tt - 1) * Bt
+    # the fewest [2D,2D] products a column-step: 3 (Ab t, Bb t, Rb y; the
+    # paired variants compute the same function), 2 without the loss;
+    # bytes of se, the constants, t0 and the values once
+    bounds = {noloss: bound_ms((2 if noloss else 3) * 2 * n * n * ex_steps,
+                               4 * (ex_steps + 3 * n * n + n * Bt + Bt))
+              for noloss in (False, True)}
+    for prec, G, paired, noloss, t, ns, _ in timings:
+        bound, by = bounds[noloss]
+        print(f"  {prec} {tool.tag(G, paired, noloss)}: {t:.3f} ms, "
+              f"{ns:.0f} ns a step; bound {bound:.3f} ms by {by} "
+              f"({bound / t * 100:.2f}%)", flush=True)
+    kw = dict(unroll=Kt, log_eps=ins["log_eps"], norm_eps=ins["norm_eps"])
+    ms = median_ms(lambda: probe.psi_probe_columns(consts, ins["t0"],
+                                                   ins["se"], **kw))
+    plain_ms, _ = timed(lambda: probe.psi_probe_columns_plain(
+        consts, ins["t0"], ins["se"], **kw))
+    bound, by = bounds[False]
+    print(f"  the G=1 kernel at highest alone: {ms:.3f} ms, "
+          f"{bound / ms * 100:.2f}% of its bound; plain {plain_ms:.1f} ms; "
+          f"{card_line()}", flush=True)
+    del consts, ins
+    _free()
+    return [{"name": "psi_probe_columns", "route": "cuda",
+             "source": "audio_mps_tpu_torch/csrc/psi_probe.cu",
+             "replaces": "tools/probe8_psi_floor.py:62",
+             "launches": launches, "max_abs_err": worst,
+             "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": by, "library_ms": None}]
 
 
 def main() -> int:
@@ -2700,14 +3063,21 @@ def main() -> int:
     train_entries = train_phases(dev, fam)
     _free()
     train_entries += recompute_phases(dev, fam, PSI_OFF_B)
+    _free()
+    cot_library_ms = next(e["library_ms"] for e in train_entries
+                          if e["name"] == "psi_cotangents")
+    train_entries += batched_phases(dev, fam, cot_library_ms)
+    _free()
+    train_entries += probe_phases(dev)
 
     phase("timings (CUDA events, median of 5 after 1 warm-up)")
     n = 2 * D
     sample_ms = median_ms(
         lambda: block.psi_sample_block(**s_in, precision="highest"))
-    # plain versions: one run each (the sampler's takes ~16 s)
+    # plain versions: one run each, the sampler's on the T_PLAIN prefix it
+    # is held on (its whole run takes ~18 s, 3% of the script's limit)
     sample_plain_ms = median_ms(
-        lambda: block.psi_sample_block_plain(**s_in, precision="highest"),
+        lambda: block.psi_sample_block_plain(**s_short, precision="highest"),
         reps=1, warmup=0)
     # two [2D,2D] x [2D] products per chain per step; bytes: each input
     # read once, the running waveform written once
@@ -2751,6 +3121,7 @@ def main() -> int:
          "plain_ms": nll_plain_ms, "bound_ms": l_bound,
          "bound_by": l_by, "library_ms": None},
     ]
+    print(f"  the sampler's plain version at T={T_PLAIN}", flush=True)
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.1f} "
               f"ms, bound {k['bound_ms']:.3f} ms by {k['bound_by']})",
@@ -2766,7 +3137,6 @@ def main() -> int:
     rank_entries, streamed = rank_phases(dev)
     _free()
     rank_entries += rank_recompute_phases(dev, streamed)
-    unported_bounds()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels + train_entries + split_entries

@@ -1312,3 +1312,167 @@ def test_default_precision_over_a_run_stays_within_its_bound(dev, kernel):
           f"({', '.join(f'{x:.3e}' for x in gaps)}); "
           f"{torch.cuda.get_device_name(dev)}")
     assert max(gaps) <= DEFAULT_RUN_BOUND[kernel]
+
+
+# psi's spine/limbs pair (ops/block.py psi_batched_fwd / psi_batched_bwd,
+# csrc/psi_batched_fwd.cu and psi_batched_bwd.cu) and the floor probe
+# (ops/probe.py, csrc/psi_probe.cu)
+
+def _batched_counts():
+    return (block.psi_batched_fwd.launches, block.psi_batched_bwd.launches)
+
+
+@pytest.mark.parametrize("D", [8, 12, 64])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("unroll", [7, 16])
+def test_batched_kernels_match_plain(dev, D, precision, unroll):
+    """The batched forward (loss, ck) and adjoint (dse, dt0, dAb, dBb, dRb,
+    fed the plain forward's checkpoints) against their plain versions; the
+    last block is partial at both unrolls."""
+    inputs, g = _train_inputs(dev, D, STEPS[precision])
+    kw = dict(log_eps=inputs.pop("log_eps"), norm_eps=inputs.pop("norm_eps"),
+              precision=precision, unroll=unroll)
+    before = _batched_counts()
+    want = block.psi_batched_fwd_plain(**inputs, **kw)
+    for a, b in zip(block.psi_batched_fwd(**inputs, **kw), want):
+        _close(a, b, TOL[precision])
+    con = (inputs["ab"], inputs["bb"], inputs["rb"], want[1], inputs["se"], g)
+    got = block.psi_batched_bwd(*con, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == inputs["se"].shape
+    for a, b in zip(got, block.psi_batched_bwd_plain(*con, **kw)):
+        _close(a, b, TOL[precision])
+    assert _batched_counts() == tuple(c + 1 for c in before)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_batched_forward_is_the_checkpoint_forward(dev, precision):
+    """The batched forward sums every product and reduction in the order of
+    the checkpoint forward (psi_train_fwd_ckpt, deferred norm): its loss
+    and checkpoints are the same bits at D=64, over 300 steps of 16-step
+    blocks and a partial one."""
+    inputs, _ = _train_inputs(dev, 64, 300, B=7)
+    kw = dict(log_eps=inputs.pop("log_eps"), norm_eps=inputs.pop("norm_eps"),
+              precision=precision, unroll=16)
+    loss, ck = block.psi_batched_fwd(**inputs, **kw)
+    loss_c, ck_c = block.psi_train_fwd_ckpt(**inputs, **kw, defer_norm=True)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, loss_c)
+    assert torch.equal(ck, ck_c)
+
+
+def test_batched_adjoint_is_reproducible_bit_for_bit(dev):
+    """Each CTA adds its column's cotangents to its own row and the wrapper
+    sums the rows in a fixed order (no atomics): two runs at D=64, B=16
+    over 1000 steps are equal to the bit in all five outputs."""
+    inputs, g = _train_inputs(dev, 64, 1000, B=16)
+    kw = dict(log_eps=inputs.pop("log_eps"), norm_eps=inputs.pop("norm_eps"),
+              unroll=16)
+    _, ck = block.psi_batched_fwd(**inputs, **kw)
+    con = (inputs["ab"], inputs["bb"], inputs["rb"], ck, inputs["se"], g)
+    runs = [block.psi_batched_bwd(*con, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_batched_smem_ceiling_raises_before_any_launch(dev):
+    """The adjoint keeps the three padded constants and three [2D, K]
+    buffers in shared memory: it fits D=64 at unroll 16 and not D=68, where
+    both wrappers raise NotImplementedError and no counter moves."""
+    from audio_mps_tpu_torch.ops import _build
+    lib = _build.library()
+    have = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert lib.amt_psi_batched_bwd_smem_bytes(64, 16) <= have
+    assert lib.amt_psi_batched_fwd_smem_bytes(64, 16) <= have
+    assert lib.amt_psi_batched_bwd_smem_bytes(68, 16) > have
+    inputs, g = _train_inputs(dev, 68, 40)
+    kw = dict(log_eps=inputs.pop("log_eps"), norm_eps=inputs.pop("norm_eps"),
+              unroll=16)
+    ck = torch.zeros((3, 136, g.shape[0]), device=dev)
+    before = _batched_counts()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+        block.psi_batched_bwd(inputs["ab"], inputs["bb"], inputs["rb"], ck,
+                              inputs["se"], g, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+        block.psi_batched_fwd(**inputs, **kw)
+    assert _batched_counts() == before
+
+
+def test_batched_train_path_runs_its_two_kernels(dev):
+    """psi_nll_block_trainable(batched=True) launches the batched pair once
+    each and no other training kernel, and its value and six gradients
+    agree with the streamed pair's (the same function, sums in another
+    order: value to 1e-6, gradients to 1e-5 of their largest element)."""
+    from audio_mps_tpu_torch.weights import (params_to_numpy,
+                                             psi_params_from_numpy)
+    cfg = CMPSConfig(bond_dim=64, minibatch_size=8, defer_norm=True)
+    p0 = init_psi(torch.Generator(dev).manual_seed(9), cfg, device=dev)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(8), 8, 400,
+                            cfg.delta_t)
+    res = {}
+    for batched in (False, True):
+        p = psi_params_from_numpy(params_to_numpy(p0), dev)
+        before = _batched_counts() + _counts()
+        loss = block.psi_nll_block_trainable(p, cfg, sig, defer_norm=True,
+                                             batched=batched)
+        loss.backward()
+        torch.cuda.synchronize()
+        moved = tuple(b - a for a, b in zip(before,
+                                             _batched_counts() + _counts()))
+        assert moved == ((1, 1, 0, 0, 0) if batched else (0, 0, 1, 1, 1))
+        res[batched] = (loss.detach(), p)
+    (l_s, p_s), (l_b, p_b) = res[False], res[True]
+    assert abs((l_b - l_s).item()) <= 1e-6 * abs(l_s.item())
+    for name in p_s.NAMES:
+        a, b = getattr(p_b, name).grad, getattr(p_s, name).grad
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def _probe_case(dev, B=8, T=300, D=64):
+    from audio_mps_tpu_torch.ops import probe
+    cfg = CMPSConfig(bond_dim=D, minibatch_size=B)
+    p = init_psi(torch.Generator(dev).manual_seed(D), cfg, device=dev)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(3), B, T,
+                            cfg.delta_t)
+    ins = block.psi_nll_inputs(p, cfg, sig)
+    consts = (ins["ab"], ins["bb"], ins["rb"]) + probe.probe_products(
+        ins["ab"], ins["bb"])
+    return probe, consts, ins
+
+
+PROBE_VARIANTS = [(False, False), (True, False), (False, True)]
+
+
+@pytest.mark.parametrize("paired, noloss", PROBE_VARIANTS)
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_probe_kernel_matches_plain(dev, paired, noloss, precision):
+    """Each probe variant's per-column values against its plain version at
+    D=64 and D=12, G=2, over 300 steps (a partial last block of 16)."""
+    for D in (12, 64):
+        probe, consts, ins = _probe_case(dev, D=D, T=STEPS[precision] + 1)
+        kw = dict(G=2, paired=paired, noloss=noloss, precision=precision,
+                  unroll=16, log_eps=ins["log_eps"],
+                  norm_eps=ins["norm_eps"])
+        before = probe.psi_probe_columns.launches
+        got = probe.psi_probe_columns(consts, ins["t0"], ins["se"], **kw)
+        torch.cuda.synchronize()
+        assert probe.psi_probe_columns.launches == before + 1
+        _close(got, probe.psi_probe_columns_plain(consts, ins["t0"],
+                                                  ins["se"], **kw),
+               TOL[precision])
+
+
+@pytest.mark.parametrize("paired, noloss", PROBE_VARIANTS)
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_probe_columns_do_not_depend_on_the_groups(dev, paired, noloss,
+                                                   precision):
+    """G columns a CTA run in lockstep with each column's sums in the G=1
+    order: the per-column values are the same bits for G = 1, 2 and 4."""
+    probe, consts, ins = _probe_case(dev)
+    kw = dict(paired=paired, noloss=noloss, precision=precision, unroll=16,
+              log_eps=ins["log_eps"], norm_eps=ins["norm_eps"])
+    runs = [probe.psi_probe_columns(consts, ins["t0"], ins["se"], G=G, **kw)
+            for G in (1, 2, 4)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])

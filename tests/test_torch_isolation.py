@@ -22,6 +22,7 @@ from audio_mps_tpu_torch import (CMPSConfig, PsiCMPS, RhoCMPS, RunConfig,
                                  init_psi, init_rho)
 from audio_mps_tpu_torch.estimator import main as estimator_main
 from audio_mps_tpu_torch.ops import block, grad, scan, split
+from audio_mps_tpu_torch.ops import probe as probe_ops
 from audio_mps_tpu_torch.ops import rank as rank_ops
 from audio_mps_tpu_torch.sample import SampleConfig, sample
 from audio_mps_tpu_torch.train import main as train_main
@@ -47,7 +48,10 @@ def port_modules():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"audio_mps_tpu_torch.ops.split",
-            "audio_mps_tpu_torch.estimator"} <= set(port_modules())
+            "audio_mps_tpu_torch.estimator", "audio_mps_tpu_torch.ops.probe",
+            "audio_mps_tpu_torch.tools",
+            "audio_mps_tpu_torch.tools.probe8_psi_floor"} <= set(
+                port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {port_modules()!r}:\n"
@@ -137,6 +141,12 @@ def test_default_device_entry_points_raise_without_a_card(entry, tmp_path,
         calls[entry]()
 
 
+def _probe_call(x):
+    return probe_ops.psi_probe_columns(
+        (x["ab"], x["bb"], x["rb"]), x["t0"], x["se"], G=2,
+        log_eps=x["log_eps"], norm_eps=x["norm_eps"])
+
+
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     cfg = CMPSConfig(bond_dim=8)
     p = psi_params_from_numpy(_np_weights(), "cpu")
@@ -218,6 +228,11 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
         (block.psi_train_bwd, lambda d: block.psi_train_bwd(
             **d(dict(n_in, g=g, ys=ys, n2s=n2s)))),
         (block.psi_cotangents, lambda d: block.psi_cotangents(**d(cot))),
+        (block.psi_batched_fwd, lambda d: block.psi_batched_fwd(**d(n_in))),
+        (block.psi_batched_bwd, lambda d: block.psi_batched_bwd(**d(dict(
+            {k: n_in[k] for k in ("ab", "bb", "rb", "se", "log_eps",
+                                  "norm_eps")}, ck=n_in["t0"][None], g=g)))),
+        (probe_ops.psi_probe_columns, lambda d: _probe_call(d(n_in))),
     ]
 
     def meta(d):
