@@ -64,9 +64,9 @@ _SIGNATURES = {
     # n_steps, B, unroll, log_eps, norm_eps, precision, defer_norm, stream
     "amt_psi_train_bwd": ([_P] * 13 + [_I, _I, _I, _I, _F, _F, _I, _I, _P],
                           _I),
-    # dys, ys, t0, se, n2s, dehats, partial, out, D, n_steps, B, unroll,
-    # norm_eps, precision, defer_norm, stream
-    "amt_psi_cotangents": ([_P] * 8 + [_I, _I, _I, _I, _F, _I, _I, _P], _I),
+    # dys, ys, t0, se, n2s, dehats, partial, out, D, n_steps, L, gs, gn,
+    # unroll, norm_eps, w_scale, precision, defer_norm, stream
+    "amt_psi_cotangents": ([_P] * 8 + [_I] * 6 + [_F, _F, _I, _I, _P], _I),
     # ab, bb, xs, pc, ps, t0, noise, inv_a, wave, D, T, N, R, dt, norm_eps,
     # precision, stream
     "amt_rho_sample": ([_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _P], _I),

@@ -773,33 +773,40 @@ def psi_cotangents(dy, ys, t0, se, n2s, dehat, *, norm_eps: float,
     if _cuda_or_raise("psi_cotangents", se):
         return psi_cotangents_plain(dy, ys, t0, se, n2s, dehat, **kw)
     return _cotangents_kernel(psi_cotangents, dy, ys, t0, se, n2s, dehat,
-                              **kw)
+                              gs=1, gn=1, w_scale=2.0, **kw)
 
 
 psi_cotangents.launches = 0
 
 
-def _cotangents_kernel(counted, dy, ys, t0, se, n2s, dehat, *,
-                       norm_eps: float, unroll: int, precision: str,
-                       defer_norm: bool):
+def _cotangents_kernel(counted, dy, ys, t0, se, n2s, dehat, *, gs: int,
+                       gn: int, w_scale: float, norm_eps: float, unroll: int,
+                       precision: str, defer_norm: bool):
     """Launch ``csrc/psi_cotangents.cu`` on CUDA tensors and add one to
-    ``counted.launches``: the wrapper whose path the launch belongs to."""
+    ``counted.launches``: the wrapper whose path the launch belongs to.
+    The lanes are t0's columns; ``se`` holds one s an example of ``gs``
+    lanes, ``n2s`` and ``dehat`` one norm or trace and one dehat a group of
+    ``gn`` lanes; the third cotangent weighs each lane by w_scale * dehat."""
     _check_options(precision, unroll)
-    n_steps, B = se.shape
-    D = t0.shape[0] // 2
-    n = 2 * D
+    n_steps = se.shape[0]
+    n, L = t0.shape
+    D = n // 2
+    if L % gs or L % gn:
+        raise ValueError(f"psi_cotangents: {L} lanes are not whole groups "
+                         f"of {gs} and {gn}")
     _check_inputs("psi_cotangents", se.device, dict(
-        dy=(dy, (n_steps, n, B)), ys=(ys, (n_steps, n, B)), t0=(t0, (n, B)),
-        se=(se, (n_steps, B)), n2s=(n2s, (n_steps, B)),
-        dehat=(dehat, (n_steps, B))))
+        dy=(dy, (n_steps, n, L)), ys=(ys, (n_steps, n, L)), t0=(t0, (n, L)),
+        se=(se, (n_steps, L // gs)), n2s=(n2s, (n_steps, L // gn)),
+        dehat=(dehat, (n_steps, L // gn))))
     lib = _build.library()
     work = se.new_empty((lib.amt_psi_cotangents_workspace_floats(D,
                                                                  n_steps),))
     out = se.new_empty((3, n, n))
     err = lib.amt_psi_cotangents(
         _ptr(dy), _ptr(ys), _ptr(t0), _ptr(se), _ptr(n2s), _ptr(dehat),
-        _ptr(work), _ptr(out), D, n_steps, B, unroll, norm_eps,
-        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+        _ptr(work), _ptr(out), D, n_steps, L, gs, gn, unroll, norm_eps,
+        w_scale, PRECISIONS.index(precision), int(defer_norm),
+        _stream_ptr(se.device))
     _build.check(lib, err, "psi_cotangents")
     counted.launches += 1
     return out[0], out[1], out[2]
@@ -1906,19 +1913,17 @@ def rho_cotangents(dy, ys, t0, se, trs, dehat, *, norm_eps: float,
                    unroll: int = 16, precision: str = "highest",
                    defer_norm: bool = False):
     """(dAb, dBb, dXb): ``rho_cotangents_plain`` for CPU tensors; for CUDA
-    tensors the kernel ``csrc/psi_cotangents.cu`` over the B*rank lanes,
-    fed the per-example se, trace and dehat / 2 repeated over each
-    example's lanes: its dRb = sum (2 dehat / 2) y y^T is dXb, and its
-    state rebuild is the rho forward's. The launch counts here only."""
+    tensors the kernel ``csrc/psi_cotangents.cu`` over the B*rank lanes in
+    groups of rank (one se, trace and dehat an example): its dRb = sum
+    dehat y y^T is dXb, and its state rebuild is the rho forward's. The
+    launch counts here only."""
     kw = dict(norm_eps=norm_eps, unroll=unroll, precision=precision,
               defer_norm=defer_norm)
     if _cuda_or_raise("rho_cotangents", se):
         return rho_cotangents_plain(dy, ys, t0, se, trs, dehat, **kw)
     rank = _rank_of("rho_cotangents", t0.shape[1], se.shape[1])
-    return _cotangents_kernel(rho_cotangents, dy, ys, t0,
-                              _lanes(se, rank).contiguous(),
-                              _lanes(trs, rank).contiguous(),
-                              _lanes(0.5 * dehat, rank).contiguous(), **kw)
+    return _cotangents_kernel(rho_cotangents, dy, ys, t0, se, trs, dehat,
+                              gs=rank, gn=rank, w_scale=1.0, **kw)
 
 
 rho_cotangents.launches = 0

@@ -440,19 +440,18 @@ rank_partials_bwd.launches = 0
 def rank_cotangents(dy, ys, t0, se, tr, deh, *, rc: int, unroll: int,
                     norm_eps: float, precision: str = "highest"):
     """(dAb, dBb, dXb): ``rank_cotangents_plain`` for CPU tensors; for CUDA
-    tensors the kernel ``csrc/psi_cotangents.cu`` over the lanes, fed s of
-    each lane's example, the trace of its segment and deh / 2 (its dRb =
-    sum (2 deh / 2) y y^T is dXb; its state rebuild is the partials
-    forward's). The launch counts here only."""
+    tensors the kernel ``csrc/psi_cotangents.cu`` over the lanes, in
+    examples of rank lanes (one s each) and segments of rc lanes (one trace
+    and one deh each): its dRb = sum deh y y^T is dXb, and its state
+    rebuild is the partials forward's. The launch counts here only."""
     kw = dict(rc=rc, unroll=unroll, norm_eps=norm_eps, precision=precision)
     if _cuda_or_raise("rank_cotangents", se):
         return rank_cotangents_plain(dy, ys, t0, se, tr, deh, **kw)
     _n_segments("rank_cotangents", t0, se, rc)
     rank = t0.shape[1] // se.shape[1]
     return block._cotangents_kernel(
-        rank_cotangents, dy, ys, t0, _lanes(se, rank).contiguous(),
-        _lanes(tr, rc).contiguous(), _lanes(0.5 * deh, rc).contiguous(),
-        norm_eps=norm_eps, unroll=unroll, precision=precision,
+        rank_cotangents, dy, ys, t0, se, tr, deh, gs=rank, gn=rc,
+        w_scale=1.0, norm_eps=norm_eps, unroll=unroll, precision=precision,
         defer_norm=True)
 
 

@@ -30,7 +30,9 @@ failure (the script then exits non-zero):
    training kernels' launch counts must move in that window, the other
    family's must not); the step time of ``make_train_step`` (host clock);
    CUDA-event timings (median of 5 after a warm-up) of each kernel beside
-   its bound;
+   its bound; the cotangent reduction at each precision beside
+   ``torch.matmul`` of its products, each precision's two launches equal
+   bit for bit;
 6. timings of the psi sampler and NLL kernels, and one timed run of each
    plain version, beside each kernel's bound;
 7. the rho (mixed-state) family at D=64, rank 64 (``rho_phases``): the
@@ -50,7 +52,9 @@ failure (the script then exits non-zero):
    ``--visualize=false``, a restore and one more; the partials kernels'
    launch counts must move, the monolithic ones' must not), one step's
    time and peak memory, and each kernel's CUDA-event time per time
-   segment and over the whole run beside its bound;
+   segment and over the whole run beside its bound (the reductions on one
+   segment at each precision, two launches equal bit for bit, and over the
+   run beside ``torch.matmul``);
 9. training without the state stream (``kernel_stream="off"``), for psi and
    rho after their training phases (``recompute_phases``) and for the rank
    partials after theirs (``rank_recompute_phases``): the checkpoint
@@ -174,6 +178,7 @@ TRAIN_STEPS = 3        # Adam steps of the train CLI's first call
 #   against the plain versions at high must miss each high limit.
 TOL_TRAIN = {"highest": {"fwd": 1e-4, "bwd": 1e-4, "cot": 1e-5},
              "high": {"fwd": 1e-3, "bwd": 1e-3, "cot": 1e-5}}
+PRECISIONS = ("highest", "high", "default")
 # the training path's loss and its six parameter gradients vs autograd
 # through the eager reference: the same fp32 arithmetic in another order,
 # so the value to 1e-4 and each gradient to 1e-3 of its largest element
@@ -188,9 +193,12 @@ TOL_TRAIN_REFERENCE = (1e-4, 1e-3)
 #   = (Ab + s Bb) t is one product after one multiply-add per element of a
 #   [2D,2D] matrix (2 n^2) an example-step. Forward 2 (that, and Xb y).
 #   Adjoint 3: Ab^T dy and Bb^T dy on its chain (dse needs the latter
-#   alone), and (Xb + Xb^T) y in its tail. Reductions 2: dy t^T, whose
-#   per-example sum gives dAb by n^2 adds and dBb by n^2 multiply-adds
-#   (3 n^2), and y y^T weighted per example for dXb.
+#   alone), and (Xb + Xb^T) y in its tail. Reductions 2, as
+#   csrc/psi_cotangents.cu computes them: P = dy t^T summed over an
+#   example's lanes of a step, which gives dAb by n^2 adds and dBb by n^2
+#   multiply-adds (s P; 3 n^2 an example-step), and dehat y y^T for dXb.
+#   psi's lanes each have their own s, so its reductions stay 3 products
+#   (dy t^T, dy (s t)^T, 2 dehat y y^T).
 TRAIN_PRODUCTS = {"psi": {"fwd": 3, "bwd": 4, "cot": 3},
                   "rho": {"fwd": 2, "bwd": 3, "cot": 2}}
 TRAIN_BUILDS = {"psi": {"fwd": 0, "bwd": 0, "cot": 0},
@@ -627,9 +635,20 @@ def train_phases(dev, fam: Family):
     o = dict(precision=cfg.kernel_precision, defer_norm=cfg.defer_norm)
     loss, ys, norms = fwd(t_in, **o)
     dse, dt0, dy, dehat = bwd(t_in, ys, norms, **o)
+    # the reductions at each precision on the main path's streams (high and
+    # default on the tensor cores), and two launches of each on the same
+    # streams equal bit for bit
+    cot_ms = {}
+    for prec in PRECISIONS:
+        v = dict(o, precision=prec)
+        cot_ms[prec] = median_ms(lambda: cot(t_in, ys, norms, dy, dehat, **v))
+        runs = [cot(t_in, ys, norms, dy, dehat, **v) for _ in range(2)]
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"{names['cot']} at {prec}: two launches differ")
+        del runs
     ms = {"fwd": median_ms(lambda: fwd(t_in, **o)),
           "bwd": median_ms(lambda: bwd(t_in, ys, norms, **o)),
-          "cot": median_ms(lambda: cot(t_in, ys, norms, dy, dehat, **o))}
+          "cot": cot_ms[cfg.kernel_precision]}
     # library yardstick of the reductions: the three [2D, M] x [M, 2D]
     # products as torch.matmul (fp32, TF32 off) on operands built once
     scales = block._state_scales(block._lanes(norms, rank),
@@ -690,6 +709,14 @@ def train_phases(dev, fam: Family):
             "max_abs_err": err_at[role], "ms": ms[role],
             "plain_ms": plain_ms[role], "bound_ms": bound, "bound_by": by,
             "library_ms": library_ms if role == "cot" else None})
+        if role == "cot":
+            entries[-1]["ms_by_precision"] = cot_ms
+            print(f"  {name} (two launches equal bit for bit at each "
+                  f"precision): highest {cot_ms['highest']:.3f} / high "
+                  f"{cot_ms['high']:.3f} / default {cot_ms['default']:.3f} "
+                  f"ms; torch.matmul x3 {library_ms:.3f} ms; kernel / "
+                  f"torch.matmul {ms[role] / library_ms:.3f}; "
+                  f"{bound / ms[role] * 100:.1f}% of its bound", flush=True)
         print(f"  {name}: {ms[role]:.3f} ms, launches per train step "
               f"{launches[name] / (TRAIN_STEPS + 1):g} (plain "
               f"{plain_ms[role]:.1f} ms at T={T}, bound {bound:.3f} ms by "
@@ -1484,7 +1511,23 @@ def rank_phases(dev):
     cot = cotangents(f_out, c0, seg["se"])
     b_out = call("bwd", seg, cot, f_out, None)
     seg_ms = {r: median_ms(lambda: call(r, seg, cot, f_out, b_out), reps=3)
-              for r in labels}
+              for r in ("fwd", "bwd")}
+    # the reductions on this segment at each precision (high and default on
+    # the tensor cores), two launches of each equal bit for bit
+    seg_cot = {}
+    for prec in PRECISIONS:
+        seg_cot[prec] = median_ms(lambda: call("cot", seg, cot, f_out, b_out,
+                                               precision=prec), reps=3)
+        runs = [call("cot", seg, cot, f_out, b_out, precision=prec)
+                for _ in range(2)]
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"rank_cotangents at {prec}: two launches differ")
+        del runs
+    print(f"  rank_cotangents on one segment of {L} steps (median of 3; two "
+          f"launches equal bit for bit at each precision): " + " / ".join(
+              f"{p} {seg_cot[p]:.1f}" for p in PRECISIONS) + " ms",
+          flush=True)
+    seg_ms["cot"] = seg_cot["highest"]
     del f_out, b_out, seg
     _free()
     # the whole run once: the forward over the segments chained through
@@ -1568,6 +1611,10 @@ def rank_phases(dev):
             "max_abs_err": err_at[role], "ms": ms[role],
             "plain_ms": plain_ms[role], "bound_ms": bound, "bound_by": by,
             "library_ms": library_ms if role == "cot" else None})
+        if role == "cot":
+            entries[-1]["segment_ms_by_precision"] = seg_cot
+            print(f"  {name}: torch.matmul x3 {library_ms:.1f} ms; kernel / "
+                  f"torch.matmul {ms[role] / library_ms:.3f}", flush=True)
         print(f"  {name}: {ms[role]:.1f} ms over T={RANK_T}, "
               f"{bound / ms[role] * 100:.1f}% of its bound {bound:.3f} ms by "
               f"{by}; launches in the train CLI's {RANK_TRAIN_STEPS + 1} "

@@ -1476,3 +1476,87 @@ def test_probe_columns_do_not_depend_on_the_groups(dev, paired, noloss,
             for G in (1, 2, 4)]
     torch.cuda.synchronize()
     assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+# ---------------------------------------------------------------------------
+# the cotangent reduction (csrc/psi_cotangents.cu) on its own: random
+# streams, every group layout its three wrappers give it
+# ---------------------------------------------------------------------------
+
+# (family, D, rank, rc, B): psi's n = 16, 24, 136 and the flagship 128
+# (gs = gn = 1); rho's rank lanes (gs = gn = rank) at a rank that is not a
+# multiple of 4 (3, B=5: 15 lanes, not a multiple of the 16-lane chunk) and
+# at rank 64; the rank partials' examples and segments (gs = rank, gn = rc)
+# at D=8 and at D=256 (n = 512, 4 x 4 output tiles) with rc 16
+COT_CASES = [("psi", 8, 1, None, 5), ("psi", 12, 1, None, 5),
+             ("psi", 68, 1, None, 5), ("psi", 64, 1, None, 128),
+             ("rho", 8, 3, None, 5), ("rho", 8, 64, None, 3),
+             ("rho", 64, 64, None, 2), ("rank", 8, 6, 3, 5),
+             ("rank", 256, 64, 16, 2)]
+
+
+def _cot_case(dev, family, D, rank_, rc, B, steps, seed=7):
+    """(kernel wrapper, plain version, args, keyword args) of one cotangent
+    reduction on random streams: steps not a multiple of the step split or
+    of the unroll (7), norms in [0.5, 2), so every renormalising step
+    rescales."""
+    from audio_mps_tpu_torch.ops import rank as rank_ops
+    gen = torch.Generator(dev).manual_seed(seed)
+    n, L = 2 * D, B * rank_
+    groups = B if rc is None else L // rc
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    dy, ys, t0 = randn(steps, n, L), randn(steps, n, L), randn(n, L)
+    se = 0.1 * randn(steps, B)
+    norms = 0.5 + 1.5 * torch.rand(steps, groups, generator=gen, device=dev)
+    dehat = randn(steps, groups)
+    args = (dy, ys, t0, se, norms, dehat)
+    if family == "rank":
+        return (rank_ops.rank_cotangents, rank_ops.rank_cotangents_plain,
+                args, dict(rc=rc, unroll=7, norm_eps=1e-12))
+    fn = getattr(block, f"{family}_cotangents")
+    return fn, getattr(block, f"{family}_cotangents_plain"), args, dict(
+        unroll=7, norm_eps=1e-12)
+
+
+@pytest.mark.parametrize("case", COT_CASES,
+                         ids=[f"{c[0]}-D{c[1]}-r{c[2]}-B{c[4]}"
+                              for c in COT_CASES])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_cotangent_kernel_matches_plain(dev, case, precision, defer):
+    """The reduction kernel against its plain version on the same streams,
+    for psi's lanes, rho's rank lanes and the rank partials' examples and
+    segments, 301 steps (67 at D=256). The rank partials always defer."""
+    family, D, rank_, rc, B = case
+    if family == "rank" and not defer:
+        defer = True
+    fn, plain, args, kw = _cot_case(dev, family, D, rank_, rc, B,
+                                    67 if D >= 128 else 301)
+    kw["precision"] = precision
+    if family != "rank":
+        kw["defer_norm"] = defer
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    for a, b in zip(got, plain(*args, **kw)):
+        _close(a, b, TOL[precision])
+
+
+@pytest.mark.parametrize("family, D, rank_, rc, B", [
+    ("psi", 64, 1, None, 128), ("rho", 64, 64, None, 8),
+    ("rank", 256, 256, 16, 2)])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_cotangent_kernel_is_reproducible_bit_for_bit(dev, family, D, rank_,
+                                                      rc, B, precision):
+    """Two launches on the same streams give the same bits: the split over
+    steps is fixed, the partials are added in split order, and nothing is
+    atomic."""
+    fn, _, args, kw = _cot_case(dev, family, D, rank_, rc, B, 300)
+    runs = [fn(*args, **kw, precision=precision) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
