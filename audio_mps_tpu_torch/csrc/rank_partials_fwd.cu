@@ -14,24 +14,39 @@
 
 extern "C" {
 
-// Dynamic shared memory of the largest partials CTA (the adjoint chain, two
-// staged matrices); the forward and the tail take one.
+// Dynamic shared memory of a partials CTA (every partials kernel takes the
+// same).
 size_t amt_rank_partials_smem_bytes(int D, int rc) {
-  return amt::partials_smem_bytes(D, rc, 2);
+  return amt::partials_smem_bytes(D, rc);
+}
+
+// Clusters of `cluster` partials CTAs the card holds at once, or a negative
+// cudaError_t.
+int amt_rank_partials_max_clusters(int D, int rc, int cluster) {
+  if (!amt::partials_fits(D, rc) || cluster < 1 ||
+      cluster > amt::kMaxCluster) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  return amt::max_partials_clusters(
+      amt::rank_partials_fwd_kernel<amt::kHighest, amt::kStream>, cluster,
+      amt::partials_smem_bytes(D, rc));
 }
 
 // eh, tr [n_steps, S], tfin [2D, S*rc] and ys [n_steps, 2D, S*rc] from the
 // j-major constants abt, bbt, xbt (the transposes of Ab, Bb, Xb), t0
 // [2D, S*rc] and se [n_steps, B]; S segments of rc columns, S / B an
-// example. precision: 0 highest, 1 high, 2 default. Returns a cudaError_t.
+// example, in clusters of `cluster` segments (1 .. 16, dividing S / B).
+// precision: 0 highest, 1 high, 2 default. Returns a cudaError_t.
 int amt_rank_partials_fwd(const float* abt, const float* bbt,
                           const float* xbt, const float* t0, const float* se,
                           float* eh, float* tr, float* tfin, float* ys, int D,
                           int n_steps, int B, int S, int rc, int unroll,
-                          float norm_eps, int precision, void* stream) {
+                          float norm_eps, int precision, int cluster,
+                          void* stream) {
   return static_cast<int>(amt::launch_partials_fwd<amt::kStream>(
       abt, bbt, xbt, t0, se, eh, tr, tfin, ys, nullptr, D, n_steps, B, S, rc,
-      unroll, norm_eps, precision, static_cast<cudaStream_t>(stream)));
+      unroll, norm_eps, precision, cluster,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // eh, tr [n_steps, S], tfin [2D, S*rc] and the checkpoints
@@ -42,10 +57,12 @@ int amt_rank_partials_fwd_ckpt(const float* abt, const float* bbt,
                                const float* se, float* eh, float* tr,
                                float* tfin, float* ck, int D, int n_steps,
                                int B, int S, int rc, int unroll,
-                               float norm_eps, int precision, void* stream) {
+                               float norm_eps, int precision, int cluster,
+                               void* stream) {
   return static_cast<int>(amt::launch_partials_fwd<amt::kCkpt>(
       abt, bbt, xbt, t0, se, eh, tr, tfin, nullptr, ck, D, n_steps, B, S, rc,
-      unroll, norm_eps, precision, static_cast<cudaStream_t>(stream)));
+      unroll, norm_eps, precision, cluster,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

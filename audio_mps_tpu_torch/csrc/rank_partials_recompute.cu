@@ -22,11 +22,13 @@
 // for bit. The partials and the exit renorm are not needed (the forward
 // wrote tr), so only the update product runs. A time segment's blocks run
 // side by side: 128 segments x 32 blocks = 4096 CTAs at the D=256 model,
-// where the forward has 128.
+// where the forward has 128; the clusters run along the segment axis (x),
+// so a cluster's CTAs re-run the same block.
 //
-// What bounds it: one product of 2 (2D)^2 rc FLOPs a segment-step after
-// the (Ab + s Bb) build while staging, and each CTA-step's read of Ab and
-// Bb from L2 (2 MiB at D=256), as in the forward (rank_partials_fwd.cuh).
+// What bounds it: one product of 2 (2D)^2 rc FLOPs a segment-step, with
+// (Ab + s Bb) formed in registers from the ring's raw slabs of Ab and Bb
+// (2 MiB a CTA-step at D=256), as in the forward (rank_partials_fwd.cuh);
+// each CTA also fills the ring afresh for its 16 steps.
 #include "rank_partials_fwd.cuh"
 
 extern "C" {
@@ -34,16 +36,17 @@ extern "C" {
 // ys [n_steps, 2D, S*rc] of a time segment of n_steps steps (se
 // [n_steps, B]) from its checkpoints ck [ceil(n_steps / unroll), 2D, S*rc]
 // and the j-major constants abt, bbt (xbt is not read); the segment starts
-// at a block entry. See rank_partials_fwd.cuh. precision: 0 highest,
-// 1 high, 2 default. Returns a cudaError_t.
+// at a block entry; clusters of `cluster` segments. See
+// rank_partials_fwd.cuh. precision: 0 highest, 1 high, 2 default. Returns a
+// cudaError_t.
 int amt_rank_partials_recompute(const float* abt, const float* bbt,
                                 const float* ck, const float* se, float* ys,
                                 int D, int n_steps, int B, int S, int rc,
                                 int unroll, float norm_eps, int precision,
-                                void* stream) {
+                                int cluster, void* stream) {
   return static_cast<int>(amt::launch_partials_fwd<amt::kRecompute>(
       abt, bbt, nullptr, ck, se, nullptr, nullptr, nullptr, ys, nullptr, D,
-      n_steps, B, S, rc, unroll, norm_eps, precision,
+      n_steps, B, S, rc, unroll, norm_eps, precision, cluster,
       static_cast<cudaStream_t>(stream)));
 }
 

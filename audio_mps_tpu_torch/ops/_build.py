@@ -88,18 +88,19 @@ _SIGNATURES = {
     # stream
     "amt_rho_train_bwd": ([_P] * 14 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
     # abt, bbt, xbt, t0, se, eh, tr, tfin, ys, D, n_steps, B, S, rc,
-    # unroll, norm_eps, precision, stream
-    "amt_rank_partials_fwd": ([_P] * 9 + [_I] * 6 + [_F, _I, _P], _I),
+    # unroll, norm_eps, precision, cluster, stream
+    "amt_rank_partials_fwd": ([_P] * 9 + [_I] * 6 + [_F, _I, _I, _P], _I),
     # abt, bbt, xbt, t0, se, eh, tr, tfin, ck, D, n_steps, B, S, rc,
-    # unroll, norm_eps, precision, stream
-    "amt_rank_partials_fwd_ckpt": ([_P] * 9 + [_I] * 6 + [_F, _I, _P], _I),
+    # unroll, norm_eps, precision, cluster, stream
+    "amt_rank_partials_fwd_ckpt": ([_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
+                                   _I),
     # abt, bbt, ck, se, ys, D, n_steps, B, S, rc, unroll, norm_eps,
-    # precision, stream
-    "amt_rank_partials_recompute": ([_P] * 5 + [_I] * 6 + [_F, _I, _P],
+    # precision, cluster, stream
+    "amt_rank_partials_recompute": ([_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
                                     _I),
-    # xbt, xb, ab, bb, t0, se, ys, tr, deh, dtr, dtfin, dse, dt0, dys, D,
-    # n_steps, B, S, rc, unroll, norm_eps, precision, stream
-    "amt_rank_partials_bwd": ([_P] * 14 + [_I] * 6 + [_F, _I, _P], _I),
+    # xs, ab, bb, t0, se, ys, tr, deh, dtr, dtfin, dse, dt0, dys, D,
+    # n_steps, B, S, rc, unroll, norm_eps, precision, cluster, stream
+    "amt_rank_partials_bwd": ([_P] * 13 + [_I] * 6 + [_F, _I, _I, _P], _I),
     # cr, ci, rr, ri, pc, ps, s0r, s0i, noise, inv_a, wave, D, T, N, dt,
     # norm_eps, precision, stream
     "amt_psi_split_sample": ([_P] * 11 + [_I, _I, _I, _F, _F, _I, _P], _I),
@@ -143,6 +144,8 @@ _SIGNATURES = {
     "amt_rho_train_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_rho_train_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_rank_partials_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    # D, rc, cluster
+    "amt_rank_partials_max_clusters": ([_I, _I, _I], _I),
     "amt_psi_split_sample_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_split_fwd_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_split_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),

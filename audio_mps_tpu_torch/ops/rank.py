@@ -27,7 +27,9 @@ those of the one-kernel path up to the order of the sums.
 The kernels (``csrc/rank_partials_fwd.cu``, ``csrc/rank_partials_bwd.cu``
 and ``csrc/psi_cotangents.cu`` over the lanes) run every chunk of every
 example in one launch, one CTA a (example, chunk) segment, and stream the
-[2D,2D] constants from global memory (they stay in the 50 MB L2) in slabs,
+[2D,2D] constants from global memory (they stay in the 50 MB L2) through a
+ring of shared-memory slabs filled by bulk copies, shared by multicast
+within a thread-block cluster of an example's chunks (``partials_cluster``),
 so D is bounded by the CTA's thread layout, not by shared memory. Each
 comes beside its plain PyTorch version; the wrappers run the plain version
 for a CPU tensor and the kernel, or raise, for a CUDA one. Without the
@@ -44,6 +46,7 @@ columns j*rc .. (j+1)*rc - 1; the per-step partials are [n_steps, B*G].
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -61,11 +64,18 @@ from .block import (PRECISIONS, _as_kernel_input, _check_inputs,
 # the chunk rule reads the card's own on a CUDA tensor, these on the CPU.
 H100_SMEM_PER_BLOCK = 232448
 H100_SMS = 132
-# The partials kernels' CTA: 256 threads, each an 8 x 4 tile of the
-# [2D, rc] segment (rho_tile.cuh), so D/4 x ceil(rc/4) <= 256; and a
-# constant slab of 4096 words staged in shared memory, double-buffered.
+# The partials kernels' CTA (csrc/rank_partials.cuh): 256 consumer threads,
+# each an 8 x 4 tile of the [2D, rc] segment (rho_tile.cuh), so
+# D/4 x ceil(rc/4) <= 256, and a producer warp; a ring of 4 stages of 8192
+# words for the constants' slabs, the prepped state tile, 64 reduction
+# floats and 2 mbarriers a stage.
 PARTIALS_THREADS = 256
-SLAB_WORDS = 4096
+STAGES = 4
+STAGE_WORDS = 8192
+# The largest thread-block cluster the kernels take (16 is past the portable
+# 8), and the adjoint tail's CTAs (csrc/rank_partials_bwd.cu kTailCtas).
+MAX_CLUSTER = 16
+TAIL_CTAS = 264
 
 # ===========================================================================
 # The dispatch rule: one kernel while the constants fit, rank chunks beyond
@@ -78,10 +88,12 @@ def partials_fits(D: int, rc: int) -> bool:
 
 
 def partials_smem_bytes(D: int, rc: int) -> int:
-    """Dynamic shared memory of the largest partials CTA (the adjoint
-    chain): the prepped state tile [2D, 4 ceil(rc/4)], two matrices' slabs
-    double-buffered and 64 reduction floats, 4 bytes a word."""
-    return 4 * (2 * D * 4 * -(-rc // 4) + 4 * SLAB_WORDS + 64)
+    """Dynamic shared memory of a partials CTA (every partials kernel
+    takes the same): the ring, the prepped state tile [2D, 4 ceil(rc/4)]
+    and 64 reduction floats, 4 bytes a word, and two 8-byte mbarriers a
+    stage."""
+    return 4 * (STAGES * STAGE_WORDS + 2 * D * 4 * -(-rc // 4) + 64) \
+        + 16 * STAGES
 
 
 def rank_chunk_for(D: int, B: int, rank: int,
@@ -93,7 +105,7 @@ def rank_chunk_for(D: int, B: int, rank: int,
     an SM does, waves x active threads a CTA, ceil(B rank / rc / n_sms) x
     D/4 ceil(rc/4); ties go to the larger rc, whose constant loads serve
     more columns (D=256, rank 256, B=8 on 132 SMs: rc=16, 128 CTAs). No
-    precision enters: every precision packs a constant element into 4
+    precision enters: every precision streams a constant element as 4
     bytes."""
     best, best_cost = None, None
     for rc in range(1, rank + 1):
@@ -136,6 +148,55 @@ def device_limits(device) -> tuple:
         return H100_SMEM_PER_BLOCK, H100_SMS
     props = torch.cuda.get_device_properties(device)
     return props.shared_memory_per_block_optin, props.multi_processor_count
+
+
+def partials_cluster(G: int, ctas: int, resident) -> int:
+    """The thread-block cluster of a partials launch of ``ctas`` CTAs whose
+    examples have G chunks each: the largest c <= 16 that divides G and
+    adds no wave, ceil(ctas / (resident(c) c)) <= ceil(ctas / resident(1)),
+    where ``resident(c)`` is the number of c-CTA clusters the card holds at
+    once (a mapping or a callable; 0 or less: it takes none); 1 when no
+    larger c does. A cluster's CTAs share each constant slab by multicast
+    and compute the same bits at every c. (An H100 at the partials CTA's
+    shared memory holds 132 CTAs, but only 66 clusters of 2, 30 of 4 and
+    15 of 8: the 128 CTAs of the D=256 model run in clusters of 2.)"""
+    res = resident if callable(resident) else resident.__getitem__
+    waves = -(-ctas // res(1))
+    best = 1
+    for c in range(2, min(G, MAX_CLUSTER) + 1):
+        have = res(c)
+        if G % c == 0 and have > 0 and -(-ctas // (have * c)) <= waves:
+            best = c
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_clusters(index: int, D: int, rc: int, c: int) -> int:
+    """Clusters of c partials CTAs card ``index`` holds at once."""
+    lib = _build.library()
+    with torch.cuda.device(index):
+        got = lib.amt_rank_partials_max_clusters(D, rc, c)
+    if got < 0:
+        _build.check(lib, -got, "amt_rank_partials_max_clusters")
+    return got
+
+
+def launch_cluster(D: int, rc: int, G: int, ctas: int, device,
+                   cluster: Optional[int] = None) -> int:
+    """The cluster a partials launch on a CUDA ``device`` takes:
+    ``cluster`` when given (it must divide G and lie in 1 .. 16; the
+    kernel then runs in clusters of that many CTAs, whatever the waves),
+    else ``partials_cluster`` on the card's own residency."""
+    if cluster is not None:
+        if not 1 <= cluster <= MAX_CLUSTER or G % cluster:
+            raise ValueError(f"a partials cluster of {cluster} CTAs: it "
+                             f"must lie in 1 .. {MAX_CLUSTER} and divide "
+                             f"the {G} chunks of an example")
+        return cluster
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    return partials_cluster(
+        G, ctas, lambda c: _resident_clusters(index, D, rc, c))
 
 
 # ===========================================================================
@@ -296,12 +357,16 @@ def rank_cotangents_plain(dy, ys, t0, se, tr, deh, *, rc: int, unroll: int,
         unroll=unroll, precision=precision, defer_norm=True)
 
 
-def _partials_checks(name, ab, bb, xb, t0, se, rc, precision, unroll):
+def _partials_checks(name, ab, bb, xb, t0, se, rc, precision, unroll,
+                     cluster, grid=1):
+    """(lib, L, B, D, S, cluster) of a partials launch after its checks:
+    ``cluster`` as ``launch_cluster`` takes it for S x ``grid`` CTAs (the
+    smaller over the counts when ``grid`` is a tuple)."""
     _check_options(precision, unroll)
     L, B = se.shape
     n, cols = t0.shape
     D = n // 2
-    S, _ = _n_segments(name, t0, se, rc)
+    S, G = _n_segments(name, t0, se, rc)
     if not partials_fits(D, rc):
         raise NotImplementedError(
             f"{name} at D={D}, rank chunk {rc}: the partials kernels take "
@@ -312,19 +377,32 @@ def _partials_checks(name, ab, bb, xb, t0, se, rc, precision, unroll):
         t0=(t0, (n, cols)), se=(se, (L, B))))
     lib = _build.library()
     _check_smem(name, lib.amt_rank_partials_smem_bytes(D, rc), se.device, D)
-    return lib, L, B, D, S
+    grids = grid if isinstance(grid, tuple) else (grid,)
+    cs = min(launch_cluster(D, rc, G, S * g, se.device, cluster)
+             for g in grids)
+    return lib, L, B, D, S, cs
+
+
+def tail_split(S: int, n_steps: int) -> int:
+    """The step ranges the adjoint tail splits each segment into (about
+    TAIL_CTAS CTAs; csrc/rank_partials_bwd.cu tail_split)."""
+    return min(-(-TAIL_CTAS // S), n_steps)
 
 
 @torch.no_grad()
 def rank_partials_fwd(ab, bb, xb, t0, se, *, rc: int, unroll: int,
-                      norm_eps: float, precision: str = "highest"):
+                      norm_eps: float, precision: str = "highest",
+                      cluster: Optional[int] = None):
     """(eh, tr, tfin, ys): ``rank_partials_fwd_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/rank_partials_fwd.cu`` for CUDA tensors."""
+    CUDA kernel ``csrc/rank_partials_fwd.cu`` for CUDA tensors, in clusters
+    of ``cluster`` CTAs (``launch_cluster``: the card's rule when None;
+    every cluster gives the same bits)."""
     kw = dict(rc=rc, unroll=unroll, norm_eps=norm_eps, precision=precision)
     if _cuda_or_raise("rank_partials_fwd", se):
         return rank_partials_fwd_plain(ab, bb, xb, t0, se, **kw)
-    lib, L, B, D, S = _partials_checks("rank_partials_fwd", ab, bb, xb, t0,
-                                       se, rc, precision, unroll)
+    lib, L, B, D, S, cs = _partials_checks(
+        "rank_partials_fwd", ab, bb, xb, t0, se, rc, precision, unroll,
+        cluster)
     eh = se.new_empty((L, S))
     tr = se.new_empty((L, S))
     tfin = torch.empty_like(t0)
@@ -335,7 +413,7 @@ def rank_partials_fwd(ab, bb, xb, t0, se, *, rc: int, unroll: int,
     err = lib.amt_rank_partials_fwd(
         _ptr(abt), _ptr(bbt), _ptr(xbt), _ptr(t0), _ptr(se), _ptr(eh),
         _ptr(tr), _ptr(tfin), _ptr(ys), D, L, B, S, rc, unroll, norm_eps,
-        PRECISIONS.index(precision), _stream_ptr(se.device))
+        PRECISIONS.index(precision), cs, _stream_ptr(se.device))
     _build.check(lib, err, "rank_partials_fwd")
     rank_partials_fwd.launches += 1
     return eh, tr, tfin, ys
@@ -346,15 +424,17 @@ rank_partials_fwd.launches = 0
 
 @torch.no_grad()
 def rank_partials_fwd_ckpt(ab, bb, xb, t0, se, *, rc: int, unroll: int,
-                           norm_eps: float, precision: str = "highest"):
+                           norm_eps: float, precision: str = "highest",
+                           cluster: Optional[int] = None):
     """(eh, tr, tfin, ck): ``rank_partials_fwd_ckpt_plain`` for CPU tensors,
     the CUDA kernel ``csrc/rank_partials_fwd.cu`` (its checkpoint mode) for
-    CUDA tensors."""
+    CUDA tensors, in clusters as ``rank_partials_fwd``."""
     kw = dict(rc=rc, unroll=unroll, norm_eps=norm_eps, precision=precision)
     if _cuda_or_raise("rank_partials_fwd_ckpt", se):
         return rank_partials_fwd_ckpt_plain(ab, bb, xb, t0, se, **kw)
-    lib, L, B, D, S = _partials_checks("rank_partials_fwd_ckpt", ab, bb, xb,
-                                       t0, se, rc, precision, unroll)
+    lib, L, B, D, S, cs = _partials_checks(
+        "rank_partials_fwd_ckpt", ab, bb, xb, t0, se, rc, precision, unroll,
+        cluster)
     eh = se.new_empty((L, S))
     tr = se.new_empty((L, S))
     tfin = torch.empty_like(t0)
@@ -363,7 +443,7 @@ def rank_partials_fwd_ckpt(ab, bb, xb, t0, se, *, rc: int, unroll: int,
     err = lib.amt_rank_partials_fwd_ckpt(
         _ptr(abt), _ptr(bbt), _ptr(xbt), _ptr(t0), _ptr(se), _ptr(eh),
         _ptr(tr), _ptr(tfin), _ptr(ck), D, L, B, S, rc, unroll, norm_eps,
-        PRECISIONS.index(precision), _stream_ptr(se.device))
+        PRECISIONS.index(precision), cs, _stream_ptr(se.device))
     _build.check(lib, err, "rank_partials_fwd_ckpt")
     rank_partials_fwd_ckpt.launches += 1
     return eh, tr, tfin, ck
@@ -374,23 +454,26 @@ rank_partials_fwd_ckpt.launches = 0
 
 @torch.no_grad()
 def rank_partials_recompute(ab, bb, xb, ck, se, *, rc: int, unroll: int,
-                            norm_eps: float, precision: str = "highest"):
+                            norm_eps: float, precision: str = "highest",
+                            cluster: Optional[int] = None):
     """ys of a time segment: ``rank_partials_recompute_plain`` for CPU
     tensors, the CUDA kernel ``csrc/rank_partials_recompute.cu`` for CUDA
-    tensors."""
+    tensors (one CTA a segment and block, in clusters of segments as
+    ``rank_partials_fwd``)."""
     kw = dict(rc=rc, unroll=unroll, norm_eps=norm_eps, precision=precision)
     if _cuda_or_raise("rank_partials_recompute", se):
         return rank_partials_recompute_plain(ab, bb, xb, ck, se, **kw)
     L = se.shape[0]
     _check_inputs("rank_partials_recompute", se.device, dict(
         ck=(ck, (block.n_blocks(L, unroll),) + tuple(ck.shape[1:]))))
-    lib, L, B, D, S = _partials_checks("rank_partials_recompute", ab, bb,
-                                       xb, ck[0], se, rc, precision, unroll)
+    lib, L, B, D, S, cs = _partials_checks(
+        "rank_partials_recompute", ab, bb, xb, ck[0], se, rc, precision,
+        unroll, cluster, block.n_blocks(L, unroll))
     ys = se.new_empty((L,) + tuple(ck.shape[1:]))
     abt, bbt = (m.t().contiguous() for m in (ab, bb))
     err = lib.amt_rank_partials_recompute(
         _ptr(abt), _ptr(bbt), _ptr(ck), _ptr(se), _ptr(ys), D, L, B, S, rc,
-        unroll, norm_eps, PRECISIONS.index(precision),
+        unroll, norm_eps, PRECISIONS.index(precision), cs,
         _stream_ptr(se.device))
     _build.check(lib, err, "rank_partials_recompute")
     rank_partials_recompute.launches += 1
@@ -403,16 +486,22 @@ rank_partials_recompute.launches = 0
 @torch.no_grad()
 def rank_partials_bwd(ab, bb, xb, t0, se, ys, tr, deh, dtr, dtfin, *,
                       rc: int, unroll: int, norm_eps: float,
-                      precision: str = "highest"):
+                      precision: str = "highest",
+                      cluster: Optional[int] = None):
     """(dse, dt0, dy): ``rank_partials_bwd_plain`` for CPU tensors, the
     CUDA kernels of ``csrc/rank_partials_bwd.cu`` (the chain-free tail over
-    all steps at once, then the serial chain) for CUDA tensors."""
+    all steps at once, then the serial chain) for CUDA tensors, both in
+    clusters of ``cluster`` CTAs (the rule's smaller choice of the two
+    launches when None)."""
     kw = dict(rc=rc, unroll=unroll, norm_eps=norm_eps, precision=precision)
     if _cuda_or_raise("rank_partials_bwd", se):
         return rank_partials_bwd_plain(ab, bb, xb, t0, se, ys, tr, deh, dtr,
                                        dtfin, **kw)
-    lib, L, B, D, S = _partials_checks("rank_partials_bwd", ab, bb, xb, t0,
-                                       se, rc, precision, unroll)
+    L = se.shape[0]
+    S = _n_segments("rank_partials_bwd", t0, se, rc)[0]
+    lib, L, B, D, S, cs = _partials_checks(
+        "rank_partials_bwd", ab, bb, xb, t0, se, rc, precision, unroll,
+        cluster, (1, max(tail_split(S, L), 1)))
     n, cols = t0.shape
     _check_inputs("rank_partials_bwd", se.device, dict(
         ys=(ys, (L, n, cols)), tr=(tr, (L, S)), deh=(deh, (L, S)),
@@ -420,14 +509,14 @@ def rank_partials_bwd(ab, bb, xb, t0, se, ys, tr, deh, dtr, dtfin, *,
     dse = se.new_empty((L, S))
     dt0 = torch.empty_like(t0)
     dy = torch.empty_like(ys)
-    # j-major of Xb and of Xb^T for the tail, of Ab^T and Bb^T (the
-    # matrices themselves) for the chain
-    xbt = xb.t().contiguous()
+    # the tail's Xb + Xb^T (symmetric, so its own j-major form), and the
+    # j-major forms of Ab^T and Bb^T (the matrices themselves) for the chain
+    xs = xb + xb.t()
     err = lib.amt_rank_partials_bwd(
-        _ptr(xbt), _ptr(xb), _ptr(ab), _ptr(bb), _ptr(t0), _ptr(se),
+        _ptr(xs), _ptr(ab), _ptr(bb), _ptr(t0), _ptr(se),
         _ptr(ys), _ptr(tr), _ptr(deh), _ptr(dtr), _ptr(dtfin), _ptr(dse),
         _ptr(dt0), _ptr(dy), D, L, B, S, rc, unroll, norm_eps,
-        PRECISIONS.index(precision), _stream_ptr(se.device))
+        PRECISIONS.index(precision), cs, _stream_ptr(se.device))
     _build.check(lib, err, "rank_partials_bwd")
     rank_partials_bwd.launches += 1
     return dse, dt0, dy

@@ -52,9 +52,13 @@ failure (the script then exits non-zero):
    ``--visualize=false``, a restore and one more; the partials kernels'
    launch counts must move, the monolithic ones' must not), one step's
    time and peak memory, and each kernel's CUDA-event time per time
-   segment and over the whole run beside its bound (the reductions on one
-   segment at each precision, two launches equal bit for bit, and over the
-   run beside ``torch.matmul``);
+   segment and over the whole run beside its bound and its time before
+   the ring redesign (the reductions on one segment at each precision,
+   two launches equal bit for bit, and over the run beside
+   ``torch.matmul``); first it prints the thread-block clusters the
+   partials launches take, how many of each size the card holds, and each
+   partials kernel's registers and spills, and on one segment it times the
+   forward and the adjoint unclustered too;
 9. training without the state stream (``kernel_stream="off"``), for psi and
    rho after their training phases (``recompute_phases``) and for the rank
    partials after theirs (``rank_recompute_phases``): the checkpoint
@@ -236,6 +240,15 @@ RANK_RECOMPUTE_KERNELS = ("rank_partials_fwd_ckpt", "rank_partials_recompute")
 # fp32 arithmetic in another order).
 RANK_CHECK_CHUNK = 16
 TOL_CHUNKED = (1e-5, 1e-4)
+# The partials kernels' whole-run times before their ring redesign (CUDA
+# events over T=16385 at D=256, highest; NVIDIA H100 80GB HBM3, 700 W; the
+# last chip_smoke.py run of that tree), printed beside this run's.
+RANK_BEFORE_MS = {"rank_partials_fwd": 2377.0, "rank_partials_bwd": 2809.8,
+                  "rank_partials_fwd_ckpt": 2508.7,
+                  "rank_partials_recompute": 1490.6, "recompute_adjoint":
+                  5096.6}
+# the kernel build's ptxas report (registers, spills), kept by main()
+BUILD = {"log": ""}
 
 
 # The training path without the state stream (kernel_stream="off"): the
@@ -1293,6 +1306,28 @@ def rho_phases(dev):
     return entries + train_entries
 
 
+def _ptxas_lines(sources):
+    """One line per kernel of `sources` from the build's ptxas report:
+    its name and template arguments, registers and spill bytes."""
+    import re
+    out, src, name, spill = [], None, None, ""
+    for line in BUILD["log"].splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        elif src in sources and "Compiling entry function" in line:
+            m = re.search(r"_ZN3amt\d+(\w+?)I((?:Li\d+E)+)E", line)
+            name = (f"{m.group(1)}<"
+                    + ",".join(re.findall(r"Li(\d+)E", m.group(2))) + ">"
+                    if m else line.split("'")[1])
+        elif src in sources and name and "spill stores" in line:
+            spill = line.strip().split(",")[1].strip()
+        elif src in sources and name and "Used" in line:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            out.append(f"{src}: {name}: {regs}, {spill}")
+            name = None
+    return out or ["(no ptxas report: the library was not rebuilt)"]
+
+
 def _combination_cotangents(f_out, c0, se, cfg, unroll):
     """The combination's cotangents of the partials forward's eh and tr (as
     the training path's backward hands them over) and a zero dtfin (the
@@ -1315,7 +1350,7 @@ def rank_phases(dev):
     from audio_mps_tpu_torch.data import damped_sine_batch
     from audio_mps_tpu_torch.models.cell import make_constants
     from audio_mps_tpu_torch.models.params import init_rho
-    from audio_mps_tpu_torch.ops import block, rank
+    from audio_mps_tpu_torch.ops import _build, block, rank
     from audio_mps_tpu_torch.ops.scan import DEFAULT_UNROLL
     from audio_mps_tpu_torch.train import parse_args, train
 
@@ -1328,6 +1363,26 @@ def rank_phases(dev):
     rc = rank.rho_train_chunk(RANK_D, RANK_B, rank_, *limits)
     check(rc is not None, f"D={RANK_D} dispatched to the monolithic kernels")
     S = cols // rc
+    G = rank_ // rc
+    phase(f"rank-partials launches (D={RANK_D}, rank {rank_}, B={RANK_B}, "
+          f"chunks of {rc} rows: {S} CTAs)")
+    resident, clusters = {}, {"forward": 1, "adjoint (tail, chain)": 1}
+    if dev.type == "cuda":      # (a rehearsal on the CPU runs no kernel)
+        resident = {c: _build.library().amt_rank_partials_max_clusters(
+            RANK_D, rc, c) for c in range(1, rank.MAX_CLUSTER + 1)}
+        tail = rank.tail_split(S, RANK_T - 1)
+        clusters = {"forward": rank.launch_cluster(RANK_D, rc, G, S, dev),
+                    "adjoint (tail, chain)": min(
+                        rank.launch_cluster(RANK_D, rc, G, S * g, dev)
+                        for g in (1, tail))}
+    print(f"  clusters of c CTAs the card holds at once: {resident}; the "
+          f"rule (the largest c that divides an example's {G} chunks and "
+          f"adds no wave) takes: " + ", ".join(
+              f"{k} {v}" for k, v in clusters.items()), flush=True)
+    for line in _ptxas_lines(("rank_partials_fwd.cu",
+                              "rank_partials_recompute.cu",
+                              "rank_partials_bwd.cu")):
+        print("  " + line, flush=True)
     names = dict(zip(("fwd", "bwd", "cot"), RANK_KERNELS))
     kernels = {r: getattr(rank, k) for r, k in names.items()}
     plains = {r: getattr(rank, k + "_plain") for r, k in names.items()}
@@ -1512,6 +1567,15 @@ def rank_phases(dev):
     b_out = call("bwd", seg, cot, f_out, None)
     seg_ms = {r: median_ms(lambda: call(r, seg, cot, f_out, b_out), reps=3)
               for r in ("fwd", "bwd")}
+    # the same launches unclustered: what the multicast of the rule's
+    # cluster changes
+    solo_ms = {r: median_ms(lambda: call(r, seg, cot, f_out, b_out,
+                                         cluster=1), reps=3)
+               for r in ("fwd", "bwd")}
+    print(f"  one segment of {L} steps (median of 3), the rule's clusters "
+          f"({clusters['forward']}, {clusters['adjoint (tail, chain)']}) / "
+          f"clusters of 1: fwd {seg_ms['fwd']:.1f} / {solo_ms['fwd']:.1f}, "
+          f"bwd {seg_ms['bwd']:.1f} / {solo_ms['bwd']:.1f} ms", flush=True)
     # the reductions on this segment at each precision (high and default on
     # the tensor cores), two launches of each equal bit for bit
     seg_cot = {}
@@ -1621,6 +1685,12 @@ def rank_phases(dev):
               f"steps {launches[name]}; plain {plain_ms[role]:.1f} ms at "
               f"T={RANK_T_PREFIX}; control at default {ctrl[role]:.2e}",
               flush=True)
+        if name in RANK_BEFORE_MS:
+            print(f"  {name}: {ms[role]:.1f} ms against "
+                  f"{RANK_BEFORE_MS[name]:.1f} ms before the ring "
+                  f"({RANK_BEFORE_MS[name] / ms[role]:.2f}x); bound share "
+                  f"{bound / ms[role] * 100:.1f}% against "
+                  f"{bound / RANK_BEFORE_MS[name] * 100:.1f}%", flush=True)
     print(f"  rank-chunked train step {step_ms:.1f} ms, of which one pass of "
           f"the three kernels {sum(ms.values()):.1f} ms and the recomputed "
           f"forward {ms['fwd'] if n_seg > 1 else 0.0:.1f} ms", flush=True)
@@ -1790,11 +1860,13 @@ def rank_recompute_phases(dev, streamed):
               f"{bound / ms[role] * 100:.1f}% of its bound {bound:.3f} ms by "
               f"{by}; launches in the CLI's {RANK_OFF_STEPS + 1} steps "
               f"{launches[kname]}; plain {plain_ms[role]:.1f} ms at "
-              f"T={RANK_T_PREFIX}", flush=True)
+              f"T={RANK_T_PREFIX}; {RANK_BEFORE_MS[kname]:.1f} ms before the "
+              f"ring ({RANK_BEFORE_MS[kname] / ms[role]:.2f}x)", flush=True)
     print(f"  the whole recompute adjoint ({n_seg} segments) {adj_ms:.1f} ms,"
           f" {adj_bound[0] / adj_ms * 100:.1f}% of its bound "
           f"{adj_bound[0]:.3f} ms by {adj_bound[1]} (plain "
-          f"{plain_ms['adj']:.1f} ms at T={RANK_T_PREFIX}); "
+          f"{plain_ms['adj']:.1f} ms at T={RANK_T_PREFIX}; "
+          f"{RANK_BEFORE_MS['recompute_adjoint']:.1f} ms before the ring); "
           f"one step (make_train_step, batch draw included, host clock, one "
           f"after a warm-up): off {step_ms:.1f} ms, peak "
           f"{peak / 2 ** 30:.2f} GiB; streamed (checkpointed segments) "
@@ -2995,6 +3067,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     built = _build.build()
+    BUILD["log"] = built["log"]
     print(f"kernel build: {built['seconds']:.1f} s (rebuilt="
           f"{built['rebuilt']}) -> {built['path']}", flush=True)
     for line in built["log"].splitlines():

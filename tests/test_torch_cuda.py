@@ -589,6 +589,84 @@ def test_rank_partials_index_past_2_pow_31_elements(dev):
         assert torch.isfinite(b).all() and torch.equal(a, b)
 
 
+def _rank_all(rank, inputs, cot, kw, **o):
+    """Every partials kernel once on the same inputs: the streamed forward,
+    the checkpoint forward, the segment recompute from its checkpoints and
+    the adjoint on the streamed forward's states."""
+    fwd = rank.rank_partials_fwd(**inputs, **kw, **o)
+    ckpt = rank.rank_partials_fwd_ckpt(**inputs, **kw, **o)
+    rec = rank.rank_partials_recompute(inputs["ab"], inputs["bb"],
+                                       inputs["xb"], ckpt[3], inputs["se"],
+                                       **kw, **o)
+    bwd = rank.rank_partials_bwd(**inputs, ys=fwd[3], tr=fwd[1], **cot,
+                                 **kw, **o)
+    torch.cuda.synchronize()
+    return (*fwd, *ckpt, rec, *bwd)
+
+
+@pytest.mark.parametrize("D, rank_, rc", [(64, 64, 8), (256, 256, 16)])
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_rank_partials_every_cluster_gives_the_same_bits(dev, D, rank_, rc,
+                                                         precision):
+    """The forward (streamed, checkpoint and recompute modes) and the
+    adjoint at every cluster size G admits (1, 2, 4, 8 and 16 of an
+    example's G chunks) equal one another bit for bit: the multicast slabs
+    are the same bits, and a CTA's arithmetic does not depend on who
+    copied them."""
+    from audio_mps_tpu_torch.ops import rank
+    inputs, cot = _rank_inputs(dev, D, rank_, rc, 40)
+    kw = dict(rc=inputs.pop("rc"), norm_eps=inputs.pop("norm_eps"),
+              unroll=7, precision=precision)
+    G = rank_ // rc
+    want = _rank_all(rank, inputs, cot, kw, cluster=1)
+    sizes = [c for c in (2, 4, 8, 16) if G % c == 0]
+    assert sizes[-1] == G
+    for c in sizes:
+        got = _rank_all(rank, inputs, cot, kw, cluster=c)
+        for a, b in zip(got, want):
+            assert torch.isfinite(b).all() and torch.equal(a, b), c
+
+
+def test_rank_partials_two_launches_are_the_same_bits(dev):
+    """Each partials kernel launched twice on the same inputs, at the
+    cluster the card's rule takes, gives the same bits (no atomics, fixed
+    orders)."""
+    from audio_mps_tpu_torch.ops import rank
+    inputs, cot = _rank_inputs(dev, 256, 256, 16, 40)
+    kw = dict(rc=inputs.pop("rc"), norm_eps=inputs.pop("norm_eps"),
+              unroll=7)
+    for a, b in zip(_rank_all(rank, inputs, cot, kw),
+                    _rank_all(rank, inputs, cot, kw)):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D, rank_, rc, B, cluster", [
+    (68, 68, 17, 2, 8), (64, 16, 16, 3, 2), (256, 48, 16, 1, 2)])
+def test_rank_partials_clusters_follow_g(dev, D, rank_, rc, B, cluster):
+    """A G the preferred clusters do not divide (68 / 17 = 4 chunks, one
+    chunk, three) runs at the largest cluster that divides it and matches
+    the plain versions; asking for a cluster that does not divide G
+    raises."""
+    from audio_mps_tpu_torch.ops import rank
+    inputs, cot = _rank_inputs(dev, D, rank_, rc, 40, B=B)
+    kw = dict(rc=inputs.pop("rc"), norm_eps=inputs.pop("norm_eps"),
+              unroll=7)
+    G = rank_ // rc
+    S = B * G
+    chosen = rank.launch_cluster(D, rc, G, S, dev)
+    assert G % chosen == 0 and chosen <= G
+    fwd = rank.rank_partials_fwd_plain(**inputs, **kw)
+    for a, b in zip(rank.rank_partials_fwd(**inputs, **kw), fwd):
+        _close(a, b, TOL["highest"])
+    bwd = rank.rank_partials_bwd_plain(**inputs, ys=fwd[3], tr=fwd[1],
+                                       **cot, **kw)
+    for a, b in zip(rank.rank_partials_bwd(**inputs, ys=fwd[3], tr=fwd[1],
+                                           **cot, **kw), bwd):
+        _close(a, b, TOL["highest"])
+    with pytest.raises(ValueError, match="divide"):
+        rank.rank_partials_fwd(**inputs, **kw, cluster=cluster)
+
+
 def test_rho_train_path_runs_chunked_past_d64(dev):
     """rho training at D=68 (past the monolithic kernels) goes through the
     partials kernels once each, no monolithic rho training kernel, and

@@ -242,6 +242,35 @@ def test_dispatch_rule_limits():
     assert rank.segment_steps(8, 32, 64, 4, "cpu", time_segment=64) is None
 
 
+# Clusters of c partials CTAs an H100 80GB HBM3 holds at once at the
+# partials CTA's shared memory (cudaOccupancyMaxActiveClusters, c = 1..16).
+H100_RESIDENT = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15,
+                 9: 9, 10: 7, 11: 7, 12: 7, 13: 7, 14: 7, 15: 7, 16: 7}
+
+
+@pytest.mark.parametrize("G, ctas, want", [
+    (16, 128, 2),      # the D=256 model: 15 clusters of 8 would take 2 waves
+    (16, 128 * 32, 2),  # its segment recompute, 32 blocks a segment
+    (16, 3 * 128, 2),  # its adjoint tail, 3 step ranges a segment
+    (4, 8, 4), (3, 3, 3), (1, 8, 1), (13, 13, 13), (17, 34, 1),
+    (16, 16, 16), (8, 240, 8)])
+def test_cluster_rule(G, ctas, want):
+    """The cluster of a partials launch: the largest c <= 16 that divides
+    an example's G chunks and adds no wave on the card's residency; a
+    mapping and a callable give the same, a size the card cannot hold is
+    skipped, and an explicit cluster must divide G."""
+    assert rank.partials_cluster(G, ctas, H100_RESIDENT) == want
+    assert rank.partials_cluster(G, ctas, H100_RESIDENT.get) == want
+    none_of_two = {**H100_RESIDENT, 2: 0}
+    assert rank.partials_cluster(G, ctas, none_of_two) != 2
+    assert rank.launch_cluster(256, 16, G, ctas, "cpu", cluster=1) == 1
+    if G > 1:
+        with pytest.raises(ValueError, match="divide"):
+            rank.launch_cluster(256, 16, G, ctas, "cpu", cluster=G + 1)
+    assert rank.tail_split(128, 16384) == 3
+    assert rank.tail_split(1, 5) == 5
+
+
 def test_training_dispatch_runs_chunked_past_d64(monkeypatch):
     """The kernel path at D=68 (past the monolithic kernels) goes through
     the partials, never rho_nll_block_trainable, and equals the eager
