@@ -37,7 +37,7 @@ int amt_psi_batched_fwd(const float* ab, const float* bb, const float* rb,
                         void* stream) {
   return static_cast<int>(amt::launch_fwd<amt::kBatched>(
       ab, bb, rb, t0, se, loss, nullptr, nullptr, ck, D, n_steps, B, unroll,
-      unroll, log_eps, norm_eps, precision, true,
+      unroll, log_eps, norm_eps, precision, true, 1,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -8,20 +8,23 @@
 
 extern "C" {
 
-// Dynamic shared memory of one NLL CTA (psi_fwd.cuh).
-size_t amt_psi_nll_smem_bytes(int D) { return amt::fwd_smem_bytes(D); }
+// Dynamic shared memory of one NLL CTA of G columns (psi_fwd.cuh).
+size_t amt_psi_nll_smem_bytes(int D, int G) {
+  return amt::fwd_smem_bytes(D, G);
+}
 
-// Per-example NLL loss[B] from se[n_steps, B] (increments / A); see
-// psi_fwd.cuh. precision: 0 highest, 1 high, 2 default. Returns a
-// cudaError_t.
+// Per-example NLL loss[B] from se[n_steps, B] (increments / A), G columns a
+// CTA (1, 2, 4 or 8); see psi_fwd.cuh. precision: 0 highest, 1 high,
+// 2 default. Returns a cudaError_t.
 int amt_psi_nll(const float* ab, const float* bb, const float* rb,
                 const float* t0, const float* se, float* loss, int D,
                 int n_steps, int B, int unroll, float log_eps, float norm_eps,
-                int precision, int defer_norm, void* stream) {
+                int precision, int defer_norm, int cols_per_cta,
+                void* stream) {
   return static_cast<int>(amt::launch_fwd<amt::kNll>(
       ab, bb, rb, t0, se, loss, nullptr, nullptr, nullptr, D, n_steps, B,
       unroll, unroll, log_eps, norm_eps, precision, defer_norm != 0,
-      static_cast<cudaStream_t>(stream)));
+      cols_per_cta, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

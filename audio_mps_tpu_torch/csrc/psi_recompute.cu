@@ -15,12 +15,12 @@
 // the whole run's.
 //
 // The kernel is psi_fwd_kernel of psi_fwd.cuh in its kRecompute mode: CTA
-// (column, j) runs the steps of span j (a whole number of blocks; the last
-// span of the run may be shorter), each block from its own checkpoint, as
-// the plain version does, with the forward's own instructions, so from the
-// forward's checkpoints ys and n2s equal the streamed forward's bit for
-// bit. Unlike the TPU's grid, which
-// is serial in time, the spans are independent and run side by side.
+// (column group, j) runs the steps of span j (a whole number of blocks;
+// the last span of the run may be shorter), each block from its own
+// checkpoint, as the plain version does, with the forward's own
+// instructions, so from the forward's checkpoints ys and n2s equal the
+// streamed forward's bit for bit. Unlike the TPU's grid, which is serial
+// in time, the spans are independent and run side by side.
 //
 // What bounds it: the forward's update products (2 x 2 (2D)^2 FLOPs a
 // column-step; the expectation Rb y feeds only the loss and is skipped),
@@ -36,18 +36,18 @@ extern "C" {
 
 // ys[n_steps, 2D, B] and n2s[n_steps, B] of a segment of n_steps steps
 // (se[n_steps, B]) from its checkpoints ck[ceil(n_steps / unroll), 2D, B],
-// blocks_per_cta blocks a CTA; the segment starts at a block entry; rb is
-// not read. See psi_fwd.cuh. precision: 0 highest, 1 high, 2 default.
-// Returns a cudaError_t.
+// blocks_per_cta blocks and G columns a CTA; the segment starts at a block
+// entry; rb is not read. See psi_fwd.cuh. precision: 0 highest, 1 high,
+// 2 default. Returns a cudaError_t.
 int amt_psi_recompute(const float* ab, const float* bb, const float* rb,
                       const float* ck, const float* se, float* ys, float* n2s,
                       int D, int n_steps, int B, int unroll,
                       int blocks_per_cta, float norm_eps, int precision,
-                      int defer_norm, void* stream) {
+                      int defer_norm, int cols_per_cta, void* stream) {
   return static_cast<int>(amt::launch_fwd<amt::kRecompute>(
       ab, bb, rb, ck, se, nullptr, ys, n2s, nullptr, D, n_steps, B, unroll,
       unroll * blocks_per_cta, 0.f, norm_eps, precision, defer_norm != 0,
-      static_cast<cudaStream_t>(stream)));
+      cols_per_cta, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -18,33 +18,36 @@
 
 extern "C" {
 
-// Dynamic shared memory of one training-forward CTA (psi_fwd.cuh).
-size_t amt_psi_train_fwd_smem_bytes(int D) { return amt::fwd_smem_bytes(D); }
+// Dynamic shared memory of one training-forward (or recompute) CTA of G
+// columns (psi_fwd.cuh).
+size_t amt_psi_train_fwd_smem_bytes(int D, int G) {
+  return amt::fwd_smem_bytes(D, G);
+}
 
 // loss[B], ys[n_steps, 2D, B] and n2s[n_steps, B] from se[n_steps, B]
-// (increments / A); see psi_fwd.cuh. precision: 0 highest, 1 high,
-// 2 default. Returns a cudaError_t.
+// (increments / A), G columns a CTA (1, 2, 4 or 8); see psi_fwd.cuh.
+// precision: 0 highest, 1 high, 2 default. Returns a cudaError_t.
 int amt_psi_train_fwd(const float* ab, const float* bb, const float* rb,
                       const float* t0, const float* se, float* loss, float* ys,
                       float* n2s, int D, int n_steps, int B, int unroll,
                       float log_eps, float norm_eps, int precision,
-                      int defer_norm, void* stream) {
+                      int defer_norm, int cols_per_cta, void* stream) {
   return static_cast<int>(amt::launch_fwd<amt::kStream>(
       ab, bb, rb, t0, se, loss, ys, n2s, nullptr, D, n_steps, B, unroll,
-      unroll, log_eps, norm_eps, precision, defer_norm != 0,
+      unroll, log_eps, norm_eps, precision, defer_norm != 0, cols_per_cta,
       static_cast<cudaStream_t>(stream)));
 }
 
 // loss[B] and the checkpoints ck[ceil(n_steps / unroll), 2D, B] from
-// se[n_steps, B]; see psi_fwd.cuh. Returns a cudaError_t.
+// se[n_steps, B], G columns a CTA; see psi_fwd.cuh. Returns a cudaError_t.
 int amt_psi_train_fwd_ckpt(const float* ab, const float* bb, const float* rb,
                            const float* t0, const float* se, float* loss,
                            float* ck, int D, int n_steps, int B, int unroll,
                            float log_eps, float norm_eps, int precision,
-                           int defer_norm, void* stream) {
+                           int defer_norm, int cols_per_cta, void* stream) {
   return static_cast<int>(amt::launch_fwd<amt::kCkpt>(
       ab, bb, rb, t0, se, loss, nullptr, nullptr, ck, D, n_steps, B, unroll,
-      unroll, log_eps, norm_eps, precision, defer_norm != 0,
+      unroll, log_eps, norm_eps, precision, defer_norm != 0, cols_per_cta,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -24,7 +24,7 @@ import torch
 
 from ..config import CMPSConfig
 from ..ops.complexing import (apply_matrix, cmatmul, cmatmul_adj_right, cmul,
-                               ctrace_re, gram_adj)
+                               ctrace_re, gram_adj, matmul)
 
 
 def effective_R(params):
@@ -85,8 +85,9 @@ def rho_apply_U(cc: CellConstants, rr, ri, s):
 def rho_expectation(cc: CellConstants, rr, ri):
     """``<x> = Re tr[(R + R^dag) rho~]``, frame-invariant
     (reference: model.py:189-196)."""
-    return (torch.einsum("ik,bki->b", cc.Xr, rr)
-            - torch.einsum("ik,bki->b", cc.Xi, ri))
+    rt_r, rt_i = rr.transpose(-1, -2), ri.transpose(-1, -2)
+    return (torch.sum(cc.Xr * rt_r, dim=(-2, -1))
+            - torch.sum(cc.Xi * rt_i, dim=(-2, -1)))
 
 
 def normalize_rho(rr, ri, eps: float):
@@ -188,11 +189,13 @@ def rho_factor_loss_step(cc: CellConstants, cfg: CMPSConfig, carry, inc):
     s = (inc / cc.A)[:, None, None]
     cdr, cdi = cc.Cr.T, -cc.Ci.T
     rdr, rdi = cc.Rr.T, -cc.Ri.T
-    yr = (gr @ cdr - gi @ cdi) + s * (gr @ rdr - gi @ rdi)
-    yi = (gr @ cdi + gi @ cdr) + s * (gr @ rdi + gi @ rdr)
+    yr = ((matmul(gr, cdr) - matmul(gi, cdi))
+          + s * (matmul(gr, rdr) - matmul(gi, rdi)))
+    yi = ((matmul(gr, cdi) + matmul(gi, cdr))
+          + s * (matmul(gr, rdi) + matmul(gi, rdr)))
     # e = Re tr(X rho'') = sum Re(G'' . conj(G'' @ X))
-    gxr = yr @ cc.Xr - yi @ cc.Xi
-    gxi = yr @ cc.Xi + yi @ cc.Xr
+    gxr = matmul(yr, cc.Xr) - matmul(yi, cc.Xi)
+    gxi = matmul(yr, cc.Xi) + matmul(yi, cc.Xr)
     e = torch.sum(yr * gxr + yi * gxi, dim=(1, 2))
     tr = torch.sum(yr * yr + yi * yi, dim=(1, 2))
     loss = loss + nll_increment(e, s[:, 0, 0], cfg.log_eps)

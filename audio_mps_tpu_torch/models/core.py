@@ -259,8 +259,8 @@ def purity_with_noise(params, cfg: CMPSConfig, noise):
     """``tr(rho^2)`` [N, T] along the sampler's trajectories on given noise
     [T, N], on the rotating-frame states (it is frame-invariant)."""
     sr, si = _sampled_rho_states(params, cfg, noise)
-    p = (torch.einsum("tbij,tbji->tb", sr, sr)
-         - torch.einsum("tbij,tbji->tb", si, si))
+    p = (torch.sum(sr * sr.transpose(-1, -2), dim=(-2, -1))
+         - torch.sum(si * si.transpose(-1, -2), dim=(-2, -1)))
     return p.T
 
 

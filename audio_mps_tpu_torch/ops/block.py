@@ -38,6 +38,7 @@ fp32, as the kernels do.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -46,6 +47,7 @@ from ..config import CMPSConfig
 from ..models import core
 from ..models.cell import make_constants
 from . import _build
+from .complexing import fp32_products, matmul
 
 PRECISIONS = ("highest", "high", "default")
 
@@ -105,7 +107,9 @@ def _split_bf16(x):
 
 def _make_dot_ops(precision):
     """(prep, dotf) for the plain versions' products. prep() rounds or
-    splits an operand once; dotf(a, b) is a @ b on prepped operands."""
+    splits an operand once; dotf(a, b) is a @ b on prepped operands, in
+    true fp32 whatever the process-global matmul setting (the bf16 parts'
+    products are exact in fp32, as the kernels take them)."""
     if precision == "high":
         def prep(x):
             hi, lo = _split_bf16(x)
@@ -114,12 +118,13 @@ def _make_dot_ops(precision):
         def dotf(a, b):
             ah, al = a
             bh, bl = b
-            return ah @ bh + ah @ bl + al @ bh
+            with fp32_products():
+                return ah @ bh + ah @ bl + al @ bh
         return prep, dotf
     if precision == "default":
-        return (lambda x: x.to(torch.bfloat16).float()), torch.matmul
+        return (lambda x: x.to(torch.bfloat16).float()), matmul
     if precision == "highest":
-        return (lambda x: x), torch.matmul
+        return (lambda x: x), matmul
     raise ValueError(f"precision must be one of {PRECISIONS}, got "
                      f"{precision!r}")
 
@@ -129,15 +134,16 @@ def _make_dot_ops_bwd(precision):
     ``pallas_block._make_dot_ops_bwd``; its ``rec`` rebuilds values from the
     preps its recompute adjoint saves, where the port's recompute rebuilds
     the states themselves): ``dotnt(a, b)`` is a @ b.T on prepped
-    operands, contracting their last axes."""
+    operands, contracting their last axes, in true fp32 as ``dotf``."""
     prep, dotf = _make_dot_ops(precision)
     if precision == "high":
         def dotnt(a, b):
             ah, al = a
             bh, bl = b
-            return ah @ bh.T + ah @ bl.T + al @ bh.T
+            with fp32_products():
+                return ah @ bh.T + ah @ bl.T + al @ bh.T
         return prep, dotf, dotnt
-    return prep, dotf, (lambda a, b: a @ b.T)
+    return prep, dotf, (lambda a, b: matmul(a, b.T))
 
 
 def _as_kernel_input(x):
@@ -195,6 +201,93 @@ def _stream_ptr(device):
 
 def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
+
+
+# ===========================================================================
+# psi's block forward and adjoint: G columns a CTA
+# ===========================================================================
+
+PSI_COLS = (1, 2, 4, 8)
+# the dynamic shared memory one block may opt into on an H100
+H100_SMEM_OPTIN = 232448
+
+
+def _warps_for(D: int) -> int:
+    """Warps of a psi block CTA: one thread a state row, whole warps."""
+    return (2 * D + 31) // 32
+
+
+def psi_fwd_smem_bytes(D: int, G: int) -> int:
+    """Dynamic shared memory of one CTA of ``csrc/psi_fwd.cuh`` (the NLL,
+    the training forwards, the recompute) at G columns a CTA: Ab, Bb, Rb,
+    four [2D, G] state buffers and 2G partials a warp (its
+    ``fwd_smem_bytes``)."""
+    n = 2 * D
+    return 4 * (3 * n * n + 4 * n * G + 2 * G * _warps_for(D))
+
+
+def psi_bwd_smem_bytes(D: int, G: int) -> int:
+    """Dynamic shared memory of one CTA of ``csrc/psi_train_bwd.cu`` at G
+    columns a CTA: Ab, Bb, Rb with rows padded to 2D+1 words (rounded up to
+    16 bytes), six [2D, G] buffers and 3G partials a warp."""
+    n = 2 * D
+    words = (3 * n * (n + 1) + 3) // 4 * 4
+    return 4 * (words + 6 * n * G + 3 * G * _warps_for(D))
+
+
+def psi_columns_per_cta(B: int, D: int, n_sms: int,
+                        smem_optin: int = H100_SMEM_OPTIN) -> int:
+    """Columns a CTA G (1, 2, 4 or 8) of psi's block forward and adjoint
+    for B columns at bond dimension D on a card of ``n_sms`` SMs: 1 while
+    the B CTAs of G = 1 fit one wave, one CTA an SM (at D=64 the constants
+    take 192-198 KB of an SM's 228); past that the G whose ceil(B / G) CTAs
+    need the fewest waves, and the smallest such G, among those at which
+    both kernels' CTAs fit ``smem_optin`` (``psi_fwd_smem_bytes``,
+    ``psi_bwd_smem_bytes``: to G=8 at D=64, G=4 at D=68 for the forward
+    and G=2 for the adjoint, so 2 there). A pure function of its
+    arguments, as ``rank.partials_cluster`` is.
+
+    Why: one column a CTA feeds one FMA from each 4-byte shared load of a
+    constant, in a chain of 2D dependent FMAs a product, so its step is
+    bound by the chain's latency and the loads, not by the SM's FMA rate; G
+    columns feed G FMAs from each load and run G chains side by side, and
+    every column keeps G = 1's bits. Measured on an NVIDIA H100 80GB HBM3
+    at a 400 W power limit, D=64, T=16384, highest
+    (``tools/psi_columns_sweep.py``), a wave of G-column CTAs takes c(G)
+    times a wave of one-column CTAs: the streamed forward's wave takes
+    59.9 ms at G=1 (B=128), and at B=1024 (8, 4, 2, 1 waves at G = 1, 2,
+    4, 8) 473.0, 314.7, 183.1 and 137.3 ms, so c = 1, 1.31, 1.53, 2.29; the
+    adjoint chain 646.8, 345.8, 255.0, 187.8 ms, the checkpoint forward
+    418.1, 221.2, 180.1, 131.9 and the whole recompute adjoint 1011.4,
+    597.6, 466.1, 347.3. c(G) grows with G but stays below the waves G
+    saves, so the fewest waves win, and among as many waves the smallest
+    G: G = 1 while B <= n_sms (B=128 keeps one column a CTA)."""
+    fits = [G for G in PSI_COLS
+            if max(psi_fwd_smem_bytes(D, G),
+                   psi_bwd_smem_bytes(D, G)) <= smem_optin] or [1]
+
+    def waves(G):
+        ctas = -(-B // G)
+        return -(-ctas // n_sms)
+
+    return min(fits, key=lambda G: (waves(G), G))
+
+
+def _check_cols(cols_per_cta):
+    if cols_per_cta is not None and cols_per_cta not in PSI_COLS:
+        raise ValueError(f"cols_per_cta must be None or one of {PSI_COLS}, "
+                         f"got {cols_per_cta!r}")
+
+
+def _psi_cols(B: int, D: int, device, cols_per_cta) -> int:
+    """G of a psi block launch on ``device``: ``cols_per_cta``, or None for
+    ``psi_columns_per_cta`` on the card's SMs and shared memory."""
+    _check_cols(cols_per_cta)
+    if cols_per_cta is not None:
+        return cols_per_cta
+    props = torch.cuda.get_device_properties(device)
+    return psi_columns_per_cta(B, D, props.multi_processor_count,
+                               props.shared_memory_per_block_optin)
 
 
 # ===========================================================================
@@ -361,10 +454,13 @@ def psi_nll_block_plain(ab, bb, rb, t0, se, *, log_eps: float,
 @torch.no_grad()
 def psi_nll_block(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
                   unroll: int = 16, precision: str = "highest",
-                  defer_norm: bool = False):
+                  defer_norm: bool = False, cols_per_cta=None):
     """Per-example NLL [B]: ``psi_nll_block_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/psi_nll.cu`` for CUDA tensors."""
+    CUDA kernel ``csrc/psi_nll.cu`` for CUDA tensors, ``cols_per_cta``
+    columns a CTA (None: ``psi_columns_per_cta``; every G gives the same
+    bits)."""
     if _cuda_or_raise("psi_nll_block", se):
+        _check_cols(cols_per_cta)
         return psi_nll_block_plain(ab, bb, rb, t0, se, log_eps=log_eps,
                                    norm_eps=norm_eps, unroll=unroll,
                                    precision=precision,
@@ -375,22 +471,26 @@ def psi_nll_block(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
     _check_inputs("psi_nll_block", se.device, dict(
         ab=(ab, (2 * D, 2 * D)), bb=(bb, (2 * D, 2 * D)),
         rb=(rb, (2 * D, 2 * D)), t0=(t0, (2 * D, B)), se=(se, (n_steps, B))))
+    G = _psi_cols(B, D, se.device, cols_per_cta)
     lib = _build.library()
-    _check_smem("psi_nll_block", lib.amt_psi_nll_smem_bytes(D), se.device, D)
+    _check_smem("psi_nll_block", lib.amt_psi_nll_smem_bytes(D, G), se.device,
+                D)
     loss = torch.empty((B,), dtype=torch.float32, device=se.device)
     if B == 0:
         return loss
     err = lib.amt_psi_nll(
         _ptr(ab), _ptr(bb), _ptr(rb), _ptr(t0), _ptr(se), _ptr(loss),
         D, n_steps, B, unroll, log_eps, norm_eps,
-        PRECISIONS.index(precision), int(defer_norm),
+        PRECISIONS.index(precision), int(defer_norm), G,
         _stream_ptr(se.device))
     _build.check(lib, err, "psi_nll_block")
     psi_nll_block.launches += 1
+    psi_nll_block.cols_per_cta = G
     return loss
 
 
 psi_nll_block.launches = 0
+psi_nll_block.cols_per_cta = None
 
 
 # ===========================================================================
@@ -599,12 +699,14 @@ def psi_cotangents_plain(dy, ys, t0, se, n2s, dehat, *, norm_eps: float,
 @torch.no_grad()
 def psi_train_fwd(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
                   unroll: int = 16, precision: str = "highest",
-                  defer_norm: bool = False):
+                  defer_norm: bool = False, cols_per_cta=None):
     """(loss [B], ys, n2s): ``psi_train_fwd_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/psi_train_fwd.cu`` for CUDA tensors."""
+    CUDA kernel ``csrc/psi_train_fwd.cu`` for CUDA tensors, ``cols_per_cta``
+    columns a CTA (None: ``psi_columns_per_cta``)."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm)
     if _cuda_or_raise("psi_train_fwd", se):
+        _check_cols(cols_per_cta)
         return psi_train_fwd_plain(ab, bb, rb, t0, se, **kw)
     _check_options(precision, unroll)
     n_steps, B = se.shape
@@ -613,8 +715,9 @@ def psi_train_fwd(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
     _check_inputs("psi_train_fwd", se.device, dict(
         ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)), t0=(t0, (n, B)),
         se=(se, (n_steps, B))))
+    G = _psi_cols(B, D, se.device, cols_per_cta)
     lib = _build.library()
-    _check_smem("psi_train_fwd", lib.amt_psi_train_fwd_smem_bytes(D),
+    _check_smem("psi_train_fwd", lib.amt_psi_train_fwd_smem_bytes(D, G),
                 se.device, D)
     loss = se.new_empty((B,))
     ys = se.new_empty((n_steps, n, B))
@@ -624,25 +727,31 @@ def psi_train_fwd(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
     err = lib.amt_psi_train_fwd(
         _ptr(ab), _ptr(bb), _ptr(rb), _ptr(t0), _ptr(se), _ptr(loss),
         _ptr(ys), _ptr(n2s), D, n_steps, B, unroll, log_eps, norm_eps,
-        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+        PRECISIONS.index(precision), int(defer_norm), G,
+        _stream_ptr(se.device))
     _build.check(lib, err, "psi_train_fwd")
     psi_train_fwd.launches += 1
+    psi_train_fwd.cols_per_cta = G
     return loss, ys, n2s
 
 
 psi_train_fwd.launches = 0
+psi_train_fwd.cols_per_cta = None
 
 
 @torch.no_grad()
 def psi_train_fwd_ckpt(ab, bb, rb, t0, se, *, log_eps: float,
                        norm_eps: float, unroll: int = 16,
-                       precision: str = "highest", defer_norm: bool = False):
+                       precision: str = "highest", defer_norm: bool = False,
+                       cols_per_cta=None):
     """(loss [B], ck): ``psi_train_fwd_ckpt_plain`` for CPU tensors, the
     CUDA kernel ``csrc/psi_train_fwd.cu`` (its checkpoint mode) for CUDA
-    tensors."""
+    tensors, ``cols_per_cta`` columns a CTA (None:
+    ``psi_columns_per_cta``)."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm)
     if _cuda_or_raise("psi_train_fwd_ckpt", se):
+        _check_cols(cols_per_cta)
         return psi_train_fwd_ckpt_plain(ab, bb, rb, t0, se, **kw)
     _check_options(precision, unroll)
     n_steps, B = se.shape
@@ -651,9 +760,10 @@ def psi_train_fwd_ckpt(ab, bb, rb, t0, se, *, log_eps: float,
     _check_inputs("psi_train_fwd_ckpt", se.device, dict(
         ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)), t0=(t0, (n, B)),
         se=(se, (n_steps, B))))
+    G = _psi_cols(B, D, se.device, cols_per_cta)
     lib = _build.library()
-    _check_smem("psi_train_fwd_ckpt", lib.amt_psi_train_fwd_smem_bytes(D),
-                se.device, D)
+    _check_smem("psi_train_fwd_ckpt",
+                lib.amt_psi_train_fwd_smem_bytes(D, G), se.device, D)
     loss = se.new_empty((B,))
     ck = se.new_empty((n_blocks(n_steps, unroll), n, B))
     if B == 0:
@@ -661,13 +771,16 @@ def psi_train_fwd_ckpt(ab, bb, rb, t0, se, *, log_eps: float,
     err = lib.amt_psi_train_fwd_ckpt(
         _ptr(ab), _ptr(bb), _ptr(rb), _ptr(t0), _ptr(se), _ptr(loss),
         _ptr(ck), D, n_steps, B, unroll, log_eps, norm_eps,
-        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+        PRECISIONS.index(precision), int(defer_norm), G,
+        _stream_ptr(se.device))
     _build.check(lib, err, "psi_train_fwd_ckpt")
     psi_train_fwd_ckpt.launches += 1
+    psi_train_fwd_ckpt.cols_per_cta = G
     return loss, ck
 
 
 psi_train_fwd_ckpt.launches = 0
+psi_train_fwd_ckpt.cols_per_cta = None
 
 
 def psi_recompute_blocks(cols: int, blocks: int, n_sms: int) -> int:
@@ -680,13 +793,16 @@ def psi_recompute_blocks(cols: int, blocks: int, n_sms: int) -> int:
 
 @torch.no_grad()
 def psi_recompute(ab, bb, rb, ck, se, *, norm_eps: float, unroll: int = 16,
-                  precision: str = "highest", defer_norm: bool = False):
+                  precision: str = "highest", defer_norm: bool = False,
+                  cols_per_cta=None):
     """(ys, n2s) of a segment: ``psi_recompute_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/psi_recompute.cu`` for CUDA tensors, a CTA a span of
+    CUDA kernel ``csrc/psi_recompute.cu`` for CUDA tensors, a CTA
+    ``cols_per_cta`` columns (None: ``psi_columns_per_cta``) and a span of
     ``psi_recompute_blocks`` blocks."""
     kw = dict(norm_eps=norm_eps, unroll=unroll, precision=precision,
               defer_norm=defer_norm)
     if _cuda_or_raise("psi_recompute", se):
+        _check_cols(cols_per_cta)
         return psi_recompute_plain(ab, bb, rb, ck, se, **kw)
     _check_options(precision, unroll)
     n_steps, B = se.shape
@@ -695,38 +811,44 @@ def psi_recompute(ab, bb, rb, ck, se, *, norm_eps: float, unroll: int = 16,
     _check_inputs("psi_recompute", se.device, dict(
         ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)),
         ck=(ck, (n_blocks(n_steps, unroll), n, B)), se=(se, (n_steps, B))))
+    G = _psi_cols(B, D, se.device, cols_per_cta)
     lib = _build.library()
-    _check_smem("psi_recompute", lib.amt_psi_train_fwd_smem_bytes(D),
+    _check_smem("psi_recompute", lib.amt_psi_train_fwd_smem_bytes(D, G),
                 se.device, D)
     ys = se.new_empty((n_steps, n, B))
     n2s = se.new_empty((n_steps, B))
     if B == 0 or n_steps == 0:
         return ys, n2s
     span = psi_recompute_blocks(
-        B, ck.shape[0],
+        -(-B // G), ck.shape[0],
         torch.cuda.get_device_properties(se.device).multi_processor_count)
     err = lib.amt_psi_recompute(
         _ptr(ab), _ptr(bb), _ptr(rb), _ptr(ck), _ptr(se), _ptr(ys),
         _ptr(n2s), D, n_steps, B, unroll, span, norm_eps,
-        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+        PRECISIONS.index(precision), int(defer_norm), G,
+        _stream_ptr(se.device))
     _build.check(lib, err, "psi_recompute")
     psi_recompute.launches += 1
+    psi_recompute.cols_per_cta = G
     return ys, n2s
 
 
 psi_recompute.launches = 0
+psi_recompute.cols_per_cta = None
 
 
 @torch.no_grad()
 def psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
                   norm_eps: float, unroll: int = 16,
                   precision: str = "highest", defer_norm: bool = False,
-                  dtfin=None):
+                  dtfin=None, cols_per_cta=None):
     """(dse, dt0, dy, dehat): ``psi_train_bwd_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/psi_train_bwd.cu`` for CUDA tensors."""
+    CUDA kernel ``csrc/psi_train_bwd.cu`` for CUDA tensors, ``cols_per_cta``
+    columns a CTA (None: ``psi_columns_per_cta``)."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm, dtfin=dtfin)
     if _cuda_or_raise("psi_train_bwd", se):
+        _check_cols(cols_per_cta)
         return psi_train_bwd_plain(ab, bb, rb, t0, se, g, ys, n2s, **kw)
     _check_options(precision, unroll)
     n_steps, B = se.shape
@@ -739,8 +861,9 @@ def psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
     if dtfin is not None:
         _check_inputs("psi_train_bwd", se.device,
                       dict(dtfin=(dtfin, (n, B))))
+    G = _psi_cols(B, D, se.device, cols_per_cta)
     lib = _build.library()
-    _check_smem("psi_train_bwd", lib.amt_psi_train_bwd_smem_bytes(D),
+    _check_smem("psi_train_bwd", lib.amt_psi_train_bwd_smem_bytes(D, G),
                 se.device, D)
     dse = torch.empty_like(se)
     dt0 = torch.empty_like(t0)
@@ -752,14 +875,16 @@ def psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
         _ptr(ab), _ptr(bb), _ptr(rb), _ptr(t0), _ptr(se), _ptr(g), _ptr(ys),
         _ptr(n2s), None if dtfin is None else _ptr(dtfin), _ptr(dse),
         _ptr(dt0), _ptr(dy), _ptr(dehat), D, n_steps, B, unroll, log_eps,
-        norm_eps, PRECISIONS.index(precision), int(defer_norm),
+        norm_eps, PRECISIONS.index(precision), int(defer_norm), G,
         _stream_ptr(se.device))
     _build.check(lib, err, "psi_train_bwd")
     psi_train_bwd.launches += 1
+    psi_train_bwd.cols_per_cta = G
     return dse, dt0, dy, dehat
 
 
 psi_train_bwd.launches = 0
+psi_train_bwd.cols_per_cta = None
 
 
 @torch.no_grad()
@@ -905,17 +1030,22 @@ def psi_recompute_bwd_plain(ab, bb, rb, ck, se, g, *, log_eps: float,
 def psi_recompute_bwd(ab, bb, rb, ck, se, g, *, log_eps: float,
                       norm_eps: float, unroll: int = 16,
                       precision: str = "highest", defer_norm: bool = False,
-                      segment: Optional[int] = None):
+                      segment: Optional[int] = None, cols_per_cta=None):
     """(dse, dt0, dAb, dBb, dRb): ``psi_recompute_bwd_plain`` for CPU
     tensors; for CUDA tensors the same segments through the kernels
-    ``psi_recompute``, ``psi_train_bwd`` (its dt carried in) and
-    ``psi_cotangents``, each counting its own launches."""
+    ``psi_recompute``, ``psi_train_bwd`` (its dt carried in; both at
+    ``cols_per_cta``) and ``psi_cotangents``, each counting its own
+    launches."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm, segment=segment)
+    _check_cols(cols_per_cta)
     if _cuda_or_raise("psi_recompute_bwd", se):
         return psi_recompute_bwd_plain(ab, bb, rb, ck, se, g, **kw)
-    return _recompute_bwd((psi_recompute, psi_train_bwd, psi_cotangents),
-                          ab, bb, rb, ck, se, g, **kw)
+    cols = dict(cols_per_cta=cols_per_cta)
+    return _recompute_bwd(
+        (functools.partial(psi_recompute, **cols),
+         functools.partial(psi_train_bwd, **cols), psi_cotangents),
+        ab, bb, rb, ck, se, g, **kw)
 
 
 # ===========================================================================

@@ -2,13 +2,68 @@
 
 The port keeps the JAX package's split form (a "cpair" is a tuple
 ``(re, im)`` of equal-shape float tensors) so that the eager reference and
-the kernels compare like with like against ``audio_mps_tpu``. Matrix
-products are plain fp32 ``torch.matmul``; callers on the card keep TF32 off
-(``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
+the kernels compare like with like against ``audio_mps_tpu``. Every matrix
+product the port forms itself runs in true fp32 whatever the
+process-global setting (``torch.set_float32_matmul_precision``: TF32 on the
+card, bf16 on the CPU's oneDNN path), forward and backward, as the JAX
+package pins ``precision="highest"`` on its complex algebra: ``matmul``
+below for products that autograd sees, ``fp32_products`` around the
+others. Neither changes the caller's setting once it returns.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
+import torch
+
+
+def _matmul_backends():
+    """The fp32 matmul settings of cuBLAS and oneDNN (``fp32_precision``)."""
+    return torch.backends.cuda.matmul, torch.backends.mkldnn.matmul
+
+
+@contextlib.contextmanager
+def fp32_products():
+    """Run the products inside in true fp32 (no TF32, no bf16 passes), then
+    restore the caller's settings exactly."""
+    backends = _matmul_backends()
+    saved = [b.fp32_precision for b in backends]
+    for b in backends:
+        b.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        for b, v in zip(backends, saved):
+            b.fp32_precision = v
+
+
+class _Fp32Matmul(torch.autograd.Function):
+    """``a @ b`` whose backward products are pinned too: autograd runs the
+    backward after any context around the forward has exited."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with fp32_products():
+            return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        with fp32_products():
+            if ctx.needs_input_grad[0]:
+                ga = (g @ b.mT).sum_to_size(a.shape)
+            if ctx.needs_input_grad[1]:
+                gb = (a.mT @ g).sum_to_size(b.shape)
+        return ga, gb
+
+
+def matmul(a, b):
+    """``a @ b`` of tensors of two or more dimensions (broadcast over the
+    leading ones) in true fp32, its gradient too."""
+    return _Fp32Matmul.apply(a, b)
 
 
 def to_numpy(re, im) -> np.ndarray:
@@ -29,14 +84,16 @@ def cconj(ar, ai):
 
 def cmatmul(ar, ai, br, bi):
     """Complex matmul of cpairs using 4 real matmuls."""
-    return ar @ br - ai @ bi, ar @ bi + ai @ br
+    return (matmul(ar, br) - matmul(ai, bi),
+            matmul(ar, bi) + matmul(ai, br))
 
 
 def cmatmul_adj_right(ar, ai, br, bi):
     """``A @ B^dagger`` for cpairs: B^dagger = conj(B)^T."""
     bt_r = br.transpose(-1, -2)
     bt_i = -bi.transpose(-1, -2)
-    return ar @ bt_r - ai @ bt_i, ar @ bt_i + ai @ bt_r
+    return (matmul(ar, bt_r) - matmul(ai, bt_i),
+            matmul(ar, bt_i) + matmul(ai, bt_r))
 
 
 def cadjoint(ar, ai):
@@ -60,4 +117,5 @@ def apply_matrix(mr, mi, vr, vi):
     sum_b M_ab v_b, i.e. ``v @ M^T`` in row-vector form."""
     mt_r = mr.T
     mt_i = mi.T
-    return vr @ mt_r - vi @ mt_i, vr @ mt_i + vi @ mt_r
+    return (matmul(vr, mt_r) - matmul(vi, mt_i),
+            matmul(vr, mt_i) + matmul(vi, mt_r))

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .complexing import fp32_products
 from .block import (PRECISIONS, _check_inputs, _check_options, _check_smem,
                     _cuda_or_raise, _make_dot_ops, _psi_chain_plain, _ptr,
                     _stream_ptr)
@@ -58,14 +59,11 @@ def pad_steps(se, unroll: int):
 
 def probe_products(ab, bb):
     """(AA, AB, BA, BB) = (Ab Ab, Ab Bb, Bb Ab, Bb Bb), the paired variant's
-    constants, as fp32 products with TF32 off (``torch.matmul`` outside the
-    kernel, as the TPU tool forms them with ``_dot`` at highest)."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    constants, as true fp32 products (``torch.matmul`` outside the kernel
+    under ``fp32_products``, as the TPU tool forms them with ``_dot`` at
+    highest)."""
+    with fp32_products():
         return ab @ ab, ab @ bb, bb @ ab, bb @ bb
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 @torch.no_grad()

@@ -59,6 +59,7 @@ from ..config import CMPSConfig
 from ..models import core
 from ..models.cell import make_constants
 from . import _build
+from .complexing import fp32_products
 from .block import (PRECISIONS, _as_kernel_input, _check_inputs,
                     _check_smem, _cuda_or_raise, _lanes, _make_dot_ops, _ptr,
                     _rank_of, _segment_sum, _stream_ptr, n_blocks,
@@ -478,10 +479,11 @@ def psi_split_bwd_plain(cr, ci, rr, ri, pc, ps, se, g, ckr, cki, *,
     sdyr, sdyi = lanes(s * dyr_all), lanes(s * dyi_all)
     wr, wi = lanes(prep(f["yr"])), lanes(prep(f["yi"]))
     ur, ui = lanes(dur), lanes(dui)
-    dcr = dyr @ xr.T + dyi @ xi.T
-    dci = dyi @ xr.T - dyr @ xi.T
-    drr = ur @ wr.T + ui @ wi.T + sdyr @ xr.T + sdyi @ xi.T
-    dri = ui @ wr.T - ur @ wi.T + sdyi @ xr.T - sdyr @ xi.T
+    with fp32_products():
+        dcr = dyr @ xr.T + dyi @ xi.T
+        dci = dyi @ xr.T - dyr @ xi.T
+        drr = ur @ wr.T + ui @ wi.T + sdyr @ xr.T + sdyi @ xi.T
+        dri = ui @ wr.T - ur @ wi.T + sdyi @ xr.T - sdyr @ xi.T
     return dse, dcr, dci, drr, dri, dpc_sum, dps_sum, dpr, dpi
 
 
@@ -1023,10 +1025,11 @@ def rho_split_bwd_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps, se, g, ckr,
     sdyr, sdyi = lanes(s_l * dyr_all), lanes(s_l * dyi_all)
     wr, wi = lanes(prep(f["yr"])), lanes(prep(f["yi"]))
     ur, ui = lanes(dgr), lanes(dgi)
-    return (dse, dyr @ xr.T + dyi @ xi.T, dyi @ xr.T - dyr @ xi.T,
-            sdyr @ xr.T + sdyi @ xi.T, sdyi @ xr.T - sdyr @ xi.T,
-            ur @ wr.T + ui @ wi.T, ui @ wr.T - ur @ wi.T, dpc_sum, dps_sum,
-            dhr, dhi)
+    with fp32_products():
+        return (dse, dyr @ xr.T + dyi @ xi.T, dyi @ xr.T - dyr @ xi.T,
+                sdyr @ xr.T + sdyi @ xi.T, sdyi @ xr.T - sdyr @ xi.T,
+                ur @ wr.T + ui @ wi.T, ui @ wr.T - ur @ wi.T, dpc_sum,
+                dps_sum, dhr, dhi)
 
 
 @torch.no_grad()

@@ -74,6 +74,11 @@ failure (the script then exits non-zero):
    a step and the recompute, adjoint and reductions once a time segment,
    and the streamed forward never; the kernels' CUDA-event times beside
    their bounds, and one step's time and peak memory, off and streamed;
+   then psi's block kernels at B=1024 (``psi_columns_phases``): each at
+   the G the rule takes (8 columns a CTA on an H100) held to a forced G=1
+   run bit for bit on the T=2048 prefix (highest and high, both norms),
+   and scoring, the streamed forward and the adjoint chain alone timed
+   beside their bounds, with the G each launch took;
 10. psi's split layout (``split_phases``, after psi's phases) at the legacy
    estimator's published shape (D=10, B=32, dt=1e-3, T=65536): the sampler
    (N=8 chains) held to its plain version on the T=4096 prefix and over the
@@ -280,6 +285,14 @@ TOL_OFF = (1e-6, 1e-5)
 # at its headline (D=64, rank 64, B=8, T=16384), 2 Adam steps, a restore
 # and 1 more; the rank partials at D=256 (1 + 1)
 PSI_OFF_B = 1024
+# psi's whole-run times at that batch with one column a CTA (CUDA events,
+# D=64, T=16384, highest; steps host clock, mean of 2; NVIDIA H100 80GB
+# HBM3, 700 W; the last chip_smoke.py run of that tree), printed beside
+# this run's
+PSI_ONE_COLUMN_MS = {"checkpoint forward": 418.23,
+                     "segment recompute": 282.58,
+                     "whole recompute adjoint": 1017.44, "step off": 1450.10,
+                     "step streamed": 1176.09}
 OFF_STEPS = 2
 RANK_OFF_STEPS = 1
 
@@ -1085,6 +1098,19 @@ def recompute_phases(dev, fam: Family, cli_B: int):
               f"ms by {by}; launches in the CLI's {OFF_STEPS + 1} steps "
               f"{launches[kname]}; plain {plain_ms[role]:.1f} ms (one run)",
               flush=True)
+    took = {f.__name__: f.cols_per_cta for f in (
+        ckpt, recompute, getattr(block, f"{name}_train_bwd"))
+        if hasattr(f, "cols_per_cta")}
+    if took:
+        print(f"  columns a CTA each launch took at B={cli_B}: {took}",
+              flush=True)
+    if name == "psi" and cli_B == PSI_OFF_B:
+        now = dict(zip(PSI_ONE_COLUMN_MS, (ms["ckpt"], ms["rec"], adj_ms,
+                                           step_ms["off"],
+                                           step_ms["streamed"])))
+        print("  one column a CTA (700 W) against this run: " + ", ".join(
+            f"{k} {v:.2f} ms against {now[k]:.2f} ({v / now[k]:.2f}x)"
+            for k, v in PSI_ONE_COLUMN_MS.items()), flush=True)
     print(f"  the whole recompute adjoint (recompute, adjoint and reductions "
           f"in {n_seg} segments) {adj_ms:.3f} ms, "
           f"{adj_bound[0] / adj_ms * 100:.1f}% of its bound "
@@ -1095,9 +1121,144 @@ def recompute_phases(dev, fam: Family, cli_B: int):
           f"streamed {step_ms['streamed']:.2f} ms, peak "
           f"{peak['streamed'] / 1e9:.3f} GB; the stream {s_bytes / 1e9:.3f} "
           f"GB, the checkpoints {4 * ck_elems / 1e9:.3f} GB; "
-          f"{cli_B * (T - 1) / step_ms['off'] * 1e3:.4e} frames/s off",
+          f"{cli_B * (T - 1) / step_ms['off'] * 1e3:.4e} frames/s off, "
+          f"{cli_B * (T - 1) / step_ms['streamed'] * 1e3:.4e} streamed",
           flush=True)
     return entries
+
+
+# psi's block forward and adjoint at the saturated batch take several
+# columns a CTA (ops/block.psi_columns_per_cta: 8 at B=1024 on 132 SMs);
+# every G gives G=1's bits, held here on the T=2048 prefix at highest and
+# high, both norms, for each psi block kernel
+PSI_COLS_PRECISIONS = ("highest", "high")
+
+
+def psi_columns_phases(dev, fam: Family, B: int):
+    """psi's block kernels at batch ``B`` (the saturated batch of the
+    recompute phases): each kernel at the rule's G held to a forced G=1 run
+    bit for bit on the T=2048 prefix; then at the full T, CUDA-event times
+    of scoring (the NLL kernel, and ``psi_nll_fused`` on the host clock),
+    the streamed forward and the adjoint chain alone beside their bounds,
+    with the G each launch took."""
+    from audio_mps_tpu_torch.data import damped_sine_batch
+    from audio_mps_tpu_torch.ops import block
+    from audio_mps_tpu_torch.ops.scan import DEFAULT_UNROLL, psi_nll_fused
+
+    cfg, T, n = fam.cfg, fam.T, 2 * D
+    unroll = DEFAULT_UNROLL
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = block.psi_columns_per_cta(B, D, sms)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(fam.seed + 5),
+                            B, T, cfg.delta_t)
+    ins = block.psi_nll_inputs(fam.params, cfg, sig)
+    eps = dict(log_eps=ins.pop("log_eps"), norm_eps=ins.pop("norm_eps"))
+    g = torch.full((B,), 1.0 / B, device=dev)
+    con = {k: ins[k] for k in ("ab", "bb", "rb")}
+
+    phase(f"psi columns a CTA (D={D}, B={B}, T={T_PREFIX} prefix): the "
+          f"rule's G={G} vs a forced G=1, every psi block kernel bit for bit")
+    pre = dict(ins, se=ins["se"][:T_PREFIX - 1].contiguous())
+    segment = block.recompute_segment_steps(T_PREFIX - 1, unroll)
+
+    def run(cols, **o):
+        c = dict(o, unroll=unroll, cols_per_cta=cols)
+        nll = block.psi_nll_block(**pre, **eps, **c)
+        loss, ys, n2s = block.psi_train_fwd(**pre, **eps, **c)
+        loss_c, ck = block.psi_train_fwd_ckpt(**pre, **eps, **c)
+        rec = block.psi_recompute(**con, ck=ck, se=pre["se"],
+                                  norm_eps=eps["norm_eps"], **c)
+        adj = block.psi_train_bwd(**pre, g=g, ys=ys, n2s=n2s, **eps, **c)
+        whole = block.psi_recompute_bwd(**con, ck=ck, se=pre["se"], g=g,
+                                        segment=segment, **eps, **c)
+        torch.cuda.synchronize()
+        check(torch.equal(nll, loss) and torch.equal(loss, loss_c),
+              f"psi G={cols}: the NLL, streamed and checkpoint losses differ")
+        check(torch.equal(rec[0], ys) and torch.equal(rec[1], n2s),
+              f"psi G={cols}: the recomputed states are not the stream's")
+        took = {f.__name__: f.cols_per_cta for f in (
+            block.psi_nll_block, block.psi_train_fwd,
+            block.psi_train_fwd_ckpt, block.psi_recompute,
+            block.psi_train_bwd)}
+        return (nll, ys, n2s, ck, *rec, *adj, *whole), took
+
+    held = 0
+    for prec in PSI_COLS_PRECISIONS:
+        for defer in (False, True):
+            want, _ = run(1, precision=prec, defer_norm=defer)
+            got, took = run(None, precision=prec, defer_norm=defer)
+            check(all(v == G for v in took.values()),
+                  f"psi launches took {took}, not the rule's G={G}")
+            for i, (a, b) in enumerate(zip(got, want)):
+                check(bool(torch.isfinite(b).all()) and torch.equal(a, b),
+                      f"psi {prec} defer={defer}: output {i} at G={G} is "
+                      f"not G=1's")
+                held += 1
+            del got, want
+            _free()
+    print(f"  {held} outputs (NLL, streamed forward, checkpoint forward, "
+          f"recompute, adjoint, whole recompute adjoint; highest and high, "
+          f"both norms) at G={G} equal G=1's bit for bit; each G, the NLL, "
+          f"streamed and checkpoint losses equal and the recomputed states "
+          f"the stream's; G each launch took: {took}", flush=True)
+    del pre
+    _free()
+
+    phase(f"psi at B={B} (D={D}, T={T}, highest, deferred norm): scoring, "
+          f"the streamed forward and the adjoint chain alone at the rule's G "
+          f"and at one column a CTA (CUDA events, median of 3 after 1 "
+          f"warm-up; scoring through psi_nll_fused on the host clock, mean "
+          f"of 3)")
+    main = dict(precision=cfg.kernel_precision, defer_norm=cfg.defer_norm,
+                unroll=unroll)
+    ex_steps = (T - 1) * B
+    mats = 3 * n * n
+    ms, one, bounds, took = {}, {}, {}, {}
+    ms["nll"] = median_ms(lambda: block.psi_nll_block(**ins, **eps, **main),
+                          reps=3)
+    took["psi_nll_block"] = block.psi_nll_block.cols_per_cta
+    one["nll"] = median_ms(lambda: block.psi_nll_block(
+        **ins, **eps, **main, cols_per_cta=1), reps=3)
+    bounds["nll"] = bound_ms(3 * 2 * n * n * ex_steps,
+                             4 * (ex_steps + mats + n * B + B))
+    psi_nll_fused(fam.params, cfg, sig).item()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        psi_nll_fused(fam.params, cfg, sig).item()
+    score_ms = (time.perf_counter() - t0) / 3 * 1e3
+    ms["fwd"] = median_ms(lambda: block.psi_train_fwd(**ins, **eps, **main),
+                          reps=3)
+    took["psi_train_fwd"] = block.psi_train_fwd.cols_per_cta
+    one["fwd"] = median_ms(lambda: block.psi_train_fwd(
+        **ins, **eps, **main, cols_per_cta=1), reps=3)
+    bounds["fwd"] = bound_ms(
+        TRAIN_PRODUCTS["psi"]["fwd"] * 2 * n * n * ex_steps,
+        4 * (ex_steps * n + 2 * ex_steps + mats + n * B + B))
+    _, ys, n2s = block.psi_train_fwd(**ins, **eps, **main)
+    ms["bwd"] = median_ms(lambda: block.psi_train_bwd(
+        **ins, g=g, ys=ys, n2s=n2s, **eps, **main), reps=3)
+    took["psi_train_bwd"] = block.psi_train_bwd.cols_per_cta
+    one["bwd"] = median_ms(lambda: block.psi_train_bwd(
+        **ins, g=g, ys=ys, n2s=n2s, **eps, **main, cols_per_cta=1), reps=3)
+    bounds["bwd"] = bound_ms(
+        TRAIN_PRODUCTS["psi"]["bwd"] * 2 * n * n * ex_steps,
+        4 * (2 * ex_steps * n + 4 * ex_steps + mats + 2 * n * B + B))
+    del ys, n2s
+    _free()
+    names = {"nll": "psi_nll_block (scoring)",
+             "fwd": "psi_train_fwd (streamed forward)",
+             "bwd": "psi_train_bwd (adjoint chain alone)"}
+    for role, label in names.items():
+        bound, by = bounds[role]
+        print(f"  {label}: {ms[role]:.3f} ms, {bound / ms[role] * 100:.1f}% "
+              f"of its bound {bound:.3f} ms by {by}; one column a CTA "
+              f"{one[role]:.3f} ms ({one[role] / ms[role]:.2f}x)", flush=True)
+    print(f"  scoring through psi_nll_fused: {score_ms:.2f} ms, "
+          f"{ex_steps / score_ms * 1e3:.4e} frames/s (the kernel alone "
+          f"{ex_steps / ms['nll'] * 1e3:.4e}); G each launch took: {took}",
+          flush=True)
+    del sig, ins, g, con
+    _free()
 
 
 def rho_phases(dev):
@@ -3183,6 +3344,8 @@ def main() -> int:
     train_entries = train_phases(dev, fam)
     _free()
     train_entries += recompute_phases(dev, fam, PSI_OFF_B)
+    _free()
+    psi_columns_phases(dev, fam, PSI_OFF_B)
     _free()
     cot_library_ms = next(e["library_ms"] for e in train_entries
                           if e["name"] == "psi_cotangents")

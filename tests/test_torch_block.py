@@ -227,3 +227,35 @@ def test_nll_plain_unroll_only_moves_deferred_rounding():
             ref, rtol=1e-5, atol=1e-6)
         np.testing.assert_array_equal(
             block.psi_nll_block_plain(**inputs, unroll=unroll).numpy(), ref)
+
+
+@pytest.mark.parametrize("B, D, want", [
+    (8, 64, 1), (128, 64, 1), (132, 64, 1),   # one wave at one column a CTA
+    (133, 64, 2), (264, 64, 2), (265, 64, 4),  # the fewest waves, smallest G
+    (1024, 64, 8), (4096, 64, 8),              # 128 CTAs; 512 (4 waves)
+    (1024, 8, 8), (1024, 12, 8),
+    (1024, 68, 2),     # the adjoint's CTA holds 2 columns at D=68
+    (1024, 72, 1)])    # no G fits at D=72 (the launch's check raises)
+def test_psi_columns_rule(B, D, want):
+    """The columns a CTA of psi's block kernels on an H100's 132 SMs: 1
+    while B CTAs fit one wave, else the G of fewest waves (the smallest
+    such) whose forward and adjoint CTAs fit a block's shared memory; the
+    counts at D=64, G=8 are the kernels' (213,248 and 223,104 bytes)."""
+    assert block.psi_columns_per_cta(B, D, 132) == want
+    assert block.psi_fwd_smem_bytes(64, 8) == 196608 + 16 * 128 * 8 + 256
+    assert block.psi_bwd_smem_bytes(64, 8) == 198144 + 24 * 128 * 8 + 384
+    assert block.psi_columns_per_cta(B, D, 132, smem_optin=0) == 1
+
+
+def test_psi_wrappers_check_cols_per_cta_on_cpu():
+    """On the CPU the wrappers run the plain versions whatever G, but a G
+    the kernels do not take raises there too."""
+    hp, _ = configs(8)
+    _, tp = both(np_params(8))
+    inputs = block.psi_nll_inputs(tp, hp, torch.as_tensor(np_signals(3, 40)))
+    want = block.psi_nll_block(**inputs)
+    assert torch.equal(block.psi_nll_block(**inputs, cols_per_cta=8), want)
+    for fn in (block.psi_nll_block, block.psi_train_fwd,
+               block.psi_train_fwd_ckpt):
+        with pytest.raises(ValueError, match="cols_per_cta"):
+            fn(**inputs, cols_per_cta=3)

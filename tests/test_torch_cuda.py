@@ -1638,3 +1638,159 @@ def test_cotangent_kernel_is_reproducible_bit_for_bit(dev, family, D, rank_,
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# psi's block forward and adjoint at G columns a CTA (csrc/psi_fwd.cuh,
+# csrc/psi_train_bwd.cu; ops/block.py psi_columns_per_cta)
+# ---------------------------------------------------------------------------
+
+def _psi_all(inputs, g, kw, G):
+    """Every psi block kernel at G columns a CTA on the same inputs: the
+    NLL, the streamed forward, the checkpoint forward, the recompute from
+    those checkpoints (one launch over the run, spans of several blocks),
+    the adjoint on the stream and the whole recompute adjoint."""
+    log_eps = inputs["log_eps"]
+    ins = {k: v for k, v in inputs.items() if k != "log_eps"}
+    c = dict(kw, cols_per_cta=G)
+    nll = block.psi_nll_block(**ins, log_eps=log_eps, **c)
+    loss, ys, n2s = block.psi_train_fwd(**ins, log_eps=log_eps, **c)
+    loss_c, ck = block.psi_train_fwd_ckpt(**ins, log_eps=log_eps, **c)
+    con = dict(ab=ins["ab"], bb=ins["bb"], rb=ins["rb"], ck=ck, se=ins["se"])
+    rys, rn2s = block.psi_recompute(**con, norm_eps=ins["norm_eps"], **c)
+    adj = block.psi_train_bwd(**ins, g=g, ys=ys, n2s=n2s, log_eps=log_eps,
+                              **c)
+    whole = block.psi_recompute_bwd(**con, g=g, log_eps=log_eps,
+                                    norm_eps=ins["norm_eps"],
+                                    segment=SEGMENT, **c)
+    torch.cuda.synchronize()
+    return (nll, loss, ys, n2s, loss_c, ck, rys, rn2s, *adj, *whole)
+
+
+@pytest.mark.parametrize("D", [8, 12, 64])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_psi_columns_give_the_bits_of_one_column(dev, D, precision, defer):
+    """For every G the rule can pick at D, on a ragged batch B = 3G + 1
+    (the last CTA masks all but one column), each psi block kernel gives
+    G = 1's outputs bit for bit; and within each G the NLL, streamed and
+    checkpoint losses are one value and the recomputed states the
+    stream's."""
+    kw = dict(precision=precision, defer_norm=defer, unroll=UNROLL)
+    for G in block.PSI_COLS:
+        assert max(block.psi_fwd_smem_bytes(D, G),
+                   block.psi_bwd_smem_bytes(D, G)) <= block.H100_SMEM_OPTIN
+        inputs, g = _train_inputs(dev, D, 200, B=3 * G + 1, seed=G)
+        want = _psi_all(inputs, g, kw, 1)
+        got = _psi_all(inputs, g, kw, G)
+        assert block.psi_train_bwd.cols_per_cta == G
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.isfinite(b).all() and torch.equal(a, b), (G, i)
+        nll, loss, ys, n2s, loss_c, _, rys, rn2s = got[:8]
+        assert torch.equal(nll, loss) and torch.equal(loss, loss_c)
+        assert torch.equal(rys, ys) and torch.equal(rn2s, n2s)
+
+
+def test_psi_columns_rule_and_smem_agree_with_the_kernels(dev):
+    """The Python shared-memory counts are the kernels' own; on this card
+    the rule keeps one column a CTA at B=128 and takes the fewest waves
+    past one (8 at B=1024 on 132 SMs); a G whose CTA does not fit raises
+    before any launch."""
+    from audio_mps_tpu_torch.ops import _build
+    lib = _build.library()
+    for D in (8, 12, 64, 68):
+        for G in block.PSI_COLS:
+            assert lib.amt_psi_train_fwd_smem_bytes(D, G) == \
+                block.psi_fwd_smem_bytes(D, G)
+            assert lib.amt_psi_nll_smem_bytes(D, G) == \
+                block.psi_fwd_smem_bytes(D, G)
+            assert lib.amt_psi_train_bwd_smem_bytes(D, G) == \
+                block.psi_bwd_smem_bytes(D, G)
+    props = torch.cuda.get_device_properties(dev)
+    sms = props.multi_processor_count
+    rule = block.psi_columns_per_cta
+    assert rule(128, 64, sms) == 1
+    assert rule(sms, 64, sms) == 1
+    if sms == 132:
+        assert rule(1024, 64, sms) == 8
+    inputs, g = _train_inputs(dev, 68, 20, B=4)
+    before = _counts()
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        block.psi_train_fwd(**inputs, cols_per_cta=8)
+    _, ys, n2s = block.psi_train_fwd(**inputs, cols_per_cta=2)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        block.psi_train_bwd(**inputs, g=g, ys=ys, n2s=n2s, cols_per_cta=4)
+    with pytest.raises(ValueError, match="cols_per_cta"):
+        block.psi_train_bwd(**inputs, g=g, ys=ys, n2s=n2s, cols_per_cta=3)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1], before[2])
+
+
+def test_psi_recompute_spans_at_the_rules_columns_are_the_stream(dev):
+    """At B=1024 the rule runs several columns a CTA (8 on 132 SMs) and a
+    recompute CTA a span of several blocks: the checkpoint forward's loss
+    and the recomputed states are the streamed forward's bit for bit, and
+    each equals a forced G=1 run's."""
+    inputs, _ = _train_inputs(dev, 8, 300, B=1024)
+    kw = dict(norm_eps=inputs.pop("norm_eps"), unroll=UNROLL,
+              defer_norm=True)
+    log_eps = inputs.pop("log_eps")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = block.psi_columns_per_cta(1024, 8, sms)
+    assert G > 1 and block.psi_recompute_blocks(-(-1024 // G), 43, sms) > 1
+    runs = []
+    for cols in (None, 1):
+        loss, ys, n2s = block.psi_train_fwd(**inputs, log_eps=log_eps,
+                                            cols_per_cta=cols, **kw)
+        loss_c, ck = block.psi_train_fwd_ckpt(**inputs, log_eps=log_eps,
+                                              cols_per_cta=cols, **kw)
+        got = block.psi_recompute(inputs["ab"], inputs["bb"], inputs["rb"],
+                                  ck, inputs["se"], cols_per_cta=cols, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(loss, loss_c)
+        assert torch.equal(got[0], ys) and torch.equal(got[1], n2s)
+        runs.append((loss, ys, n2s, ck))
+    assert block.psi_recompute.cols_per_cta == 1
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_products_ignore_tf32(dev):
+    """Under torch.set_float32_matmul_precision("high") (TF32 on this
+    card) the constants, the eager psi and rho losses and the value and
+    gradient of the psi training loss through the kernels equal the
+    default setting's bit for bit; the setting is restored afterwards."""
+    from audio_mps_tpu_torch.models.cell import make_constants
+    from audio_mps_tpu_torch.models.params import init_rho
+    from audio_mps_tpu_torch.ops import grad
+    cfg = CMPSConfig(bond_dim=64, minibatch_size=4, initial_rank=8)
+    p = init_psi(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    r = init_rho(torch.Generator(dev).manual_seed(1), cfg, device=dev)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(2), 4, 129,
+                            cfg.delta_t)
+
+    def run():
+        cc = make_constants(p, cfg)
+        out = [cc.Kr, cc.Ki, cc.Cr, cc.Ci, core.psi_nll(p, cfg, sig),
+               core.rho_nll(r, cfg, sig)]
+        for t in p.parameters():
+            t.grad = None
+        loss = grad.psi_nll_fused_trainable(p, cfg, sig, defer_norm=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        return out + [loss.detach()] + [t.grad.clone()
+                                        for t in p.parameters()]
+
+    want = run()
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        state = (torch.get_float32_matmul_precision(),
+                 torch.backends.cuda.matmul.allow_tf32)
+        got = run()
+        assert (torch.get_float32_matmul_precision(),
+                torch.backends.cuda.matmul.allow_tf32) == state
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
