@@ -1,8 +1,8 @@
 // Shared pieces of the psi kernels (psi_sample.cu, psi_nll.cu,
 // psi_train_fwd.cu, psi_train_bwd.cu, psi_cotangents.cu): the precision menu
 // on shared-memory matrices, one-row matrix-vector dots, the block
-// reduction, and the dispatch of a C entry's runtime options to template
-// arguments.
+// reduction, the mbarriers and warp roles of the warp-specialised kernels,
+// and the dispatch of a C entry's runtime options to template arguments.
 //
 // Layout. A chain kernel's CTA owns one column of the stacked state
 // [x_r; x_i] (one chain or one example), or G of them (psi's block forward
@@ -510,6 +510,77 @@ __device__ __forceinline__ float floor_at(float x, float floor) {
   return x < floor ? floor : x;
 }
 
+// mbarriers (PTX for sm_90): the rank partials' slab ring
+// (rank_partials.cuh) and the split adjoints' hand-over of a block between
+// warp roles (psi_split_bwd.cu, rho_split_bwd.cu).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Wait for the phase of `bar` with the given parity to complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// A set of whole warps of a CTA that runs one role of a warp-specialised
+// kernel: its own barriers count only its threads (bar.sync id, n; a warp
+// barrier for one warp), so no role waits on a barrier another role must
+// reach. t is the thread's index within the role, warp its warp's.
+struct Role {
+  int id;   // named barrier (1..15); 0 is __syncthreads
+  int n;    // threads, a multiple of 32
+  int t;
+  int warp;
+};
+
+__device__ __forceinline__ void role_sync(const Role& ro) {
+  if (ro.n == 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(ro.id), "r"(ro.n) : "memory");
+  }
+}
+
+// Sum of v over the role, every thread of it getting it: warp shuffles for
+// one warp, else block_sum's order (the warp partials added in warp order)
+// through red[0, warps), which must not be written again before every
+// thread of the role has passed a later role_sync.
+__device__ __forceinline__ float role_sum(float v, float* red,
+                                          const Role& ro) {
+  if (ro.n == 32) {
+    __syncwarp();
+    return warp_sum(v);
+  }
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[ro.warp] = v;
+  role_sync(ro);
+  float r = 0.f;
+  for (int w = 0; w < (ro.n >> 5); ++w) r += red[w];
+  return r;
+}
+
 // Threads per CTA: one per state row, rounded up to whole warps.
 inline int threads_for(int D) { return ((2 * D + 31) / 32) * 32; }
 
@@ -537,6 +608,13 @@ cudaError_t dispatch(int precision, bool defer, F&& f) {
   return dispatch_precision(precision, [&](auto p) {
     return defer ? f(p, std::true_type{}) : f(p, std::false_type{});
   });
+}
+
+// f(std::true_type{}) or f(std::false_type{}) for a runtime flag of a C
+// entry.
+template <typename F>
+cudaError_t dispatch_bool(bool flag, F&& f) {
+  return flag ? f(std::true_type{}) : f(std::false_type{});
 }
 
 // f(std::integral_constant<int, G>{}) for the columns a CTA of a C entry

@@ -78,6 +78,53 @@ __device__ __forceinline__ void cdot_t(const uint32_t* mr, const uint32_t* mi,
   outi = a3 - a2;
 }
 
+// Three complex products at row (or column) i in one walk over j: A u, B u
+// and M w, for packed shared matrices A, B, M (element j of the row at
+// m[j * stride]) and prepped vectors u, w of length D. Each of the twelve
+// real dots is one fmaf chain over j in order, as dot2_strided's, so each
+// result is the bits that cdot (TR false) or cdot_t (TR true) gives it
+// alone; walking the three together keeps twelve independent chains in
+// flight where cdot runs two. out = (A u, B u, M w), real and imaginary.
+// highest and default only (the split kernels refuse high). U unrolls the
+// walk; the adjoints take the unroll that ran fastest for each form on an
+// H100 at the estimator's shape (psi 1 double, 4 single; rho 2: 4 ran its
+// workspace placement at half the speed).
+template <int P, bool TR, int U>
+__device__ __forceinline__ void cdot3(const uint32_t* ar, const uint32_t* ai,
+                                      const uint32_t* br, const uint32_t* bi,
+                                      const uint32_t* mr, const uint32_t* mi,
+                                      int stride, const float* ur,
+                                      const float* ui, const float* wr,
+                                      const float* wi, int D,
+                                      float (&out)[6]) {
+  static_assert(P != kHigh, "the split kernels take highest and default");
+  float a[12];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) a[q] = 0.f;
+#pragma unroll (U)
+  for (int j = 0; j < D; ++j) {
+    const int o = j * stride;
+    const float x[4] = {ur[j], ui[j], wr[j], wi[j]};
+    const float m[6] = {__uint_as_float(ar[o]), __uint_as_float(ai[o]),
+                        __uint_as_float(br[o]), __uint_as_float(bi[o]),
+                        __uint_as_float(mr[o]), __uint_as_float(mi[o])};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float vr = x[c == 2 ? 2 : 0], vi = x[c == 2 ? 3 : 1];
+      a[4 * c] = fmaf(m[2 * c], vr, a[4 * c]);              // mr . vr
+      a[4 * c + 1] = fmaf(m[2 * c + 1], vr, a[4 * c + 1]);  // mi . vr
+      a[4 * c + 2] = fmaf(m[2 * c], vi, a[4 * c + 2]);      // mr . vi
+      a[4 * c + 3] = fmaf(m[2 * c + 1], vi, a[4 * c + 3]);  // mi . vi
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    out[2 * c] = TR ? a[4 * c] + a[4 * c + 3] : a[4 * c] - a[4 * c + 3];
+    out[2 * c + 1] = TR ? a[4 * c + 2] - a[4 * c + 1]
+                        : a[4 * c + 2] + a[4 * c + 1];
+  }
+}
+
 // Sum of v over the CTA, every thread getting it: warp shuffles for one warp
 // (after a warp barrier, so that the shared vectors read before the call
 // are not overwritten by a lane that runs ahead), a block reduction
@@ -102,7 +149,30 @@ __device__ __forceinline__ void col_sum2(float v, float u, float* red,
 }
 
 // Threads per split CTA: one per row, rounded up to whole warps.
-inline int split_threads(int D) { return ((D + 31) / 32) * 32; }
+__host__ __device__ inline int split_threads(int D) {
+  return ((D + 31) / 32) * 32;
+}
+
+// The split adjoints (psi_split_bwd.cu, rho_split_bwd.cu). A block's
+// per-step scalars, [kStepScalars][unroll] floats a slab: s, |y|^2 (psi) or
+// the trace (rho), ehat, and the previous step's |y|^2 or trace.
+enum SplitStepScalar { kSs = 0, kSn = 1, kSe = 2, kSnp = 3, kStepScalars = 4 };
+
+// The most threads of a psi adjoint CTA (two roles of D threads rounded to
+// warps, D <= 128) and of a rho one in the double form (two roles).
+constexpr int kSplitBwdPsiThreads = 256;
+constexpr int kSplitBwdRhoPipeThreads = 512;
+
+// The parts of an adjoint a build runs: all three, except in the
+// measurement builds of tools/split_adjoint_attribution.py, which compile
+// the adjoints with -DAMT_SPLIT_BWD_PARTS=1 (the re-run alone), 2 (the
+// sweep alone) or 4 (the outer products alone); the hand-overs between the
+// roles stay.
+#ifndef AMT_SPLIT_BWD_PARTS
+#define AMT_SPLIT_BWD_PARTS 7
+#endif
+constexpr int kRerunPart = 1, kSweepPart = 2, kOuterPart = 4;
+constexpr int kParts = AMT_SPLIT_BWD_PARTS;
 
 // The split kernels take highest and default, as the TPU's do.
 template <typename F>

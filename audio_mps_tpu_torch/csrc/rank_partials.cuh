@@ -82,39 +82,9 @@ inline bool partials_fits(int D, int rc) {
 }
 
 // ---------------------------------------------------------------------------
-// mbarriers, bulk copies and the cluster (PTX for sm_90)
+// bulk copies and the cluster (PTX for sm_90; the mbarriers are in
+// common.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Wait for the phase of `bar` with the given parity to complete.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
 
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                                                       uint32_t bytes) {

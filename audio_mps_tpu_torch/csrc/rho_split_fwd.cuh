@@ -50,7 +50,7 @@ namespace amt {
 
 // Threads per rho split CTA: one per element of the [D, rank] segment,
 // rounded up to whole warps, at most 1024 (then a thread takes several).
-inline int rho_split_threads(int D, int rank) {
+__host__ __device__ inline int rho_split_threads(int D, int rank) {
   const int n = D * rank;
   return n >= 1024 ? 1024 : ((n + 31) / 32) * 32;
 }

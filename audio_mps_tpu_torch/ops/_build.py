@@ -113,8 +113,10 @@ _SIGNATURES = {
     # unroll, log_eps, norm_eps, precision, defer_norm, stream
     "amt_psi_split_fwd": ([_P] * 12 + [_I] * 4 + [_F, _F, _I, _I, _P], _I),
     # cr, ci, rr, ri, pc, ps, se, g, ckr, cki, dse, dp0r, dp0i, part, D,
-    # n_steps, B, unroll, log_eps, norm_eps, precision, defer_norm, stream
-    "amt_psi_split_bwd": ([_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _P], _I),
+    # n_steps, B, unroll, log_eps, norm_eps, precision, defer_norm, pipe,
+    # stream
+    "amt_psi_split_bwd": ([_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _I, _P],
+                          _I),
     # ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, noise, inv_a, wave, D,
     # T, N, rank, dt, norm_eps, precision, stream
     "amt_rho_split_sample": ([_P] * 13 + [_I] * 4 + [_F, _F, _I, _P], _I),
@@ -125,8 +127,9 @@ _SIGNATURES = {
     "amt_rho_split_fwd": ([_P] * 14 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
     # ccr, cci, rcr, rci, xtr, xti, pc, ps, se, g, ckr, cki, dse, dh0r, dh0i,
     # part, ws, D, n_steps, B, rank, unroll, log_eps, norm_eps, precision,
-    # defer_norm, stream
-    "amt_rho_split_bwd": ([_P] * 17 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    # defer_norm, pipe, smem_slab, stream
+    "amt_rho_split_bwd": ([_P] * 17 + [_I] * 5 + [_F, _F, _I, _I, _I, _I,
+                                                  _P], _I),
     # ab, bb, rb, t0, se, loss, ck, D, n_steps, B, unroll, log_eps,
     # norm_eps, precision, stream
     "amt_psi_batched_fwd": ([_P] * 7 + [_I] * 4 + [_F, _F, _I, _P], _I),
@@ -151,9 +154,13 @@ _SIGNATURES = {
     "amt_psi_split_sample_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_split_fwd_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_split_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    # D, unroll, pipe
+    "amt_psi_split_bwd_form_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "amt_rho_split_sample_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_rho_split_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_rho_split_bwd_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    # D, rank, unroll, pipe, smem_slab
+    "amt_rho_split_bwd_form_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "amt_rho_split_bwd_workspace_floats": ([_I, _I, _I], ctypes.c_size_t),
     "amt_psi_batched_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_psi_batched_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),

@@ -183,16 +183,27 @@ def _cuda_or_raise(name, x):
     return False
 
 
+def _smem_refusal(name, need: int, have: int, D: int):
+    """The error of a kernel whose CTA needs ``need`` bytes of shared
+    memory where a block may have ``have``."""
+    return NotImplementedError(
+        f"{name} at D={D} needs {need} bytes of shared memory for its "
+        f"constants; the card allows {have} per block. Streaming "
+        f"the constants is not ported yet (ROADMAP queue B)")
+
+
+def _smem_optin(device) -> int:
+    """The dynamic shared memory one block may opt into on ``device``."""
+    return torch.cuda.get_device_properties(device) \
+        .shared_memory_per_block_optin
+
+
 def _check_smem(name, need: int, device, D: int):
     """Raise when a kernel's constants (with what else its CTA keeps) do not
     fit one block's shared memory (streaming them is queued work)."""
-    have = torch.cuda.get_device_properties(device) \
-        .shared_memory_per_block_optin
+    have = _smem_optin(device)
     if need > have:
-        raise NotImplementedError(
-            f"{name} at D={D} needs {need} bytes of shared memory for its "
-            f"constants; the card allows {have} per block. Streaming "
-            f"the constants is not ported yet (ROADMAP queue B)")
+        raise _smem_refusal(name, need, have, D)
 
 
 def _stream_ptr(device):

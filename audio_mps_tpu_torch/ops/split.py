@@ -36,20 +36,30 @@ from its checkpoint and sweeps back through it, as the TPU kernels do.
 fp32.
 
 Shared-memory ceilings on an H100 (232,448 bytes a block), checked before
-any launch (``_check_smem``), from the kernels' own byte counts
-(``amt_*_smem_bytes``):
+any launch (``_check_smem``, ``psi_split_bwd_plan``, ``rho_split_bwd_plan``),
+from the kernels' own byte counts (``amt_*_smem_bytes``, mirrored here for
+the adjoints' plans):
 
 * psi: the sampler, the NLL and the training forward hold C and R
   (16 D^2 bytes) and run to D=119; the adjoint also holds the [D,D]
-  cotangent sums and 12 [D] vectors a step of its block, so at unroll 16
-  it runs to D=73 (``csrc/psi_split_bwd.cu``).
+  cotangent sums and a slab of 12 [D] vectors a step of its block, so at
+  unroll 16 it runs to D=73 (``csrc/psi_split_bwd.cu``).
 * rho: the sampler, the NLL and the training forward hold conj(C),
   conj(R) and X^T (24 D^2 bytes) and eight [D, rank] vectors
   (32 D rank bytes), so at full rank they run to D=64; the adjoint holds
   the constants at a row pitch of D + 1 words and 14 [D, rank] vectors
-  (its block's saved vectors go to a device workspace), so at full rank
-  it runs to D=53 (``csrc/rho_split_bwd.cu``). Lower ranks go further.
-  ``rho_nll_split_trainable`` checks both before the forward launches.
+  (its block's slab of saved vectors goes to a device workspace past
+  shared memory), so at full rank it runs to D=53
+  (``csrc/rho_split_bwd.cu``). Lower ranks go further.
+  ``psi_nll_split_trainable`` and ``rho_nll_split_trainable`` check the
+  forward and the adjoint before the forward launches.
+
+The adjoints come in two forms of one kernel (``SPLIT_BWD_FORMS``):
+"double" runs a re-run role and a sweep role side by side on two slabs,
+"single" one role on one slab; rho's slabs sit in shared memory or in the
+device workspace (``SPLIT_BWD_PLACEMENTS``). ``psi_split_bwd_plan`` and
+``rho_split_bwd_plan`` choose, before the launch, from the shape and the
+card's shared memory; every form and placement gives the same bits.
 """
 from __future__ import annotations
 
@@ -60,12 +70,19 @@ from ..models import core
 from ..models.cell import make_constants
 from . import _build
 from .complexing import fp32_products
-from .block import (PRECISIONS, _as_kernel_input, _check_inputs,
-                    _check_smem, _cuda_or_raise, _lanes, _make_dot_ops, _ptr,
-                    _rank_of, _segment_sum, _stream_ptr, n_blocks,
-                    rho_factor_inputs)
+from .block import (H100_SMEM_OPTIN, PRECISIONS, _as_kernel_input,
+                    _check_inputs, _check_smem, _cuda_or_raise, _lanes,
+                    _make_dot_ops, _ptr, _rank_of, _segment_sum, _smem_optin,
+                    _smem_refusal, _stream_ptr, n_blocks, rho_factor_inputs)
 
 SPLIT_PRECISIONS = ("highest", "default")
+# the adjoints' forms and rho's slab placements, in the plans' order of
+# preference
+SPLIT_BWD_FORMS = ("double", "single")
+SPLIT_BWD_PLACEMENTS = ("smem", "ws")
+_STEP_SCALARS = 4        # s, |y|^2 or trace, ehat, the previous one
+_SAVED = 12              # slab vectors a step, psi and rho
+_RHO_PIPE_THREADS = 512  # the most threads of a double-form rho CTA
 
 
 def _check_split_options(precision: str, unroll: int = 1):
@@ -79,6 +96,112 @@ def _check_split_options(precision: str, unroll: int = 1):
     if unroll < 1:
         raise ValueError(f"unroll must be >= 1, got {unroll}")
 
+
+
+def _split_threads(D: int) -> int:
+    """Threads of a psi split CTA or adjoint role: D rounded to warps."""
+    return -(-D // 32) * 32
+
+
+def _rho_split_threads(D: int, rank: int) -> int:
+    """Threads of a rho split CTA or adjoint role: D rank rounded to
+    warps, at most 1024 (``csrc/rho_split_fwd.cuh``)."""
+    n = D * rank
+    return 1024 if n >= 1024 else -(-n // 32) * 32
+
+
+def _bwd_reduction_words(unroll: int, warps: int, form: str) -> int:
+    """The adjoints' warp partials and reduction floats: the re-run's two
+    a step a warp and 64, the sweep's one and 64; the single form's roles
+    share them."""
+    red_r, red_s = 2 * unroll * warps + 64, unroll * warps + 64
+    return red_r + red_s if form == "double" else red_r
+
+
+def psi_split_bwd_smem_bytes(D: int, unroll: int, form: str) -> int:
+    """Dynamic shared memory of one CTA of ``csrc/psi_split_bwd.cu`` in
+    ``form`` (its ``psi_split_bwd_words``, 4 bytes a word): 4 mbarriers,
+    C and R at a row pitch of D + 1 words, the four [D,D] sums, a double
+    buffer of two [D] vectors, the warp partials, the sweep's loss
+    adjoints (3 a step) and, a slab, the step scalars and 12 [D] vectors a
+    step."""
+    slots = 2 if form == "double" else 1
+    words = (8 + 4 * D * (D + 1) + 4 * D * D + 4 * D
+             + _bwd_reduction_words(unroll, _split_threads(D) // 32, form)
+             + 3 * unroll
+             + slots * (_STEP_SCALARS + _SAVED * D) * unroll)
+    return 4 * words
+
+
+def rho_split_bwd_smem_bytes(D: int, rank: int, unroll: int,
+                             placement: str, form: str) -> int:
+    """Dynamic shared memory of one CTA of ``csrc/rho_split_bwd.cu`` with
+    its slabs at ``placement`` in ``form`` (its ``rho_split_bwd_words``):
+    4 mbarriers, conj(C), conj(R) and X^T at a row pitch of D + 1 words,
+    pc and ps, the warp partials, the sweep's loss adjoints (3 a step), 24
+    [D, rank] working vectors (double) or 14 (single), the step scalars of
+    each slab and, in shared memory, the slabs of 12 [D, rank] vectors a
+    step."""
+    n = D * rank
+    slots = 2 if form == "double" else 1
+    words = (8 + 6 * D * (D + 1) + 2 * D
+             + _bwd_reduction_words(unroll,
+                                    _rho_split_threads(D, rank) // 32, form)
+             + 3 * unroll + (24 if form == "double" else 14) * n
+             + slots * _STEP_SCALARS * unroll
+             + (slots * _SAVED * unroll * n if placement == "smem" else 0))
+    return 4 * words
+
+
+def psi_split_bwd_plan(D: int, unroll: int,
+                       smem_optin: int = H100_SMEM_OPTIN) -> str:
+    """The form of psi's split adjoint at bond dimension D: "double" (a
+    re-run role and a sweep role on two slabs) where its CTA fits
+    ``smem_optin`` bytes of shared memory, else "single" (to D=73 at
+    unroll 16 on an H100; double to D=63); past that NotImplementedError.
+    A pure function of its arguments, as ``block.psi_columns_per_cta`` is.
+
+    Why: the two roles overlap the re-run of one block with the sweep of
+    the next, the two halves of the adjoint's step; the single form runs
+    them in turn (``tools/split_adjoint_attribution.py``, NVIDIA H100 80GB
+    HBM3, 700 W, D=10, B=32, T=65536: 74.2 ms against 107.5)."""
+    for form in SPLIT_BWD_FORMS:
+        if psi_split_bwd_smem_bytes(D, unroll, form) <= smem_optin:
+            return form
+    raise _smem_refusal("psi_split_bwd",
+                        psi_split_bwd_smem_bytes(D, unroll, "single"),
+                        smem_optin, D)
+
+
+def rho_split_bwd_plan(D: int, rank: int, unroll: int,
+                       smem_optin: int = H100_SMEM_OPTIN
+                       ) -> tuple[str, str]:
+    """(placement, form) of rho's split adjoint for an example's [D, rank]
+    segment: the double form where its two roles of D rank threads
+    (rounded to warps) fit 512 threads, before the single form, and for
+    each the slabs in shared memory before the device workspace, the first
+    whose CTA fits ``smem_optin`` bytes. At full rank and unroll 16 on an
+    H100: shared memory and double to D=11, the workspace and double at
+    D=12-16, the workspace and single from D=17 to the ceiling D=53; past
+    that NotImplementedError. A pure function of its arguments.
+
+    Why (``tools/split_adjoint_attribution.py``, NVIDIA H100 80GB HBM3,
+    700 W, D=10, B=32, T=65536): the roles overlap the re-run with the
+    sweep, 106.9 ms double against 173.0 single with the slabs in shared
+    memory, 131.3 against 226.5 in the workspace; the slabs in shared
+    memory take the outer products' reads off L2."""
+    threads = _rho_split_threads(D, rank)
+    for form in SPLIT_BWD_FORMS:
+        if form == "double" and 2 * threads > _RHO_PIPE_THREADS:
+            continue
+        for placement in SPLIT_BWD_PLACEMENTS:
+            if rho_split_bwd_smem_bytes(D, rank, unroll, placement,
+                                        form) <= smem_optin:
+                return placement, form
+    raise _smem_refusal("rho_split_bwd",
+                        rho_split_bwd_smem_bytes(D, rank, unroll, "ws",
+                                                 "single"),
+                        smem_optin, D)
 
 
 def psi_split_inputs(params, cfg: CMPSConfig, x, *, noise: bool = False
@@ -490,13 +613,16 @@ def psi_split_bwd_plain(cr, ci, rr, ri, pc, ps, se, g, ckr, cki, *,
 @torch.no_grad()
 def psi_split_bwd(cr, ci, rr, ri, pc, ps, se, g, ckr, cki, *, log_eps: float,
                   norm_eps: float, unroll: int = 16,
-                  precision: str = "highest", defer_norm: bool = False):
+                  precision: str = "highest", defer_norm: bool = False,
+                  _form: str | None = None):
     """(dse, dcr, dci, drr, dri, dpc, dps, dp0r, dp0i):
     ``psi_split_bwd_plain`` for CPU tensors, the CUDA kernel
-    ``csrc/psi_split_bwd.cu`` for CUDA tensors. The kernel writes each
-    column's cotangent sums ([D,D] x 4 and [D] x 2) to its own row of a
-    [B, ...] buffer; their sum over the columns here is a fixed-order
-    reduction, so two runs are equal bit for bit."""
+    ``csrc/psi_split_bwd.cu`` for CUDA tensors, in the form
+    ``psi_split_bwd_plan`` picks (``_form`` forces one, for the tests and
+    tools; the form of the last launch is in ``psi_split_bwd.form``). The
+    kernel writes each column's cotangent sums ([D,D] x 4 and [D] x 2) to
+    its own row of a [B, ...] buffer; their sum over the columns here is a
+    fixed-order reduction, so two runs are equal bit for bit."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm)
     if _cuda_or_raise("psi_split_bwd", se):
@@ -511,9 +637,15 @@ def psi_split_bwd(cr, ci, rr, ri, pc, ps, se, g, ckr, cki, *, log_eps: float,
         pc=(pc, (D,)), ps=(ps, (D,)), se=(se, (n_steps, B)), g=(g, (B,)),
         ckr=(ckr, (nb, D, B)), cki=(cki, (nb, D, B))))
     lib = _build.library()
-    _check_smem("psi_split_bwd",
-                      lib.amt_psi_split_bwd_smem_bytes(D, unroll), se.device,
-                      D)
+    if _form is None:
+        form = psi_split_bwd_plan(D, unroll, _smem_optin(se.device))
+    elif _form in SPLIT_BWD_FORMS:
+        form = _form
+        _check_smem("psi_split_bwd",
+                    psi_split_bwd_smem_bytes(D, unroll, form), se.device, D)
+    else:
+        raise ValueError(f"_form must be None or one of {SPLIT_BWD_FORMS}, "
+                         f"got {_form!r}")
     dse = torch.empty_like(se)
     dp0r = se.new_empty((D, B))
     dp0i = se.new_empty((D, B))
@@ -526,9 +658,10 @@ def psi_split_bwd(cr, ci, rr, ri, pc, ps, se, g, ckr, cki, *, log_eps: float,
                                 dp0r, dp0i, part)],
             D, n_steps, B, unroll, log_eps, norm_eps,
             PRECISIONS.index(precision), int(defer_norm),
-            _stream_ptr(se.device))
+            int(form == "double"), _stream_ptr(se.device))
         _build.check(lib, err, "psi_split_bwd")
         psi_split_bwd.launches += 1
+        psi_split_bwd.form = form
     tot = part.sum(dim=0)
     mats = tot[:4 * D * D].reshape(4, D, D)
     return (dse, mats[0], mats[1], mats[2], mats[3], tot[4 * D * D:][:D],
@@ -536,6 +669,7 @@ def psi_split_bwd(cr, ci, rr, ri, pc, ps, se, g, ckr, cki, *, log_eps: float,
 
 
 psi_split_bwd.launches = 0
+psi_split_bwd.form = None
 
 
 class PsiSplitNLL(torch.autograd.Function):
@@ -583,10 +717,8 @@ def psi_nll_split_trainable(params, cfg: CMPSConfig, signals, *,
     if signals.device.type == "cuda":
         lib = _build.library()
         _check_smem("psi_split_fwd", lib.amt_psi_split_fwd_smem_bytes(D),
-                          signals.device, D)
-        _check_smem("psi_split_bwd",
-                          lib.amt_psi_split_bwd_smem_bytes(D, unroll),
-                          signals.device, D)
+                    signals.device, D)
+        psi_split_bwd_plan(D, unroll, _smem_optin(signals.device))
     cc = make_constants(params, cfg)
     se = (signals[:, 1:] - signals[:, :-1]).T / cc.A      # [T-1, B]
     pr0, pi0 = core.psi0(params, cfg)
@@ -1035,13 +1167,16 @@ def rho_split_bwd_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps, se, g, ckr,
 @torch.no_grad()
 def rho_split_bwd(ccr, cci, rcr, rci, xtr, xti, pc, ps, se, g, ckr, cki, *,
                   log_eps: float, norm_eps: float, unroll: int = 16,
-                  precision: str = "highest", defer_norm: bool = False):
+                  precision: str = "highest", defer_norm: bool = False,
+                  _plan: tuple[str, str] | None = None):
     """(dse, dccr, dcci, drcr, drci, dxtr, dxti, dpc, dps, dh0r, dh0i):
     ``rho_split_bwd_plain`` for CPU tensors, the CUDA kernel
-    ``csrc/rho_split_bwd.cu`` for CUDA tensors. The kernel writes each
-    example's cotangent sums ([D,D] x 6 and [D] x 2) to its own row of a
-    [B, ...] buffer; their sum over the examples here is a fixed-order
-    reduction, so two runs are equal bit for bit."""
+    ``csrc/rho_split_bwd.cu`` for CUDA tensors, at the (placement, form)
+    ``rho_split_bwd_plan`` picks (``_plan`` forces one, for the tests and
+    tools; that of the last launch is in ``rho_split_bwd.plan``). The
+    kernel writes each example's cotangent sums ([D,D] x 6 and [D] x 2) to
+    its own row of a [B, ...] buffer; their sum over the examples here is
+    a fixed-order reduction, so two runs are equal bit for bit."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm)
     mats = (ccr, cci, rcr, rci, xtr, xti, pc, ps)
@@ -1057,9 +1192,19 @@ def rho_split_bwd(ccr, cci, rcr, rci, xtr, xti, pc, ps, se, g, ckr, cki, *,
                   ckr=(ckr, (nb, D, B * rank)), cki=(cki, (nb, D, B * rank)))
     _check_inputs("rho_split_bwd", se.device, shapes)
     lib = _build.library()
-    _check_smem("rho_split_bwd",
-                lib.amt_rho_split_bwd_smem_bytes(D, rank, unroll), se.device,
-                D)
+    if _plan is None:
+        placement, form = rho_split_bwd_plan(D, rank, unroll,
+                                             _smem_optin(se.device))
+    else:
+        placement, form = _plan
+        if (placement not in SPLIT_BWD_PLACEMENTS
+                or form not in SPLIT_BWD_FORMS):
+            raise ValueError(f"_plan must be None or a (placement, form) of "
+                             f"{SPLIT_BWD_PLACEMENTS} x {SPLIT_BWD_FORMS}, "
+                             f"got {_plan!r}")
+        _check_smem("rho_split_bwd",
+                    rho_split_bwd_smem_bytes(D, rank, unroll, placement,
+                                             form), se.device, D)
     dse = torch.empty_like(se)
     dh0r = se.new_empty((D, B * rank))
     dh0i = se.new_empty((D, B * rank))
@@ -1068,16 +1213,22 @@ def rho_split_bwd(ccr, cci, rcr, rci, xtr, xti, pc, ps, se, g, ckr, cki, *,
     if B == 0:
         part = se.new_zeros((1, width))
     else:
-        ws = se.new_empty(
-            (B, lib.amt_rho_split_bwd_workspace_floats(D, rank, unroll)))
+        ws = None
+        if placement == "ws":
+            slabs = 2 if form == "double" else 1
+            floats = lib.amt_rho_split_bwd_workspace_floats(D, rank, unroll)
+            ws = se.new_empty((B, slabs * floats))
         err = lib.amt_rho_split_bwd(
-            *[_ptr(x) for x in (*mats, se, g, ckr, cki, dse, dh0r, dh0i, part,
-                                ws)],
+            *[_ptr(x) for x in (*mats, se, g, ckr, cki, dse, dh0r, dh0i,
+                                part)],
+            _ptr(ws) if ws is not None else None,
             D, n_steps, B, rank, unroll, log_eps, norm_eps,
             PRECISIONS.index(precision), int(defer_norm),
+            int(form == "double"), int(placement == "smem"),
             _stream_ptr(se.device))
         _build.check(lib, err, "rho_split_bwd")
         rho_split_bwd.launches += 1
+        rho_split_bwd.plan = (placement, form)
     tot = part.sum(dim=0)
     m = tot[:6 * D * D].reshape(6, D, D)
     return (dse, m[0], m[1], m[2], m[3], m[4], m[5], tot[6 * D * D:][:D],
@@ -1085,6 +1236,7 @@ def rho_split_bwd(ccr, cci, rcr, rci, xtr, xti, pc, ps, se, g, ckr, cki, *,
 
 
 rho_split_bwd.launches = 0
+rho_split_bwd.plan = None
 
 
 class RhoSplitNLL(torch.autograd.Function):
@@ -1133,9 +1285,7 @@ def rho_nll_split_trainable(params, cfg: CMPSConfig, signals, *,
         lib = _build.library()
         _check_smem("rho_split_fwd", lib.amt_rho_split_fwd_smem_bytes(D, rank),
                     signals.device, D)
-        _check_smem("rho_split_bwd",
-                    lib.amt_rho_split_bwd_smem_bytes(D, rank, unroll),
-                    signals.device, D)
+        rho_split_bwd_plan(D, rank, unroll, _smem_optin(signals.device))
     cc = make_constants(params, cfg)
     se = (signals[:, 1:] - signals[:, :-1]).T / cc.A      # [T-1, B]
     h0r, h0i = rho_factor_inputs(params, cfg, B)

@@ -90,7 +90,11 @@ failure (the script then exits non-zero):
    more resuming at step 4: the split forward and adjoint launch once a
    step, no other kernel); the sample CLI and ``psi_nll_fused`` at D=10
    through the split sampler and NLL; the four kernels' CUDA-event times
-   beside their bounds and one estimator step's time;
+   beside their bounds and one estimator step's time; the adjoint's two
+   forms (double, single) equal bit for bit on the training prefixes, and
+   each form's time with the re-run, the sweep and the outer products
+   alone (``tools/split_adjoint_attribution.py``, its builds started in
+   set-up);
 11. rho's split layout (``rho_split_phases``, after psi's) at the same
    shape with ``--discr=true`` (full rank 10, 320 factor lanes): the
    sampler (N=8 chains) on the T=4096 prefix, the NLL (both norms) on a
@@ -101,7 +105,9 @@ failure (the script then exits non-zero):
    steps: the rho split pair once a step, no other kernel); the sample
    CLI with ``mps_model=rho_mps`` and ``rho_nll_fused`` through the split
    sampler and NLL; the four kernels' CUDA-event times beside their
-   bounds and one estimator step's time;
+   bounds and one estimator step's time; the adjoint's four (placement,
+   form) equal bit for bit on the training prefixes, each one's time and
+   the parts alone, as psi's;
 12. psi's spine/limbs training pair (``batched_phases``, after psi's
    recompute phases; the TPU factory's ``batched=True``, off by default) at
    D=64, B=128, T=16384, highest, deferred norm: the batched forward held
@@ -254,6 +260,9 @@ RANK_BEFORE_MS = {"rank_partials_fwd": 2377.0, "rank_partials_bwd": 2809.8,
                   5096.6}
 # the kernel build's ptxas report (registers, spills), kept by main()
 BUILD = {"log": ""}
+# the measurement builds of tools/split_adjoint_attribution.py (started
+# after the kernel build, loaded by the split phases)
+SPLIT_ATTRIBUTION = {"builds": None, "libs": None}
 
 
 # The training path without the state stream (kernel_stream="off"): the
@@ -2127,6 +2136,22 @@ def _split_miss(tag, labels, tols, got, want):
     return [f"{worst:.2e} (limit {tol:g})" for tol, worst in by_tol.items()]
 
 
+def _split_attribution(family, dev):
+    """The re-run, the sweep and the outer products of a split adjoint
+    alone (``tools/split_adjoint_attribution.py``, its builds started in
+    set-up) and each form (and placement) built, at the estimator's
+    shape; prints one line."""
+    from audio_mps_tpu_torch.tools import split_adjoint_attribution as attr
+    if SPLIT_ATTRIBUTION["libs"] is None:
+        SPLIT_ATTRIBUTION["libs"] = attr.load_builds(
+            SPLIT_ATTRIBUTION["builds"])
+    measure = attr.measure_psi if family == "psi" else attr.measure_rho
+    res = measure(dev, SPLIT_ATTRIBUTION["libs"], SPLIT_T)
+    print("  attribution: " + attr.summary(f"{family}_split_bwd", res,
+                                           SPLIT_T), flush=True)
+    return res
+
+
 def split_phases(dev):
     """Phase 10, psi's split layout at the legacy estimator's shape;
     returns its four kernels' entries of the {"kernels": [...]} line."""
@@ -2225,8 +2250,17 @@ def split_phases(dev):
                                    kernels["fwd"](*args, **o), f_p)
         b_k = _split_bwd(kernels["bwd"], args, g, f_p[1:], **o)
         torch.cuda.synchronize()
+        form = split.psi_split_bwd.form
         lb, e_b = _split_hold(f"psi_split_bwd defer={defer}",
                                  SPLIT_BWD_LABELS, bwd_tols, b_k, b_p)
+        for other in split.SPLIT_BWD_FORMS:
+            b_f = _split_bwd(kernels["bwd"], args, g, f_p[1:], **o,
+                             _form=other)
+            check(all(torch.equal(a, b) for a, b in zip(b_f, b_k)),
+                  f"psi_split_bwd defer={defer}: the {other} form is not "
+                  f"the {form} form's bits")
+        lb.append(f"the forms {'/'.join(split.SPLIT_BWD_FORMS)} the same "
+                  f"bits (the plan: {form})")
         d = dict(o, precision="default")
         c_f = _split_miss(f"psi_split_fwd defer={defer}", SPLIT_FWD_LABELS,
                           fwd_tols, kernels["fwd"](*args, **d), f_p)
@@ -2481,8 +2515,10 @@ def split_phases(dev):
               f"{by}, {bound / ms[role] * 100:.2f}% of it; control at default "
               + ", ".join(ctrl[role]) + ")", flush=True)
     print(f"  estimator step {step_ms:.2f} ms, of which the forward and "
-          f"adjoint kernels {ms['fwd'] + ms['bwd']:.2f} ms; {card_line()}",
-          flush=True)
+          f"adjoint kernels {ms['fwd'] + ms['bwd']:.2f} ms; the adjoint's "
+          f"launches took the {split.psi_split_bwd.form} form; "
+          f"{card_line()}", flush=True)
+    _split_attribution("psi", dev)
     return entries
 
 
@@ -2617,8 +2653,19 @@ def rho_split_phases(dev):
                                 kernels["fwd"](*args, **o), f_p)
         b_k = _split_bwd(kernels["bwd"], args, g, f_p[1:], **o)
         torch.cuda.synchronize()
+        plan = split.rho_split_bwd.plan
         lb, e_b = _split_hold(f"rho_split_bwd defer={defer}",
                               RHO_SPLIT_BWD_LABELS, bwd_tols, b_k, b_p)
+        plans = [(pl, f) for f in split.SPLIT_BWD_FORMS
+                 for pl in split.SPLIT_BWD_PLACEMENTS]
+        for other in plans:
+            b_f = _split_bwd(kernels["bwd"], args, g, f_p[1:], **o,
+                             _plan=other)
+            check(all(torch.equal(a, b) for a, b in zip(b_f, b_k)),
+                  f"rho_split_bwd defer={defer}: {other} is not {plan}'s "
+                  f"bits")
+        lb.append(f"the four (placement, form) the same bits (the plan: "
+                  f"{'/'.join(plan or ('none',))})")
         d = dict(o, precision="default")
         c_f = _split_miss(f"rho_split_fwd defer={defer}", SPLIT_FWD_LABELS,
                           fwd_tols, kernels["fwd"](*args, **d), f_p)
@@ -2833,8 +2880,11 @@ def rho_split_phases(dev):
               f"control at default " + ", ".join(ctrl[role]) + ")",
               flush=True)
     print(f"  estimator --discr=true step {step_ms:.2f} ms, of which the "
-          f"forward and adjoint kernels {ms['fwd'] + ms['bwd']:.2f} ms; "
-          f"{card_line()}", flush=True)
+          f"forward and adjoint kernels {ms['fwd'] + ms['bwd']:.2f} ms; the "
+          f"adjoint's launches took "
+          f"{'/'.join(split.rho_split_bwd.plan or ('none',))} "
+          f"(placement/form); {card_line()}", flush=True)
+    _split_attribution("rho", dev)
     return entries
 
 
@@ -3235,6 +3285,8 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip(), flush=True)
     _build.library()
+    from audio_mps_tpu_torch.tools import split_adjoint_attribution
+    SPLIT_ATTRIBUTION["builds"] = split_adjoint_attribution.start_builds()
 
     dev = torch.device("cuda")
     cfg = CMPSConfig(bond_dim=D, minibatch_size=B_NLL)

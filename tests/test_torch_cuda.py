@@ -1033,7 +1033,9 @@ def test_split_kernels_match_plain(dev, D, layout, precision, defer):
     """Each split kernel against its plain version on the same inputs (the
     adjoint fed the plain forward's checkpoints; unroll 7, so the last
     block is ragged): D=6 and D=10 (the layouts' rule sends them to split)
-    and D=8 asked for with kernel_layout="split", each launching once."""
+    and D=8 asked for with kernel_layout="split", each launching once; then
+    the adjoint forced to each form (``_form``), over the run and over 5
+    steps (fewer than one block)."""
     from audio_mps_tpu_torch.ops import split
     s_in, inputs, g = _split_inputs(dev, D, layout, STEPS[precision])
     names = ("cr", "ci", "rr", "ri", "pc", "ps", "s0r", "s0i", "se")
@@ -1052,9 +1054,90 @@ def test_split_kernels_match_plain(dev, D, layout, precision, defer):
     bwd_args = args[:6] + [args[8], g, fwd[1], fwd[2]]
     got = split.psi_split_bwd(*bwd_args, **kw)
     torch.cuda.synchronize()
-    for a, b in zip(got, split.psi_split_bwd_plain(*bwd_args, **kw)):
+    want = split.psi_split_bwd_plain(*bwd_args, **kw)
+    for a, b in zip(got, want):
         _close(a, b, TOL[precision])
     assert _split_counts() == tuple(c + 1 for c in before)
+    se5 = args[8][:5].contiguous()
+    fwd5 = split.psi_split_fwd_plain(*args[:8], se5, **kw)
+    short = args[:6] + [se5, g, fwd5[1], fwd5[2]]
+    want5 = split.psi_split_bwd_plain(*short, **kw)
+    for form in split.SPLIT_BWD_FORMS:
+        for call, ref in ((bwd_args, want), (short, want5)):
+            got = split.psi_split_bwd(*call, **kw, _form=form)
+            torch.cuda.synchronize()
+            assert split.psi_split_bwd.form == form
+            for a, b in zip(got, ref):
+                _close(a, b, TOL[precision])
+    n = 2 * len(split.SPLIT_BWD_FORMS)
+    assert _split_counts() == tuple(c + 1 for c in before[:3]) + (
+        before[3] + 1 + n,)
+
+
+@pytest.mark.parametrize("defer", [False, True])
+def test_split_adjoint_forms_give_the_same_bits(dev, defer):
+    """The two forms of the adjoint (double: a re-run role and a sweep
+    role on two slabs; single: one role in turn) run the same arithmetic
+    in the same order: at D=10, B=32 over 2048 steps they give the same
+    bits in all nine outputs."""
+    from audio_mps_tpu_torch.ops import split
+    _, inputs, g = _split_inputs(dev, 10, "auto", 2048, B=32)
+    names = ("cr", "ci", "rr", "ri", "pc", "ps", "s0r", "s0i", "se")
+    args = [inputs[k] for k in names]
+    kw = dict(log_eps=inputs["log_eps"], norm_eps=inputs["norm_eps"],
+              defer_norm=defer)
+    _, ckr, cki = split.psi_split_fwd(*args, **kw)
+    runs = [split.psi_split_bwd(*args[:6], args[8], g, ckr, cki, **kw,
+                                _form=form)
+            for form in split.SPLIT_BWD_FORMS]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_split_adjoint_plans_and_smem_agree_with_the_kernels(dev):
+    """The adjoints' byte counts in ops/split.py (the plans' inputs) are the
+    kernels' own (amt_*_split_bwd_form_smem_bytes) at every form and
+    placement, and the ceilings' counts (amt_*_split_bwd_smem_bytes) are
+    the single form's (rho's with its slab in the workspace); on this card
+    the plans take the double form at the estimator's D=10 (rho's slabs in
+    shared memory), and a launch records what it took."""
+    from audio_mps_tpu_torch.ops import _build, split
+    lib = _build.library()
+    for D in (4, 8, 10, 33, 64, 73, 74):
+        for u in (1, 7, 16):
+            for form in split.SPLIT_BWD_FORMS:
+                assert lib.amt_psi_split_bwd_form_smem_bytes(
+                    D, u, int(form == "double")) == \
+                    split.psi_split_bwd_smem_bytes(D, u, form)
+            assert lib.amt_psi_split_bwd_smem_bytes(D, u) == \
+                split.psi_split_bwd_smem_bytes(D, u, "single")
+    for D, rank in ((6, 3), (10, 10), (12, 12), (33, 2), (53, 53), (54, 54)):
+        for u in (1, 7, 16):
+            for form in split.SPLIT_BWD_FORMS:
+                for placement in split.SPLIT_BWD_PLACEMENTS:
+                    assert lib.amt_rho_split_bwd_form_smem_bytes(
+                        D, rank, u, int(form == "double"),
+                        int(placement == "smem")) == \
+                        split.rho_split_bwd_smem_bytes(D, rank, u, placement,
+                                                       form)
+            assert lib.amt_rho_split_bwd_smem_bytes(D, rank, u) == \
+                split.rho_split_bwd_smem_bytes(D, rank, u, "ws", "single")
+    have = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert split.psi_split_bwd_plan(10, 16, have) == "double"
+    assert split.rho_split_bwd_plan(10, 10, 16, have) == ("smem", "double")
+    _, inputs, g = _split_inputs(dev, 10, "auto", 64, B=4)
+    names = ("cr", "ci", "rr", "ri", "pc", "ps", "s0r", "s0i", "se")
+    args = [inputs[k] for k in names]
+    kw = dict(log_eps=inputs["log_eps"], norm_eps=inputs["norm_eps"])
+    _, ckr, cki = split.psi_split_fwd(*args, **kw)
+    split.psi_split_bwd(*args[:6], args[8], g, ckr, cki, **kw)
+    assert split.psi_split_bwd.form == "double"
+    _, inputs, g, _ = _rho_split_inputs(dev, 10, 10, "auto", 64, B=4)
+    args = [inputs[k] for k in split.RHO_SPLIT_NAMES + ("se",)]
+    _, ckr, cki = split.rho_split_fwd(*args, **kw)
+    split.rho_split_bwd(*args[:8], args[10], g, ckr, cki, **kw)
+    assert split.rho_split_bwd.plan == ("smem", "double")
 
 
 def test_split_adjoint_is_reproducible_bit_for_bit(dev):
@@ -1179,7 +1262,8 @@ def test_rho_split_kernels_match_plain(dev, D, rank, layout, precision,
     """Each rho split kernel against its plain version on the same inputs
     (the adjoint fed the plain forward's checkpoints; unroll 7, so the last
     block is ragged), each launching once: highest over 300 steps at TOL,
-    default over 16."""
+    default over 16; then the adjoint forced to each (placement, form)
+    (``_plan``), over the run and over 5 steps (fewer than one block)."""
     from audio_mps_tpu_torch.ops import split
     s_in, inputs, g, _ = _rho_split_inputs(dev, D, rank, layout,
                                            STEPS[precision])
@@ -1198,9 +1282,25 @@ def test_rho_split_kernels_match_plain(dev, D, rank, layout, precision,
     bwd_args = args[:8] + [args[10], g, fwd[1], fwd[2]]
     got = split.rho_split_bwd(*bwd_args, **kw)
     torch.cuda.synchronize()
-    for a, b in zip(got, split.rho_split_bwd_plain(*bwd_args, **kw)):
+    want = split.rho_split_bwd_plain(*bwd_args, **kw)
+    for a, b in zip(got, want):
         _close(a, b, TOL[precision])
     assert _rho_split_counts() == tuple(c + 1 for c in before)
+    se5 = args[10][:5].contiguous()
+    fwd5 = split.rho_split_fwd_plain(*args[:10], se5, **kw)
+    short = args[:8] + [se5, g, fwd5[1], fwd5[2]]
+    want5 = split.rho_split_bwd_plain(*short, **kw)
+    plans = [(p, f) for f in split.SPLIT_BWD_FORMS
+             for p in split.SPLIT_BWD_PLACEMENTS]
+    for plan in plans:
+        for call, ref in ((bwd_args, want), (short, want5)):
+            got = split.rho_split_bwd(*call, **kw, _plan=plan)
+            torch.cuda.synchronize()
+            assert split.rho_split_bwd.plan == plan
+            for a, b in zip(got, ref):
+                _close(a, b, TOL[precision])
+    assert _rho_split_counts() == tuple(c + 1 for c in before[:3]) + (
+        before[3] + 1 + 2 * len(plans),)
 
 
 @pytest.mark.parametrize("precision", ["highest", "default"])
@@ -1219,6 +1319,28 @@ def test_rho_split_sampler_at_d12_matches_plain(dev, precision):
     wave = scan.rho_sample_fused(p, cfg, s_in["noise"])
     assert wave.shape == (3, STEPS[precision]) and torch.isfinite(wave).all()
     assert _rho_split_counts() == (before[0] + 1,) + before[1:]
+
+
+@pytest.mark.parametrize("defer", [False, True])
+def test_rho_split_adjoint_forms_give_the_same_bits(dev, defer):
+    """The adjoint's two forms with their slabs in shared memory and in the
+    device workspace run the same arithmetic in the same order: at D=10,
+    full rank, B=32 over 2048 steps the four give the same bits in all
+    eleven outputs."""
+    from audio_mps_tpu_torch.ops import split
+    _, inputs, g, _ = _rho_split_inputs(dev, 10, 10, "auto", 2048, B=32)
+    args = [inputs[k] for k in split.RHO_SPLIT_NAMES + ("se",)]
+    kw = dict(log_eps=inputs["log_eps"], norm_eps=inputs["norm_eps"],
+              defer_norm=defer)
+    _, ckr, cki = split.rho_split_fwd(*args, **kw)
+    runs = [split.rho_split_bwd(*args[:8], args[10], g, ckr, cki, **kw,
+                                _plan=(p, f))
+            for f in split.SPLIT_BWD_FORMS
+            for p in split.SPLIT_BWD_PLACEMENTS]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(runs[0], run):
+            assert torch.equal(a, b)
 
 
 def test_rho_split_adjoint_is_reproducible_bit_for_bit(dev):
@@ -1273,6 +1395,43 @@ def test_rho_split_ceilings_raise_before_any_launch(dev):
     for D, rank, fits in ((10, 10, True), (12, 12, True), (66, 66, False)):
         assert scan.rho_sampler_fits(CMPSConfig(bond_dim=D), rank,
                                      dev) is fits
+
+
+@pytest.mark.parametrize("family, D, rank, plan", [
+    ("psi", 33, 1, "double"), ("psi", 63, 1, "double"),
+    ("psi", 64, 1, "single"), ("psi", 73, 1, "single"),
+    ("rho", 12, 12, ("ws", "double")), ("rho", 17, 17, ("ws", "single")),
+    ("rho", 53, 53, ("ws", "single"))])
+def test_split_adjoints_at_the_plans_bounds_match_plain(dev, family, D,
+                                                        rank, plan):
+    """At unroll 16 the plans change form or placement between these
+    shapes, up to the ceilings (psi D=73, rho D=53 at full rank): each
+    launch takes the plan's and matches its plain version within TOL over
+    39 steps, both norms."""
+    from audio_mps_tpu_torch.ops import split
+    for defer in (True, False):
+        if family == "psi":
+            _, inputs, g = _split_inputs(dev, D, "auto", 39, B=3)
+            args = [inputs[k] for k in ("cr", "ci", "rr", "ri", "pc", "ps",
+                                        "s0r", "s0i", "se")]
+            fwd, bwd, nc = (split.psi_split_fwd_plain, split.psi_split_bwd,
+                            6)
+        else:
+            _, inputs, g, _ = _rho_split_inputs(dev, D, rank, "auto", 39,
+                                                B=2)
+            args = [inputs[k] for k in split.RHO_SPLIT_NAMES + ("se",)]
+            fwd, bwd, nc = (split.rho_split_fwd_plain, split.rho_split_bwd,
+                            8)
+        kw = dict(log_eps=inputs["log_eps"], norm_eps=inputs["norm_eps"],
+                  unroll=16, defer_norm=defer)
+        f = fwd(*args, **kw)
+        call = args[:nc] + [args[-1], g, f[1], f[2]]
+        got = bwd(*call, **kw)
+        torch.cuda.synchronize()
+        assert (bwd.form if family == "psi" else bwd.plan) == plan
+        want = getattr(split, bwd.__name__ + "_plain")(*call, **kw)
+        for a, b in zip(got, want):
+            _close(a, b, TOL["highest"])
 
 
 @pytest.mark.parametrize("defer", [False, True])
