@@ -2,7 +2,9 @@
 // psi_train_fwd.cu, psi_train_bwd.cu, psi_cotangents.cu): the precision menu
 // on shared-memory matrices, one-row matrix-vector dots, the block
 // reduction, the mbarriers and warp roles of the warp-specialised kernels,
-// and the dispatch of a C entry's runtime options to template arguments.
+// the thread-block cluster helpers (barrier, rank, distributed shared
+// memory, launch and residency) and the dispatch of a C entry's runtime
+// options to template arguments.
 //
 // Layout. A chain kernel's CTA owns one column of the stacked state
 // [x_r; x_i] (one chain or one example), or G of them (psi's block forward
@@ -542,6 +544,124 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
                    smem_addr(bar))
                : "memory");
+}
+
+// Thread-block clusters (PTX for sm_90): the rank partials' slab ring
+// (rank_partials.cuh) and the rho block kernels' exchange of per-example
+// sums over the CTAs of an example (rho_cluster.cuh).
+
+// Every thread of every CTA of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::
+          : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+// Arrive on the mbarrier at bar's offset in the shared memory of cluster
+// CTA `cta` (the default semantics; a cluster-scope release and acquire
+// cost 0.37 us a slab on the H100, a third of the forward's step).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\tmapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n\t}" ::
+          "r"(smem_addr(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// The float at p's offset in the shared memory of cluster CTA `cta` (mapa,
+// then a distributed-shared-memory load). A cluster_sync() must order it
+// after the store it reads.
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t cta) {
+  float v;
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\tmapa.shared::cluster.u32 ra, %1, %2;\n\t"
+      "ld.shared::cluster.f32 %0, [ra];\n\t}"
+      : "=f"(v)
+      : "r"(smem_addr(p)), "r"(cta)
+      : "memory");
+  return v;
+}
+
+// Opt `kernel` in to `smem` bytes of dynamic shared memory (past the 48 KB
+// default) and, past the portable 8, to clusters of `cluster` CTAs.
+template <typename... Params>
+cudaError_t cluster_attributes(void (*kernel)(Params...), int cluster,
+                               size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+// gridDim CTAs of `threads` in clusters of `cluster` CTAs along x (along y
+// with cluster_y); attr holds the cluster attribute.
+inline cudaLaunchConfig_t cluster_config(dim3 grid, int threads, int cluster,
+                                         bool cluster_y, size_t smem,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster_y ? 1 : cluster;
+  attr->val.clusterDim.y = cluster_y ? cluster : 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Launch `kernel` in clusters (see cluster_config); a refused launch
+// returns its error.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int threads,
+                           int cluster, bool cluster_y, size_t smem,
+                           cudaStream_t stream, Args... args) {
+  cudaError_t err = cluster_attributes(kernel, cluster, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(grid, threads, cluster,
+                                                cluster_y, smem, stream,
+                                                &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Clusters of `cluster` CTAs of `kernel` the card holds at once (a
+// negative cudaError_t when the query fails).
+template <typename... Params>
+int max_active_clusters(void (*kernel)(Params...), int threads, int cluster,
+                        size_t smem) {
+  cudaError_t err = cluster_attributes(kernel, cluster, smem);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(cluster), threads,
+                                                cluster, false, smem, nullptr,
+                                                &attr);
+  int count = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
+  return err == cudaSuccess ? count : -static_cast<int>(err);
 }
 
 // A set of whole warps of a CTA that runs one role of a warp-specialised

@@ -82,7 +82,7 @@ inline bool partials_fits(int D, int rc) {
 }
 
 // ---------------------------------------------------------------------------
-// bulk copies and the cluster (PTX for sm_90; the mbarriers are in
+// bulk copies (PTX for sm_90; the mbarriers and the cluster are in
 // common.cuh)
 // ---------------------------------------------------------------------------
 
@@ -92,19 +92,6 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                    smem_addr(bar)),
                "r"(bytes)
                : "memory");
-}
-
-// Arrive on the mbarrier at bar's offset in the shared memory of cluster
-// CTA `cta` (the default semantics; a cluster-scope release and acquire
-// cost 0.37 us a slab on the H100, a third of the forward's step).
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
-                                                    uint32_t cta) {
-  asm volatile(
-      "{\n\t.reg .b32 ra;\n\tmapa.shared::cluster.u32 ra, %0, %1;\n\t"
-      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n\t}" ::
-          "r"(smem_addr(bar)),
-      "r"(cta)
-      : "memory");
 }
 
 // Copy `bytes` (a multiple of 16) from global src to shared dst, completing
@@ -126,26 +113,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
         "l"(src), "r"(bytes), "r"(smem_addr(bar))
         : "memory");
   }
-}
-
-// Every thread of every CTA of the cluster.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n\t"
-      "barrier.cluster.wait.acquire.aligned;" ::
-          : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return r;
 }
 
 // The consumer warps alone (the producer warp never joins).
@@ -377,54 +344,15 @@ __device__ void ring_product(const PartialsSmem& sm, uint32_t& q,
   }
 }
 
-// Opt `kernel` in to the partials CTA's shared memory (past the 48 KB
-// default) and, past the portable 8, to clusters of `cluster` CTAs.
-template <typename... Params>
-cudaError_t partials_attributes(void (*kernel)(Params...), int cluster,
-                                size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return err;
-}
-
-// gridDim CTAs of kPartialsThreads in clusters of `cluster` CTAs along x
-// (along y with cluster_y); attr holds the cluster attribute.
-inline cudaLaunchConfig_t partials_config(dim3 grid, int cluster,
-                                          bool cluster_y, size_t smem,
-                                          cudaStream_t stream,
-                                          cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kPartialsThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster_y ? 1 : cluster;
-  attr->val.clusterDim.y = cluster_y ? cluster : 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// Launch a partials kernel (see partials_config); a refused launch returns
-// its error.
+// Launch a partials kernel: gridDim CTAs of kPartialsThreads in clusters
+// of `cluster` CTAs along x (along y with cluster_y); a refused launch
+// returns its error (launch_cluster, common.cuh).
 template <typename... Params, typename... Args>
 cudaError_t launch_partials(void (*kernel)(Params...), dim3 grid, int cluster,
                             bool cluster_y, size_t smem, cudaStream_t stream,
                             Args... args) {
-  cudaError_t err = partials_attributes(kernel, cluster, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      partials_config(grid, cluster, cluster_y, smem, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_cluster(kernel, grid, kPartialsThreads, cluster, cluster_y,
+                        smem, stream, args...);
 }
 
 // Clusters of `cluster` partials CTAs the card holds at once (a negative
@@ -432,14 +360,7 @@ cudaError_t launch_partials(void (*kernel)(Params...), dim3 grid, int cluster,
 template <typename... Params>
 int max_partials_clusters(void (*kernel)(Params...), int cluster,
                           size_t smem) {
-  cudaError_t err = partials_attributes(kernel, cluster, smem);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      partials_config(dim3(cluster), cluster, false, smem, nullptr, &attr);
-  int count = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
-  return err == cudaSuccess ? count : -static_cast<int>(err);
+  return max_active_clusters(kernel, kPartialsThreads, cluster, smem);
 }
 
 // A cluster size the launches take: 1 .. kMaxCluster, dividing G.

@@ -22,30 +22,36 @@
 // block of the run may be shorter) with the forward's instructions, so ys
 // and trs equal the streamed forward's bit for bit. The TPU's grid is
 // serial in time; here a segment's blocks run side by side, so at B=8 a
-// segment of 32 blocks fills 256 CTAs where the forward has 8.
+// segment of 32 blocks is 256 clusters where the forward has 8.
 //
 // What bounds it: the forward's update products, 2 (2D)^2 R FLOPs each an
 // example-step (the expectation Xb y feeds only the loss and is skipped),
 // on the fp32 pipes of every SM now, plus each CTA's load of the constants
-// from L2 (192 KB at D=64) for at most unroll steps; device memory moves
+// from L2 (128 KB at D=64) for at most unroll steps; device memory moves
 // the checkpoint read and the ys write.
 #include "rho_fwd.cuh"
 
 extern "C" {
 
+// Clusters of C recompute CTAs the current card holds at once; a negative
+// cudaError_t when the query fails.
+int amt_rho_recompute_max_clusters(int D, int R, int C) {
+  return amt::rho_fwd_max_clusters<amt::kRecompute>(D, R, C);
+}
+
 // ys[n_steps, 2D, B*R] and trs[n_steps, B] of a segment of n_steps steps
 // (se[n_steps, B]) from its checkpoints ck[ceil(n_steps / unroll), 2D,
 // B*R]; the segment starts at a block entry; xb is not read. See
-// rho_fwd.cuh. precision: 0 highest, 1 high, 2 default. Returns a
-// cudaError_t.
+// rho_fwd.cuh; in clusters of `cluster` CTAs an (example, block).
+// precision: 0 highest, 1 high, 2 default. Returns a cudaError_t.
 int amt_rho_recompute(const float* ab, const float* bb, const float* xb,
                       const float* ck, const float* se, float* ys, float* trs,
                       int D, int n_steps, int B, int R, int unroll,
                       float norm_eps, int precision, int defer_norm,
-                      void* stream) {
+                      int cluster, void* stream) {
   return static_cast<int>(amt::launch_rho_fwd<amt::kRecompute>(
       ab, bb, xb, ck, se, nullptr, ys, trs, nullptr, D, n_steps, B, R,
-      unroll, 0.f, norm_eps, precision, defer_norm != 0,
+      unroll, 0.f, norm_eps, precision, defer_norm != 0, cluster,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -1,7 +1,9 @@
-// Shared pieces of the rho kernels (rho_sample.cu, rho_nll.cu,
-// rho_train_fwd.cu, rho_train_bwd.cu, and through rank_partials.cuh the
-// rank-partials kernels): the thread layout over one example's factor
-// segment and the [2D,2D] x [2D,R] product on it.
+// Shared pieces of the rho sampler (rho_sample.cu), the adjoint's tail
+// (rho_train_bwd.cu) and, through rank_partials.cuh, the rank-partials
+// kernels: the thread layout over one example's factor segment and the
+// [2D,2D] x [2D,R] product on it. The block forward and the adjoint chain
+// spread a segment over a cluster instead (rho_cluster.cuh, which takes
+// the matrix loads and unpack4 from here).
 //
 // Layout. A rho example (or sampler chain) is a segment of R = rank state
 // columns, [2D, R]; its trace and expectation are sums over the whole

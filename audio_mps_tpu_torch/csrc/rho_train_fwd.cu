@@ -20,22 +20,49 @@
 
 extern "C" {
 
-// Dynamic shared memory of one training-forward CTA (rho_fwd.cuh).
+// Dynamic shared memory of a forward CTA (rho_fwd.cuh) in clusters of C,
+// with nbuf state buffers; recompute: the kRecompute CTA (no Xb).
+size_t amt_rho_fwd_smem_bytes(int D, int R, int C, int recompute,
+                              int nbuf) {
+  return amt::rho_fwd_smem_bytes(D, R, C,
+                                 recompute ? amt::kRecompute : amt::kStream,
+                                 nbuf);
+}
+
+// The state buffers a forward launch takes on the current card (2 where
+// they fit its shared memory, else 1).
+int amt_rho_fwd_buffers(int D, int R, int C, int recompute) {
+  return amt::rho_fwd_buffers(D, R, C,
+                              recompute ? amt::kRecompute : amt::kStream,
+                              amt::smem_optin());
+}
+
+// The least dynamic shared memory of a forward CTA that holds an example's
+// whole segment (one CTA an example, one state buffer): the monolithic
+// rho kernels take (D, R) where it fits.
 size_t amt_rho_train_fwd_smem_bytes(int D, int R) {
-  return amt::rho_fwd_smem_bytes(D, R);
+  return amt::rho_fwd_smem_bytes(D, R, 1, amt::kStream, 1);
+}
+
+// Clusters of C forward CTAs (the NLL's, the streamed and the checkpoint
+// forward's: one size) the current card holds at once; a negative
+// cudaError_t when the query fails.
+int amt_rho_fwd_max_clusters(int D, int R, int C) {
+  return amt::rho_fwd_max_clusters<amt::kStream>(D, R, C);
 }
 
 // loss[B], ys[n_steps, 2D, B*R] and trs[n_steps, B] from se[n_steps, B]
-// (increments / A); see rho_fwd.cuh. precision: 0 highest, 1 high,
-// 2 default. Returns a cudaError_t.
+// (increments / A), in clusters of `cluster` CTAs an example; see
+// rho_fwd.cuh. precision: 0 highest, 1 high, 2 default. Returns a
+// cudaError_t.
 int amt_rho_train_fwd(const float* ab, const float* bb, const float* xb,
                       const float* t0, const float* se, float* loss, float* ys,
                       float* trs, int D, int n_steps, int B, int R, int unroll,
                       float log_eps, float norm_eps, int precision,
-                      int defer_norm, void* stream) {
+                      int defer_norm, int cluster, void* stream) {
   return static_cast<int>(amt::launch_rho_fwd<amt::kStream>(
       ab, bb, xb, t0, se, loss, ys, trs, nullptr, D, n_steps, B, R, unroll,
-      log_eps, norm_eps, precision, defer_norm != 0,
+      log_eps, norm_eps, precision, defer_norm != 0, cluster,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -45,10 +72,11 @@ int amt_rho_train_fwd_ckpt(const float* ab, const float* bb, const float* xb,
                            const float* t0, const float* se, float* loss,
                            float* ck, int D, int n_steps, int B, int R,
                            int unroll, float log_eps, float norm_eps,
-                           int precision, int defer_norm, void* stream) {
+                           int precision, int defer_norm, int cluster,
+                           void* stream) {
   return static_cast<int>(amt::launch_rho_fwd<amt::kCkpt>(
       ab, bb, xb, t0, se, loss, nullptr, nullptr, ck, D, n_steps, B, R,
-      unroll, log_eps, norm_eps, precision, defer_norm != 0,
+      unroll, log_eps, norm_eps, precision, defer_norm != 0, cluster,
       static_cast<cudaStream_t>(stream)));
 }
 

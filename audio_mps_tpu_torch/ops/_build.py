@@ -31,8 +31,8 @@ SOURCES = ("psi_sample.cu", "psi_nll.cu", "psi_train_fwd.cu",
            "psi_split_bwd.cu", "rho_split_sample.cu", "rho_split_nll.cu",
            "rho_split_fwd.cu", "rho_split_bwd.cu", "psi_batched_fwd.cu",
            "psi_batched_bwd.cu", "psi_probe.cu")
-HEADERS = ("common.cuh", "psi_fwd.cuh", "rho_tile.cuh", "rho_fwd.cuh",
-           "rank_partials.cuh", "rank_partials_fwd.cuh",
+HEADERS = ("common.cuh", "psi_fwd.cuh", "rho_tile.cuh", "rho_cluster.cuh",
+           "rho_fwd.cuh", "rank_partials.cuh", "rank_partials_fwd.cuh",
            "psi_split_fwd.cuh", "rho_split_fwd.cuh")
 ROOT = Path(__file__).resolve().parents[2]
 LIB_NAME = "libamt_kernels.so"
@@ -73,22 +73,24 @@ _SIGNATURES = {
     # precision, stream
     "amt_rho_sample": ([_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _P], _I),
     # ab, bb, xb, t0, se, loss, D, n_steps, B, R, unroll, log_eps, norm_eps,
-    # precision, defer_norm, stream
-    "amt_rho_nll": ([_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    # precision, defer_norm, cluster, stream
+    "amt_rho_nll": ([_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _I, _P], _I),
     # ab, bb, xb, t0, se, loss, ys, trs, D, n_steps, B, R, unroll, log_eps,
-    # norm_eps, precision, defer_norm, stream
-    "amt_rho_train_fwd": ([_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    # norm_eps, precision, defer_norm, cluster, stream
+    "amt_rho_train_fwd": ([_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _I, _P],
+                          _I),
     # ab, bb, xb, t0, se, loss, ck, D, n_steps, B, R, unroll, log_eps,
-    # norm_eps, precision, defer_norm, stream
-    "amt_rho_train_fwd_ckpt": ([_P] * 7 + [_I] * 5 + [_F, _F, _I, _I, _P],
-                               _I),
+    # norm_eps, precision, defer_norm, cluster, stream
+    "amt_rho_train_fwd_ckpt": ([_P] * 7 + [_I] * 5
+                               + [_F, _F, _I, _I, _I, _P], _I),
     # ab, bb, xb, ck, se, ys, trs, D, n_steps, B, R, unroll, norm_eps,
-    # precision, defer_norm, stream
-    "amt_rho_recompute": ([_P] * 7 + [_I] * 5 + [_F, _I, _I, _P], _I),
+    # precision, defer_norm, cluster, stream
+    "amt_rho_recompute": ([_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _P], _I),
     # ab, bb, xb, t0, se, g, ys, trs, dtfin, dse, dt0, dys, dehats, dtrns,
     # D, n_steps, B, R, unroll, log_eps, norm_eps, precision, defer_norm,
-    # stream
-    "amt_rho_train_bwd": ([_P] * 14 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    # cluster, stream
+    "amt_rho_train_bwd": ([_P] * 14 + [_I] * 5 + [_F, _F, _I, _I, _I, _P],
+                          _I),
     # abt, bbt, xbt, t0, se, eh, tr, tfin, ys, D, n_steps, B, S, rc,
     # unroll, norm_eps, precision, cluster, stream
     "amt_rank_partials_fwd": ([_P] * 9 + [_I] * 6 + [_F, _I, _I, _P], _I),
@@ -145,9 +147,17 @@ _SIGNATURES = {
     "amt_psi_train_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_psi_cotangents_workspace_floats": ([_I, _I], ctypes.c_size_t),
     "amt_rho_sample_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "amt_rho_nll_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_rho_train_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    # D, R, cluster, recompute, nbuf
+    "amt_rho_fwd_smem_bytes": ([_I] * 5, ctypes.c_size_t),
+    # D, R, cluster, recompute
+    "amt_rho_fwd_buffers": ([_I] * 4, _I),
+    # D, R, cluster
+    "amt_rho_fwd_max_clusters": ([_I] * 3, _I),
+    "amt_rho_recompute_max_clusters": ([_I] * 3, _I),
     "amt_rho_train_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "amt_rho_chain_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+    "amt_rho_chain_max_clusters": ([_I] * 3, _I),
     "amt_rank_partials_smem_bytes": ([_I, _I], ctypes.c_size_t),
     # D, rc, cluster
     "amt_rank_partials_max_clusters": ([_I, _I, _I], _I),
@@ -252,6 +262,28 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def ptxas_report(log: str, sources) -> list:
+    """One line per kernel of ``sources`` from a ``build()`` log's ptxas
+    report: its name and template arguments, registers and spill bytes."""
+    import re
+    out, src, name, spill = [], None, None, ""
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        elif src in sources and "Compiling entry function" in line:
+            m = re.search(r"_ZN3amt\d+(\w+?)I((?:L[ib]\d+E)+)E", line)
+            name = (f"{m.group(1)}<"
+                    + ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+                    + ">" if m else line.split("'")[1])
+        elif src in sources and name and "spill stores" in line:
+            spill = line.strip().split(",")[1].strip()
+        elif src in sources and name and "Used" in line:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            out.append(f"{src}: {name}: {regs}, {spill}")
+            name = None
+    return out or ["(no ptxas report: the library was not rebuilt)"]
 
 
 def check(lib, err: int, name: str):

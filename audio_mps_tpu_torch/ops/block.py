@@ -1554,22 +1554,171 @@ def rho_block_fits(D: int, rank: int) -> bool:
     return D % 4 == 0 and D <= 64 and 1 <= rank <= 64
 
 
-def rho_train_smem_bytes(D: int, rank: int) -> int:
-    """Dynamic shared memory of the rho training forward's CTA, the largest
-    of the rho kernels (``csrc/rho_fwd.cuh``): Ab, Bb, Xb, the state tile
-    and 64 reduction floats, 4 bytes a word."""
+# The rho block forward (csrc/rho_fwd.cuh) and adjoint chain
+# (csrc/rho_train_bwd.cu) run an example's [2D, rank] segment over a
+# thread-block cluster of C CTAs by its rank columns (csrc/rho_cluster.cuh):
+# C divides the ceil(rank/4) column groups. The counts below mirror the
+# kernels' own (tests/test_torch_cuda.py holds them equal).
+RHO_CLUSTERS = (1, 2, 4, 8, 16)
+RHO_SLOTS = 16          # steps whose sums wait for one exchange (kRhoSlots)
+RHO_CTA_THREADS = 512   # the kernels' launch bound (kRhoCtaThreads)
+RHO_PARTS = 3           # part sets of the sums in flight (kRhoParts)
+
+
+def _rho_layout(D: int, rank: int, C: int) -> tuple:
+    """(n, ng, sw, RW) of a rho cluster CTA (``RhoLayout``): the state rows,
+    its column groups, its state tile's row width (the columns a thread,
+    BC, times the column blocks) and its row warps."""
     n = 2 * D
-    return 4 * (3 * n * n + n * 4 * -(-rank // 4) + 64)
+    ng = -(-rank // 4) // C
+    cwid = 4 * ng
+    rw = -(-n // 32)
+    bc = (4 if cwid <= 4 else
+          8 if 32 * rw * -(-cwid // 8) <= RHO_CTA_THREADS else 16)
+    return n, ng, -(-cwid // bc) * bc, rw
+
+
+def _rho_sums_words(D: int, rank: int, C: int, ns: int, nslot: int) -> int:
+    _, ng, _, rw = _rho_layout(D, rank, C)
+    return (RHO_PARTS * ns * rw * ng + (2 * nslot * ns * ng if C > 1 else 0)
+            + nslot * ns)
+
+
+def rho_fwd_smem_bytes(D: int, rank: int, C: int, recompute: bool = False,
+                       nbuf: int = 2) -> int:
+    """Dynamic shared memory of one rho forward CTA (``csrc/rho_fwd.cuh``)
+    in clusters of C: Ab, Bb, Xb (Xb not for the recompute), ``nbuf``
+    state buffers of the CTA's columns, the slots of two sums a step and
+    the slots' increments, 4 bytes a word."""
+    n, _, sw, _ = _rho_layout(D, rank, C)
+    return 4 * ((2 if recompute else 3) * n * n + nbuf * n * sw
+                + _rho_sums_words(D, rank, C, 2, RHO_SLOTS) + RHO_SLOTS)
+
+
+def rho_fwd_buffers(D: int, rank: int, C: int, recompute: bool = False,
+                    smem_optin: int = H100_SMEM_OPTIN) -> int:
+    """State buffers of a rho forward CTA: two (one barrier a step) where
+    they fit ``smem_optin``, else one (C=1 at D=64, rank > 32)."""
+    return 2 if rho_fwd_smem_bytes(D, rank, C, recompute, 2) <= smem_optin \
+        else 1
+
+
+def rho_chain_smem_bytes(D: int, rank: int, C: int) -> int:
+    """Dynamic shared memory of one rho adjoint-chain CTA
+    (``csrc/rho_train_bwd.cu``) in clusters of C: Ab, Bb, two dy buffers
+    and the slots of one sum (16 steps' dsum and one dinv)."""
+    n, _, sw, _ = _rho_layout(D, rank, C)
+    return 4 * (2 * n * n + 2 * n * sw
+                + _rho_sums_words(D, rank, C, 1, RHO_SLOTS + 1))
+
+
+def rho_train_smem_bytes(D: int, rank: int) -> int:
+    """The least dynamic shared memory of a rho forward CTA that holds an
+    example's whole segment (one CTA an example, one state buffer): the
+    monolithic rho kernels take (D, rank) where it fits."""
+    return rho_fwd_smem_bytes(D, rank, 1, nbuf=1)
+
+
+def _rho_cta_bytes(kernel: str, D: int, rank: int, C: int,
+                   smem_optin: int) -> int:
+    if kernel == "chain":
+        return rho_chain_smem_bytes(D, rank, C)
+    recompute = kernel == "recompute"
+    return rho_fwd_smem_bytes(D, rank, C, recompute, rho_fwd_buffers(
+        D, rank, C, recompute, smem_optin))
+
+
+def rho_cluster_for(D: int, B: int, rank: int, n_sms: int, resident,
+                    smem_optin: int = H100_SMEM_OPTIN,
+                    kernel: str = "fwd") -> int:
+    """The cluster C of a rho block launch of B clusters (examples; for the
+    recompute, examples x blocks) at bond dimension D: the largest C in
+    ``RHO_CLUSTERS`` that divides the ceil(rank/4) column groups, whose CTA
+    (``kernel``: "fwd", "recompute" or "chain") fits ``smem_optin``, that
+    the card holds (``resident(c)``: the c-CTA clusters it holds at once, a
+    mapping or a callable; 0 or less: none) and whose B clusters need no
+    more waves than the smallest such C's, ceil(B / resident(c)). At
+    B >= n_sms the examples alone give every SM a CTA, and the smallest C
+    stays. A pure function of its arguments, as ``psi_columns_per_cta``
+    and ``rank.partials_cluster`` are. (An H100 at the forward's ~200 KB
+    CTA holds 132 CTAs, 66 clusters of 2, 30 of 4 and 15 of 8: B=8 at
+    D=64, rank 64 runs in clusters of 8, 64 CTAs; rank 3 has one group and
+    stays at 1.)"""
+    if callable(resident):
+        res = resident
+    else:
+        def res(c):
+            return resident.get(c, 0)
+    G = -(-rank // 4)
+    fits = [c for c in RHO_CLUSTERS
+            if G % c == 0 and res(c) > 0
+            and _rho_cta_bytes(kernel, D, rank, c, smem_optin) <= smem_optin]
+    if not fits:
+        return 1
+    if B >= n_sms:
+        return fits[0]
+
+    def waves(c):
+        return -(-B // res(c))
+
+    return max(c for c in fits if waves(c) <= waves(fits[0]))
+
+
+def _check_rho_cluster(name, cluster, rank: int):
+    G = -(-rank // 4)
+    if cluster is not None and (cluster not in RHO_CLUSTERS or G % cluster):
+        raise ValueError(f"{name}: a cluster of {cluster!r} CTAs: it must "
+                         f"be one of {RHO_CLUSTERS} and divide the {G} "
+                         f"column groups of rank {rank}")
+
+
+_RHO_MAX_CLUSTERS = {"fwd": "amt_rho_fwd_max_clusters",
+                     "recompute": "amt_rho_recompute_max_clusters",
+                     "chain": "amt_rho_chain_max_clusters"}
+
+
+@functools.lru_cache(maxsize=None)
+def rho_resident_clusters(index: int, kernel: str, D: int, rank: int,
+                          c: int) -> int:
+    """Clusters of c CTAs of a rho block ``kernel`` card ``index`` holds at
+    once (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _build.library()
+    with torch.cuda.device(index):
+        got = getattr(lib, _RHO_MAX_CLUSTERS[kernel])(D, rank, c)
+    if got < 0:
+        _build.check(lib, -got, _RHO_MAX_CLUSTERS[kernel])
+    return got
+
+
+def _rho_cluster(name, kernel: str, D: int, B: int, rank: int, device,
+                 cluster) -> int:
+    """C of a rho block launch of B clusters on a CUDA ``device``:
+    ``cluster`` when given (checked before any launch), else
+    ``rho_cluster_for`` on the card's SMs, shared memory and residency."""
+    _check_rho_cluster(name, cluster, rank)
+    if cluster is not None:
+        return cluster
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    props = torch.cuda.get_device_properties(index)
+    G = -(-rank // 4)
+    return rho_cluster_for(
+        D, B, rank, props.multi_processor_count,
+        lambda c: (rho_resident_clusters(index, kernel, D, rank, c)
+                   if G % c == 0 else 0),
+        props.shared_memory_per_block_optin, kernel)
 
 
 def _check_rho_shape(name, D: int, rank: int):
     if not rho_block_fits(D, rank):
         raise NotImplementedError(
             f"{name} at D={D}, rank={rank}: the rho kernels take D % 4 == 0, "
-            f"D <= 64 and 1 <= rank <= 64 (one CTA holds an example's whole "
-            f"[2D, rank] segment beside its [2D,2D] constants); rho training "
-            f"past that runs rank-chunked (ops/rank.py); sampling and "
-            f"scoring there are not ported yet (ROADMAP queue B)")
+            f"D <= 64 and 1 <= rank <= 64 (the [2D,2D] constants resident "
+            f"in each CTA's shared memory beside its share of an example's "
+            f"[2D, rank] segment: a cluster's by rank columns in the "
+            f"forward and the adjoint, a chain's whole in the sampler); rho "
+            f"training past that runs rank-chunked (ops/rank.py); sampling "
+            f"and scoring there are not ported yet (ROADMAP queue B)")
 
 
 @torch.no_grad()
@@ -1677,6 +1826,15 @@ def rho_nll_block_plain(ab, bb, xb, t0, se, *, log_eps: float,
                             precision=precision, defer_norm=defer_norm)
 
 
+def _rho_fwd_bytes(lib, D: int, rank: int, C: int,
+                   recompute: bool = False) -> int:
+    """The forward CTA's shared memory at the buffers its launch takes on
+    the current card."""
+    r = int(recompute)
+    return lib.amt_rho_fwd_smem_bytes(
+        D, rank, C, r, lib.amt_rho_fwd_buffers(D, rank, C, r))
+
+
 def _rho_fwd_checks(name, ab, bb, xb, t0, se, precision, unroll):
     _check_options(precision, unroll)
     n_steps, B = se.shape
@@ -1693,18 +1851,24 @@ def _rho_fwd_checks(name, ab, bb, xb, t0, se, precision, unroll):
 @torch.no_grad()
 def rho_nll_block(ab, bb, xb, t0, se, *, log_eps: float, norm_eps: float,
                   unroll: int = 16, precision: str = "highest",
-                  defer_norm: bool = False):
+                  defer_norm: bool = False, cluster=None):
     """Per-example NLL [B]: ``rho_nll_block_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/rho_nll.cu`` for CUDA tensors."""
+    CUDA kernel ``csrc/rho_nll.cu`` for CUDA tensors, in clusters of
+    ``cluster`` CTAs an example (None: ``rho_cluster_for``; every cluster
+    gives the same bits; the last launch's in ``.cluster``)."""
     if _cuda_or_raise("rho_nll_block", se):
+        _check_rho_cluster("rho_nll_block", cluster,
+                           _rank_of("rho_nll_block", t0.shape[1],
+                                    se.shape[1]))
         return rho_nll_block_plain(ab, bb, xb, t0, se, log_eps=log_eps,
                                    norm_eps=norm_eps, unroll=unroll,
                                    precision=precision,
                                    defer_norm=defer_norm)
     n_steps, B, D, rank = _rho_fwd_checks("rho_nll_block", ab, bb, xb, t0,
                                           se, precision, unroll)
+    C = _rho_cluster("rho_nll_block", "fwd", D, B, rank, se.device, cluster)
     lib = _build.library()
-    _check_smem("rho_nll_block", lib.amt_rho_nll_smem_bytes(D, rank),
+    _check_smem("rho_nll_block", _rho_fwd_bytes(lib, D, rank, C),
                 se.device, D)
     loss = se.new_empty((B,))
     if B == 0:
@@ -1712,13 +1876,16 @@ def rho_nll_block(ab, bb, xb, t0, se, *, log_eps: float, norm_eps: float,
     err = lib.amt_rho_nll(
         _ptr(ab), _ptr(bb), _ptr(xb), _ptr(t0), _ptr(se), _ptr(loss), D,
         n_steps, B, rank, unroll, log_eps, norm_eps,
-        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+        PRECISIONS.index(precision), int(defer_norm), C,
+        _stream_ptr(se.device))
     _build.check(lib, err, "rho_nll_block")
     rho_nll_block.launches += 1
+    rho_nll_block.cluster = C
     return loss
 
 
 rho_nll_block.launches = 0
+rho_nll_block.cluster = None
 
 
 # The rho training functions follow the psi ones (see above): the forward
@@ -1904,17 +2071,22 @@ def rho_cotangents_plain(dy, ys, t0, se, trs, dehat, *, norm_eps: float,
 @torch.no_grad()
 def rho_train_fwd(ab, bb, xb, t0, se, *, log_eps: float, norm_eps: float,
                   unroll: int = 16, precision: str = "highest",
-                  defer_norm: bool = False):
+                  defer_norm: bool = False, cluster=None):
     """(loss [B], ys, trs): ``rho_train_fwd_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/rho_train_fwd.cu`` for CUDA tensors."""
+    CUDA kernel ``csrc/rho_train_fwd.cu`` for CUDA tensors, in clusters as
+    ``rho_nll_block``."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm)
     if _cuda_or_raise("rho_train_fwd", se):
+        _check_rho_cluster("rho_train_fwd", cluster,
+                           _rank_of("rho_train_fwd", t0.shape[1],
+                                    se.shape[1]))
         return rho_train_fwd_plain(ab, bb, xb, t0, se, **kw)
     n_steps, B, D, rank = _rho_fwd_checks("rho_train_fwd", ab, bb, xb, t0,
                                           se, precision, unroll)
+    C = _rho_cluster("rho_train_fwd", "fwd", D, B, rank, se.device, cluster)
     lib = _build.library()
-    _check_smem("rho_train_fwd", lib.amt_rho_train_fwd_smem_bytes(D, rank),
+    _check_smem("rho_train_fwd", _rho_fwd_bytes(lib, D, rank, C),
                 se.device, D)
     loss = se.new_empty((B,))
     ys = se.new_empty((n_steps,) + tuple(t0.shape))
@@ -1924,31 +2096,40 @@ def rho_train_fwd(ab, bb, xb, t0, se, *, log_eps: float, norm_eps: float,
     err = lib.amt_rho_train_fwd(
         _ptr(ab), _ptr(bb), _ptr(xb), _ptr(t0), _ptr(se), _ptr(loss),
         _ptr(ys), _ptr(trs), D, n_steps, B, rank, unroll, log_eps, norm_eps,
-        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+        PRECISIONS.index(precision), int(defer_norm), C,
+        _stream_ptr(se.device))
     _build.check(lib, err, "rho_train_fwd")
     rho_train_fwd.launches += 1
+    rho_train_fwd.cluster = C
     return loss, ys, trs
 
 
 rho_train_fwd.launches = 0
+rho_train_fwd.cluster = None
 
 
 @torch.no_grad()
 def rho_train_fwd_ckpt(ab, bb, xb, t0, se, *, log_eps: float,
                        norm_eps: float, unroll: int = 16,
-                       precision: str = "highest", defer_norm: bool = False):
+                       precision: str = "highest", defer_norm: bool = False,
+                       cluster=None):
     """(loss [B], ck): ``rho_train_fwd_ckpt_plain`` for CPU tensors, the
     CUDA kernel ``csrc/rho_train_fwd.cu`` (its checkpoint mode) for CUDA
-    tensors."""
+    tensors, in clusters as ``rho_nll_block``."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm)
     if _cuda_or_raise("rho_train_fwd_ckpt", se):
+        _check_rho_cluster("rho_train_fwd_ckpt", cluster,
+                           _rank_of("rho_train_fwd_ckpt", t0.shape[1],
+                                    se.shape[1]))
         return rho_train_fwd_ckpt_plain(ab, bb, xb, t0, se, **kw)
     n_steps, B, D, rank = _rho_fwd_checks("rho_train_fwd_ckpt", ab, bb, xb,
                                           t0, se, precision, unroll)
+    C = _rho_cluster("rho_train_fwd_ckpt", "fwd", D, B, rank, se.device,
+                     cluster)
     lib = _build.library()
-    _check_smem("rho_train_fwd_ckpt",
-                lib.amt_rho_train_fwd_smem_bytes(D, rank), se.device, D)
+    _check_smem("rho_train_fwd_ckpt", _rho_fwd_bytes(lib, D, rank, C),
+                se.device, D)
     loss = se.new_empty((B,))
     ck = se.new_empty((n_blocks(n_steps, unroll),) + tuple(t0.shape))
     if B == 0:
@@ -1956,23 +2137,32 @@ def rho_train_fwd_ckpt(ab, bb, xb, t0, se, *, log_eps: float,
     err = lib.amt_rho_train_fwd_ckpt(
         _ptr(ab), _ptr(bb), _ptr(xb), _ptr(t0), _ptr(se), _ptr(loss),
         _ptr(ck), D, n_steps, B, rank, unroll, log_eps, norm_eps,
-        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+        PRECISIONS.index(precision), int(defer_norm), C,
+        _stream_ptr(se.device))
     _build.check(lib, err, "rho_train_fwd_ckpt")
     rho_train_fwd_ckpt.launches += 1
+    rho_train_fwd_ckpt.cluster = C
     return loss, ck
 
 
 rho_train_fwd_ckpt.launches = 0
+rho_train_fwd_ckpt.cluster = None
 
 
 @torch.no_grad()
 def rho_recompute(ab, bb, xb, ck, se, *, norm_eps: float, unroll: int = 16,
-                  precision: str = "highest", defer_norm: bool = False):
+                  precision: str = "highest", defer_norm: bool = False,
+                  cluster=None):
     """(ys, trs) of a segment: ``rho_recompute_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/rho_recompute.cu`` for CUDA tensors."""
+    CUDA kernel ``csrc/rho_recompute.cu`` for CUDA tensors, in clusters of
+    ``cluster`` CTAs an (example, block) (None: ``rho_cluster_for`` over
+    the B x blocks clusters; the last launch's in ``.cluster``)."""
     kw = dict(norm_eps=norm_eps, unroll=unroll, precision=precision,
               defer_norm=defer_norm)
     if _cuda_or_raise("rho_recompute", se):
+        _check_rho_cluster("rho_recompute", cluster,
+                           _rank_of("rho_recompute", ck.shape[2],
+                                    se.shape[1]))
         return rho_recompute_plain(ab, bb, xb, ck, se, **kw)
     _check_options(precision, unroll)
     n_steps, B = se.shape
@@ -1984,8 +2174,10 @@ def rho_recompute(ab, bb, xb, ck, se, *, norm_eps: float, unroll: int = 16,
         ab=(ab, (n, n)), bb=(bb, (n, n)), xb=(xb, (n, n)),
         ck=(ck, (n_blocks(n_steps, unroll), n, cols)),
         se=(se, (n_steps, B))))
+    C = _rho_cluster("rho_recompute", "recompute", D,
+                     B * n_blocks(n_steps, unroll), rank, se.device, cluster)
     lib = _build.library()
-    _check_smem("rho_recompute", lib.amt_rho_train_fwd_smem_bytes(D, rank),
+    _check_smem("rho_recompute", _rho_fwd_bytes(lib, D, rank, C, True),
                 se.device, D)
     ys = se.new_empty((n_steps, n, cols))
     trs = torch.empty_like(se)
@@ -1994,26 +2186,34 @@ def rho_recompute(ab, bb, xb, ck, se, *, norm_eps: float, unroll: int = 16,
     err = lib.amt_rho_recompute(
         _ptr(ab), _ptr(bb), _ptr(xb), _ptr(ck), _ptr(se), _ptr(ys),
         _ptr(trs), D, n_steps, B, rank, unroll, norm_eps,
-        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+        PRECISIONS.index(precision), int(defer_norm), C,
+        _stream_ptr(se.device))
     _build.check(lib, err, "rho_recompute")
     rho_recompute.launches += 1
+    rho_recompute.cluster = C
     return ys, trs
 
 
 rho_recompute.launches = 0
+rho_recompute.cluster = None
 
 
 @torch.no_grad()
 def rho_train_bwd(ab, bb, xb, t0, se, g, ys, trs, *, log_eps: float,
                   norm_eps: float, unroll: int = 16,
                   precision: str = "highest", defer_norm: bool = False,
-                  dtfin=None):
+                  dtfin=None, cluster=None):
     """(dse, dt0, dy, dehat): ``rho_train_bwd_plain`` for CPU tensors, the
     CUDA kernels of ``csrc/rho_train_bwd.cu`` (the chain-free tail over all
-    steps at once, then the serial chain) for CUDA tensors."""
+    steps at once, then the serial chain in clusters of ``cluster`` CTAs
+    an example: None takes ``rho_cluster_for``; every cluster gives the
+    same bits; the last launch's in ``.cluster``) for CUDA tensors."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm, dtfin=dtfin)
     if _cuda_or_raise("rho_train_bwd", se):
+        _check_rho_cluster("rho_train_bwd", cluster,
+                           _rank_of("rho_train_bwd", t0.shape[1],
+                                    se.shape[1]))
         return rho_train_bwd_plain(ab, bb, xb, t0, se, g, ys, trs, **kw)
     n_steps, B, D, rank = _rho_fwd_checks("rho_train_bwd", ab, bb, xb, t0,
                                           se, precision, unroll)
@@ -2024,9 +2224,12 @@ def rho_train_bwd(ab, bb, xb, t0, se, g, ys, trs, *, log_eps: float,
     if dtfin is not None:
         _check_inputs("rho_train_bwd", se.device,
                       dict(dtfin=(dtfin, (n, B * rank))))
+    C = _rho_cluster("rho_train_bwd", "chain", D, B, rank, se.device,
+                     cluster)
     lib = _build.library()
-    _check_smem("rho_train_bwd", lib.amt_rho_train_bwd_smem_bytes(D, rank),
-                se.device, D)
+    _check_smem("rho_train_bwd", max(
+        lib.amt_rho_train_bwd_smem_bytes(D, rank),
+        lib.amt_rho_chain_smem_bytes(D, rank, C)), se.device, D)
     dse = torch.empty_like(se)
     dt0 = torch.empty_like(t0)
     dy = torch.empty_like(ys)
@@ -2040,13 +2243,16 @@ def rho_train_bwd(ab, bb, xb, t0, se, g, ys, trs, *, log_eps: float,
         _ptr(ab), _ptr(bb), _ptr(xb), _ptr(t0), _ptr(se), _ptr(g), _ptr(ys),
         _ptr(trs), _ptr(dtfin), _ptr(dse), _ptr(dt0), _ptr(dy), _ptr(dehat),
         _ptr(dtrn), D, n_steps, B, rank, unroll, log_eps, norm_eps,
-        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+        PRECISIONS.index(precision), int(defer_norm), C,
+        _stream_ptr(se.device))
     _build.check(lib, err, "rho_train_bwd")
     rho_train_bwd.launches += 1
+    rho_train_bwd.cluster = C
     return dse, dt0, dy, dehat
 
 
 rho_train_bwd.launches = 0
+rho_train_bwd.cluster = None
 
 
 @torch.no_grad()

@@ -42,13 +42,16 @@ failure (the script then exits non-zero):
    ``fused=True``, then ``rho_nll_fused``), the training phases of 5 at
    B=8, T=16384 (the reference is autograd through the eager
    ``core.rho_nll_factor``), the device time by kernel of one rho train
-   step (``torch.profiler``), and the sampler's and NLL's timings;
+   step (``torch.profiler``), the thread-block clusters the rho forward
+   and chain took (``rho_cluster_phase``: the rule's, on the card's
+   residency) and every cluster size's outputs held to one CTA's bit for
+   bit and timed, and the sampler's and NLL's timings;
 8. rank-chunked rho training past the monolithic kernels' shared memory
    (``rank_phases``) at D=256, full rank, B=8, T=16385: the partials
    forward, adjoint and reductions vs their plain versions on a T=2049
    prefix (with controls at ``default``), the chunked path vs the
-   monolithic kernels at D=64, rank 64, T=16385 (loss and six gradients),
-   the train CLI (a refusal while it would sample, then 1 Adam step with
+   monolithic kernels at D=64, rank 64, T=16385 (loss and six gradients)
+   and the two in whole Adam steps (``a4_whole_steps``), the train CLI (a refusal while it would sample, then 1 Adam step with
    ``--visualize=false``, a restore and one more; the partials kernels'
    launch counts must move, the monolithic ones' must not), one step's
    time and peak memory, and each kernel's CUDA-event time per time
@@ -251,6 +254,9 @@ RANK_RECOMPUTE_KERNELS = ("rank_partials_fwd_ckpt", "rank_partials_recompute")
 # fp32 arithmetic in another order).
 RANK_CHECK_CHUNK = 16
 TOL_CHUNKED = (1e-5, 1e-4)
+# ROADMAP A4 in whole Adam steps (a4_whole_steps): timed steps after one
+# warm-up step
+A4_REPS = 2
 # The partials kernels' whole-run times before their ring redesign (CUDA
 # events over T=16385 at D=256, highest; NVIDIA H100 80GB HBM3, 700 W; the
 # last chip_smoke.py run of that tree), printed beside this run's.
@@ -1400,7 +1406,12 @@ def rho_phases(dev):
                   "rec": "audio_mps_tpu/ops/pallas_block.py:1790"})
     train_entries = train_phases(dev, fam)
     _free()
+    taken = _rho_clusters_taken()
     train_entries += recompute_phases(dev, fam, RHO_B)
+    taken.update((k, v) for k, v in _rho_clusters_taken().items()
+                 if k not in taken)
+    print(f"  the clusters the rho launches took (CTAs an example; the "
+          f"recompute's an (example, block)): {taken}", flush=True)
 
     # device time by kernel of one rho training step's three launches (the
     # adjoint's call runs two kernels: the tail and the chain). The script
@@ -1429,6 +1440,9 @@ def rho_phases(dev):
           + (", ".join(f"{k} {us / 1e3:.3f} ms" for us, k in by_kernel[:8])
              if by_kernel else "no device time recorded (not measured)"),
           flush=True)
+
+    rho_cluster_phase(dev, n_in, cfg, taken)
+    _free()
 
     phase("rho serving timings (CUDA events, median of 5 after 1 warm-up)")
     ms = {"rho_sample_block": median_ms(lambda: block.rho_sample_block(
@@ -1476,26 +1490,55 @@ def rho_phases(dev):
     return entries + train_entries
 
 
+RHO_CLUSTER_WRAPPERS = ("rho_nll_block", "rho_train_fwd", "rho_train_bwd",
+                        "rho_train_fwd_ckpt", "rho_recompute")
+
+
+def _rho_clusters_taken() -> dict:
+    """The cluster of each rho block wrapper's last launch (None: none)."""
+    from audio_mps_tpu_torch.ops import block
+    return {k: getattr(block, k).cluster for k in RHO_CLUSTER_WRAPPERS
+            if getattr(block, k).cluster is not None}
+
+
+def rho_cluster_phase(dev, n_in, cfg, taken):
+    """rho's block forward and adjoint over thread-block clusters at the
+    headline (D=64, rank 64, B=8, T=16384; ``tools/rho_cluster_sweep.py``):
+    the kernels' registers and spills, the card's residency at each
+    cluster size and the rule's choice (which the training path's
+    launches, ``taken``, must have followed), then the streamed forward,
+    the adjoint (tail and chain), the NLL at both norms, the checkpoint
+    forward and the segment recompute forced to each C, timed (CUDA
+    events, median of 3) and held to C=1's outputs bit for bit."""
+    from audio_mps_tpu_torch.tools import rho_cluster_sweep as sweep
+
+    phase(f"rho clusters (D={D}, rank {D}, B={RHO_B}, T={RHO_T}): each C "
+          f"held to C=1 bit for bit and timed")
+    # the highest-precision, deferred-norm kernels (the main path's);
+    # the tool prints every instantiation
+    for line in _ptxas_lines(sweep.SOURCES):
+        if "<0,1" in line or "no ptxas" in line:
+            print("  " + line, flush=True)
+    if dev.type == "cuda":     # (a rehearsal on the CPU runs no kernel)
+        for kernel, (held, rule) in sweep.residency(dev, D, RHO_B).items():
+            name = {"fwd": "rho_train_fwd", "chain": "rho_train_bwd",
+                    "recompute": "rho_recompute"}[kernel]
+            print(f"  {kernel}: clusters of C the card holds {held}; the "
+                  f"rule takes C={rule}, the training path took "
+                  f"{taken.get(name)}", flush=True)
+            check(taken.get(name) == rule, f"{name} took cluster "
+                                           f"{taken.get(name)}, the rule {rule}")
+    t_in = dict(n_in)
+    eps = dict(log_eps=t_in.pop("log_eps"), norm_eps=t_in.pop("norm_eps"))
+    return sweep.sweep(t_in, eps, cfg.kernel_precision, cfg.defer_norm,
+                       log=lambda s: print(s, flush=True))
+
+
 def _ptxas_lines(sources):
     """One line per kernel of `sources` from the build's ptxas report:
     its name and template arguments, registers and spill bytes."""
-    import re
-    out, src, name, spill = [], None, None, ""
-    for line in BUILD["log"].splitlines():
-        if line.startswith("== "):
-            src = line[3:].strip()
-        elif src in sources and "Compiling entry function" in line:
-            m = re.search(r"_ZN3amt\d+(\w+?)I((?:Li\d+E)+)E", line)
-            name = (f"{m.group(1)}<"
-                    + ",".join(re.findall(r"Li(\d+)E", m.group(2))) + ">"
-                    if m else line.split("'")[1])
-        elif src in sources and name and "spill stores" in line:
-            spill = line.strip().split(",")[1].strip()
-        elif src in sources and name and "Used" in line:
-            regs = line.split("Used")[1].split(",")[0].strip()
-            out.append(f"{src}: {name}: {regs}, {spill}")
-            name = None
-    return out or ["(no ptxas report: the library was not rebuilt)"]
+    from audio_mps_tpu_torch.ops import _build
+    return _build.ptxas_report(BUILD["log"], sources)
 
 
 def _combination_cotangents(f_out, c0, se, cfg, unroll):
@@ -1690,6 +1733,7 @@ def rank_phases(dev):
           flush=True)
     del pm, pc, p_m, sig_m, loss_m, loss_c
     _free()
+    a4_whole_steps(dev)
 
     phase(f"rank-chunked training path: train CLI ({shape}, T={RANK_T}), "
           f"{RANK_TRAIN_STEPS} steps, then a restore and one more step")
@@ -1865,6 +1909,75 @@ def rank_phases(dev):
           f"the three kernels {sum(ms.values()):.1f} ms and the recomputed "
           f"forward {ms['fwd'] if n_seg > 1 else 0.0:.1f} ms", flush=True)
     return entries, (step_ms, peak)
+
+
+def _whole_step_ms(dev, loss_of, params, cfg, reps=A4_REPS):
+    """(host-clock ms of one whole Adam step on ``params``: the loss
+    ``loss_of(params)`` with the regularisers, its backward and the update,
+    as ``make_train_step`` takes it; the mean of ``reps`` after a warm-up
+    step; peak device memory of the timed steps in bytes)."""
+    from audio_mps_tpu_torch.models import core
+    from audio_mps_tpu_torch.training import make_optimizer
+
+    opt = make_optimizer(cfg, params)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        total, _ = core.regularized_loss(loss_of(params), params, cfg)
+        total.backward()
+        opt.step()
+        return total.detach()
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        total = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    check(bool(torch.isfinite(total)), "non-finite loss in a whole step")
+    del opt
+    _free()
+    return ms, torch.cuda.max_memory_allocated(dev)
+
+
+def a4_whole_steps(dev):
+    """ROADMAP A4 in whole Adam steps at D=64, rank 64, B=8, T=16385: the
+    monolithic block pair (``rho_nll_block_trainable``, deferred norm, the
+    streamed pair) against the rank-chunked path at chunks of 16 rows
+    (``rank.rho_nll_rank_chunked``), each on its own copy of one seeded
+    init; returns {path: (ms, peak bytes)}."""
+    from audio_mps_tpu_torch import weights
+    from audio_mps_tpu_torch.config import CMPSConfig
+    from audio_mps_tpu_torch.data import damped_sine_batch
+    from audio_mps_tpu_torch.models.params import init_rho
+    from audio_mps_tpu_torch.ops import block, rank
+
+    phase(f"A4: whole Adam steps, monolithic vs rank-chunked (D={D}, rank "
+          f"{D}, B={RHO_B}, T={RANK_T}, chunks of {RANK_CHECK_CHUNK}; host "
+          f"clock, mean of {A4_REPS} after a warm-up)")
+    cfg = CMPSConfig(bond_dim=D, minibatch_size=RHO_B)
+    p0 = init_rho(torch.Generator(dev).manual_seed(23), cfg, device=dev)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(24), RHO_B,
+                            RANK_T, cfg.delta_t)
+    losses = {
+        "monolithic": lambda p: block.rho_nll_block_trainable(
+            p, cfg, sig, defer_norm=True),
+        "chunked": lambda p: rank.rho_nll_rank_chunked(
+            p, cfg, sig, rank_chunk=RANK_CHECK_CHUNK)}
+    out = {}
+    for name, loss_of in losses.items():
+        p = weights.rho_params_from_numpy(weights.params_to_numpy(p0), dev)
+        out[name] = _whole_step_ms(dev, loss_of, p, cfg)
+        del p
+        _free()
+    (m_ms, m_peak), (c_ms, c_peak) = out["monolithic"], out["chunked"]
+    print(f"  whole step: monolithic {m_ms:.2f} ms (peak "
+          f"{m_peak / 2 ** 30:.2f} GiB), chunked {c_ms:.2f} ms (peak "
+          f"{c_peak / 2 ** 30:.2f} GiB); monolithic / chunked "
+          f"{m_ms / c_ms:.3f}", flush=True)
+    return out
 
 
 def rank_recompute_phases(dev, streamed):

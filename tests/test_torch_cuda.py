@@ -1953,3 +1953,119 @@ def test_products_ignore_tf32(dev):
         torch.set_float32_matmul_precision(saved)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# rho's block forward and adjoint chain over a thread-block cluster of C CTAs
+# an example (csrc/rho_cluster.cuh): every C gives C=1's bits
+# ---------------------------------------------------------------------------
+
+def _rho_all(inputs, g, kw, cluster):
+    """Every output of the rho forward template's four modes and of the
+    adjoint (tail and chain) at one cluster size; the recompute rebuilds
+    the run from the checkpoint forward's checkpoints."""
+    o = dict(kw, cluster=cluster)
+    nll = block.rho_nll_block(**inputs, **o)
+    loss, ys, trs = block.rho_train_fwd(**inputs, **o)
+    loss_c, ck = block.rho_train_fwd_ckpt(**inputs, **o)
+    rys, rtrs = block.rho_recompute(
+        inputs["ab"], inputs["bb"], inputs["xb"], ck, inputs["se"],
+        **{k: v for k, v in o.items() if k != "log_eps"})
+    adj = block.rho_train_bwd(**inputs, g=g, ys=ys, trs=trs, **o)
+    torch.cuda.synchronize()
+    return (nll, loss, ys, trs, loss_c, ck, rys, rtrs, *adj)
+
+
+@pytest.mark.parametrize("D, rank", [(64, 64), (16, 64), (8, 8)])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_rho_clusters_give_the_bits_of_one_cta(dev, D, rank, precision,
+                                               defer):
+    """For every cluster C in {1, 2, 4, 8} that divides the rank's column
+    groups, the rho forward in its four modes (the NLL, the streamed and
+    the checkpoint forward, the recompute) and the adjoint give C=1's
+    outputs bit for bit; and within each C the three losses are one value
+    and the recomputed states are the stream's."""
+    p, cfg = _rho_params(dev, D, rank)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(7), 3, 201,
+                            cfg.delta_t)
+    inputs = block.rho_nll_inputs(p, cfg, sig)
+    g = torch.rand(3, generator=torch.Generator(dev).manual_seed(8),
+                   device=dev) + 0.5
+    kw = dict(log_eps=inputs.pop("log_eps"), norm_eps=inputs.pop("norm_eps"),
+              precision=precision, defer_norm=defer, unroll=UNROLL)
+    groups = -(-rank // 4)
+    want = _rho_all(inputs, g, kw, 1)
+    for C in (2, 4, 8):
+        if groups % C:
+            continue
+        got = _rho_all(inputs, g, kw, C)
+        assert block.rho_train_fwd.cluster == C
+        assert block.rho_train_bwd.cluster == C
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.isfinite(b).all() and torch.equal(a, b), (C, i)
+    nll, loss, ys, trs, loss_c, _, rys, rtrs = want[:8]
+    assert torch.equal(nll, loss) and torch.equal(loss, loss_c)
+    assert torch.equal(rys, ys) and torch.equal(rtrs, trs)
+
+
+def test_rho_cluster_rule_and_smem_agree_with_the_kernels(dev):
+    """The Python shared-memory counts and buffer choices are the kernels'
+    own; the card's residency feeds the rule, which at the headline (D=64,
+    rank 64, B=8) takes clusters of 8 on an H100, and each launch records
+    the cluster it took; a cluster the rank's groups do not admit raises
+    before any launch."""
+    from audio_mps_tpu_torch.ops import _build
+    lib = _build.library()
+    optin = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin
+    for D, rank in ((8, 1), (8, 3), (12, 8), (64, 60), (64, 64)):
+        groups = -(-rank // 4)
+        for C in block.RHO_CLUSTERS:
+            if groups % C:
+                continue
+            for rec in (False, True):
+                for nbuf in (1, 2):
+                    assert lib.amt_rho_fwd_smem_bytes(
+                        D, rank, C, int(rec), nbuf) == \
+                        block.rho_fwd_smem_bytes(D, rank, C, rec, nbuf)
+                assert lib.amt_rho_fwd_buffers(D, rank, C, int(rec)) == \
+                    block.rho_fwd_buffers(D, rank, C, rec, optin)
+            assert lib.amt_rho_chain_smem_bytes(D, rank, C) == \
+                block.rho_chain_smem_bytes(D, rank, C)
+            for kernel in ("fwd", "recompute", "chain"):
+                assert block.rho_resident_clusters(
+                    torch.cuda.current_device(), kernel, D, rank, C) > 0
+    p, cfg = _rho_params(dev, 64, 64)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(9), 8, 65,
+                            cfg.delta_t)
+    inputs = block.rho_nll_inputs(p, cfg, sig)
+    kw = dict(log_eps=inputs.pop("log_eps"), norm_eps=inputs.pop("norm_eps"),
+              defer_norm=True)
+    _, ys, trs = block.rho_train_fwd(**inputs, **kw)
+    block.rho_train_bwd(**inputs, g=torch.ones(8, device=dev), ys=ys,
+                        trs=trs, **kw)
+    torch.cuda.synchronize()
+    props = torch.cuda.get_device_properties(dev)
+    index = torch.cuda.current_device()
+    for fn, kernel in ((block.rho_train_fwd, "fwd"),
+                       (block.rho_train_bwd, "chain")):
+        want = block.rho_cluster_for(
+            64, 8, 64, props.multi_processor_count,
+            lambda c: block.rho_resident_clusters(index, kernel, 64, 64, c),
+            optin, kernel)
+        assert fn.cluster == want
+        if props.multi_processor_count == 132:
+            assert fn.cluster == 8
+    before = (block.rho_nll_block.launches, block.rho_train_fwd.launches)
+    inputs_12 = block.rho_nll_inputs(*_rho_params(dev, 12, 12), sig[:2])
+    for k in ("log_eps", "norm_eps"):
+        inputs_12.pop(k)
+    for cluster in (3, 8, 32):
+        with pytest.raises(ValueError, match="column groups"):
+            block.rho_nll_block(**inputs_12, **kw, cluster=cluster)
+        with pytest.raises(ValueError, match="column groups"):
+            block.rho_train_fwd(**inputs_12, **kw, cluster=cluster)
+    torch.cuda.synchronize()
+    assert (block.rho_nll_block.launches,
+            block.rho_train_fwd.launches) == before
