@@ -558,6 +558,16 @@ __device__ __forceinline__ void cluster_sync() {
           : "memory");
 }
 
+// cluster_sync in its two halves: work between them overlaps the wait for
+// the other CTAs (every thread arrives, then waits, once a phase).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));

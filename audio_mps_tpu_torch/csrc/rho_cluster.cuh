@@ -1,7 +1,7 @@
-// The rho block forward (rho_fwd.cuh) and adjoint chain (rho_train_bwd.cu)
-// over a thread-block cluster: an example's [2D, R] segment spread over C
-// CTAs by its rank columns, and the per-example sums exchanged between them
-// in a fixed order.
+// The rho block forward (rho_fwd.cuh), adjoint chain (rho_train_bwd.cu)
+// and sampler (rho_sample.cu) over a thread-block cluster: an example's
+// (or chain's) [2D, R] segment spread over C CTAs by its rank columns, and
+// the per-example sums exchanged between them in a fixed order.
 //
 // Layout. The segment's R columns form G = ceil(R/4) groups of 4; CTA c of
 // an example's cluster owns the ng = G/C groups c ng .. (c+1) ng - 1, all
@@ -43,7 +43,10 @@
 // runs ahead writes the other set) are read by every CTA of the cluster
 // over distributed shared memory (mapa, ld.shared::cluster) after one
 // barrier.cluster, and each CTA adds them in group order into tot. At C=1
-// the group sums go straight into tot.
+// the group sums go straight into tot. The sampler exchanges every step
+// and skips the reduce: after its cluster barrier every warp reads the
+// row warps' parts of each group from the CTA that owns it (warp_totals),
+// in the same order.
 #pragma once
 
 #include "rho_tile.cuh"
@@ -324,6 +327,12 @@ struct RhoSums {
     }
   }
 
+  // One warp sum v (row warp rw, the CTA's group g) of sum s into part
+  // set k.
+  __device__ void write_at(int k, int s, int rw, int g, float v) const {
+    part[((k * NS + s) * RW + rw) * ng + g] = v;
+  }
+
   // Group g's sum of sum s from part set k.
   __device__ float group(int k, int s, int g) const {
     const float* src = part + (k * NS + s) * RW * ng + g;
@@ -369,6 +378,39 @@ struct RhoSums {
   }
 
   __device__ float total(int slot, int s) const { return tot[slot * NS + s]; }
+
+  // The NS sums of part set k over the whole segment, in the order above,
+  // read straight from the part set of the CTA that owns each group (no
+  // reduce, no P, no tot: slots sized with nslot = 0): lane s G + g of
+  // the calling warp adds group g of sum s over its row warps (NS G <=
+  // 32), then every lane adds the groups in index order through shuffles,
+  // so every lane of every warp gets the same bits. C > 1: over
+  // distributed shared memory, after a cluster_sync that follows every
+  // CTA's writes of set k; C = 1: after a CTA barrier.
+  template <int NSUM>
+  __device__ void warp_totals(int k, float (&out)[NSUM]) const {
+    constexpr int kMaxRW = 4;   // n <= 128
+    const int lane = threadIdx.x & 31;
+    float a = 0.f;
+    if (lane < NSUM * G) {
+      const int s = lane / G, g = lane % G;
+      const float* src = part + (k * NS + s) * RW * ng + g % ng;
+      float v[kMaxRW];
+#pragma unroll
+      for (int w = 0; w < kMaxRW; ++w)
+        if (w < RW)
+          v[w] = C == 1 ? src[w * ng] : ld_cluster(src + w * ng, g / ng);
+#pragma unroll
+      for (int w = 0; w < kMaxRW; ++w)
+        if (w < RW) a += v[w];
+    }
+#pragma unroll
+    for (int s = 0; s < NSUM; ++s) {
+      float t = 0.f;
+      for (int g = 0; g < G; ++g) t += __shfl_sync(0xffffffffu, a, s * G + g);
+      out[s] = t;
+    }
+  }
 };
 
 // The card's opt-in shared memory a block (host).

@@ -1,21 +1,21 @@
-// Shared pieces of the rho sampler (rho_sample.cu), the adjoint's tail
-// (rho_train_bwd.cu) and, through rank_partials.cuh, the rank-partials
-// kernels: the thread layout over one example's factor segment and the
-// [2D,2D] x [2D,R] product on it. The block forward and the adjoint chain
-// spread a segment over a cluster instead (rho_cluster.cuh, which takes
-// the matrix loads and unpack4 from here).
+// Shared pieces of the rho adjoint's tail (rho_train_bwd.cu), the
+// sampler's one-CTA tile (rho_sample.cu's QuadTile, with its own thread
+// order) and, through rank_partials.cuh, the rank-partials kernels: the
+// thread layout over one example's factor segment and the [2D,2D] x
+// [2D,R] product on it. The block forward, the adjoint chain and the
+// sampler's clusters spread a segment over a cluster instead
+// (rho_cluster.cuh, which takes the matrix loads and unpack4 from here).
 //
-// Layout. A rho example (or sampler chain) is a segment of R = rank state
+// Layout. A rho example is a segment of R = rank state
 // columns, [2D, R]; its trace and expectation are sums over the whole
 // segment. So one CTA owns one segment and runs the whole time loop, and the
 // per-example sums are CTA reductions in a fixed order (no atomics). The
 // CTA has TX = ceil(R/4) column groups and TY = D/4 row groups (D % 4 == 0),
 // rounded up to whole warps; thread (ty, tx) = (threadIdx.x / TX,
 // threadIdx.x % TX) owns the 8 x 4 tile of rows {4ty + r, D + 4ty + r : r <
-// 4} and columns 4tx + c. Holding the real and the imaginary row of a
-// complex component in one thread keeps the sampler's conj(p) twist
-// thread-local. At D=64, R=64 that is 16 x 16 = 256 threads, 32 state
-// elements each.
+// 4} and columns 4tx + c (the real and the imaginary row of a complex
+// component in one thread). At D=64, R=64 that is 16 x 16 = 256 threads,
+// 32 state elements each.
 //
 // Shared memory. A product M v reads M "j-major" (mj[j*n + i] = coefficient
 // of v[j] in out[i]): four consecutive rows of column j are one 16-byte

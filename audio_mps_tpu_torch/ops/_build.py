@@ -70,8 +70,8 @@ _SIGNATURES = {
     # unroll, norm_eps, w_scale, precision, defer_norm, stream
     "amt_psi_cotangents": ([_P] * 8 + [_I] * 6 + [_F, _F, _I, _I, _P], _I),
     # ab, bb, xs, pc, ps, t0, noise, inv_a, wave, D, T, N, R, dt, norm_eps,
-    # precision, stream
-    "amt_rho_sample": ([_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _P], _I),
+    # precision, cluster, stream
+    "amt_rho_sample": ([_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _I, _P], _I),
     # ab, bb, xb, t0, se, loss, D, n_steps, B, R, unroll, log_eps, norm_eps,
     # precision, defer_norm, cluster, stream
     "amt_rho_nll": ([_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _I, _P], _I),
@@ -146,7 +146,11 @@ _SIGNATURES = {
     "amt_psi_train_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_psi_train_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_psi_cotangents_workspace_floats": ([_I, _I], ctypes.c_size_t),
-    "amt_rho_sample_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    # D, R, cluster, nbuf
+    "amt_rho_sample_smem_bytes": ([_I] * 4, ctypes.c_size_t),
+    # D, R, cluster
+    "amt_rho_sample_buffers": ([_I] * 3, _I),
+    "amt_rho_sample_max_clusters": ([_I] * 3, _I),
     "amt_rho_train_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     # D, R, cluster, recompute, nbuf
     "amt_rho_fwd_smem_bytes": ([_I] * 5, ctypes.c_size_t),

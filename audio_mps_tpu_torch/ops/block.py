@@ -1521,29 +1521,35 @@ def rho_sample_block_plain(ab, bb, xb, pc, ps, t0, noise, inv_a, *,
     [2D, N * rank] (the caller scales by A and transposes). The
     expectation is taken on the current state with the conj(p) twist, then
     the factor is updated with the realised increment / A and renormalised
-    by its trace. Plain PyTorch, any device."""
+    by its trace. The state is carried unnormalised, in the kernel's order:
+    u_0 = t0 and u_{k+1} = y_k, the update before its renorm; step k
+    applies c_k = rsqrt(max(sum(u_k^2), norm_eps)) (1 at step 0, where t0
+    is taken as given) after its products, e_k = c_k^2 sum(u_k .* v(u_k))
+    and u_{k+1} = c_k (Ab u_k + s_k Bb u_k), the same recursion in exact
+    arithmetic. Plain PyTorch, any device."""
     prep, dotf = _make_dot_ops(precision)
     D = pc.shape[0]
     rank = _rank_of("rho_sample_block", t0.shape[1], noise.shape[1])
     abp, bbp, xbp = prep(ab), prep(bb), prep(xb)
     pc, ps = pc[:, None], ps[:, None]
-    t = t0
+    u = t0
     samp = torch.zeros_like(noise[0])
     out = torch.empty_like(noise)
     for k in range(noise.shape[0]):
-        tp = prep(t)
-        gx = dotf(xbp, tp)                   # X^T H on the current state
+        up = prep(u)
+        gx = dotf(xbp, up)                   # X^T H on the current state
         gxr, gxi = gx[:D], gx[D:]
         vr = pc * gxr + ps * gxi             # v = conj(p) .* gx
         vi = pc * gxi - ps * gxr
-        e = _segment_sum(t[:D] * vr + t[D:] * vi, rank)
-        inc = e * dt + noise[k]
+        ehat = _segment_sum(u[:D] * vr + u[D:] * vi, rank)
+        c = (torch.rsqrt(torch.clamp(_segment_sum(u * u, rank),
+                                     min=norm_eps))
+             if k else torch.ones_like(ehat))
+        inc = c * c * ehat * dt + noise[k]
         samp = samp + inc
         out[k] = samp
         s = _lanes(inc * inv_a, rank)
-        y = dotf(abp, tp) + s * dotf(bbp, tp)
-        tr = _segment_sum(y * y, rank)
-        t = y * _lanes(torch.rsqrt(torch.clamp(tr, min=norm_eps)), rank)
+        u = (dotf(abp, up) + s * dotf(bbp, up)) * _lanes(c, rank)
     return out
 
 
@@ -1619,10 +1625,29 @@ def rho_train_smem_bytes(D: int, rank: int) -> int:
     return rho_fwd_smem_bytes(D, rank, 1, nbuf=1)
 
 
+def rho_sample_smem_bytes(D: int, rank: int, C: int, nbuf: int = 2) -> int:
+    """Dynamic shared memory of one rho sampler CTA (``csrc/rho_sample.cu``)
+    in clusters of C: Ab, Bb, Xs, ``nbuf`` state buffers of the CTA's
+    columns (one also carries the expectation's rows for the twist) and
+    the part sets of the step's two sums, 4 bytes a word."""
+    n, _, sw, _ = _rho_layout(D, rank, C)
+    return 4 * (3 * n * n + nbuf * n * sw + _rho_sums_words(D, rank, C, 2, 0))
+
+
+def rho_sample_buffers(D: int, rank: int, C: int,
+                       smem_optin: int = H100_SMEM_OPTIN) -> int:
+    """State buffers of a rho sampler CTA: two where they fit
+    ``smem_optin``, else one (C=1 at D=64, rank > 32)."""
+    return 2 if rho_sample_smem_bytes(D, rank, C, 2) <= smem_optin else 1
+
+
 def _rho_cta_bytes(kernel: str, D: int, rank: int, C: int,
                    smem_optin: int) -> int:
     if kernel == "chain":
         return rho_chain_smem_bytes(D, rank, C)
+    if kernel == "sample":
+        return rho_sample_smem_bytes(D, rank, C, rho_sample_buffers(
+            D, rank, C, smem_optin))
     recompute = kernel == "recompute"
     return rho_fwd_smem_bytes(D, rank, C, recompute, rho_fwd_buffers(
         D, rank, C, recompute, smem_optin))
@@ -1632,9 +1657,10 @@ def rho_cluster_for(D: int, B: int, rank: int, n_sms: int, resident,
                     smem_optin: int = H100_SMEM_OPTIN,
                     kernel: str = "fwd") -> int:
     """The cluster C of a rho block launch of B clusters (examples; for the
-    recompute, examples x blocks) at bond dimension D: the largest C in
-    ``RHO_CLUSTERS`` that divides the ceil(rank/4) column groups, whose CTA
-    (``kernel``: "fwd", "recompute" or "chain") fits ``smem_optin``, that
+    recompute, examples x blocks; for the sampler, chains) at bond
+    dimension D: the largest C in ``RHO_CLUSTERS`` that divides the
+    ceil(rank/4) column groups, whose CTA (``kernel``: "fwd", "recompute",
+    "chain" or "sample") fits ``smem_optin``, that
     the card holds (``resident(c)``: the c-CTA clusters it holds at once, a
     mapping or a callable; 0 or less: none) and whose B clusters need no
     more waves than the smallest such C's, ceil(B / resident(c)). At
@@ -1643,7 +1669,8 @@ def rho_cluster_for(D: int, B: int, rank: int, n_sms: int, resident,
     and ``rank.partials_cluster`` are. (An H100 at the forward's ~200 KB
     CTA holds 132 CTAs, 66 clusters of 2, 30 of 4 and 15 of 8: B=8 at
     D=64, rank 64 runs in clusters of 8, 64 CTAs; rank 3 has one group and
-    stays at 1.)"""
+    stays at 1. The sampler's one chain takes 16 where the card holds a
+    cluster of 16.)"""
     if callable(resident):
         res = resident
     else:
@@ -1674,7 +1701,8 @@ def _check_rho_cluster(name, cluster, rank: int):
 
 _RHO_MAX_CLUSTERS = {"fwd": "amt_rho_fwd_max_clusters",
                      "recompute": "amt_rho_recompute_max_clusters",
-                     "chain": "amt_rho_chain_max_clusters"}
+                     "chain": "amt_rho_chain_max_clusters",
+                     "sample": "amt_rho_sample_max_clusters"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1715,33 +1743,58 @@ def _check_rho_shape(name, D: int, rank: int):
             f"{name} at D={D}, rank={rank}: the rho kernels take D % 4 == 0, "
             f"D <= 64 and 1 <= rank <= 64 (the [2D,2D] constants resident "
             f"in each CTA's shared memory beside its share of an example's "
-            f"[2D, rank] segment: a cluster's by rank columns in the "
-            f"forward and the adjoint, a chain's whole in the sampler); rho "
+            f"or a chain's [2D, rank] segment, spread over a cluster by its "
+            f"rank columns in the forward, the adjoint and the sampler); rho "
             f"training past that runs rank-chunked (ops/rank.py); sampling "
             f"and scoring there are not ported yet (ROADMAP queue B)")
 
 
+def rho_sample_cta_bytes(D: int, rank: int, C: int) -> int:
+    """The sampler CTA's shared memory at the buffers its launch takes on
+    the current card (the kernel's own count)."""
+    lib = _build.library()
+    return lib.amt_rho_sample_smem_bytes(
+        D, rank, C, lib.amt_rho_sample_buffers(D, rank, C))
+
+
+def rho_sample_fits(D: int, rank: int, device) -> bool:
+    """Does the sampler's CTA fit the CUDA ``device``'s opt-in shared
+    memory at some cluster the card holds? (The rule's C for one chain is
+    the largest that does; 1 where none does.)"""
+    C = _rho_cluster("rho_sample_fits", "sample", D, 1, rank, device, None)
+    optin = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    return rho_sample_cta_bytes(D, rank, C) <= optin
+
+
 @torch.no_grad()
 def rho_sample_block(ab, bb, xb, pc, ps, t0, noise, inv_a, *, dt: float,
-                     norm_eps: float, precision: str = "highest"):
+                     norm_eps: float, precision: str = "highest",
+                     cluster=None):
     """Running waveform [T, N]: ``rho_sample_block_plain`` for CPU tensors,
-    the CUDA kernel ``csrc/rho_sample.cu`` for CUDA tensors."""
+    the CUDA kernel ``csrc/rho_sample.cu`` for CUDA tensors, in clusters of
+    ``cluster`` CTAs a chain (None: ``rho_cluster_for`` with
+    ``kernel="sample"``; every cluster gives the same bits; the last
+    launch's in ``.cluster``)."""
+    rank = _rank_of("rho_sample_block", t0.shape[1], noise.shape[1])
     if _cuda_or_raise("rho_sample_block", noise):
+        _check_rho_cluster("rho_sample_block", cluster, rank)
         return rho_sample_block_plain(ab, bb, xb, pc, ps, t0, noise, inv_a,
                                       dt=dt, norm_eps=norm_eps,
                                       precision=precision)
     _check_options(precision)
     T, N = noise.shape
     D = pc.shape[0]
-    rank = _rank_of("rho_sample_block", t0.shape[1], N)
     _check_rho_shape("rho_sample_block", D, rank)
     n = 2 * D
     _check_inputs("rho_sample_block", noise.device, dict(
         ab=(ab, (n, n)), bb=(bb, (n, n)), xb=(xb, (n, n)), pc=(pc, (D,)),
         ps=(ps, (D,)), t0=(t0, (n, N * rank)), noise=(noise, (T, N)),
         inv_a=(inv_a, (1,))))
+    C = _rho_cluster("rho_sample_block", "sample", D, N, rank, noise.device,
+                     cluster)
     lib = _build.library()
-    _check_smem("rho_sample_block", lib.amt_rho_sample_smem_bytes(D, rank),
+    _check_smem("rho_sample_block", rho_sample_cta_bytes(D, rank, C),
                 noise.device, D)
     wave = torch.empty_like(noise)
     if T == 0 or N == 0:
@@ -1749,13 +1802,15 @@ def rho_sample_block(ab, bb, xb, pc, ps, t0, noise, inv_a, *, dt: float,
     err = lib.amt_rho_sample(
         _ptr(ab), _ptr(bb), _ptr(xb), _ptr(pc), _ptr(ps), _ptr(t0),
         _ptr(noise), _ptr(inv_a), _ptr(wave), D, T, N, rank, dt, norm_eps,
-        PRECISIONS.index(precision), _stream_ptr(noise.device))
+        PRECISIONS.index(precision), C, _stream_ptr(noise.device))
     _build.check(lib, err, "rho_sample_block")
     rho_sample_block.launches += 1
+    rho_sample_block.cluster = C
     return wave
 
 
 rho_sample_block.launches = 0
+rho_sample_block.cluster = None
 
 
 def rho_nll_inputs(params, cfg: CMPSConfig, signals) -> dict:

@@ -60,16 +60,14 @@ def psi_sampler_fits(cfg: CMPSConfig, device) -> bool:
 def rho_sampler_fits(cfg: CMPSConfig, rank: int, device) -> bool:
     """Does a rho sampler kernel take ``cfg``'s D at ``rank`` on the CUDA
     ``device``: the block sampler where the layout resolves to block
-    (D % 8 == 0, within ``block.rho_block_fits``), else the split one, each
-    within one block's shared memory?"""
-    lib = _build.library()
+    (D % 8 == 0, within ``block.rho_block_fits``; its CTA at some cluster
+    the card holds, ``block.rho_sample_fits``), else the split one, within
+    one block's shared memory?"""
     D = cfg.bond_dim
     if cfg.kernel_layout != "split" and block.supports_block_sampler(cfg):
-        if not block.rho_block_fits(D, rank):
-            return False
-        need = lib.amt_rho_sample_smem_bytes(D, rank)
-    else:
-        need = lib.amt_rho_split_sample_smem_bytes(D, rank)
+        return (block.rho_block_fits(D, rank)
+                and block.rho_sample_fits(D, rank, device))
+    need = _build.library().amt_rho_split_sample_smem_bytes(D, rank)
     return need <= torch.cuda.get_device_properties(
         device).shared_memory_per_block_optin
 

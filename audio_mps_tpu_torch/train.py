@@ -101,7 +101,9 @@ def train(run: RunConfig, cfg: CMPSConfig = None, verbose: bool = True,
             raise NotImplementedError(
                 f"no rho sampler kernel takes D={cfg.bond_dim}, rank={rank} "
                 f"within shared memory (the block sampler D % 8 == 0, D <= 64 "
-                f"and rank <= 64; the split one 24 D^2 + 32 D rank bytes; "
+                f"and rank <= 64, its CTA 48 D^2 bytes of constants and its "
+                f"share of the chain's state at the cluster it takes; the "
+                f"split one 24 D^2 + 32 D rank bytes; "
                 f"streaming its constants is not ported yet, ROADMAP queue "
                 f"B); pass --visualize=false or --num_samples=0, or a "
                 f"bond_dim and initial_rank the sampler takes")

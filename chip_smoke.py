@@ -42,10 +42,11 @@ failure (the script then exits non-zero):
    ``fused=True``, then ``rho_nll_fused``), the training phases of 5 at
    B=8, T=16384 (the reference is autograd through the eager
    ``core.rho_nll_factor``), the device time by kernel of one rho train
-   step (``torch.profiler``), the thread-block clusters the rho forward
-   and chain took (``rho_cluster_phase``: the rule's, on the card's
-   residency) and every cluster size's outputs held to one CTA's bit for
-   bit and timed, and the sampler's and NLL's timings;
+   step (``torch.profiler``), the thread-block clusters the rho forward,
+   chain and sampler took (``rho_cluster_phase``: the rule's, on the
+   card's residency) and every cluster size's outputs held to one CTA's
+   bit for bit and timed (the sampler's for 8 chains and for one), and
+   the sampler's and NLL's timings;
 8. rank-chunked rho training past the monolithic kernels' shared memory
    (``rank_phases``) at D=256, full rank, B=8, T=16385: the partials
    forward, adjoint and reductions vs their plain versions on a T=2049
@@ -1385,6 +1386,7 @@ def rho_phases(dev):
         t_score = time.perf_counter() - t0
         serve = {"rho_sample_block": block.rho_sample_block.launches,
                  "rho_nll_block": block.rho_nll_block.launches}
+        sample_cluster = block.rho_sample_block.cluster
         check(os.path.exists(out), "sample CLI wrote no samples.npz")
     print(f"  sample CLI: {waves.shape} in {t_sample * 1e3:.1f} ms; NLL "
           f"{nll:.6f} in {t_score * 1e3:.1f} ms (host clock); launches "
@@ -1410,8 +1412,10 @@ def rho_phases(dev):
     train_entries += recompute_phases(dev, fam, RHO_B)
     taken.update((k, v) for k, v in _rho_clusters_taken().items()
                  if k not in taken)
+    taken["rho_sample_block"] = sample_cluster
     print(f"  the clusters the rho launches took (CTAs an example; the "
-          f"recompute's an (example, block)): {taken}", flush=True)
+          f"recompute's an (example, block); the sample CLI's, a chain): "
+          f"{taken}", flush=True)
 
     # device time by kernel of one rho training step's three launches (the
     # adjoint's call runs two kernels: the tail and the chain). The script
@@ -1502,36 +1506,53 @@ def _rho_clusters_taken() -> dict:
 
 
 def rho_cluster_phase(dev, n_in, cfg, taken):
-    """rho's block forward and adjoint over thread-block clusters at the
-    headline (D=64, rank 64, B=8, T=16384; ``tools/rho_cluster_sweep.py``):
-    the kernels' registers and spills, the card's residency at each
-    cluster size and the rule's choice (which the training path's
-    launches, ``taken``, must have followed), then the streamed forward,
-    the adjoint (tail and chain), the NLL at both norms, the checkpoint
-    forward and the segment recompute forced to each C, timed (CUDA
-    events, median of 3) and held to C=1's outputs bit for bit."""
+    """rho's block forward, adjoint and sampler over thread-block clusters
+    at the headlines (D=64, rank 64; B=8, T=16384; 8 chains, T=65536;
+    ``tools/rho_cluster_sweep.py``): the kernels' registers and spills,
+    the card's residency at each cluster size and the rule's choice (which
+    the training path's and the sample CLI's launches, ``taken``, must
+    have followed), then the streamed forward, the adjoint (tail and
+    chain), the NLL at both norms, the checkpoint forward and the segment
+    recompute forced to each C, and the sampler forced to each C for 8
+    chains and for one over the first 16384 steps, timed (CUDA events,
+    median of 3) and held to C=1's outputs bit for bit (the tool's
+    ``--sampler`` runs it over all 65536)."""
     from audio_mps_tpu_torch.tools import rho_cluster_sweep as sweep
 
-    phase(f"rho clusters (D={D}, rank {D}, B={RHO_B}, T={RHO_T}): each C "
-          f"held to C=1 bit for bit and timed")
-    # the highest-precision, deferred-norm kernels (the main path's);
-    # the tool prints every instantiation
+    phase(f"rho clusters (D={D}, rank {D}, B={RHO_B}, T={RHO_T}; the "
+          f"sampler {RHO_N_CHAINS} chains and 1, T={RHO_T_SAMPLE_CHECK}): "
+          f"each C held to C=1 bit for bit and timed")
+    # the highest-precision, deferred-norm kernels and the highest sampler
+    # (the main path's); the tool prints every instantiation
     for line in _ptxas_lines(sweep.SOURCES):
-        if "<0,1" in line or "no ptxas" in line:
+        if ("<0,1" in line or "rho_sample_kernel<0," in line
+                or "no ptxas" in line):
             print("  " + line, flush=True)
     if dev.type == "cuda":     # (a rehearsal on the CPU runs no kernel)
-        for kernel, (held, rule) in sweep.residency(dev, D, RHO_B).items():
+        # units: the training kernels' examples, the sampler's chains
+        rules = sweep.residency(dev, D, RHO_B)
+        rules["sample"] = sweep.residency(dev, D, RHO_N_CHAINS)["sample"]
+        for kernel, (held, rule) in rules.items():
             name = {"fwd": "rho_train_fwd", "chain": "rho_train_bwd",
-                    "recompute": "rho_recompute"}[kernel]
+                    "recompute": "rho_recompute",
+                    "sample": "rho_sample_block"}[kernel]
             print(f"  {kernel}: clusters of C the card holds {held}; the "
-                  f"rule takes C={rule}, the training path took "
+                  f"rule takes C={rule}, the main path took "
                   f"{taken.get(name)}", flush=True)
             check(taken.get(name) == rule, f"{name} took cluster "
                                            f"{taken.get(name)}, the rule {rule}")
     t_in = dict(n_in)
     eps = dict(log_eps=t_in.pop("log_eps"), norm_eps=t_in.pop("norm_eps"))
-    return sweep.sweep(t_in, eps, cfg.kernel_precision, cfg.defer_norm,
-                       log=lambda s: print(s, flush=True))
+    ms = sweep.sweep(t_in, eps, cfg.kernel_precision, cfg.defer_norm,
+                     log=lambda s: print(s, flush=True))
+    if dev.type == "cuda":
+        for chains in (RHO_N_CHAINS, 1):
+            sweep.sample_sweep(dev, chains, log=lambda s: print(s, flush=True),
+                               length=RHO_T_SAMPLE_CHECK)
+            rule = sweep.residency(dev, D, chains)["sample"][1]
+            print(f"  sampler, {chains} chain(s): the rule takes C={rule}",
+                  flush=True)
+    return ms
 
 
 def _ptxas_lines(sources):

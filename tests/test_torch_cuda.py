@@ -2069,3 +2069,91 @@ def test_rho_cluster_rule_and_smem_agree_with_the_kernels(dev):
     torch.cuda.synchronize()
     assert (block.rho_nll_block.launches,
             block.rho_train_fwd.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# rho's sampler over a thread-block cluster of C CTAs a chain
+# (csrc/rho_sample.cu on csrc/rho_cluster.cuh): every C gives C=1's bits
+# ---------------------------------------------------------------------------
+
+def _rho_sample_sizes(dev, D, rank):
+    """The clusters the rank's column groups admit and the card holds."""
+    index = torch.cuda.current_device()
+    return [C for C in block.RHO_CLUSTERS if -(-rank // 4) % C == 0
+            and block.rho_resident_clusters(index, "sample", D, rank, C) > 0]
+
+
+@pytest.mark.parametrize("D, rank", [(64, 64), (64, 40), (32, 32), (16, 64),
+                                     (8, 8)])
+@pytest.mark.parametrize("chains", [8, 1])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_rho_sampler_clusters_give_the_bits_of_one_cta(dev, D, rank, chains,
+                                                       precision):
+    """For every cluster C in {1, 2, 4, 8, 16} that divides the rank's
+    column groups and that the card holds, the sampler's waveform is C=1's
+    bit for bit, and each launch records its C (C=1 at D=64 and D=32
+    takes the quad tile, at rank 40 with a column group of padding)."""
+    p, cfg = _rho_params(dev, D, rank)
+    noise = core._sample_noise(cfg, torch.Generator(dev).manual_seed(3),
+                               chains, 300, 1.0)
+    inputs = block.rho_sample_inputs(p, cfg, noise)
+    sizes = _rho_sample_sizes(dev, D, rank)
+    assert sizes[0] == 1 and len(sizes) > 1
+    want = block.rho_sample_block(**inputs, precision=precision, cluster=1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(want).all()
+    for C in sizes[1:]:
+        got = block.rho_sample_block(**inputs, precision=precision,
+                                     cluster=C)
+        torch.cuda.synchronize()
+        assert block.rho_sample_block.cluster == C
+        assert torch.equal(got, want), C
+
+
+def test_rho_sampler_rule_and_smem_agree_with_the_kernels(dev):
+    """The sampler's Python shared-memory counts and buffer choices are the
+    kernel's own, every admitted C below 16 is resident; at the headline
+    (D=64, rank 64) the rule takes 8 for 8 chains and, for one chain, 16
+    where the card holds it (else 8) on an H100, and the launch records
+    the rule's C; a cluster the rank's groups do not admit raises before
+    any launch."""
+    from audio_mps_tpu_torch.ops import _build
+    lib = _build.library()
+    optin = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin
+    index = torch.cuda.current_device()
+    for D, rank in ((8, 1), (8, 3), (16, 8), (64, 60), (64, 64)):
+        for C in block.RHO_CLUSTERS:
+            if -(-rank // 4) % C:
+                continue
+            for nbuf in (1, 2):
+                assert lib.amt_rho_sample_smem_bytes(D, rank, C, nbuf) == \
+                    block.rho_sample_smem_bytes(D, rank, C, nbuf)
+            assert lib.amt_rho_sample_buffers(D, rank, C) == \
+                block.rho_sample_buffers(D, rank, C, optin)
+            if C < 16:
+                assert block.rho_resident_clusters(index, "sample", D, rank,
+                                                   C) > 0
+    p, cfg = _rho_params(dev, 64, 64)
+    props = torch.cuda.get_device_properties(dev)
+    held16 = block.rho_resident_clusters(index, "sample", 64, 64, 16)
+    for chains in (8, 1):
+        noise = core._sample_noise(cfg, torch.Generator(dev).manual_seed(4),
+                                   chains, 17, 1.0)
+        block.rho_sample_block(**block.rho_sample_inputs(p, cfg, noise))
+        torch.cuda.synchronize()
+        want = block.rho_cluster_for(
+            64, chains, 64, props.multi_processor_count,
+            lambda c: block.rho_resident_clusters(index, "sample", 64, 64, c),
+            optin, "sample")
+        assert block.rho_sample_block.cluster == want
+        if props.multi_processor_count == 132:
+            assert want == (16 if chains == 1 and held16 > 0 else 8)
+    s_in = block.rho_sample_inputs(*_rho_params(dev, 16, 12),
+                                   torch.zeros(5, 2, device=dev))
+    before = block.rho_sample_block.launches
+    for cluster in (3, 8, 32):
+        with pytest.raises(ValueError, match="column groups"):
+            block.rho_sample_block(**s_in, cluster=cluster)
+    torch.cuda.synchronize()
+    assert block.rho_sample_block.launches == before

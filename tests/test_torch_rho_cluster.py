@@ -123,3 +123,68 @@ def test_a_forced_recompute_cluster_the_groups_do_not_admit_raises(cluster):
              se=torch.zeros(T, B))
     with pytest.raises(ValueError, match="column groups"):
         block.rho_recompute(**z, norm_eps=1e-30, cluster=cluster)
+
+
+# The sampler (csrc/rho_sample.cu) takes its cluster by the same rule
+# (kernel="sample"): an H100 holds 15 clusters of 8 of its ~200 KB CTA and
+# 7 of 16, as of the forward's CTA of that size
+H100_SAMPLE_RESIDENT = {**H100_RESIDENT, 16: 7}
+
+
+@pytest.mark.parametrize("chains, resident, want", [
+    # 8 chains in clusters of 8 (64 CTAs): 16 would take two waves of 7
+    (8, H100_SAMPLE_RESIDENT, 8),
+    # one chain over 16 SMs where the card holds a cluster of 16
+    (1, H100_SAMPLE_RESIDENT, 16),
+    # and over 8 where it holds none
+    (1, {**H100_SAMPLE_RESIDENT, 16: 0}, 8),
+    # 66 clusters of 2 fill the card in one wave; from 67 chains clusters
+    # of 2 would take two, so one CTA a chain (the paired tile)
+    (66, H100_SAMPLE_RESIDENT, 2),
+    (67, H100_SAMPLE_RESIDENT, 1),
+    (132, H100_SAMPLE_RESIDENT, 1),
+])
+def test_rho_sampler_cluster_rule(chains, resident, want):
+    assert block.rho_cluster_for(64, chains, 64, 132, resident,
+                                 kernel="sample") == want
+
+
+def test_rho_sampler_smem_counts():
+    """The sampler CTA at D=64, rank 64: the three constants whole beside
+    its columns' state. One chain a CTA (C=1) fits the H100 with one state
+    buffer, not two; at C=8 two buffers of 8 columns."""
+    optin = block.H100_SMEM_OPTIN
+    consts = 3 * 128 * 128 * 4
+    one = block.rho_sample_smem_bytes(64, 64, 1, nbuf=1)
+    assert one == consts + 128 * 64 * 4 + 4 * 3 * 2 * 4 * 16 <= optin
+    assert block.rho_sample_smem_bytes(64, 64, 1, nbuf=2) > optin
+    assert block.rho_sample_buffers(64, 64, 1) == 1
+    assert block.rho_sample_smem_bytes(64, 64, 8) == \
+        consts + 2 * 128 * 8 * 4 + 4 * 3 * 2 * 4 * 2
+    assert [block.rho_sample_buffers(64, 64, C) for C in block.RHO_CLUSTERS] \
+        == [1, 2, 2, 2, 2]
+    # every shape the block sampler takes fits at C=1
+    for D in range(8, 65, 8):
+        for rank in (1, 3, 17, 60, 64):
+            assert block.rho_sample_smem_bytes(
+                D, rank, 1, block.rho_sample_buffers(D, rank, 1)) <= optin
+
+
+@pytest.mark.parametrize("cluster", [3, 32, 8])
+def test_a_forced_sampler_cluster_the_groups_do_not_admit_raises(
+        cluster, monkeypatch):
+    """rank 12 has 3 column groups: the sampler refuses the cluster on the
+    CPU before its plain version runs."""
+    ran = []
+    monkeypatch.setattr(block, "rho_sample_block_plain",
+                        lambda *a, **k: ran.append(1))
+    D, N, rank, T = 8, 2, 12, 5
+    n = 2 * D
+    z = dict(ab=torch.zeros(n, n), bb=torch.zeros(n, n),
+             xb=torch.zeros(n, n), pc=torch.ones(D), ps=torch.zeros(D),
+             t0=torch.zeros(n, N * rank), noise=torch.zeros(T, N),
+             inv_a=torch.ones(1))
+    with pytest.raises(ValueError, match="column groups"):
+        block.rho_sample_block(**z, dt=1e-3, norm_eps=1e-30,
+                               cluster=cluster)
+    assert not ran
