@@ -2,7 +2,8 @@
 // forward-only NLL (psi_split_nll.cu, kNll) and the training forward with
 // block checkpoints (psi_split_fwd.cu, kCkpt), with the complex products
 // that the split sampler (psi_split_sample.cu) and adjoint
-// (psi_split_bwd.cu) use too.
+// (psi_split_bwd.cu) use too, and the loss ring that rho's forward
+// template (rho_split_fwd.cuh) shares.
 //
 // Replaces, with its two modes, the TPU kernels
 // audio_mps_tpu/ops/pallas_scan.py _make_psi_nll_kernel (via psi_nll_pallas)
@@ -25,18 +26,31 @@
 //
 // Design. On the TPU the grid walks time blocks and scratch carries the
 // state; here each example is independent, so one CTA owns one example's
-// column and loops over all steps, with C and R in dynamic shared memory
-// (stored transposed, 16 D^2 bytes) and thread i computing row i. D need not
-// be a multiple of anything: a CTA has D threads rounded up to a warp, the
-// rows past D idle, and every load is a 4-byte word. The column sums are
-// warp shuffles when D <= 32 (one warp) and block reductions beyond.
+// column and loops over all steps, thread i on row i (D threads rounded up
+// to a warp, the rows past D idle; D need not be a multiple of anything).
+// C and R sit in shared memory transposed and packed four to an element,
+// (C_r, C_i, R_r, R_i) at [j * D + i]. A step is one walk and one barrier,
+// as the adjoint's re-run role (psi_split_bwd.cu): step k forms C x_k,
+// R x_k and, for step k-1, R y_{k-1} in one walk over j (cdot3 on the
+// packed operands: two 16-byte loads a j, twelve dots in flight), from a
+// double buffer of the prepped (x_k, y_{k-1}) that the step before wrote;
+// it then writes x_{k+1} and y_k to the other half and synchronises once
+// (a warp barrier at D <= 32, one CTA barrier past it). The last step's
+// R y is an epilogue walk. Under the deferred norm no sum feeds the next
+// step inside a block, so a step leaves its parts of ehat and |y|^2 in the
+// loss ring (LossRing below) and the sums and loss terms are taken at a
+// flush: at the block's end, where the renormalisation's |y|^2 is the only
+// sum on the chain, and at least every kRingSlots - 2 steps. The per-step
+// norm keeps |y|^2 on the chain (normalise, then rotate, as the TPU does)
+// and takes the same walk and ring for ehat. Each real dot is one fmaf
+// chain over j in order, so every product is the bits the one-product
+// helpers (cdot) give it; only the order of the sums over rows and of the
+// loss terms differ from the plain version's.
 //
-// What bounds it. A step is 12 dependent length-D dot products per thread
-// and two barriers, so latency bounds it, not bytes or FLOPs: at D=10,
-// B=32 a step takes ~2 us on an H100 (chip_smoke.py) against ~1 ns of
-// fp32 FLOPs and ~0.1 ns of device-memory bytes. A CTA is one warp at
-// D <= 32, so B=32 fills 32 of the 132 SMs. Several examples per warp,
-// reusing each loaded constant across columns, is later work.
+// What bounds it. The serial chain: latency, not bytes or FLOPs (at D=10,
+// B=32 a step takes ~0.6 us on an H100 against ~1 ns of fp32 FLOPs over
+// the card, tools/split_forward_sweep.py); a CTA is one warp at D <= 32,
+// so B=32 fills 32 of the 132 SMs.
 #pragma once
 
 #include "common.cuh"
@@ -137,17 +151,6 @@ __device__ __forceinline__ float col_sum(float v, float* red) {
   return block_sum(v, red);
 }
 
-__device__ __forceinline__ void col_sum2(float v, float u, float* red,
-                                         float& sv, float& su) {
-  if (blockDim.x <= 32) {
-    __syncwarp();
-    sv = warp_sum(v);
-    su = warp_sum(u);
-  } else {
-    block_sum2(v, u, red, sv, su);
-  }
-}
-
 // Threads per split CTA: one per row, rounded up to whole warps.
 __host__ __device__ inline int split_threads(int D) {
   return ((D + 31) / 32) * 32;
@@ -186,8 +189,260 @@ cudaError_t dispatch_split(int precision, bool defer, F&& f) {
   });
 }
 
+// ---------------------------------------------------------------------------
+// The forward templates' packed operands (psi here, rho_split_fwd.cuh)
+
+// Row i of A u, B u and M w in one walk over j, as cdot3 above (TR false),
+// on packed operands: ab[j * stride] = (A_r, A_i, B_r, B_i) and m[j *
+// stride] = (M_r, M_i) of the row's element j (with M_IS_B, M = B and m
+// unused), v[j] = (u_r, u_i, w_r, w_i). The twelve dots are cdot3's fmaf
+// chains in the same order, so each result is the bits cdot3 (and cdot)
+// give it; a j costs two 16-byte loads (and one 8-byte load of M), where
+// cdot3 takes ten 4-byte ones.
+template <int P, bool M_IS_B, int U>
+__device__ __forceinline__ void cdot3(const float4* ab, const float2* m,
+                                      int stride, const float4* v, int D,
+                                      float (&out)[6]) {
+  static_assert(P != kHigh, "the split kernels take highest and default");
+  float a[12];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) a[q] = 0.f;
+#pragma unroll (U)
+  for (int j = 0; j < D; ++j) {
+    const float4 xv = v[j];
+    const float4 c = ab[j * stride];
+    float mr = c.z, mi = c.w;
+    if constexpr (!M_IS_B) {
+      const float2 q = m[j * stride];
+      mr = q.x;
+      mi = q.y;
+    }
+    const float x[4] = {xv.x, xv.y, xv.z, xv.w};
+    const float mm[6] = {c.x, c.y, c.z, c.w, mr, mi};
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const float vr = x[g == 2 ? 2 : 0], vi = x[g == 2 ? 3 : 1];
+      a[4 * g] = fmaf(mm[2 * g], vr, a[4 * g]);              // mr . vr
+      a[4 * g + 1] = fmaf(mm[2 * g + 1], vr, a[4 * g + 1]);  // mi . vr
+      a[4 * g + 2] = fmaf(mm[2 * g], vi, a[4 * g + 2]);      // mr . vi
+      a[4 * g + 3] = fmaf(mm[2 * g + 1], vi, a[4 * g + 3]);  // mi . vi
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    out[2 * g] = a[4 * g] - a[4 * g + 3];
+    out[2 * g + 1] = a[4 * g + 2] + a[4 * g + 1];
+  }
+}
+
+// The operand a product sees of element idx of a row-major [n,n] matrix.
+template <int P>
+__device__ __forceinline__ float packed(const float* __restrict__ src,
+                                        int idx) {
+  return __uint_as_float(pack_elem<P>(src[idx]));
+}
+
+// Copy the complex row-major [n,n] matrices a = ar + i ai, b = br + i bi
+// into shared memory, transposed and packed: dst[j * n + i] = (a_r, a_i,
+// b_r, b_i) of element (i, j). Runs once per CTA.
+template <int P>
+__device__ void load_pair_t(float4* dst, const float* __restrict__ ar,
+                            const float* __restrict__ ai,
+                            const float* __restrict__ br,
+                            const float* __restrict__ bi, int n) {
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
+    const int i = idx / n, j = idx - i * n;
+    dst[j * n + i] = make_float4(packed<P>(ar, idx), packed<P>(ai, idx),
+                                 packed<P>(br, idx), packed<P>(bi, idx));
+  }
+}
+
+// The same for one complex matrix: dst[j * n + i] = (m_r, m_i).
+template <int P>
+__device__ void load_one_t(float2* dst, const float* __restrict__ mr,
+                           const float* __restrict__ mi, int n) {
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
+    const int i = idx / n, j = idx - i * n;
+    dst[j * n + i] = make_float2(packed<P>(mr, idx), packed<P>(mi, idx));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The loss ring of the forward templates
+//
+// A step leaves its parts of the sums that no later step needs, ehat and
+// (deferred norm) |y|^2 or the trace, in a ring of `slots` steps with its s:
+// each lane its own (`lanes`: the warp-local layouts, whose steps
+// synchronise only their warp, so a step has no warp sum either) or each
+// warp its warp_sum (the layouts with a CTA barrier a step). A flush takes
+// the steps since the last one: each warp adds its lanes' parts in lane
+// order, warp 0 their warp parts in warp order, writes the totals of t
+// (tt) and takes the loss terms, added by a butterfly into acc. The ring
+// holds the steps p0 - 1 .. k of a flush after step k, so a flush comes
+// at least every slots - 2 steps. Words (loss_ring_words): the warp parts
+// of e and t [slots][nw], tt and s [slots], and with lanes the lane parts
+// of e and t [slots][nt].
+constexpr int kRingSlots = 18;    // psi; rho's warp-local layout
+constexpr int kRingSlotsCta = 8;  // rho's element layout (its D=64 ceiling)
+
+__host__ __device__ inline int loss_ring_words(int nt, int slots,
+                                               bool lanes) {
+  return slots * (2 * (nt / 32) + 2 + (lanes ? 2 * nt : 0));
+}
+
+struct LossRing {
+  float* e;   // [slots][nw] warp parts of ehat, by step
+  float* t;   // [slots][nw] of |y|^2 or the trace
+  float* tt;  // [slots] totals of t (written at a flush)
+  float* s;   // [slots]
+  float* le;  // [slots][nt] lane parts of ehat (lanes)
+  float* lt;  // [slots][nt] of t
+  int nt, nw, slots;
+  bool lanes;
+
+  __device__ LossRing(float* base, int nt_, int slots_, bool lanes_)
+      : nt(nt_), nw(nt_ >> 5), slots(slots_), lanes(lanes_) {
+    e = base;
+    t = e + slots * nw;
+    tt = t + slots * nw;
+    s = tt + slots;
+    le = s + slots;
+    lt = le + (lanes ? slots * nt : 0);
+  }
+  __device__ float* end() const { return lt + (lanes ? slots * nt : 0); }
+  __device__ int slot(int k) const { return k % slots; }
+
+  // Store a step's parts: e of step k-1 (has_e) at slot sl_e, t of step
+  // k (with_t) at slot sl_t; a warp sum each unless lanes.
+  __device__ void store(int sl_e, bool has_e, float e_part, int sl_t,
+                        bool with_t, float t_part) const {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (lanes) {
+      if (has_e) le[sl_e * nt + tid] = e_part;
+      if (with_t) lt[sl_t * nt + tid] = t_part;
+    } else {
+      const float we = has_e ? warp_sum(e_part) : 0.f;
+      const float wt = with_t ? warp_sum(t_part) : 0.f;
+      if (lane == 0) {
+        if (has_e) e[sl_e * nw + warp] = we;
+        if (with_t) t[sl_t * nw + warp] = wt;
+      }
+    }
+  }
+
+  // The warp parts of slot sl in warp order.
+  __device__ float total(const float* p, int sl) const {
+    const float* row = p + sl * nw;
+    float r = row[0];
+    for (int w = 1; w < nw; ++w) r += row[w];
+    return r;
+  }
+
+  // Flush the loss terms of steps p0 .. kend - 1 into acc (warp 0's lanes
+  // hold it) and the totals of t of steps p0 .. tend - 1 into tt (DEFER):
+  // -log(max(1 + scale ehat / n2p s, log_eps)), n2p the total of t of the
+  // step before inside a deferred block and 1 at a block's first step (no
+  // division at the per-step norm). kend - p0 <= tend - p0 <= 32. Every
+  // thread of the CTA calls it, after the ring's last stores; tt is
+  // readable by every thread on return.
+  template <bool DEFER>
+  __device__ void flush(int p0, int kend, int tend, int unroll, float scale,
+                        float log_eps, float norm_eps, float& acc) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int ne = kend - p0, nn = DEFER ? tend - p0 : 0;
+    if (lanes) {
+      __syncwarp();
+      if (lane < (ne > nn ? ne : nn)) {
+        const int sl = slot(p0 + lane);
+        const float* pe = le + sl * nt + warp * 32;
+        const float* pt = lt + sl * nt + warp * 32;
+        float a = 0.f, b = 0.f;
+#pragma unroll 8
+        for (int l = 0; l < 32; ++l) {
+          if (lane < ne) a += pe[l];
+          if (lane < nn) b += pt[l];
+        }
+        if (lane < ne) e[sl * nw + warp] = a;
+        if (lane < nn) t[sl * nw + warp] = b;
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      if (lane < nn) tt[slot(p0 + lane)] = total(t, slot(p0 + lane));
+      __syncwarp();
+      float term = 0.f;
+      if (lane < ne) {
+        const int j = p0 + lane, sl = slot(j);
+        float x = scale * total(e, sl);
+        if (DEFER) {
+          const float n2p = j % unroll == 0 ? 1.f : tt[slot(j + slots - 1)];
+          x = x / floor_at(n2p, norm_eps);
+        }
+        term = logf(floor_at(1.f + x * s[sl], log_eps));
+      }
+      acc -= warp_sum(term);
+    }
+    __syncthreads();
+  }
+};
+
+// A column's increments s_k = se[k * stride] read 32 steps ahead: lane q of
+// every warp holds s of step c + q of the current 32-step chunk and of the
+// next, so a step's s is a shuffle and each global load has a chunk's
+// steps to arrive. Every thread calls at(k) for k = 0, 1, ... in turn.
+struct ChunkedInputs {
+  const float* p;
+  size_t stride;
+  int n, lane;
+  float cur, next;
+
+  __device__ ChunkedInputs(const float* base, size_t stride_, int n_)
+      : p(base), stride(stride_), n(n_), lane(threadIdx.x & 31) {
+    cur = lane < n ? p[lane * stride] : 0.f;
+    next = 32 + lane < n ? p[(32 + lane) * stride] : 0.f;
+  }
+  __device__ float at(int k) {
+    const int q = k & 31;
+    if (q == 0 && k > 0) {
+      cur = next;
+      next = k + 32 + lane < n ? p[(k + 32 + lane) * stride] : 0.f;
+    }
+    return __shfl_sync(0xffffffffu, cur, q);
+  }
+};
+
+// The per-step norm's sum of v over the CTA at step k: a warp sum for one
+// warp, else the warp sums added in warp order through red[32 (k & 1) +
+// w], which step k + 2 writes again only after the barriers of step k + 1.
+__device__ __forceinline__ float step_sum(float v, float* red, int k) {
+  const float w = warp_sum(v);
+  if (blockDim.x == 32) return w;
+  float* r = red + 32 * (k & 1);
+  if ((threadIdx.x & 31) == 0) r[threadIdx.x >> 5] = w;
+  __syncthreads();
+  float t = r[0];
+  for (int q = 1; q < static_cast<int>(blockDim.x >> 5); ++q) t += r[q];
+  return t;
+}
+
+// The barrier of a step: the warp's (a warp-local step) or the CTA's.
+__device__ __forceinline__ void step_sync(bool warp_only) {
+  if (warp_only) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+// cdot3's unroll in the forward templates.
+constexpr int kFwdPsiU = 8;
+
+// The most threads of a psi forward CTA (D <= 128; its shared memory
+// stops at D=119).
+constexpr int kSplitFwdPsiThreads = 128;
+
 template <int P, bool DEFER, int MODE>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kSplitFwdPsiThreads)
     psi_split_fwd_kernel(const float* __restrict__ cr,
                          const float* __restrict__ ci,
                          const float* __restrict__ rr,
@@ -200,17 +455,15 @@ __global__ void __launch_bounds__(1024)
                          float* __restrict__ loss, float* __restrict__ ckr,
                          float* __restrict__ cki, int D, int n_steps, int B,
                          int unroll, float log_eps, float norm_eps) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int dd = D * D;
-  uint32_t* crt = smem;
-  uint32_t* cit = crt + dd;
-  uint32_t* rrt = cit + dd;
-  uint32_t* rit = rrt + dd;
-  float* vr = reinterpret_cast<float*>(rit + dd);  // prepped psi
-  float* vi = vr + D;
-  float* wr = vi + D;                              // prepped y
-  float* wi = wr + D;
-  float* red = wi + D;                             // 64 partials
+  extern __shared__ __align__(16) float4 smem4[];
+  const int nt = blockDim.x;
+  const bool one_warp = nt == 32;
+  float4* mat = smem4;           // (C, R), transposed and packed
+  float4* vb = mat + D * D;      // [2][D]: prepped (x, y of the step
+                                 // before), by step parity
+  const LossRing ring(reinterpret_cast<float*>(vb + 2 * D), nt, kRingSlots,
+                      one_warp);
+  float* red = ring.end();       // [2][32]: the per-step norm's sums
 
   const int col = blockIdx.x;
   const int i = threadIdx.x;
@@ -218,80 +471,97 @@ __global__ void __launch_bounds__(1024)
   const size_t stride = static_cast<size_t>(B);
   const size_t plane = static_cast<size_t>(D) * B;
 
-  load_matrix_t<P>(crt, cr, D);
-  load_matrix_t<P>(cit, ci, D);
-  load_matrix_t<P>(rrt, rr, D);
-  load_matrix_t<P>(rit, ri, D);
+  load_pair_t<P>(mat, cr, ci, rr, ri, D);
   const float pci = active ? pc[i] : 0.f;
   const float psi = active ? ps[i] : 0.f;
   float pr = active ? s0r[i * stride + col] : 0.f;
   float pi = active ? s0i[i * stride + col] : 0.f;
-  float acc = 0.f;
-  float n2p = 1.f;
-  float s = n_steps > 0 ? se[col] : 0.f;
+  float yr = 0.f, yi = 0.f;  // y of the step before
+  float acc = 0.f;           // warp 0: the loss
+  int p0 = 0;                // the first step whose loss term is pending
+  int kb = 0;                // the step's place in its block
+  int sk = 0, skp = 0;       // ring slots of steps k and k - 1
+  ChunkedInputs steps(se + col, stride, n_steps);
+  __syncthreads();
 
   for (int k = 0; k < n_steps; ++k) {
-    if (MODE == kCkpt && active && k % unroll == 0) {
+    if (MODE == kCkpt && active && kb == 0) {
       const size_t at = (k / unroll) * plane + i * stride + col;
       ckr[at] = pr;
       cki[at] = pi;
     }
+    float4* v = vb + (k & 1) * D;
     if (active) {
-      vr[i] = prep<P>(pr);
-      vi[i] = prep<P>(pi);
+      v[i] = make_float4(prep<P>(pr), prep<P>(pi), prep<P>(yr),
+                         prep<P>(yi));
     }
-    __syncthreads();
-    const float s_next = k + 1 < n_steps ? se[(k + 1) * stride + col] : 0.f;
-    float yr = 0.f, yi = 0.f;
+    step_sync(one_warp);
+    const float s = steps.at(k);
+    float e_part = 0.f, t_part = 0.f, nyr = 0.f, nyi = 0.f;
     if (active) {
-      float g1r, g1i, g2r, g2i;
-      cdot<P>(crt + i, cit + i, D, vr, vi, D, g1r, g1i);
-      cdot<P>(rrt + i, rit + i, D, vr, vi, D, g2r, g2i);
-      yr = g1r + s * g2r;
-      yi = g1i + s * g2i;
-      wr[i] = prep<P>(yr);
-      wi[i] = prep<P>(yi);
+      // C x, R x and, for step k-1, R y (at k = 0 a discarded R 0)
+      float o[6];
+      cdot3<P, true, kFwdPsiU>(mat + i, nullptr, D, v, D, o);
+      nyr = o[0] + s * o[2];
+      nyi = o[1] + s * o[3];
+      e_part = yr * o[4] + yi * o[5];
+      t_part = nyr * nyr + nyi * nyi;
     }
-    __syncthreads();
-    float e_part = 0.f;
-    if (active) {
-      float rur, rui;
-      cdot<P>(rrt + i, rit + i, D, wr, wi, D, rur, rui);
-      e_part = yr * rur + yi * rui;
-    }
-    float ehat, n2;
-    col_sum2(e_part, yr * yr + yi * yi, red, ehat, n2);
-    ehat *= 2.f;
+    ring.store(skp, k > 0, e_part, sk, DEFER, t_part);
+    if (i == 0) ring.s[sk] = s;
     if (DEFER) {
-      const float e = ehat / floor_at(n2p, norm_eps);
-      acc -= logf(floor_at(1.f + e * s, log_eps));
-      pr = yr * pci + yi * psi;
-      pi = yi * pci - yr * psi;
-      if ((k + 1) % unroll == 0) {
-        const float inv = rsqrtf(floor_at(n2, norm_eps));
-        pr *= inv;
-        pi *= inv;
-        n2p = 1.f;
-      } else {
-        n2p = n2;
-      }
+      pr = nyr * pci + nyi * psi;
+      pi = nyi * pci - nyr * psi;
     } else {
-      acc -= logf(floor_at(1.f + ehat * s, log_eps));
-      const float inv = rsqrtf(floor_at(n2, norm_eps));
-      const float tr = yr * inv, ti = yi * inv;
+      const float inv = rsqrtf(floor_at(step_sum(t_part, red, k), norm_eps));
+      const float tr = nyr * inv, ti = nyi * inv;
       pr = tr * pci + ti * psi;
       pi = ti * pci - tr * psi;
     }
-    s = s_next;
+    yr = nyr;
+    yi = nyi;
+    const bool block_end = kb == unroll - 1;
+    if (k + 1 < n_steps &&
+        ((DEFER && block_end) || k - p0 >= kRingSlots - 2)) {
+      // the terms of steps p0 .. k-1, the totals of |y|^2 to step k
+      ring.flush<DEFER>(p0, k, k + 1, unroll, 2.f, log_eps, norm_eps, acc);
+      if (DEFER && block_end) {
+        const float inv = rsqrtf(floor_at(ring.tt[sk], norm_eps));
+        pr *= inv;
+        pi *= inv;
+      }
+      p0 = k;
+    }
+    kb = block_end ? 0 : kb + 1;
+    skp = sk;
+    sk = sk + 1 == kRingSlots ? 0 : sk + 1;
+  }
+  if (n_steps > 0) {
+    // R y of the last step
+    float4* v = vb + (n_steps & 1) * D;
+    if (active) v[i] = make_float4(0.f, 0.f, prep<P>(yr), prep<P>(yi));
+    step_sync(one_warp);
+    float e_part = 0.f;
+    if (active) {
+      float o[6];
+      cdot3<P, true, kFwdPsiU>(mat + i, nullptr, D, v, D, o);
+      e_part = yr * o[4] + yi * o[5];
+    }
+    ring.store(skp, true, e_part, 0, false, 0.f);
+    ring.flush<DEFER>(p0, n_steps, n_steps, unroll, 2.f, log_eps, norm_eps,
+                      acc);
   }
   if (i == 0) loss[col] = acc;
 }
 
-// Dynamic shared memory of one forward CTA: C and R (4 bytes an element),
-// four [D] vectors and a 64-float reduction buffer.
+// Dynamic shared memory of one forward CTA: C and R packed (16 D^2 bytes),
+// the double buffer of (x, y) (32 D), the loss ring and the per-step
+// norm's 64 floats.
 inline size_t split_fwd_smem_bytes(int D) {
   const size_t d = static_cast<size_t>(D);
-  return 4 * d * d * 4 + (4 * d + 64) * 4;
+  const int nt = split_threads(D);
+  return 4 * (4 * d * d + 8 * d + loss_ring_words(nt, kRingSlots, nt == 32) +
+              64);
 }
 
 // Launch the forward for the runtime precision and norm flag: B CTAs. ckr
@@ -305,7 +575,8 @@ cudaError_t launch_split_fwd(const float* cr, const float* ci,
                              float* cki, int D, int n_steps, int B,
                              int unroll, float log_eps, float norm_eps,
                              int precision, bool defer, cudaStream_t stream) {
-  if (unroll < 1 || D < 1) return cudaErrorInvalidValue;
+  if (unroll < 1 || D < 1 || split_threads(D) > kSplitFwdPsiThreads)
+    return cudaErrorInvalidValue;
   return dispatch_split(precision, defer, [&](auto p, auto d) {
     return launch_smem(
         psi_split_fwd_kernel<decltype(p)::value, decltype(d)::value, MODE>,

@@ -136,11 +136,12 @@ __global__ void __launch_bounds__(1024)
 
 extern "C" {
 
-// Dynamic shared memory of one sampler CTA: the forward's layout
-// (rho_split_fwd.cuh), its eight [D, rank] vectors the factor, its prepped
-// copy, conj(C) H and conj(R) H.
+// Dynamic shared memory of one sampler CTA: conj(C), conj(R), X^T (4
+// bytes an element), eight [D, rank] vectors (the factor, its prepped copy,
+// conj(C) H and conj(R) H), pc, ps and 64 reduction floats.
 size_t amt_rho_split_sample_smem_bytes(int D, int rank) {
-  return amt::rho_split_fwd_smem_bytes(D, rank);
+  const size_t d = static_cast<size_t>(D), n = d * rank;
+  return 4 * (6 * d * d + 8 * n + 2 * d + 64);
 }
 
 // Running waveform wave[T, N] of N chains from noise[T, N] and the factors

@@ -123,10 +123,13 @@ _SIGNATURES = {
     # T, N, rank, dt, norm_eps, precision, stream
     "amt_rho_split_sample": ([_P] * 13 + [_I] * 4 + [_F, _F, _I, _P], _I),
     # ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, se, loss, D, n_steps,
-    # B, rank, unroll, log_eps, norm_eps, precision, defer_norm, stream
-    "amt_rho_split_nll": ([_P] * 12 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    # B, rank, unroll, log_eps, norm_eps, precision, defer_norm, warp_local,
+    # stream
+    "amt_rho_split_nll": ([_P] * 12 + [_I] * 5 + [_F, _F, _I, _I, _I, _P],
+                          _I),
     # ... as amt_rho_split_nll with ckr, cki after loss
-    "amt_rho_split_fwd": ([_P] * 14 + [_I] * 5 + [_F, _F, _I, _I, _P], _I),
+    "amt_rho_split_fwd": ([_P] * 14 + [_I] * 5 + [_F, _F, _I, _I, _I, _P],
+                          _I),
     # ccr, cci, rcr, rci, xtr, xti, pc, ps, se, g, ckr, cki, dse, dh0r, dh0i,
     # part, ws, D, n_steps, B, rank, unroll, log_eps, norm_eps, precision,
     # defer_norm, pipe, smem_slab, stream
@@ -172,6 +175,8 @@ _SIGNATURES = {
     "amt_psi_split_bwd_form_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "amt_rho_split_sample_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_rho_split_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    # D, rank, warp_local, field (cols, threads, elems, slots, smem bytes)
+    "amt_rho_split_fwd_layout": ([_I] * 4, _I),
     "amt_rho_split_bwd_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     # D, rank, unroll, pipe, smem_slab
     "amt_rho_split_bwd_form_smem_bytes": ([_I] * 5, ctypes.c_size_t),

@@ -63,6 +63,8 @@ card's shared memory; every form and placement gives the same bits.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..config import CMPSConfig
@@ -108,6 +110,90 @@ def _rho_split_threads(D: int, rank: int) -> int:
     warps, at most 1024 (``csrc/rho_split_fwd.cuh``)."""
     n = D * rank
     return 1024 if n >= 1024 else -(-n // 32) * 32
+
+
+# the forwards' loss ring (csrc/psi_split_fwd.cuh, LossRing): its slots in
+# psi and rho's warp-local layout, and in rho's element layout
+_RING_SLOTS, _RING_SLOTS_CTA = 18, 8
+
+
+def _loss_ring_words(threads: int, slots: int, lanes: bool) -> int:
+    """The loss ring's words: the warp parts of ehat and of |y|^2 (or the
+    trace) and the totals and s a slot, and with ``lanes`` each lane's
+    parts."""
+    return slots * (2 * (threads // 32) + 2 + (2 * threads if lanes else 0))
+
+
+def psi_split_fwd_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one CTA of psi's split NLL and training
+    forward (``csrc/psi_split_fwd.cuh``, its ``split_fwd_smem_bytes``): C
+    and R packed (16 D^2 bytes), the double buffer of the prepped (x, y)
+    (32 D), the loss ring (each lane's parts at D <= 32, one warp a CTA;
+    the warps' past it) and 64 floats. 231,360 bytes at D=119, the ceiling
+    on an H100."""
+    t = _split_threads(D)
+    return 4 * (4 * D * D + 8 * D
+                + _loss_ring_words(t, _RING_SLOTS, t == 32) + 64)
+
+
+def _sched_walks(warps: int, elems: int) -> int:
+    """A warp-local step's walks on the busiest of an SM's four warp
+    schedulers."""
+    return -(-warps // 4) * elems
+
+
+class RhoSplitFwdLayout(NamedTuple):
+    """The layout of one CTA of rho's split NLL and training forward."""
+    cols: int        # whole columns a warp; 0: the element layout
+    warps: int
+    threads: int
+    elems: int       # elements a thread at most (a power of 2)
+    slots: int       # the loss ring's
+    smem_bytes: int
+
+
+def rho_split_fwd_layout(D: int, rank: int,
+                         warp_local: bool = True) -> RhoSplitFwdLayout:
+    """The layout ``csrc/rho_split_fwd.cuh`` launches for an example's
+    [D, rank] segment, mirrored from its ``rho_split_fwd_layout``.
+    Warp-local where D <= 32: a thread takes ``elems`` elements of its
+    warp's cols = floor(32 elems / D) whole columns, so a step synchronises
+    its warp alone; elems is the power of 2 up to 8 that gives a step the
+    fewest walks on the busiest of an SM's four schedulers, ceil(warps /
+    4) x elems (idle lanes cost warps, a thread's elements run in turn),
+    the smallest on a tie, with at most 32 warps (one element, 3 columns a
+    warp and 4 warps at D=10, rank 10, 0.88x the element layout's time;
+    two, 3 columns and 7 warps at D=20, 1.11x it, where one column a warp
+    took 1.36x: ``tools/split_forward_sweep.py``, PERF.md).
+    Else, or with ``warp_local=False`` (the wrappers' ``_warp_local``), the
+    adjoint re-run role's element layout (``cols`` 0: D rank threads
+    rounded to warps, at most 1024, each on up to ``elems`` elements; one
+    CTA barrier a step). The shared memory: the packed constants (24 D^2
+    bytes), the double buffer (32 D rank), the loss ring (18 slots with
+    each lane's parts warp-local; 8 slots of warp parts in the element
+    layout, which keeps D=64 at full rank, 231,744 bytes, under an H100's
+    ceiling) and 64 floats. A pure function of its arguments, as
+    ``psi_split_bwd_plan`` is."""
+    best = None
+    if warp_local and D <= 32:
+        for elems in (1, 2, 4, 8):
+            cols = 32 * elems // D
+            warps = -(-rank // cols)
+            if warps <= 32 and (best is None or _sched_walks(warps, elems)
+                                < _sched_walks(best[1], best[2])):
+                best = (cols, warps, elems)
+    if best is not None:
+        cols, warps, elems = best
+        threads, slots = 32 * warps, _RING_SLOTS
+    else:
+        cols = 0
+        threads = _rho_split_threads(D, rank)
+        elems = 1 << (-(-(D * rank) // threads) - 1).bit_length()
+        slots = _RING_SLOTS_CTA
+    words = (6 * D * D + 8 * D * rank
+             + _loss_ring_words(threads, slots, cols > 0) + 64)
+    return RhoSplitFwdLayout(cols, threads // 32, threads, elems, slots,
+                             4 * words)
 
 
 def _bwd_reduction_words(unroll: int, warps: int, form: str) -> int:
@@ -948,11 +1034,11 @@ def rho_split_fwd_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, se,
 
 
 def _launch_rho_fwd(name, entry, args, se, ck, *, log_eps, norm_eps, unroll,
-                    precision, defer_norm):
+                    precision, defer_norm, warp_local):
     """Launch the rho forward template (``csrc/rho_split_fwd.cuh``) through
     its C entry ``entry``; ``args`` are the ten inputs before ``se``, ``ck``
-    None for the NLL, else the checkpoints to write. Returns the loss
-    [B]."""
+    None for the NLL, else the checkpoints to write; ``warp_local`` False
+    forces the element layout. Returns (the loss [B], the layout)."""
     _check_split_options(precision, unroll)
     n_steps, B = se.shape
     D = args[0].shape[0]
@@ -962,46 +1048,57 @@ def _launch_rho_fwd(name, entry, args, se, ck, *, log_eps, norm_eps, unroll,
                   se=(se, (n_steps, B)))
     _check_inputs(name, se.device, shapes)
     lib = _build.library()
-    _check_smem(name, lib.amt_rho_split_fwd_smem_bytes(D, rank), se.device, D)
+    layout = rho_split_fwd_layout(D, rank, warp_local)
+    _check_smem(name, lib.amt_rho_split_fwd_layout(D, rank, int(warp_local),
+                                                   4), se.device, D)
     loss = se.new_empty((B,))
     if B == 0:
-        return loss
+        return loss, layout
     ptrs = [_ptr(x) for x in (*args, se, loss)]
     if ck is not None:
         ptrs += [_ptr(ck[0]), _ptr(ck[1])]
     err = getattr(lib, entry)(
         *ptrs, D, n_steps, B, rank, unroll, log_eps, norm_eps,
-        PRECISIONS.index(precision), int(defer_norm), _stream_ptr(se.device))
+        PRECISIONS.index(precision), int(defer_norm), int(warp_local),
+        _stream_ptr(se.device))
     _build.check(lib, err, name)
-    return loss
+    return loss, layout
 
 
 @torch.no_grad()
 def rho_nll_split(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, se, *,
                   log_eps: float, norm_eps: float, unroll: int = 16,
-                  precision: str = "highest", defer_norm: bool = False):
+                  precision: str = "highest", defer_norm: bool = False,
+                  _warp_local: bool = True):
     """Per-example NLL [B]: ``rho_nll_split_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/rho_split_nll.cu`` for CUDA tensors."""
+    CUDA kernel ``csrc/rho_split_nll.cu`` for CUDA tensors, in the layout
+    of ``rho_split_fwd_layout`` (``_warp_local=False`` forces the element
+    layout), recorded in ``rho_nll_split.layout``."""
     args = (ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i)
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm)
     if _cuda_or_raise("rho_nll_split", se):
         return rho_nll_split_plain(*args, se, **kw)
-    loss = _launch_rho_fwd("rho_nll_split", "amt_rho_split_nll", args, se,
-                           None, **kw)
+    loss, rho_nll_split.layout = _launch_rho_fwd(
+        "rho_nll_split", "amt_rho_split_nll", args, se, None, **kw,
+        warp_local=_warp_local)
     rho_nll_split.launches += 1
     return loss
 
 
 rho_nll_split.launches = 0
+rho_nll_split.layout = None
 
 
 @torch.no_grad()
 def rho_split_fwd(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, se, *,
                   log_eps: float, norm_eps: float, unroll: int = 16,
-                  precision: str = "highest", defer_norm: bool = False):
+                  precision: str = "highest", defer_norm: bool = False,
+                  _warp_local: bool = True):
     """(loss [B], ckr, cki): ``rho_split_fwd_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/rho_split_fwd.cu`` for CUDA tensors."""
+    CUDA kernel ``csrc/rho_split_fwd.cu`` for CUDA tensors, in the layout
+    of ``rho_split_fwd_layout`` (``_warp_local=False`` forces the element
+    layout), recorded in ``rho_split_fwd.layout``."""
     args = (ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i)
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm)
@@ -1009,13 +1106,15 @@ def rho_split_fwd(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, se, *,
         return rho_split_fwd_plain(*args, se, **kw)
     shape = (n_blocks(se.shape[0], unroll),) + tuple(h0r.shape)
     ck = (se.new_empty(shape), se.new_empty(shape))
-    loss = _launch_rho_fwd("rho_split_fwd", "amt_rho_split_fwd", args, se,
-                           ck, **kw)
+    loss, rho_split_fwd.layout = _launch_rho_fwd(
+        "rho_split_fwd", "amt_rho_split_fwd", args, se, ck, **kw,
+        warp_local=_warp_local)
     rho_split_fwd.launches += 1
     return (loss,) + ck
 
 
 rho_split_fwd.launches = 0
+rho_split_fwd.layout = None
 
 
 def _rho_recompute_blocks(ccp, rcp, xtp, pc, ps, se, ckr, cki, *, rank,

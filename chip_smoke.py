@@ -98,7 +98,9 @@ failure (the script then exits non-zero):
    forms (double, single) equal bit for bit on the training prefixes, and
    each form's time with the re-run, the sweep and the outer products
    alone (``tools/split_adjoint_attribution.py``, its builds started in
-   set-up);
+   set-up); the NLL's loss the training forward's bit for bit at both
+   norms, and both timed at both norms at D=50 as well
+   (``tools/split_forward_sweep.py``);
 11. rho's split layout (``rho_split_phases``, after psi's) at the same
    shape with ``--discr=true`` (full rank 10, 320 factor lanes): the
    sampler (N=8 chains) on the T=4096 prefix, the NLL (both norms) on a
@@ -111,7 +113,10 @@ failure (the script then exits non-zero):
    sampler and NLL; the four kernels' CUDA-event times beside their
    bounds and one estimator step's time; the adjoint's four (placement,
    form) equal bit for bit on the training prefixes, each one's time and
-   the parts alone, as psi's;
+   the parts alone, as psi's; the forwards' layout, and the NLL and the
+   training forward at both norms at D=10 and at D=20, rank 20, in the
+   warp-local layout and in the element layout, the NLL's loss the
+   forward's bit for bit in each;
 12. psi's spine/limbs training pair (``batched_phases``, after psi's
    recompute phases; the TPU factory's ``batched=True``, off by default) at
    D=64, B=128, T=16384, highest, deferred norm: the batched forward held
@@ -2286,6 +2291,19 @@ def _split_attribution(family, dev):
     return res
 
 
+def _split_forward_sweep(dev, family, D, rank=None):
+    """The split NLL and training forward at both norms, and rho's two
+    layouts where D <= 32 (``tools/split_forward_sweep.py``) at B=32,
+    T=65536: prints a line each and checks that each NLL's loss is the
+    training forward's bit for bit."""
+    from audio_mps_tpu_torch.tools import split_forward_sweep as sweep
+    for entry in sweep.measure(dev, family, D, rank, SPLIT_T):
+        print("  " + sweep.line(entry), flush=True)
+        check(entry["nll_is_fwd"], f"{entry['kernel']} D={D}: the NLL's "
+                                   f"loss is not the training forward's "
+                                   f"bit for bit")
+
+
 def split_phases(dev):
     """Phase 10, psi's split layout at the legacy estimator's shape;
     returns its four kernels' entries of the {"kernels": [...]} line."""
@@ -2599,6 +2617,10 @@ def split_phases(dev):
     pre_ms["bwd"] = median_ms(lambda: _split_bwd(kernels["bwd"], args, g,
                                                  ck_pre, **o))
     del ck_pre
+    check(torch.equal(kernels["fwd"](*full, **eps, defer_norm=False)[0],
+                      nll_full[False]),
+          "the training forward's loss at defer_norm=False is not the "
+          "NLL's bit for bit")
     variants = {
         "psi_nll_split/defer=True": median_ms(
             lambda: kernels["nll"](*full, **o)),
@@ -2608,6 +2630,7 @@ def split_phases(dev):
             lambda: kernels["fwd"](*full, **eps, defer_norm=False))}
     for name, t in variants.items():
         print(f"  {name}: {t:.3f} ms", flush=True)
+    _split_forward_sweep(dev, "psi", 50)
     n_steps = SPLIT_T - 1
     ex_steps = n_steps * SPLIT_B
     chain_steps = SPLIT_T * SPLIT_N_CHAINS
@@ -2958,6 +2981,11 @@ def rho_split_phases(dev):
           "fwd": median_ms(lambda: kernels["fwd"](*full, **o)),
           "bwd": median_ms(lambda: _split_bwd(kernels["bwd"], full, g,
                                                   (ckr, cki), **o))}
+    check(torch.equal(kernels["fwd"](*full, **eps, defer_norm=False)[0],
+                      nll_full[False]),
+          "the rho training forward's loss at defer_norm=False is not the "
+          "NLL's bit for bit")
+    layout = split.rho_split_fwd.layout
     variants = {
         "rho_nll_split/defer=True": median_ms(
             lambda: kernels["nll"](*full, **o)),
@@ -2965,6 +2993,10 @@ def rho_split_phases(dev):
             lambda: kernels["fwd"](*full, **eps, defer_norm=False))}
     for name, t in variants.items():
         print(f"  {name}: {t:.3f} ms", flush=True)
+    print(f"  the forwards' layout at D={SPLIT_D}, rank {RHO_SPLIT_RANK}: "
+          f"{layout.cols} columns a warp, {layout.warps} warps", flush=True)
+    _split_forward_sweep(dev, "rho", SPLIT_D, RHO_SPLIT_RANK)
+    _split_forward_sweep(dev, "rho", 20, 20)
     n_steps = SPLIT_T - 1
     ex_steps = n_steps * SPLIT_B
     lane_steps = ex_steps * RHO_SPLIT_RANK

@@ -1497,6 +1497,122 @@ def test_rho_train_cli_summaries_sample_through_the_split_kernel(
 
 
 # ---------------------------------------------------------------------------
+# The split forward templates (csrc/psi_split_fwd.cuh, rho_split_fwd.cuh):
+# one walk and one barrier a step, the loss sums in a ring off the chain,
+# rho's columns warp-local where D <= 32
+# ---------------------------------------------------------------------------
+
+PSI_SPLIT_NAMES = ("cr", "ci", "rr", "ri", "pc", "ps", "s0r", "s0i", "se")
+
+
+def _split_fwd_case(dev, family, D, rank, steps, B=3):
+    """(the forward's tensor inputs in order, its eps options) of psi or
+    rho at D (rank) over ``steps`` samples."""
+    from audio_mps_tpu_torch.ops import split
+    if family == "psi":
+        _, inputs, _ = _split_inputs(dev, D, "auto", steps, B=B)
+        names = PSI_SPLIT_NAMES
+    else:
+        _, inputs, _, _ = _rho_split_inputs(dev, D, rank, "auto", steps, B=B)
+        names = split.RHO_SPLIT_NAMES + ("se",)
+    return ([inputs[k] for k in names],
+            dict(log_eps=inputs["log_eps"], norm_eps=inputs["norm_eps"]))
+
+
+def _split_fwd_fns(family):
+    from audio_mps_tpu_torch.ops import split
+    if family == "psi":
+        return (split.psi_nll_split, split.psi_split_fwd,
+                split.psi_nll_split_plain, split.psi_split_fwd_plain)
+    return (split.rho_nll_split, split.rho_split_fwd,
+            split.rho_nll_split_plain, split.rho_split_fwd_plain)
+
+
+def test_split_forward_layouts_and_smem_agree_with_the_kernels(dev):
+    """ops/split.py's mirrors of the forwards' layouts and byte counts are
+    the C launchers' own (amt_rho_split_fwd_layout, amt_*_fwd_smem_bytes)
+    at every D to the ceilings, full rank and rank 3, in both rho
+    layouts."""
+    from audio_mps_tpu_torch.ops import _build, split
+    lib = _build.library()
+    for D in range(1, 121):
+        assert lib.amt_psi_split_fwd_smem_bytes(D) == \
+            split.psi_split_fwd_smem_bytes(D)
+    for D in range(1, 66):
+        for rank in sorted({D, 3}):
+            for wl in (True, False):
+                want = split.rho_split_fwd_layout(D, rank, wl)
+                got = [lib.amt_rho_split_fwd_layout(D, rank, int(wl), f)
+                       for f in range(5)]
+                assert got == [want.cols, want.threads, want.elems,
+                               want.slots, want.smem_bytes], (D, rank, wl)
+            assert lib.amt_rho_split_fwd_smem_bytes(D, rank) == \
+                split.rho_split_fwd_layout(D, rank).smem_bytes
+
+
+# (family, D, rank): psi one warp (D=10) and a CTA of 2, 2 and 4 warps
+# (D=33, 50 and the ceiling 119); rho warp-local at 3 columns a warp
+# (D=10), one (D=20, D=32: 20 and 32 warps), the element layout past D=32
+SPLIT_FWD_SHAPES = [("psi", 10, 1), ("psi", 33, 1), ("psi", 50, 1),
+                    ("psi", 119, 1), ("rho", 10, 10), ("rho", 20, 20),
+                    ("rho", 32, 32), ("rho", 33, 33)]
+
+
+@pytest.mark.parametrize("family, D, rank", SPLIT_FWD_SHAPES)
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_split_forwards_across_layouts_match_plain(dev, family, D, rank,
+                                                   precision, defer):
+    """The NLL and the training forward (loss and checkpoints) against
+    their plain versions at shapes on both sides of the layouts' bounds,
+    unroll 7 (a ragged last block), highest over 300 steps and default
+    over 16 at TOL; the NLL's loss is the training forward's bit for bit
+    (one template), and rho's element layout forced at D <= 32 matches
+    plain too."""
+    nll, fwd, nll_plain, fwd_plain = _split_fwd_fns(family)
+    args, eps = _split_fwd_case(dev, family, D, rank, STEPS[precision])
+    kw = dict(eps, unroll=7, precision=precision, defer_norm=defer)
+    want = fwd_plain(*args, **kw)
+    got = fwd(*args, **kw)
+    for a, b in zip(got, want):
+        _close(a, b, TOL[precision])
+    loss = nll(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, got[0])
+    _close(loss, nll_plain(*args, **kw), TOL[precision])
+    if family == "rho" and D <= 32:
+        assert fwd.layout.cols > 0 and nll.layout.cols > 0
+        got = fwd(*args, **kw, _warp_local=False)
+        assert fwd.layout.cols == 0
+        for a, b in zip(got, want):
+            _close(a, b, TOL[precision])
+        assert torch.equal(nll(*args, **kw, _warp_local=False), got[0])
+
+
+@pytest.mark.parametrize("family, D, rank", [("psi", 10, 1), ("psi", 50, 1),
+                                             ("rho", 10, 10),
+                                             ("rho", 20, 20),
+                                             ("rho", 33, 33)])
+@pytest.mark.parametrize("defer", [False, True])
+def test_split_forwards_are_reproducible_bit_for_bit(dev, family, D, rank,
+                                                     defer):
+    """The loss ring adds a flush's parts in a fixed order (no atomics):
+    two launches of each forward at B=32 over 2048 steps (unroll 16) give
+    the same loss and checkpoints, and the NLL the training forward's
+    loss, bit for bit."""
+    nll, fwd, _, _ = _split_fwd_fns(family)
+    args, eps = _split_fwd_case(dev, family, D, rank, 2048, B=32)
+    kw = dict(eps, defer_norm=defer)
+    runs = [fwd(*args, **kw) for _ in range(2)]
+    losses = [nll(*args, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert torch.equal(losses[0], losses[1])
+    assert torch.equal(losses[0], runs[0][0])
+
+
+# ---------------------------------------------------------------------------
 # "default" over a whole run (ROADMAP section C): one bf16 pass a product,
 # as on the TPU, against highest, at each NLL kernel's main-path shape
 # ---------------------------------------------------------------------------

@@ -79,3 +79,74 @@ def test_plans_follow_the_cards_shared_memory():
                                                                "single")
     single = split.psi_split_bwd_smem_bytes(10, 16, "single")
     assert split.psi_split_bwd_plan(10, 16, single) == "single"
+
+
+# The split forwards' layouts (ops/split.py rho_split_fwd_layout and
+# psi_split_fwd_smem_bytes, mirrored from csrc/rho_split_fwd.cuh and
+# csrc/psi_split_fwd.cuh; tests/test_torch_cuda.py holds them to the
+# kernels' own)
+
+@pytest.mark.parametrize("D, rank, cols, warps, elems", [
+    (10, 10, 3, 4, 1), (20, 20, 3, 7, 2), (32, 32, 1, 32, 1),
+    (16, 16, 2, 8, 1), (12, 12, 2, 6, 1), (6, 3, 5, 1, 1),
+    (33, 33, 0, 32, 2), (64, 64, 0, 32, 4), (33, 2, 0, 3, 1)])
+def test_rho_forward_layout_by_shape(D, rank, cols, warps, elems):
+    """Warp-local where D <= 32 (whole columns a warp: 3 of one element a
+    lane at D=10, 3 of two at D=20, one at D=32), the element layout past
+    D=32, up to 1024 threads."""
+    layout = split.rho_split_fwd_layout(D, rank)
+    assert (layout.cols, layout.warps, layout.elems) == (cols, warps, elems)
+    assert layout.threads == 32 * warps
+    assert layout.elems * layout.threads >= D * rank
+    assert layout.slots == (18 if cols else 8)
+
+
+@pytest.mark.parametrize("D", range(1, 33))
+def test_rho_forward_warp_local_columns_fit_their_warp(D):
+    """At every D <= 32 and full rank each column lies in one warp: a
+    warp's columns are at most its lanes' elements, the warps hold every
+    column, and no other power of 2 of elements a lane gives the busiest
+    of an SM's four schedulers fewer walks a step (ceil(warps / 4) x
+    elements)."""
+    layout = split.rho_split_fwd_layout(D, D)
+    assert layout.cols * D <= 32 * layout.elems
+    assert layout.cols * layout.warps >= D
+    walks = -(-layout.warps // 4) * layout.elems
+    for elems in (1, 2, 4, 8):
+        assert -(-(-(-D // (32 * elems // D))) // 4) * elems >= walks
+
+
+@pytest.mark.parametrize("D, rank, elems", [(10, 10, 1), (32, 32, 1),
+                                            (33, 33, 2), (64, 64, 4)])
+def test_rho_forward_element_layout_when_forced(D, rank, elems):
+    """warp_local=False takes the element layout at every shape: D rank
+    threads rounded to warps, at most 1024, each on a power of 2 of
+    elements."""
+    layout = split.rho_split_fwd_layout(D, rank, warp_local=False)
+    assert layout.cols == 0 and layout.elems == elems
+    assert layout.threads == min(1024, -(-D * rank // 32) * 32)
+
+
+def test_rho_forward_layout_past_32_warps_of_columns():
+    """At D=16 a warp holds at most 16 columns (8 elements a lane): rank
+    512 takes 32 warps, rank 513 would take 33, so it takes the element
+    layout."""
+    assert split.rho_split_fwd_layout(16, 512)[:3] == (16, 32, 1024)
+    assert split.rho_split_fwd_layout(16, 513).cols == 0
+
+
+def test_split_forward_ceilings_stay():
+    """The forwards' shared memory keeps their ceilings on an H100 (232,448
+    bytes a block): psi's NLL and training forward to D=119, rho's to D=64
+    at full rank."""
+    assert split.psi_split_fwd_smem_bytes(119) <= H100_SMEM_OPTIN
+    assert split.psi_split_fwd_smem_bytes(120) > H100_SMEM_OPTIN
+    assert split.rho_split_fwd_layout(64, 64).smem_bytes <= H100_SMEM_OPTIN
+    assert split.rho_split_fwd_layout(65, 65).smem_bytes > H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("D", [10, 32])
+def test_rho_forward_warp_local_layout_fits_to_d32(D):
+    """The warp-local layout's ring of each lane's parts fits at every
+    D <= 32 at full rank (209,808 bytes at D=32)."""
+    assert split.rho_split_fwd_layout(D, D).smem_bytes <= H100_SMEM_OPTIN
