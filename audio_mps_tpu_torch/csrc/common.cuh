@@ -7,10 +7,11 @@
 // options to template arguments.
 //
 // Layout. A chain kernel's CTA owns one column of the stacked state
-// [x_r; x_i] (one chain or one example), or G of them (psi's block forward
-// and adjoint past one wave of CTAs: load_cols / dot_cols below), and runs
-// the whole time loop itself. Thread i computes row i of every [2D,2D] x
-// [2D] product. The
+// [x_r; x_i] (one chain or one example), or G of them (the floor probe,
+// psi_probe.cu: load_cols below), and runs the whole time loop itself.
+// Thread i computes row i of every [2D,2D] x [2D] product (psi's block
+// forward and adjoint chain lay four threads to a row instead: the quad
+// layout of psi_fwd.cuh). The
 // forward kernels store each [2D,2D] constant in dynamic shared memory
 // TRANSPOSED (mT[j*n + i] = M[i][j]), so in the dot loop the threads of a
 // warp read consecutive words (no bank conflicts) while the state element
@@ -191,11 +192,10 @@ __device__ __forceinline__ float row_dot(const uint32_t* mt, const float* vh,
   return dot_strided<P>(mt + i, n, vh, vl, n);
 }
 
-// G columns a CTA (psi_fwd.cuh's kNll, kStream, kCkpt and kRecompute modes,
-// psi_train_bwd.cu). A [n, G] shared buffer holds element j of the G
-// columns' vectors at v[j G + g], so a thread reads row j of all G in
-// G / 4 broadcast 16-byte loads (G = 2: one 8-byte load) and writes its own
-// row i in G stores.
+// G columns a CTA (psi_probe.cu). A [n, G] shared buffer holds element j
+// of the G columns' vectors at v[j G + g], so a thread reads row j of all G
+// in G / 4 broadcast 16-byte loads (G = 2: one 8-byte load) and writes its
+// own row i in G stores.
 template <int G>
 __device__ __forceinline__ void load_cols(const float* v, int j,
                                           float (&x)[G]) {
@@ -227,110 +227,8 @@ __device__ __forceinline__ void store_cols(float* vh, float* vl, int i,
   for (int g = 0; g < G; ++g) store_vec<P>(vh, vl, i * G + g, x[g]);
 }
 
-// The j loop's unroll of the G-column dots: on an H100 (700 W) at D=64,
-// B=1024, G=8 the checkpoint forward takes 132 ms unrolled 8 deep against
-// 157 at 2 (the recompute takes its own, psi_fwd.cuh).
-constexpr int kColsUnroll = 8;
-
-// out1[g] = sum_j m1[j*stride] v_g[j] and out2[g] likewise for m2, over
-// j < n, for the G columns of the prepped [n, G] buffers vh (vl: the kHigh
-// lo parts). Each 4-byte load of a matrix feeds G FMAs (3G at kHigh), and
-// per column the sum runs over j in order as dot2_strided's does: out1[g]
-// and out2[g] are the same bits as dot2_strided<P> gives column g alone.
-template <int P, int G, int U = kColsUnroll>
-__device__ __forceinline__ void dot2_cols(const uint32_t* m1,
-                                          const uint32_t* m2, int stride,
-                                          const float* vh, const float* vl,
-                                          int n, float (&out1)[G],
-                                          float (&out2)[G]) {
-  if constexpr (G == 1) {
-    dot2_strided<P>(m1, m2, stride, vh, vl, n, out1[0], out2[0]);
-    return;
-  }
-  float a1[G], a2[G], a3[G], b1[G], b2[G], b3[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    a1[g] = a2[g] = a3[g] = 0.f;
-    b1[g] = b2[g] = b3[g] = 0.f;
-  }
-#pragma unroll (U)
-  for (int j = 0; j < n; ++j) {
-    float h[G], l[G];
-    load_cols<G>(vh, j, h);
-    const uint32_t w1 = m1[j * stride], w2 = m2[j * stride];
-    if (P == kHigh) {
-      load_cols<G>(vl, j, l);
-      const float m1h = __uint_as_float(w1 & 0xffff0000u);
-      const float m1l = __uint_as_float(w1 << 16);
-      const float m2h = __uint_as_float(w2 & 0xffff0000u);
-      const float m2l = __uint_as_float(w2 << 16);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        a1[g] = fmaf(m1h, h[g], a1[g]);
-        a2[g] = fmaf(m1h, l[g], a2[g]);
-        a3[g] = fmaf(m1l, h[g], a3[g]);
-        b1[g] = fmaf(m2h, h[g], b1[g]);
-        b2[g] = fmaf(m2h, l[g], b2[g]);
-        b3[g] = fmaf(m2l, h[g], b3[g]);
-      }
-    } else {
-      const float m1v = __uint_as_float(w1), m2v = __uint_as_float(w2);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        a1[g] = fmaf(m1v, h[g], a1[g]);
-        b1[g] = fmaf(m2v, h[g], b1[g]);
-      }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    out1[g] = P == kHigh ? (a1[g] + a2[g]) + a3[g] : a1[g];
-    out2[g] = P == kHigh ? (b1[g] + b2[g]) + b3[g] : b1[g];
-  }
-}
-
-// out[g] = sum_j m[j*stride] v_g[j] over j < n for one packed shared
-// matrix and the G columns of [n, G] buffers: dot_strided's bits a column.
-template <int P, int G>
-__device__ __forceinline__ void dot_cols(const uint32_t* m, int stride,
-                                         const float* vh, const float* vl,
-                                         int n, float (&out)[G]) {
-  if constexpr (G == 1) {
-    out[0] = dot_strided<P>(m, stride, vh, vl, n);
-    return;
-  }
-  float a1[G], a2[G], a3[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) a1[g] = a2[g] = a3[g] = 0.f;
-#pragma unroll (kColsUnroll)
-  for (int j = 0; j < n; ++j) {
-    float h[G], l[G];
-    load_cols<G>(vh, j, h);
-    const uint32_t w = m[j * stride];
-    if (P == kHigh) {
-      load_cols<G>(vl, j, l);
-      const float mh = __uint_as_float(w & 0xffff0000u);
-      const float ml = __uint_as_float(w << 16);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        a1[g] = fmaf(mh, h[g], a1[g]);
-        a2[g] = fmaf(mh, l[g], a2[g]);
-        a3[g] = fmaf(ml, h[g], a3[g]);
-      }
-    } else {
-      const float mv = __uint_as_float(w);
-#pragma unroll
-      for (int g = 0; g < G; ++g) a1[g] = fmaf(mv, h[g], a1[g]);
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-    out[g] = P == kHigh ? (a1[g] + a2[g]) + a3[g] : a1[g];
-}
-
 // The chunk of state columns that one walk of a matrix row serves in the
-// batched ("limb") products of psi_fwd.cuh's kBatched mode,
-// psi_batched_bwd.cu and psi_probe.cu.
+// batched ("limb") products of psi_batched_bwd.cu and psi_probe.cu.
 constexpr int kLimb = 8;
 
 // out[q] = sum_j m[j*stride] v_q[j] over j < n for the kLimb vectors
@@ -475,37 +373,40 @@ __device__ __forceinline__ void block_sum_n(const float (&v)[N], float* red,
   }
 }
 
-// block_sum_n for the G-column kernels (psi_fwd.cuh's one-step modes,
-// psi_train_bwd.cu), the same bits (N = 1 and 2 take block_sum and
-// block_sum2): the N warp sums run side by side, and the partials are
-// added a warp at a time for all N at once. On an H100 (700 W) this order
-// runs psi's G = 8 forward and adjoint 4-6% faster than block_sum_n's, and
-// block_sum_n's runs psi_batched_bwd.cu 41% faster than this one.
-template <int N>
-__device__ __forceinline__ void block_sum_cols(const float (&v)[N],
-                                               float* red, float (&out)[N]) {
-  if constexpr (N == 1) {
-    out[0] = block_sum(v[0], red);
-  } else if constexpr (N == 2) {
-    block_sum2(v[0], v[1], red, out[0], out[1]);
-  } else {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    float w[N];
-#pragma unroll
-    for (int q = 0; q < N; ++q) w[q] = warp_sum(v[q]);
-    if (lane == 0) {
-#pragma unroll
-      for (int q = 0; q < N; ++q) red[warp * N + q] = w[q];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < N; ++q) out[q] = 0.f;
-    for (int p = 0; p < (int)(blockDim.x >> 5); ++p) {
-#pragma unroll
-      for (int q = 0; q < N; ++q) out[q] += red[p * N + q];
-    }
+// A column's increments s_k = se[k * stride] read 32 steps ahead: lane q of
+// every warp holds s of step c + q of the current 32-step chunk and of the
+// next, so a step's s is a shuffle and each global load has a chunk's
+// steps to arrive (the split forwards, psi_split_fwd.cuh and
+// rho_split_fwd.cuh, and psi's block forward, psi_fwd.cuh). Every thread
+// calls at(k) for k = 0, 1, ... in turn; n = 0 (a dead column) reads
+// nothing and gives 0.
+struct ChunkedInputs {
+  const float* p;
+  size_t stride;
+  int n, lane;
+  float cur, next;
+
+  __device__ ChunkedInputs() {}
+  __device__ ChunkedInputs(const float* base, size_t stride_, int n_) {
+    init(base, stride_, n_);
   }
-}
+  __device__ void init(const float* base, size_t stride_, int n_) {
+    p = base;
+    stride = stride_;
+    n = n_;
+    lane = threadIdx.x & 31;
+    cur = lane < n ? p[lane * stride] : 0.f;
+    next = 32 + lane < n ? p[(32 + lane) * stride] : 0.f;
+  }
+  __device__ float at(int k) {
+    const int q = k & 31;
+    if (q == 0 && k > 0) {
+      cur = next;
+      next = k + 32 + lane < n ? p[(k + 32 + lane) * stride] : 0.f;
+    }
+    return __shfl_sync(0xffffffffu, cur, q);
+  }
+};
 
 // max(x, floor) that keeps a NaN x (as jnp.maximum / torch.clamp do).
 __device__ __forceinline__ float floor_at(float x, float floor) {

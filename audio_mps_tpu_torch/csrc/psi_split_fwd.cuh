@@ -386,31 +386,6 @@ struct LossRing {
   }
 };
 
-// A column's increments s_k = se[k * stride] read 32 steps ahead: lane q of
-// every warp holds s of step c + q of the current 32-step chunk and of the
-// next, so a step's s is a shuffle and each global load has a chunk's
-// steps to arrive. Every thread calls at(k) for k = 0, 1, ... in turn.
-struct ChunkedInputs {
-  const float* p;
-  size_t stride;
-  int n, lane;
-  float cur, next;
-
-  __device__ ChunkedInputs(const float* base, size_t stride_, int n_)
-      : p(base), stride(stride_), n(n_), lane(threadIdx.x & 31) {
-    cur = lane < n ? p[lane * stride] : 0.f;
-    next = 32 + lane < n ? p[(32 + lane) * stride] : 0.f;
-  }
-  __device__ float at(int k) {
-    const int q = k & 31;
-    if (q == 0 && k > 0) {
-      cur = next;
-      next = k + 32 + lane < n ? p[(k + 32 + lane) * stride] : 0.f;
-    }
-    return __shfl_sync(0xffffffffu, cur, q);
-  }
-};
-
 // The per-step norm's sum of v over the CTA at step k: a warp sum for one
 // warp, else the warp sums added in warp order through red[32 (k & 1) +
 // w], which step k + 2 writes again only after the barriers of step k + 1.

@@ -61,11 +61,15 @@ _SIGNATURES = {
     # ab, bb, rb, ck, se, ys, n2s, D, n_steps, B, unroll, blocks_per_cta,
     # norm_eps, precision, defer_norm, cols_per_cta, stream
     "amt_psi_recompute": ([_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _P], _I),
-    # ab, bb, rb, t0, se, g, ys, n2s, dtfin, dse, dt0, dys, dehats, D,
-    # n_steps, B, unroll, log_eps, norm_eps, precision, defer_norm,
+    # ab, bb, rb, t0, se, g, ys, n2s, dtfin, dse, dt0, dys, dehats, dn2ns,
+    # D, n_steps, B, unroll, log_eps, norm_eps, precision, defer_norm,
     # cols_per_cta, stream
-    "amt_psi_train_bwd": ([_P] * 13 + [_I, _I, _I, _I, _F, _F, _I, _I, _I,
+    "amt_psi_train_bwd": ([_P] * 14 + [_I, _I, _I, _I, _F, _F, _I, _I, _I,
                                        _P], _I),
+    # rb, se, g, ys, n2s, dse, dys, dehats, dn2ns, D, n_steps, B, unroll,
+    # log_eps, norm_eps, precision, defer_norm, stream
+    "amt_psi_train_bwd_tail": ([_P] * 9 + [_I] * 4 + [_F, _F, _I, _I, _P],
+                               _I),
     # dys, ys, t0, se, n2s, dehats, partial, out, D, n_steps, L, gs, gn,
     # unroll, norm_eps, w_scale, precision, defer_norm, stream
     "amt_psi_cotangents": ([_P] * 8 + [_I] * 6 + [_F, _F, _I, _I, _P], _I),
@@ -148,6 +152,7 @@ _SIGNATURES = {
     "amt_psi_nll_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_psi_train_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_psi_train_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "amt_psi_train_bwd_tail_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_cotangents_workspace_floats": ([_I, _I], ctypes.c_size_t),
     # D, R, cluster, nbuf
     "amt_rho_sample_smem_bytes": ([_I] * 4, ctypes.c_size_t),

@@ -221,61 +221,103 @@ def _ptr(x):
 PSI_COLS = (1, 2, 4, 8)
 # the dynamic shared memory one block may opt into on an H100
 H100_SMEM_OPTIN = 232448
+# psi's block forward and adjoint chain (csrc/psi_fwd.cuh, the quad layout)
+PSI_QUAD_J = 34         # the most j of a row a thread holds (kQuadJ)
+PSI_QUAD_PITCH = 36     # floats of a vector's quarter (kQuadPitch)
+PSI_HIST_PITCH = 24     # floats of a history row (kHistPitch)
+PSI_FWD_SLOTS = 18      # the forward's loss ring (kFwdSlots)
+PSI_BWD_SLOTS = 32      # the chain's ds ring (kBwdSlots)
+PSI_TAIL_COLS = 2       # columns a tail CTA (kTailCols)
+PSI_TAIL_STEPS = 8      # steps of a tail chunk (kTailSteps)
+PSI_TAIL_PITCH = 12     # floats of a tail chunk row (kTailPitch)
+PSI_TAIL_TILES = 34     # the most 4-row tiles of a column (kTailTiles)
 
 
-def _warps_for(D: int) -> int:
-    """Warps of a psi block CTA: one thread a state row, whole warps."""
-    return (2 * D + 31) // 32
+def psi_block_fits(D: int) -> bool:
+    """Does the quad layout of psi's block forward and adjoint chain take
+    bond dimension D: each thread's quarter of a row of Ab and Bb in at
+    most ``PSI_QUAD_J`` registers (D <= 68; ``quad_fits``)."""
+    return D >= 1 and (2 * D + 3) // 4 <= PSI_QUAD_J
+
+
+def _quad(D: int) -> tuple:
+    """(2D, rows, the limb's Rb^T pitch, warps) of the quad layout (its
+    ``Quad``)."""
+    n = 2 * D
+    rows = -(-n // 8) * 8
+    return n, rows, rows + 4, rows // 8
 
 
 def psi_fwd_smem_bytes(D: int, G: int) -> int:
     """Dynamic shared memory of one CTA of ``csrc/psi_fwd.cuh`` (the NLL,
-    the training forwards, the recompute) at G columns a CTA: Ab, Bb, Rb,
-    four [2D, G] state buffers and 2G partials a warp (its
-    ``fwd_smem_bytes``)."""
-    n = 2 * D
-    return 4 * (3 * n * n + 4 * n * G + 2 * G * _warps_for(D))
+    the training forwards, the recompute) at G columns a CTA: Rb^T for the
+    limb, and for each column it walks side by side (2 from G=2) the double
+    buffer of its prepped t, the history of its y (raw, hi, lo), its loss
+    ring and 32 partials (its ``fwd_smem_bytes``)."""
+    n, _, rp, nw = _quad(D)
+    side = 2 if G >= 2 else 1
+    return 4 * (n * rp + side * (16 * PSI_QUAD_PITCH + 3 * n * PSI_HIST_PITCH
+                                 + PSI_FWD_SLOTS * (2 * nw + 2) + 32))
+
+
+def psi_tail_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one tail CTA of ``csrc/psi_train_bwd.cu``:
+    Rb^T and Rb at a row pitch of the rows rounded up to 8 mod 32, and for
+    each of its columns the chunk buffers (y raw, hi, lo; u hi, lo), the
+    tiles' partials of ehat and the chunk's factors 2 dehat (its
+    ``tail_smem_bytes``)."""
+    n, rows, _, _ = _quad(D)
+    pitch = rows + (8 - rows % 32) % 32
+    return 4 * (2 * n * pitch + PSI_TAIL_COLS * (
+        5 * n * PSI_TAIL_PITCH + PSI_TAIL_STEPS * PSI_TAIL_TILES
+        + PSI_TAIL_STEPS))
 
 
 def psi_bwd_smem_bytes(D: int, G: int) -> int:
-    """Dynamic shared memory of one CTA of ``csrc/psi_train_bwd.cu`` at G
-    columns a CTA: Ab, Bb, Rb with rows padded to 2D+1 words (rounded up to
-    16 bytes), six [2D, G] buffers and 3G partials a warp."""
-    n = 2 * D
-    words = (3 * n * (n + 1) + 3) // 4 * 4
-    return 4 * (words + 6 * n * G + 3 * G * _warps_for(D))
+    """Dynamic shared memory of the adjoint of ``csrc/psi_train_bwd.cu`` at
+    G columns a chain CTA: the larger of a tail CTA's and a chain CTA's
+    (for each column it walks side by side, 2 from G=2 and 4 from G=4: the
+    double buffer of its prepped dy, its ds ring and 32 partials)."""
+    _, _, _, nw = _quad(D)
+    side = 4 if G >= 4 else (2 if G >= 2 else 1)
+    chain = 4 * side * (16 * PSI_QUAD_PITCH + PSI_BWD_SLOTS * nw + 32)
+    return max(psi_tail_smem_bytes(D), chain)
+
+
+# the most columns a CTA the rule takes: the adjoint chain walks up to 4
+# side by side (csrc/psi_train_bwd.cu chain_cols)
+PSI_COLS_RULE_MAX = 4
 
 
 def psi_columns_per_cta(B: int, D: int, n_sms: int,
                         smem_optin: int = H100_SMEM_OPTIN) -> int:
-    """Columns a CTA G (1, 2, 4 or 8) of psi's block forward and adjoint
-    for B columns at bond dimension D on a card of ``n_sms`` SMs: 1 while
-    the B CTAs of G = 1 fit one wave, one CTA an SM (at D=64 the constants
-    take 192-198 KB of an SM's 228); past that the G whose ceil(B / G) CTAs
-    need the fewest waves, and the smallest such G, among those at which
-    both kernels' CTAs fit ``smem_optin`` (``psi_fwd_smem_bytes``,
-    ``psi_bwd_smem_bytes``: to G=8 at D=64, G=4 at D=68 for the forward
-    and G=2 for the adjoint, so 2 there). A pure function of its
-    arguments, as ``rank.partials_cluster`` is.
+    """Columns a CTA G (1, 2 or 4) of psi's block forward and adjoint for
+    B columns at bond dimension D on a card of ``n_sms`` SMs: 1 while the
+    B CTAs of G = 1 fit one wave, one CTA an SM; past that the G of fewest
+    waves, the smallest such, up to ``PSI_COLS_RULE_MAX``, among those at
+    which both kernels' CTAs fit ``smem_optin`` (``psi_fwd_smem_bytes``,
+    ``psi_bwd_smem_bytes``) at a D the quad layout takes
+    (``psi_block_fits``; else 1, and the launch raises). A pure function
+    of its arguments, as ``rank.partials_cluster`` is.
 
-    Why: one column a CTA feeds one FMA from each 4-byte shared load of a
-    constant, in a chain of 2D dependent FMAs a product, so its step is
-    bound by the chain's latency and the loads, not by the SM's FMA rate; G
-    columns feed G FMAs from each load and run G chains side by side, and
-    every column keeps G = 1's bits. Measured on an NVIDIA H100 80GB HBM3
-    at a 400 W power limit, D=64, T=16384, highest
-    (``tools/psi_columns_sweep.py``), a wave of G-column CTAs takes c(G)
-    times a wave of one-column CTAs: the streamed forward's wave takes
-    59.9 ms at G=1 (B=128), and at B=1024 (8, 4, 2, 1 waves at G = 1, 2,
-    4, 8) 473.0, 314.7, 183.1 and 137.3 ms, so c = 1, 1.31, 1.53, 2.29; the
-    adjoint chain 646.8, 345.8, 255.0, 187.8 ms, the checkpoint forward
-    418.1, 221.2, 180.1, 131.9 and the whole recompute adjoint 1011.4,
-    597.6, 466.1, 347.3. c(G) grows with G but stays below the waves G
-    saves, so the fewest waves win, and among as many waves the smallest
-    G: G = 1 while B <= n_sms (B=128 keeps one column a CTA)."""
+    Why: a CTA of the quad layout holds its quarters of Ab and Bb in
+    registers (68 a thread at D=64, 512 threads), so one CTA fits an SM.
+    The forward walks two of a CTA's columns side by side and takes the
+    pairs in turn, the adjoint's chain walks up to 4 side by side (one
+    column's barrier and shuffle latencies hide the others'); every column
+    keeps G = 1's bits. Measured on an NVIDIA H100 80GB HBM3 at 700 W,
+    D=64, B=1024, T=16384, highest (``tools/psi_columns_sweep.py``), at G
+    = 1, 2, 4, 8: the checkpoint forward 112.17, 100.04, 100.07, 100.14
+    ms, the streamed forward 118.99, 107.26, 107.20, 107.28, the segment
+    recompute 104.59, 89.20, 90.49, 90.65, the adjoint (tail and chain)
+    243.60, 212.89, 198.09, 197.02 and the whole recompute adjoint 405.14,
+    361.10, 342.19, 342.82: the forward gains to 2 columns side by side,
+    the chain to 4, and 8 in turn gives nothing more (G=8 stays a choice
+    of ``cols_per_cta``)."""
     fits = [G for G in PSI_COLS
-            if max(psi_fwd_smem_bytes(D, G),
-                   psi_bwd_smem_bytes(D, G)) <= smem_optin] or [1]
+            if G <= PSI_COLS_RULE_MAX and psi_block_fits(D)
+            and max(psi_fwd_smem_bytes(D, G),
+                    psi_bwd_smem_bytes(D, G)) <= smem_optin] or [1]
 
     def waves(G):
         ctas = -(-B // G)
@@ -290,10 +332,21 @@ def _check_cols(cols_per_cta):
                          f"got {cols_per_cta!r}")
 
 
-def _psi_cols(B: int, D: int, device, cols_per_cta) -> int:
+def _check_psi_block(name, D: int):
+    """Raise for a bond dimension past the quad layout's registers."""
+    if not psi_block_fits(D):
+        raise NotImplementedError(
+            f"{name} at D={D}: psi's block kernels hold a thread's quarter "
+            f"of each row of Ab and Bb in {PSI_QUAD_J} registers (D <= 68); "
+            f"streaming the constants is not ported yet (ROADMAP queue B)")
+
+
+def _psi_cols(B: int, D: int, device, cols_per_cta, name="psi") -> int:
     """G of a psi block launch on ``device``: ``cols_per_cta``, or None for
-    ``psi_columns_per_cta`` on the card's SMs and shared memory."""
+    ``psi_columns_per_cta`` on the card's SMs and shared memory; raises
+    past the quad layout's D."""
     _check_cols(cols_per_cta)
+    _check_psi_block(name, D)
     if cols_per_cta is not None:
         return cols_per_cta
     props = torch.cuda.get_device_properties(device)
@@ -482,7 +535,7 @@ def psi_nll_block(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
     _check_inputs("psi_nll_block", se.device, dict(
         ab=(ab, (2 * D, 2 * D)), bb=(bb, (2 * D, 2 * D)),
         rb=(rb, (2 * D, 2 * D)), t0=(t0, (2 * D, B)), se=(se, (n_steps, B))))
-    G = _psi_cols(B, D, se.device, cols_per_cta)
+    G = _psi_cols(B, D, se.device, cols_per_cta, "psi_nll_block")
     lib = _build.library()
     _check_smem("psi_nll_block", lib.amt_psi_nll_smem_bytes(D, G), se.device,
                 D)
@@ -686,6 +739,81 @@ def psi_train_bwd_plain(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
 
 
 @torch.no_grad()
+def psi_train_bwd_tail_plain(rb, se, g, ys, n2s, *, log_eps: float,
+                             norm_eps: float, unroll: int = 16,
+                             precision: str = "highest",
+                             defer_norm: bool = False):
+    """The chain-free part of ``psi_train_bwd_plain``, over all steps at
+    once: (q [n_steps, 2D, B], ds0 [n_steps, B], dehat [n_steps, B],
+    dn2_new [n_steps, B]) with q = Rb y (2 dehat) + Rb^T (2 dehat y) the
+    e-path cotangent of y_k, ds0 = darg e the increment's cotangent
+    through the loss term, and dn2_new the cotangent of |y_{k-1}|^2 that
+    step k-1 of the chain takes inside a deferred block. Plain PyTorch,
+    any device."""
+    prep, dotf, _ = _make_dot_ops_bwd(precision)
+    n_steps = se.shape[0]
+    k = torch.arange(n_steps, device=se.device)[:, None]
+    # e divides by |y_{k-1}|^2 inside a deferred block, else by 1 (exactly)
+    inside = (k % unroll != 0) if defer_norm else torch.zeros_like(k).bool()
+    n2prev = torch.cat([torch.ones_like(n2s[:1]), n2s[:-1]])
+    n2p = torch.where(inside, n2prev, torch.ones_like(n2prev))
+    n2p_c = torch.clamp(n2p, min=norm_eps)
+    RU = dotf(prep(rb), prep(ys))                       # Rb y, every step
+    ehat = 2.0 * torch.sum(ys * RU, dim=1)
+    e = ehat / n2p_c
+    arg = torch.clamp(1.0 + e * se, min=log_eps)
+    darg = torch.where(arg > log_eps, -g / arg, torch.zeros_like(arg))
+    de = darg * se
+    dehat = de / n2p_c
+    dn2_new = torch.where(n2p > norm_eps, -de * e / n2p_c,
+                          torch.zeros_like(de))
+    dh2 = (2.0 * dehat)[:, None, :]
+    q = RU * dh2 + dotf(prep(rb.T), prep(dh2 * ys))
+    return q, darg * e, dehat, dn2_new
+
+
+@torch.no_grad()
+def psi_train_bwd_chain_plain(ab, bb, t0, se, ys, n2s, q, ds0, dn2_new, *,
+                              norm_eps: float, unroll: int = 16,
+                              precision: str = "highest",
+                              defer_norm: bool = False, dtfin=None):
+    """The serial part of ``psi_train_bwd_plain`` on the tail's outputs
+    (``psi_train_bwd_tail_plain``): (dse, dt0, dy) from the reverse chain
+    dy_k = dt' + (2 dn2 y_k + q_k), dt <- Ab^T dy + s (Bb^T dy), dse_k =
+    ds0_k + sum((Bb^T dy) .* t_k), where a renormalising step takes dn2
+    from dt (and dt' = dt inv) and any other step takes step k+1's
+    dn2_new. Plain PyTorch, any device."""
+    prep, dotf, _ = _make_dot_ops_bwd(precision)
+    n_steps = se.shape[0]
+    ts = _input_states(t0, ys, _state_scales(
+        n2s, norm_eps=norm_eps, unroll=unroll, defer_norm=defer_norm))
+    abT, bbT = prep(ab.T), prep(bb.T)
+    dt = torch.zeros_like(t0) if dtfin is None else dtfin
+    dn2n = torch.zeros_like(se[0])
+    dy_all = torch.empty_like(ys)
+    dse = torch.empty_like(se)
+    for k in reversed(range(n_steps)):
+        y = ys[k]
+        if _renorms(k, unroll, defer_norm):
+            inv = torch.rsqrt(torch.clamp(n2s[k], min=norm_eps))
+            dinv = torch.sum(dt * y, dim=0)
+            dn2 = torch.where(n2s[k] > norm_eps,
+                              -0.5 * dinv * inv * inv * inv,
+                              torch.zeros_like(dinv))
+            dt = dt * inv
+        else:
+            dn2 = dn2n
+        dy = dt + (y * (2.0 * dn2) + q[k])
+        dy_all[k] = dy
+        pdy = prep(dy)
+        du = dotf(bbT, pdy)                             # Bb^T dy
+        dse[k] = ds0[k] + torch.sum(du * ts[k], dim=0)
+        dt = dotf(abT, pdy) + se[k] * du
+        dn2n = dn2_new[k]
+    return dse, dt, dy_all
+
+
+@torch.no_grad()
 def psi_cotangents_plain(dy, ys, t0, se, n2s, dehat, *, norm_eps: float,
                          unroll: int = 16, precision: str = "highest",
                          defer_norm: bool = False):
@@ -726,7 +854,7 @@ def psi_train_fwd(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
     _check_inputs("psi_train_fwd", se.device, dict(
         ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)), t0=(t0, (n, B)),
         se=(se, (n_steps, B))))
-    G = _psi_cols(B, D, se.device, cols_per_cta)
+    G = _psi_cols(B, D, se.device, cols_per_cta, "psi_train_fwd")
     lib = _build.library()
     _check_smem("psi_train_fwd", lib.amt_psi_train_fwd_smem_bytes(D, G),
                 se.device, D)
@@ -771,7 +899,7 @@ def psi_train_fwd_ckpt(ab, bb, rb, t0, se, *, log_eps: float,
     _check_inputs("psi_train_fwd_ckpt", se.device, dict(
         ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)), t0=(t0, (n, B)),
         se=(se, (n_steps, B))))
-    G = _psi_cols(B, D, se.device, cols_per_cta)
+    G = _psi_cols(B, D, se.device, cols_per_cta, "psi_train_fwd_ckpt")
     lib = _build.library()
     _check_smem("psi_train_fwd_ckpt",
                 lib.amt_psi_train_fwd_smem_bytes(D, G), se.device, D)
@@ -822,7 +950,7 @@ def psi_recompute(ab, bb, rb, ck, se, *, norm_eps: float, unroll: int = 16,
     _check_inputs("psi_recompute", se.device, dict(
         ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)),
         ck=(ck, (n_blocks(n_steps, unroll), n, B)), se=(se, (n_steps, B))))
-    G = _psi_cols(B, D, se.device, cols_per_cta)
+    G = _psi_cols(B, D, se.device, cols_per_cta, "psi_recompute")
     lib = _build.library()
     _check_smem("psi_recompute", lib.amt_psi_train_fwd_smem_bytes(D, G),
                 se.device, D)
@@ -849,12 +977,57 @@ psi_recompute.cols_per_cta = None
 
 
 @torch.no_grad()
+def psi_train_bwd_tail(rb, se, g, ys, n2s, *, log_eps: float,
+                       norm_eps: float, unroll: int = 16,
+                       precision: str = "highest",
+                       defer_norm: bool = False):
+    """(q, ds0, dehat, dn2_new): ``psi_train_bwd_tail_plain`` for CPU
+    tensors; for CUDA tensors the tail kernel of ``csrc/psi_train_bwd.cu``
+    alone (``psi_train_bwd`` launches it before its chain, and counts its
+    launches here too)."""
+    kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
+              precision=precision, defer_norm=defer_norm)
+    if _cuda_or_raise("psi_train_bwd_tail", se):
+        return psi_train_bwd_tail_plain(rb, se, g, ys, n2s, **kw)
+    _check_options(precision, unroll)
+    n_steps, B = se.shape
+    n = rb.shape[0]
+    D = n // 2
+    _check_inputs("psi_train_bwd_tail", se.device, dict(
+        rb=(rb, (n, n)), se=(se, (n_steps, B)), g=(g, (B,)),
+        ys=(ys, (n_steps, n, B)), n2s=(n2s, (n_steps, B))))
+    _check_psi_block("psi_train_bwd_tail", D)
+    lib = _build.library()
+    _check_smem("psi_train_bwd_tail",
+                lib.amt_psi_train_bwd_tail_smem_bytes(D), se.device, D)
+    q = torch.empty_like(ys)
+    ds0 = torch.empty_like(se)
+    dehat = torch.empty_like(se)
+    dn2_new = torch.empty_like(se)
+    if B == 0 or n_steps == 0:
+        return q, ds0, dehat, dn2_new
+    err = lib.amt_psi_train_bwd_tail(
+        _ptr(rb), _ptr(se), _ptr(g), _ptr(ys), _ptr(n2s), _ptr(ds0),
+        _ptr(q), _ptr(dehat), _ptr(dn2_new), D, n_steps, B, unroll, log_eps,
+        norm_eps, PRECISIONS.index(precision), int(defer_norm),
+        _stream_ptr(se.device))
+    _build.check(lib, err, "psi_train_bwd_tail")
+    psi_train_bwd_tail.launches += 1
+    return q, ds0, dehat, dn2_new
+
+
+psi_train_bwd_tail.launches = 0
+
+
+@torch.no_grad()
 def psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
                   norm_eps: float, unroll: int = 16,
                   precision: str = "highest", defer_norm: bool = False,
                   dtfin=None, cols_per_cta=None):
-    """(dse, dt0, dy, dehat): ``psi_train_bwd_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/psi_train_bwd.cu`` for CUDA tensors, ``cols_per_cta``
+    """(dse, dt0, dy, dehat): ``psi_train_bwd_plain`` for CPU tensors; for
+    CUDA tensors the two kernels of ``csrc/psi_train_bwd.cu`` in one call,
+    the tail over all (step, column) pairs (counted in
+    ``psi_train_bwd_tail.launches``), then the chain at ``cols_per_cta``
     columns a CTA (None: ``psi_columns_per_cta``)."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm, dtfin=dtfin)
@@ -872,7 +1045,7 @@ def psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
     if dtfin is not None:
         _check_inputs("psi_train_bwd", se.device,
                       dict(dtfin=(dtfin, (n, B))))
-    G = _psi_cols(B, D, se.device, cols_per_cta)
+    G = _psi_cols(B, D, se.device, cols_per_cta, "psi_train_bwd")
     lib = _build.library()
     _check_smem("psi_train_bwd", lib.amt_psi_train_bwd_smem_bytes(D, G),
                 se.device, D)
@@ -880,16 +1053,19 @@ def psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
     dt0 = torch.empty_like(t0)
     dy = torch.empty_like(ys)
     dehat = torch.empty_like(se)
+    dn2_new = torch.empty_like(se)    # the tail's, for the chain
     if B == 0:
         return dse, dt0, dy, dehat
     err = lib.amt_psi_train_bwd(
         _ptr(ab), _ptr(bb), _ptr(rb), _ptr(t0), _ptr(se), _ptr(g), _ptr(ys),
         _ptr(n2s), None if dtfin is None else _ptr(dtfin), _ptr(dse),
-        _ptr(dt0), _ptr(dy), _ptr(dehat), D, n_steps, B, unroll, log_eps,
-        norm_eps, PRECISIONS.index(precision), int(defer_norm), G,
-        _stream_ptr(se.device))
+        _ptr(dt0), _ptr(dy), _ptr(dehat), _ptr(dn2_new), D, n_steps, B,
+        unroll, log_eps, norm_eps, PRECISIONS.index(precision),
+        int(defer_norm), G, _stream_ptr(se.device))
     _build.check(lib, err, "psi_train_bwd")
     psi_train_bwd.launches += 1
+    if n_steps > 0:
+        psi_train_bwd_tail.launches += 1
     psi_train_bwd.cols_per_cta = G
     return dse, dt0, dy, dehat
 
@@ -1222,8 +1398,12 @@ def psi_batched_fwd(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
         "psi_batched_fwd", ab, bb, rb, se, precision, unroll,
         t0=(t0, lambda n, b: (n, b)))
     lib = _build.library()
+    # the pair runs together: a shape its adjoint's CTA cannot take is
+    # refused before the forward
     _check_smem("psi_batched_fwd",
-                lib.amt_psi_batched_fwd_smem_bytes(D, unroll), se.device, D)
+                max(lib.amt_psi_batched_fwd_smem_bytes(D, unroll),
+                    lib.amt_psi_batched_bwd_smem_bytes(D, unroll)),
+                se.device, D)
     loss = se.new_empty((B,))
     ck = se.new_empty((n_blocks(n_steps, unroll), 2 * D, B))
     if B == 0:
@@ -1554,9 +1734,13 @@ def rho_sample_block_plain(ab, bb, xb, pc, ps, t0, noise, inv_a, *,
 
 
 def rho_block_fits(D: int, rank: int) -> bool:
-    """The rho kernels' thread layout: a CTA of (D/4) x ceil(rank/4)
-    threads, each owning 8 rows x 4 columns of the [2D, rank] segment, at
-    D % 4 == 0, D <= 64 and 1 <= rank <= 64."""
+    """The rho block kernels' layout (``csrc/rho_cluster.cuh``): an
+    example's [2D, rank] segment over a thread-block cluster of C CTAs by
+    its ceil(rank/4) column groups, each CTA holding the constants whole
+    and its columns as one row x BC columns a thread (BC = 4, 8 or 16, 32
+    ceil(2D/32) threads a column block, at most 512 a CTA); the sampler
+    and the forward and chain take D % 4 == 0, D <= 64 and 1 <= rank <= 64
+    (``rho_cluster_for`` picks C)."""
     return D % 4 == 0 and D <= 64 and 1 <= rank <= 64
 
 

@@ -60,6 +60,67 @@ def _inputs(dev, batch, steps, seed):
     return ins, eps, torch.full((batch,), 1.0 / batch, device=dev)
 
 
+def headline_inputs(dev, batch: int = B_HEADLINE, adjoint: bool = False,
+                    recompute: bool = False, precision: str = "highest",
+                    defer_norm: bool = True):
+    """The keyword inputs of psi's block kernels at D=64, T=16384 and
+    ``batch`` columns: scoring's and the training forwards'; with
+    ``adjoint`` also the loss cotangent g and the streamed forward's ys and
+    n2s at ``precision`` and ``defer_norm`` (the adjoint's inputs); with
+    ``recompute`` the whole recompute adjoint's (the checkpoints ck in
+    place of t0, and g)."""
+    ins, eps, g = _inputs(dev, batch, T, seed=3)
+    out = dict(ins, **eps)
+    o = dict(precision=precision, defer_norm=defer_norm, unroll=UNROLL)
+    if adjoint:
+        _, ys, n2s = block.psi_train_fwd(**out, **o)
+        out.update(g=g, ys=ys, n2s=n2s)
+    if recompute:
+        _, ck = block.psi_train_fwd_ckpt(**out, **o)
+        del out["t0"]
+        out.update(g=g, ck=ck)
+    return out
+
+
+def segment_recompute(ab, bb, rb, ck, se, norm_eps, unroll: int = UNROLL,
+                      defer_norm: bool = True, precision: str = "highest",
+                      **_):
+    """The recompute path's segment recomputes over a whole run (one
+    ``psi_recompute`` a time segment, as ``psi_recompute_bwd`` runs them),
+    on ``headline_inputs(recompute=True)``."""
+    for k0, k1 in block.recompute_segments(se.shape[0], unroll):
+        block.psi_recompute(ab, bb, rb, ck[k0 // unroll:-(-k1 // unroll)],
+                            se[k0:k1], norm_eps=norm_eps, unroll=unroll,
+                            defer_norm=defer_norm, precision=precision)
+
+
+def step_inputs(dev, batch: int = B_HEADLINE) -> dict:
+    """A damped-sine batch [batch, T] for ``headline_step``."""
+    cfg = CMPSConfig(bond_dim=D, minibatch_size=batch)
+    return {"signals": damped_sine_batch(torch.Generator(dev).manual_seed(4),
+                                         batch, T, cfg.delta_t)}
+
+
+_STEPS = {}
+
+
+def headline_step(signals, defer_norm: bool = True,
+                  precision: str = "highest"):
+    """One Adam step of psi training (``make_train_step``, the train CLI's
+    step) at D=64 on ``signals``; seeded weights and the step are made on
+    the first call and kept."""
+    from ..training import make_train_step
+    key = (tuple(signals.shape), defer_norm, precision)
+    if key not in _STEPS:
+        cfg = CMPSConfig(bond_dim=D, minibatch_size=signals.shape[0],
+                         defer_norm=defer_norm, kernel_precision=precision)
+        p = init_psi(torch.Generator(signals.device).manual_seed(0), cfg,
+                     device=signals.device)
+        _STEPS[key] = make_train_step("psi_mps", cfg, p,
+                                      device=signals.device)[1]
+    _STEPS[key](signals)
+
+
 def _outputs(ins, eps, g, o):
     """Every kernel's outputs at the options ``o`` (cols_per_cta
     included)."""
@@ -117,7 +178,8 @@ def sweep(dev, precision):
         print(f"G={G} ({-(-B // G)} CTAs): checkpoint forward "
               f"{r['ckpt']:.2f} ms, segment recompute {r['rec']:.2f}, "
               f"recompute adjoint {r['adj']:.2f}, streamed forward "
-              f"{r['fwd']:.2f}, adjoint chain {r['chain']:.2f}", flush=True)
+              f"{r['fwd']:.2f}, adjoint (tail and chain) {r['chain']:.2f}",
+              flush=True)
     del ins, con
     torch.cuda.empty_cache()
 
@@ -128,8 +190,12 @@ def sweep(dev, precision):
     _, ys, n2s = block.psi_train_fwd(**ins, **eps, **o)
     head["chain"] = _median_ms(lambda: block.psi_train_bwd(
         **ins, g=g, ys=ys, n2s=n2s, **eps, **o), 3)
+    del o["cols_per_cta"]
+    head["tail"] = _median_ms(lambda: block.psi_train_bwd_tail(
+        ins["rb"], ins["se"], g, ys, n2s, **eps, **o), 3)
     print(f"B={B_HEADLINE}, G=1: streamed forward {head['fwd']:.2f} ms, "
-          f"adjoint chain {head['chain']:.2f}", flush=True)
+          f"adjoint (tail and chain) {head['chain']:.2f}, the tail alone "
+          f"{head['tail']:.2f}", flush=True)
     return res, head
 
 

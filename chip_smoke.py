@@ -23,16 +23,18 @@ failure (the script then exits non-zero):
    the training kernels (forward, adjoint, cotangent reduction) vs their
    plain versions (the main path's variant on the whole batch, with one
    timed run of each plain version, the other three variants on a T=2048
-   prefix, with a control reading of the kernels at ``default``); the
+   prefix, with a control reading of the kernels at ``default``), and
+   psi's adjoint's tail alone vs its plain version on the whole batch; the
    training path's value and gradients vs autograd through the eager
    reference; the train CLI (3 Adam steps on damped-sine batches, then a
    second call restores step 3 and takes one more; the family's three
    training kernels' launch counts must move in that window, the other
    family's must not); the step time of ``make_train_step`` (host clock);
    CUDA-event timings (median of 5 after a warm-up) of each kernel beside
-   its bound; the cotangent reduction at each precision beside
-   ``torch.matmul`` of its products, each precision's two launches equal
-   bit for bit;
+   its bound (psi's tail too: inside the adjoint's time, and an entry of
+   its own in the kernels line); the cotangent reduction at each precision
+   beside ``torch.matmul`` of its products, each precision's two launches
+   equal bit for bit;
 6. timings of the psi sampler and NLL kernels, and one timed run of each
    plain version, beside each kernel's bound;
 7. the rho (mixed-state) family at D=64, rank 64 (``rho_phases``): the
@@ -411,6 +413,11 @@ class Family:
     dehat_scale: float     # the third reduction's weight on dehat
 
 
+# psi's adjoint launches a tail kernel before its chain (one C entry;
+# csrc/psi_train_bwd.cu), counted and timed as a kernel of its own
+PSI_TAIL = "psi_train_bwd_tail"
+
+
 def _train_kernel_names(family: str) -> dict:
     return {"fwd": f"{family}_train_fwd", "bwd": f"{family}_train_bwd",
             "cot": f"{family}_cotangents"}
@@ -435,6 +442,7 @@ def _training_wrappers() -> dict:
     counted.update((k, getattr(split, k)) for k in (
         "psi_split_fwd", "psi_split_bwd", "rho_split_fwd", "rho_split_bwd"))
     counted.update((k, getattr(block, k)) for k in BATCHED_KERNELS)
+    counted[PSI_TAIL] = block.psi_train_bwd_tail
     return counted
 
 
@@ -618,6 +626,26 @@ def train_phases(dev, fam: Family):
             if (prec, defer) == main:
                 err_at[role] = worst
             del got
+        if fam.name == "psi" and (prec, defer) == main:
+            # the adjoint's tail alone on the plain forward's streams
+            t_args = (ins["rb"], ins["se"], g, f_p[1], f_p[2])
+            t_kw = dict(eps, **o)
+            plain_ms["tail"], t_p = timed(
+                lambda: block.psi_train_bwd_tail_plain(*t_args, **t_kw))
+            got = block.psi_train_bwd_tail(*t_args, **t_kw)
+            torch.cuda.synchronize()
+            tol, worst = TOL_TRAIN[prec]["bwd"], 0.0
+            for label, a, b in zip(("q", "ds0", "dehat", "dn2_new"), got,
+                                   t_p):
+                check(bool(torch.isfinite(a).all()),
+                      f"{PSI_TAIL} {label}: non-finite")
+                err, rel = rel_err(a, b)
+                worst = max(worst, err)
+                line.append(f"tail {label} {rel:.2e}")
+                check(rel <= tol, f"{PSI_TAIL} {prec} defer={defer} "
+                                  f"{label}: rel err {rel:.3e} (tol {tol:g})")
+            err_at["tail"] = worst
+            del got, t_p
         print(f"  {prec} defer_norm={defer}, T={ins['se'].shape[0] + 1} (tol "
               + " / ".join(f"{v:g}" for v in TOL_TRAIN[prec].values())
               + "), x max|plain|: " + ", ".join(line), flush=True)
@@ -668,8 +696,11 @@ def train_phases(dev, fam: Family):
 
     phase(f"{fam.name} training path: train CLI ({shape}, T={T}), "
           f"{TRAIN_STEPS} steps, then a restore and one more step")
+    per_step = {k: 1 for k in names.values()}
+    if fam.name == "psi":
+        per_step[PSI_TAIL] = 1
     launches = train_cli_phase(dev, f"{fam.name}_mps", cfg, T, TRAIN_STEPS,
-                               {k: 1 for k in names.values()})
+                               per_step)
     reps = 5
     step_ms, _ = time_train_step(dev, f"{fam.name}_mps", cfg, fam.params, T,
                                  fam.seed + 1, reps)
@@ -696,6 +727,10 @@ def train_phases(dev, fam: Family):
     ms = {"fwd": median_ms(lambda: fwd(t_in, **o)),
           "bwd": median_ms(lambda: bwd(t_in, ys, norms, **o)),
           "cot": cot_ms[cfg.kernel_precision]}
+    if fam.name == "psi":
+        # the adjoint's tail alone (its time is in the adjoint's too)
+        tail_ms = median_ms(lambda: block.psi_train_bwd_tail(
+            t_in["rb"], t_in["se"], g, ys, norms, **eps, **o))
     # library yardstick of the reductions: the three [2D, M] x [M, 2D]
     # products as torch.matmul (fp32, TF32 off) on operands built once
     scales = block._state_scales(block._lanes(norms, rank),
@@ -769,6 +804,23 @@ def train_phases(dev, fam: Family):
               f"{plain_ms[role]:.1f} ms at T={T}, bound {bound:.3f} ms by "
               f"{by}, control at default "
               f"{ctrl.get(role, float('nan')):.2e})", flush=True)
+    if fam.name == "psi":
+        # the tail: Rb y and Rb^T (2 dehat y) a lane-step; bytes: ys read
+        # and q written, se, n2s read, ds0, dehat, dn2_new written, Rb, g
+        bound, by = bound_ms(2 * 2 * n * n * lane_steps, 4 * (
+            2 * lane_steps * n + 5 * ex_steps + n * n + B))
+        entries.append({
+            "name": PSI_TAIL, "route": "cuda",
+            "source": "audio_mps_tpu_torch/csrc/psi_train_bwd.cu",
+            "replaces": fam.replaces["bwd"] + " (its batched tail)",
+            "launches": launches[PSI_TAIL], "max_abs_err": err_at["tail"],
+            "ms": tail_ms, "plain_ms": plain_ms["tail"], "bound_ms": bound,
+            "bound_by": by, "library_ms": None})
+        print(f"  {PSI_TAIL}: {tail_ms:.3f} ms (within the adjoint's "
+              f"{ms['bwd']:.3f}), launches per train step "
+              f"{launches[PSI_TAIL] / (TRAIN_STEPS + 1):g} (plain "
+              f"{plain_ms['tail']:.1f} ms at T={T}, bound {bound:.3f} ms by "
+              f"{by})", flush=True)
     print(f"  torch.matmul of the three reductions: {library_ms:.3f} ms; "
           f"{fam.name} train step {step_ms:.2f} ms, of which the three "
           f"kernels {sum(ms.values()):.2f} ms", flush=True)
@@ -1023,10 +1075,12 @@ def recompute_phases(dev, fam: Family, cli_B: int):
     phase(f"{name} training without the stream: train CLI ({cli_shape}, "
           f"kernel_stream=off), {OFF_STEPS} steps, then a restore and one "
           f"more step")
-    launches = train_cli_phase(
-        dev, f"{name}_mps", cfg_off, T, OFF_STEPS,
-        {names["ckpt"]: 1, names["rec"]: n_seg, f"{name}_train_bwd": n_seg,
-         f"{name}_cotangents": n_seg})
+    per_step = {names["ckpt"]: 1, names["rec"]: n_seg,
+                f"{name}_train_bwd": n_seg, f"{name}_cotangents": n_seg}
+    if name == "psi":
+        per_step[PSI_TAIL] = n_seg
+    launches = train_cli_phase(dev, f"{name}_mps", cfg_off, T, OFF_STEPS,
+                               per_step)
 
     phase(f"{name} recompute timings and the kernels vs plain over the run "
           f"({cli_shape}: CUDA events, median of 5 after 1 warm-up, plain "
@@ -1149,7 +1203,7 @@ def recompute_phases(dev, fam: Family, cli_B: int):
 
 
 # psi's block forward and adjoint at the saturated batch take several
-# columns a CTA (ops/block.psi_columns_per_cta: 8 at B=1024 on 132 SMs);
+# columns a CTA (ops/block.psi_columns_per_cta: 4 at B=1024 on 132 SMs);
 # every G gives G=1's bits, held here on the T=2048 prefix at highest and
 # high, both norms, for each psi block kernel
 PSI_COLS_PRECISIONS = ("highest", "high")

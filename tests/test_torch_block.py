@@ -232,18 +232,30 @@ def test_nll_plain_unroll_only_moves_deferred_rounding():
 @pytest.mark.parametrize("B, D, want", [
     (8, 64, 1), (128, 64, 1), (132, 64, 1),   # one wave at one column a CTA
     (133, 64, 2), (264, 64, 2), (265, 64, 4),  # the fewest waves, smallest G
-    (1024, 64, 8), (4096, 64, 8),              # 128 CTAs; 512 (4 waves)
-    (1024, 8, 8), (1024, 12, 8),
-    (1024, 68, 2),     # the adjoint's CTA holds 2 columns at D=68
-    (1024, 72, 1)])    # no G fits at D=72 (the launch's check raises)
+    (528, 64, 4),                              # 132 CTAs of 4
+    (1024, 64, 4), (4096, 64, 4),              # at most 4: 2 and 8 waves
+    (1024, 8, 4), (1024, 12, 4),
+    (1024, 68, 4),     # every G fits at D=68 (Ab and Bb in registers)
+    (1024, 72, 1)])    # the quad layout stops at D=68 (the launch raises)
 def test_psi_columns_rule(B, D, want):
     """The columns a CTA of psi's block kernels on an H100's 132 SMs: 1
     while B CTAs fit one wave, else the G of fewest waves (the smallest
-    such) whose forward and adjoint CTAs fit a block's shared memory; the
-    counts at D=64, G=8 are the kernels' (213,248 and 223,104 bytes)."""
+    such, at most 4) whose forward and adjoint CTAs fit a block's shared
+    memory, at a D the quad layout takes; the counts at D=64 are the
+    kernels': 109,328 bytes at G=1 (Rb^T at a pitch of 132 words; a
+    column's double buffer of the prepped t, history of y raw, hi and lo,
+    loss ring and 32 partials), 151,072 from G=2 (two such columns walked
+    side by side) and 202,944 at every G (the adjoint's tail CTA: Rb^T and
+    Rb at a pitch of 136 words, and for each of its 2 columns five [128,
+    12] buffers, the 8 steps' partials of 34 tiles and their 8
+    factors)."""
     assert block.psi_columns_per_cta(B, D, 132) == want
-    assert block.psi_fwd_smem_bytes(64, 8) == 196608 + 16 * 128 * 8 + 256
-    assert block.psi_bwd_smem_bytes(64, 8) == 198144 + 24 * 128 * 8 + 384
+    for G in block.PSI_COLS:
+        side = 2 if G >= 2 else 1
+        assert block.psi_fwd_smem_bytes(64, G) == 4 * (
+            128 * 132 + side * (16 * 36 + 3 * 128 * 24 + 18 * 34 + 32))
+        assert block.psi_bwd_smem_bytes(64, G) == 4 * (
+            2 * 128 * 136 + 2 * (5 * 128 * 12 + 8 * 34 + 8))
     assert block.psi_columns_per_cta(B, D, 132, smem_optin=0) == 1
 
 

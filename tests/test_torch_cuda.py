@@ -144,7 +144,7 @@ def test_train_path_runs_the_three_kernels_at_d64(dev):
 
 @pytest.mark.parametrize("case", ["D72"])
 def test_train_path_raises_without_a_kernel(dev, case):
-    """D=72 (the constants overflow shared memory) raises
+    """D=72 (past the quad layout of psi's block kernels) raises
     NotImplementedError on the card before any launch. kernel_stream="off"
     runs: test_train_path_runs_without_the_stream."""
     from audio_mps_tpu_torch.training import nll_fn_for
@@ -1969,11 +1969,16 @@ def test_psi_columns_give_the_bits_of_one_column(dev, D, precision, defer):
 def test_psi_columns_rule_and_smem_agree_with_the_kernels(dev):
     """The Python shared-memory counts are the kernels' own; on this card
     the rule keeps one column a CTA at B=128 and takes the fewest waves
-    past one (8 at B=1024 on 132 SMs); a G whose CTA does not fit raises
-    before any launch."""
+    past one, at most 4 columns (4 at B=1024 on 132 SMs); at D=68, the
+    quad layout's last D,
+    every G launches (Ab and Bb sit in registers, so no G overflows shared
+    memory there), and past it (D=72) or at a G the kernels do not take
+    the wrappers raise before any launch."""
     from audio_mps_tpu_torch.ops import _build
     lib = _build.library()
     for D in (8, 12, 64, 68):
+        assert lib.amt_psi_train_bwd_tail_smem_bytes(D) == \
+            block.psi_tail_smem_bytes(D)
         for G in block.PSI_COLS:
             assert lib.amt_psi_train_fwd_smem_bytes(D, G) == \
                 block.psi_fwd_smem_bytes(D, G)
@@ -1987,18 +1992,22 @@ def test_psi_columns_rule_and_smem_agree_with_the_kernels(dev):
     assert rule(128, 64, sms) == 1
     assert rule(sms, 64, sms) == 1
     if sms == 132:
-        assert rule(1024, 64, sms) == 8
+        assert rule(1024, 64, sms) == 4
     inputs, g = _train_inputs(dev, 68, 20, B=4)
     before = _counts()
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        block.psi_train_fwd(**inputs, cols_per_cta=8)
-    _, ys, n2s = block.psi_train_fwd(**inputs, cols_per_cta=2)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        block.psi_train_bwd(**inputs, g=g, ys=ys, n2s=n2s, cols_per_cta=4)
+    _, ys, n2s = block.psi_train_fwd(**inputs, cols_per_cta=8)
+    block.psi_train_bwd(**inputs, g=g, ys=ys, n2s=n2s, cols_per_cta=4)
     with pytest.raises(ValueError, match="cols_per_cta"):
         block.psi_train_bwd(**inputs, g=g, ys=ys, n2s=n2s, cols_per_cta=3)
+    wide, g72 = _train_inputs(dev, 72, 20, B=4)
+    with pytest.raises(NotImplementedError, match="registers"):
+        block.psi_train_fwd(**wide)
+    with pytest.raises(NotImplementedError, match="registers"):
+        block.psi_train_bwd(**wide, g=g72, ys=torch.zeros(20, 144, 4,
+                                                          device=dev),
+                            n2s=torch.ones(20, 4, device=dev))
     torch.cuda.synchronize()
-    assert _counts() == (before[0] + 1, before[1], before[2])
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2])
 
 
 def test_psi_recompute_spans_at_the_rules_columns_are_the_stream(dev):
@@ -2028,6 +2037,83 @@ def test_psi_recompute_spans_at_the_rules_columns_are_the_stream(dev):
     assert block.psi_recompute.cols_per_cta == 1
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# psi's adjoint: the chain-free tail and the chain (csrc/psi_train_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _tail_inputs(dev, D, precision, defer, B=7):
+    """The training inputs of a ragged batch, the plain forward's streams
+    and the plain tail's outputs on them."""
+    inputs, g = _train_inputs(dev, D, STEPS[precision], B=B, seed=D + 1)
+    kw = dict(norm_eps=inputs.pop("norm_eps"), precision=precision,
+              defer_norm=defer, unroll=UNROLL)
+    log_eps = inputs.pop("log_eps")
+    _, ys, n2s = block.psi_train_fwd_plain(**inputs, log_eps=log_eps, **kw)
+    return inputs, g, kw, log_eps, ys, n2s
+
+
+@pytest.mark.parametrize("D", [8, 12, 64])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_psi_tail_kernel_matches_plain(dev, D, precision, defer):
+    """The tail alone (q, ds0, dehat, dn2_new over every step and column)
+    against psi_train_bwd_tail_plain on the plain forward's streams, B=7
+    (a ragged batch); one launch counted."""
+    inputs, g, kw, log_eps, ys, n2s = _tail_inputs(dev, D, precision, defer)
+    args = (inputs["rb"], inputs["se"], g, ys, n2s)
+    before = block.psi_train_bwd_tail.launches
+    got = block.psi_train_bwd_tail(*args, log_eps=log_eps, **kw)
+    torch.cuda.synchronize()
+    assert block.psi_train_bwd_tail.launches == before + 1
+    for a, b in zip(got, block.psi_train_bwd_tail_plain(
+            *args, log_eps=log_eps, **kw)):
+        _close(a, b, TOL[precision])
+
+
+@pytest.mark.parametrize("D", [8, 12, 64])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("defer", [False, True])
+@pytest.mark.parametrize("with_dtfin", [False, True])
+def test_psi_tail_and_chain_match_the_plain_adjoint(dev, D, precision, defer,
+                                                    with_dtfin):
+    """psi_train_bwd (the tail, then the chain, in one call) against
+    psi_train_bwd_plain at the existing limits, with and without a
+    cotangent dtfin carried in (the recompute adjoint's segments), B=7;
+    both kernels' launches counted."""
+    inputs, g, kw, log_eps, ys, n2s = _tail_inputs(dev, D, precision, defer)
+    dtfin = (0.1 * torch.randn(2 * D, 7, device=dev,
+                               generator=torch.Generator(dev).manual_seed(9))
+             if with_dtfin else None)
+    before = (block.psi_train_bwd.launches, block.psi_train_bwd_tail.launches)
+    got = block.psi_train_bwd(**inputs, g=g, ys=ys, n2s=n2s, log_eps=log_eps,
+                              dtfin=dtfin, **kw)
+    torch.cuda.synchronize()
+    assert (block.psi_train_bwd.launches,
+            block.psi_train_bwd_tail.launches) == tuple(c + 1 for c in before)
+    want = block.psi_train_bwd_plain(**inputs, g=g, ys=ys, n2s=n2s,
+                                     log_eps=log_eps, dtfin=dtfin, **kw)
+    for a, b in zip(got, want):
+        _close(a, b, TOL[precision])
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_psi_adjoint_is_reproducible_bit_for_bit(dev, precision):
+    """Two launches of the tail and of the whole adjoint on the same
+    streams at D=64 give the same bits (no atomics; every sum in a fixed
+    order)."""
+    inputs, g, kw, log_eps, ys, n2s = _tail_inputs(dev, 64, precision, True)
+    tails = [block.psi_train_bwd_tail(inputs["rb"], inputs["se"], g, ys, n2s,
+                                      log_eps=log_eps, **kw)
+             for _ in range(2)]
+    runs = [block.psi_train_bwd(**inputs, g=g, ys=ys, n2s=n2s,
+                                log_eps=log_eps, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*tails):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    for a, b in zip(*runs):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
 def test_products_ignore_tf32(dev):
