@@ -192,16 +192,32 @@ cudaError_t dispatch_split(int precision, bool defer, F&& f) {
 // ---------------------------------------------------------------------------
 // The forward templates' packed operands (psi here, rho_split_fwd.cuh)
 
+// The walk's vector at j as (u_r, u_i, w_r, w_i): v[j] itself where it
+// packs two vectors, (u_r, u_i, u_r, u_i) where one feeds all three
+// products.
+__device__ __forceinline__ void walk_vec(const float4& v, float (&x)[4]) {
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void walk_vec(const float2& v, float (&x)[4]) {
+  x[0] = x[2] = v.x;
+  x[1] = x[3] = v.y;
+}
+
 // Row i of A u, B u and M w in one walk over j, as cdot3 above (TR false),
 // on packed operands: ab[j * stride] = (A_r, A_i, B_r, B_i) and m[j *
 // stride] = (M_r, M_i) of the row's element j (with M_IS_B, M = B and m
-// unused), v[j] = (u_r, u_i, w_r, w_i). The twelve dots are cdot3's fmaf
-// chains in the same order, so each result is the bits cdot3 (and cdot)
-// give it; a j costs two 16-byte loads (and one 8-byte load of M), where
-// cdot3 takes ten 4-byte ones.
-template <int P, bool M_IS_B, int U>
+// unused), v[j] = (u_r, u_i, w_r, w_i) a float4, or (u_r, u_i) a float2
+// where w = u (rho's sampler: conj(C) u, conj(R) u and X^T u). The twelve
+// dots are cdot3's fmaf chains in the same order, so each result is the
+// bits cdot3 (and cdot) give it; a j costs two 16-byte loads (one 16- and
+// one 8-byte with a float2 v; and one 8-byte load of M), where cdot3 takes
+// ten 4-byte ones.
+template <int P, bool M_IS_B, int U, typename V>
 __device__ __forceinline__ void cdot3(const float4* ab, const float2* m,
-                                      int stride, const float4* v, int D,
+                                      int stride, const V* v, int D,
                                       float (&out)[6]) {
   static_assert(P != kHigh, "the split kernels take highest and default");
   float a[12];
@@ -209,7 +225,8 @@ __device__ __forceinline__ void cdot3(const float4* ab, const float2* m,
   for (int q = 0; q < 12; ++q) a[q] = 0.f;
 #pragma unroll (U)
   for (int j = 0; j < D; ++j) {
-    const float4 xv = v[j];
+    float x[4];
+    walk_vec(v[j], x);
     const float4 c = ab[j * stride];
     float mr = c.z, mi = c.w;
     if constexpr (!M_IS_B) {
@@ -217,7 +234,6 @@ __device__ __forceinline__ void cdot3(const float4* ab, const float2* m,
       mr = q.x;
       mi = q.y;
     }
-    const float x[4] = {xv.x, xv.y, xv.z, xv.w};
     const float mm[6] = {c.x, c.y, c.z, c.w, mr, mi};
 #pragma unroll
     for (int g = 0; g < 3; ++g) {

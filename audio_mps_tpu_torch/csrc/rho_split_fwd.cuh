@@ -128,6 +128,32 @@ inline size_t rho_split_fwd_smem_bytes(int D, int rank,
               loss_ring_words(l.threads, l.slots, l.cols > 0) + 64);
 }
 
+// This thread's elements e = r D + i of the [D, rank] segment: row,
+// column and ownership, in the warp-local layout (cols > 0: lane l's q-th
+// on element l + 32 q of its warp's columns) or the element layout (cols 0:
+// elements t, t + nt, ...). The split sampler takes the element layout.
+template <int E>
+__device__ __forceinline__ void rho_split_elements(int D, int rank,
+                                                   int cols, int (&row)[E],
+                                                   int (&colr)[E],
+                                                   bool (&own)[E]) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    if (cols > 0) {
+      const int l = lane + 32 * q;
+      colr[q] = warp * cols + l / D;
+      row[q] = l % D;
+      own[q] = l < cols * D && colr[q] < rank;
+    } else {
+      const int e = tid + q * static_cast<int>(blockDim.x);
+      colr[q] = e / D;
+      row[q] = e - colr[q] * D;
+      own[q] = e < D * rank;
+    }
+  }
+}
+
 // cdot3's unroll in rho's forward (64 registers a thread at 1024 threads).
 constexpr int kFwdRhoU = 2;
 
@@ -152,7 +178,7 @@ __global__ void __launch_bounds__(1024)
   const int dd = D * D;
   const int n = D * rank;
   const int nt = blockDim.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const bool wl = cols > 0;  // warp-local
   const int slots = wl ? kRingSlots : kRingSlotsCta;
   float4* mab = smem4;       // (conj(C), conj(R)), transposed and packed
@@ -169,23 +195,9 @@ __global__ void __launch_bounds__(1024)
 
   load_pair_t<P>(mab, ccr, cci, rcr, rci, D);
   load_one_t<P>(mx, xtr, xti, D);
-  // this thread's elements e = r D + i: row, column and ownership
   int row[E], colr[E];
   bool own[E];
-#pragma unroll
-  for (int q = 0; q < E; ++q) {
-    if (wl) {
-      const int l = lane + 32 * q;
-      colr[q] = warp * cols + l / D;
-      row[q] = l % D;
-      own[q] = l < cols * D && colr[q] < rank;
-    } else {
-      const int e = tid + q * nt;
-      colr[q] = e / D;
-      row[q] = e - colr[q] * D;
-      own[q] = e < n;
-    }
-  }
+  rho_split_elements(D, rank, cols, row, colr, own);
   float pr[E], pi[E], yr[E], yi[E], pcq[E], psq[E];
 #pragma unroll
   for (int q = 0; q < E; ++q) {

@@ -1,33 +1,67 @@
 // rho SDE sampler (Euler–Maruyama) in the split layout for Hopper.
 //
 // Replaces the TPU kernel audio_mps_tpu/ops/pallas_scan.py
-// _make_rho_sample_kernel (via rho_sample_pallas), the rho sampler at
-// D % 8 != 0 or with kernel_layout="split". One step on the current factor
-// segment H ([D, rank] real and imaginary parts per chain), as the
-// reference conditions each step on the realised increment
-// (model.py:103-112):
-//   gx  = X^T H,  e = sum(H_r gx_r + H_i gx_i)   (the expectation on the
-//                                                 current state, before the
-//                                                 update, pallas_scan.py
-//                                                 :694-702)
+// _make_rho_sample_kernel (:657, via rho_sample_pallas :724), the rho
+// sampler at D % 8 != 0 or with kernel_layout="split". The TPU kernel's
+// step, on the current factor segment H ([D, rank] real and imaginary parts
+// per chain; the expectation on the current state, pallas_scan.py
+// :694-702, as the reference conditions each step on the realised
+// increment, model.py:103-112):
+//   gx  = X^T H,  e = sum(H_r gx_r + H_i gx_i)
 //   inc = e dt + noise[k];  samp += inc;  wave[k] = samp
 //   y   = conj(C) H + (inc / A) conj(R) H
 //   H   = p .* (y rsqrt(max(|y|^2, eps)))
-// The kernel writes one running sum a chain; the caller multiplies by A
-// (pallas_scan.py:786, which picks one of the identical lanes of an
-// example, wave[:T, ::rank]).
+// Here the factor is carried unnormalised, as rho_sample.cu carries its
+// block state: u_0 = H_0 and u_{k+1} = p .* y_k (p rotates each row, so
+// |u_{k+1}|^2 = |y_k|^2), and step k runs
+//   gx, a1, a2 = X^T u_k, conj(C) u_k, conj(R) u_k     (one walk over j)
+//   E  = sum(u_r gx_r + u_i gx_i),  tr = |u_k|^2         (one exchange)
+//   c  = rsqrt(max(tr, eps))  (1 at step 0: H_0 is taken as given)
+//   e  = c^2 E;  inc = e dt + noise[k];  s = inc / A
+//   u_{k+1} = p .* (c (a1 + s a2))
+// the same recursion in exact arithmetic (ops/split.rho_sample_split_plain
+// takes this order). The kernel writes one running sum a chain; the caller
+// multiplies by A (pallas_scan.py:786, which picks one of the identical
+// lanes of an example, wave[:T, ::rank]).
 //
-// Design and bound as rho_split_fwd.cuh: one CTA owns one chain's segment
-// and loops over all T steps, the constants resident in shared memory,
-// thread t on the elements t, t + nt, ... of the segment; the three
-// products of a step read the same prepped factor, so they run in one pass,
-// and the two segment sums a step (e, then |y|^2) are warp shuffles and a
-// block reduction. Latency bounds it; at 8 chains it occupies 8 SMs.
+// Design. One CTA owns one chain's segment and loops over all T steps,
+// conj(C) and conj(R) transposed and packed four to an element and X^T two
+// (rho_split_fwd.cuh's load_pair_t / load_one_t) in shared memory, the
+// prepped u of each column in a step-parity buffer. The element layout of
+// the forward (rho_split_threads threads, up to 1024, thread t on the
+// elements t, t + nt, ...: at most E = 8 a thread, which takes every shape
+// within the ceiling below): a step writes its elements' prepped u, passes
+// a CTA barrier, walks each element's column once (the forwards' packed
+// cdot3 on the one vector: twelve fmaf chains over j) and leaves E's and
+// tr's atoms in registers; the two sums then leave each warp together
+// (warp shuffles, then one float2 a warp through the exchange's CTA
+// barrier, added in warp order). Two CTA barriers a step; none where the
+// segment is one warp. (Whole columns a warp at D <= 32, as the forward's
+// warp-local layout, save the first barrier but ran no faster: 0.833
+// against 0.836 us a step at D=10, rank 10 on an H100, and slower where
+// they take two elements a lane.) ops/split.rho_split_sample_layout
+// mirrors the layout and the C entry checks it.
+//
+// What bounds it. The serial chain: latency, not bytes or FLOPs (24 D^2
+// FMAs a lane-step, 2.4 KFLOP at D=10; 8 chains fill 8 of 132 SMs). A
+// step's dependent path: the element's prep and store, a CTA barrier, the
+// D-deep fmaf chains, ten shuffles and the parts' exchange.
 #include "rho_split_fwd.cuh"
 
 namespace amt {
 
-template <int P>
+// Is (threads, elems) the element layout of the [D, rank] segment:
+// rho_split_threads threads, each on up to elems (1, 2, 4 or 8) elements.
+__host__ __device__ inline bool rho_split_sample_layout_ok(int D, int rank,
+                                                           int threads,
+                                                           int elems) {
+  return D >= 1 && rank >= 1 &&
+         (elems == 1 || elems == 2 || elems == 4 || elems == 8) &&
+         threads == rho_split_threads(D, rank) &&
+         static_cast<long>(threads) * elems >= static_cast<long>(D) * rank;
+}
+
+template <int P, int E>
 __global__ void __launch_bounds__(1024)
     rho_split_sample_kernel(const float* __restrict__ ccr,
                             const float* __restrict__ cci,
@@ -43,92 +77,89 @@ __global__ void __launch_bounds__(1024)
                             const float* __restrict__ inv_a,
                             float* __restrict__ wave, int D, int T, int N,
                             int rank, float dt, float norm_eps) {
-  extern __shared__ __align__(16) uint32_t smem[];
+  extern __shared__ __align__(16) float4 smem4[];
   const int dd = D * D;
   const int n = D * rank;
-  uint32_t* ccrt = smem;                          // transposed constants
-  uint32_t* ccit = ccrt + dd;
-  uint32_t* rcrt = ccit + dd;
-  uint32_t* rcit = rcrt + dd;
-  uint32_t* xtrt = rcit + dd;
-  uint32_t* xtit = xtrt + dd;
-  float* hr = reinterpret_cast<float*>(xtit + dd);  // the factor
-  float* hi = hr + n;
-  float* vr = hi + n;                              // prepped factor
-  float* vi = vr + n;
-  float* a1r = vi + n;                             // conj(C) H
-  float* a1i = a1r + n;
-  float* a2r = a1i + n;                            // conj(R) H
-  float* a2i = a2r + n;
-  float* pcs = a2i + n;                            // rotation
-  float* pss = pcs + D;
-  float* red = pss + D;                            // 2 x 32 partials
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float4* mab = smem4;           // (conj(C), conj(R)), transposed and packed
+  float2* mx = reinterpret_cast<float2*>(mab + dd);   // X^T
+  float2* vb = mx + dd;          // [2][D rank]: prepped u, by step parity
+  float2* parts = vb + 2 * n;    // [2][32]: the warps' (E, tr) parts
 
   const int ch = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
   const size_t lanes = static_cast<size_t>(N) * rank;
   const size_t col0 = static_cast<size_t>(ch) * rank;
 
-  load_matrix_t<P>(ccrt, ccr, D);
-  load_matrix_t<P>(ccit, cci, D);
-  load_matrix_t<P>(rcrt, rcr, D);
-  load_matrix_t<P>(rcit, rci, D);
-  load_matrix_t<P>(xtrt, xtr, D);
-  load_matrix_t<P>(xtit, xti, D);
-  for (int i = tid; i < D; i += nt) {
-    pcs[i] = pc[i];
-    pss[i] = ps[i];
-  }
-  for (int e = tid; e < n; e += nt) {
-    const int r = e / D, i = e - r * D;
-    const float a = h0r[i * lanes + col0 + r], b = h0i[i * lanes + col0 + r];
-    hr[e] = a;
-    hi[e] = b;
-    vr[e] = prep<P>(a);
-    vi[e] = prep<P>(b);
+  load_pair_t<P>(mab, ccr, cci, rcr, rci, D);
+  load_one_t<P>(mx, xtr, xti, D);
+  int row[E], colr[E];
+  bool own[E];
+  rho_split_elements(D, rank, 0, row, colr, own);
+  float ur[E], ui[E], pcq[E], psq[E];
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const size_t at = row[q] * lanes + col0 + colr[q];
+    ur[q] = own[q] ? h0r[at] : 0.f;
+    ui[q] = own[q] ? h0i[at] : 0.f;
+    pcq[q] = own[q] ? pc[row[q]] : 0.f;
+    psq[q] = own[q] ? ps[row[q]] : 0.f;
   }
   const float ia = inv_a[0];
   float samp = 0.f;
-  float z = T > 0 ? noise[ch] : 0.f;
+  ChunkedInputs nz(noise + ch, static_cast<size_t>(N), T);
+  __syncthreads();   // the constants
 
   for (int k = 0; k < T; ++k) {
-    __syncthreads();
-    const float z_next =
-        k + 1 < T ? noise[static_cast<size_t>(k + 1) * N + ch] : 0.f;
-    float e_part = 0.f;
-    for (int e = tid; e < n; e += nt) {
-      const int r = e / D, i = e - r * D;
-      const float* xr = vr + r * D;
-      const float* xi = vi + r * D;
-      float gxr, gxi;
-      cdot<P>(xtrt + i, xtit + i, D, xr, xi, D, gxr, gxi);
-      e_part += hr[e] * gxr + hi[e] * gxi;
-      cdot<P>(ccrt + i, ccit + i, D, xr, xi, D, a1r[e], a1i[e]);
-      cdot<P>(rcrt + i, rcit + i, D, xr, xi, D, a2r[e], a2i[e]);
+    float2* v = vb + (k & 1) * n;
+#pragma unroll
+    for (int q = 0; q < E; ++q)
+      if (own[q])
+        v[colr[q] * D + row[q]] = make_float2(prep<P>(ur[q]), prep<P>(ui[q]));
+    step_sync(nt <= 32);
+    const float z = nz.at(k);
+    float e_part = 0.f, t_part = 0.f;
+    float a1r[E], a1i[E], a2r[E], a2i[E];
+#pragma unroll
+    for (int q = 0; q < E; ++q) {
+      a1r[q] = a1i[q] = a2r[q] = a2i[q] = 0.f;
+      if (!own[q]) continue;
+      float o[6];
+      cdot3<P, false, kFwdRhoU>(mab + row[q], mx + row[q], D,
+                                v + colr[q] * D, D, o);
+      a1r[q] = o[0];
+      a1i[q] = o[1];
+      a2r[q] = o[2];
+      a2i[q] = o[3];
+      e_part += ur[q] * o[4] + ui[q] * o[5];
+      t_part += ur[q] * ur[q] + ui[q] * ui[q];
     }
-    const float inc = col_sum(e_part, red) * dt + z;
+    // the exchange: both sums, a warp's parts through one CTA barrier
+    float E_sum = warp_sum(e_part), tr = warp_sum(t_part);
+    if (nt > 32) {
+      float2* pp = parts + 32 * (k & 1);
+      if (lane == 0) pp[warp] = make_float2(E_sum, tr);
+      __syncthreads();
+      float2 p = pp[0];
+      for (int w = 1; w < (nt >> 5); ++w) {
+        const float2 o = pp[w];
+        p.x += o.x;
+        p.y += o.y;
+      }
+      E_sum = p.x;
+      tr = p.y;
+    }
+    const float c = k > 0 ? rsqrtf(floor_at(tr, norm_eps)) : 1.f;
+    const float inc = (c * c) * E_sum * dt + z;
     samp += inc;
     if (tid == 0) wave[static_cast<size_t>(k) * N + ch] = samp;
     const float s = inc * ia;
-    float t_part = 0.f;
-    for (int e = tid; e < n; e += nt) {
-      const float yr = a1r[e] + s * a2r[e], yi = a1i[e] + s * a2i[e];
-      a1r[e] = yr;
-      a1i[e] = yi;
-      t_part += yr * yr + yi * yi;
+#pragma unroll
+    for (int q = 0; q < E; ++q) {
+      const float yr = c * fmaf(s, a2r[q], a1r[q]);
+      const float yi = c * fmaf(s, a2i[q], a1i[q]);
+      rotate_p(yr, yi, pcq[q], psq[q], ur[q], ui[q]);
     }
-    const float inv = rsqrtf(floor_at(col_sum(t_part, red + 32), norm_eps));
-    for (int e = tid; e < n; e += nt) {
-      const int i = e % D;
-      float a, b;
-      rotate_p(a1r[e] * inv, a1i[e] * inv, pcs[i], pss[i], a, b);
-      hr[e] = a;
-      hi[e] = b;
-      vr[e] = prep<P>(a);
-      vi[e] = prep<P>(b);
-    }
-    z = z_next;
   }
 }
 
@@ -136,34 +167,38 @@ __global__ void __launch_bounds__(1024)
 
 extern "C" {
 
-// Dynamic shared memory of one sampler CTA: conj(C), conj(R), X^T (4
-// bytes an element), eight [D, rank] vectors (the factor, its prepped copy,
-// conj(C) H and conj(R) H), pc, ps and 64 reduction floats.
+// Dynamic shared memory of one sampler CTA: conj(C), conj(R) and X^T
+// packed (24 D^2 bytes), the step-parity buffers of the prepped u (16 D
+// rank) and the parts of the exchange (2 x 32 float2).
 size_t amt_rho_split_sample_smem_bytes(int D, int rank) {
   const size_t d = static_cast<size_t>(D), n = d * rank;
-  return 4 * (6 * d * d + 8 * n + 2 * d + 64);
+  return 4 * (6 * d * d + 4 * n + 128);
 }
 
 // Running waveform wave[T, N] of N chains from noise[T, N] and the factors
-// h0r, h0i [D, N * rank]; see the kernel note above. precision: 0 highest,
-// 2 default. Returns a cudaError_t.
+// h0r, h0i [D, N * rank]; see the kernel note above. (threads, elems):
+// the layout (ops/split.rho_split_sample_layout). precision: 0 highest, 2
+// default. Returns a cudaError_t.
 int amt_rho_split_sample(const float* ccr, const float* cci, const float* rcr,
                          const float* rci, const float* xtr, const float* xti,
                          const float* pc, const float* ps, const float* h0r,
                          const float* h0i, const float* noise,
                          const float* inv_a, float* wave, int D, int T, int N,
-                         int rank, float dt, float norm_eps, int precision,
-                         void* stream) {
-  if (D < 1 || rank < 1) return static_cast<int>(cudaErrorInvalidValue);
+                         int rank, int threads, int elems, float dt,
+                         float norm_eps, int precision, void* stream) {
+  if (!amt::rho_split_sample_layout_ok(D, rank, threads, elems))
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       amt::dispatch_split(precision, false, [&](auto p, auto) {
-        return amt::launch_smem(
-            amt::rho_split_sample_kernel<decltype(p)::value>, dim3(N),
-            amt::rho_split_threads(D, rank),
-            amt_rho_split_sample_smem_bytes(D, rank),
-            static_cast<cudaStream_t>(stream), ccr, cci, rcr, rci, xtr, xti,
-            pc, ps, h0r, h0i, noise, inv_a, wave, D, T, N, rank, dt,
-            norm_eps);
+        return amt::dispatch_cols(elems, [&](auto e) {
+          return amt::launch_smem(
+              amt::rho_split_sample_kernel<decltype(p)::value,
+                                           decltype(e)::value>,
+              dim3(N), threads, amt_rho_split_sample_smem_bytes(D, rank),
+              static_cast<cudaStream_t>(stream), ccr, cci, rcr, rci, xtr,
+              xti, pc, ps, h0r, h0i, noise, inv_a, wave, D, T, N, rank, dt,
+              norm_eps);
+        });
       }));
 }
 

@@ -44,8 +44,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # ab, bb, pc, ps, t0, noise, inv_a, wave, D, T, N, dt, norm_eps,
-    # precision, stream
-    "amt_psi_sample": ([_P] * 8 + [_I, _I, _I, _F, _F, _I, _P], _I),
+    # precision, quad, stream
+    "amt_psi_sample": ([_P] * 8 + [_I, _I, _I, _F, _F, _I, _I, _P], _I),
     # ab, bb, rb, t0, se, loss, D, n_steps, B, unroll, log_eps, norm_eps,
     # precision, defer_norm, cols_per_cta, stream
     "amt_psi_nll": ([_P] * 6 + [_I, _I, _I, _I, _F, _F, _I, _I, _I, _P],
@@ -124,8 +124,8 @@ _SIGNATURES = {
     "amt_psi_split_bwd": ([_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _I, _P],
                           _I),
     # ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, noise, inv_a, wave, D,
-    # T, N, rank, dt, norm_eps, precision, stream
-    "amt_rho_split_sample": ([_P] * 13 + [_I] * 4 + [_F, _F, _I, _P], _I),
+    # T, N, rank, threads, elems, dt, norm_eps, precision, stream
+    "amt_rho_split_sample": ([_P] * 13 + [_I] * 6 + [_F, _F, _I, _P], _I),
     # ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, se, loss, D, n_steps,
     # B, rank, unroll, log_eps, norm_eps, precision, defer_norm, warp_local,
     # stream
@@ -149,6 +149,7 @@ _SIGNATURES = {
     # log_eps, norm_eps, precision, stream
     "amt_psi_probe": ([_P] * 7 + [_I] * 6 + [_F, _F, _I, _P], _I),
     "amt_psi_sample_smem_bytes": ([_I], ctypes.c_size_t),
+    "amt_psi_sample_quad": ([_I], _I),
     "amt_psi_nll_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_psi_train_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_psi_train_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),

@@ -379,36 +379,74 @@ def psi_sample_inputs(params, cfg: CMPSConfig, noise) -> dict:
 def psi_sample_block_plain(ab, bb, pc, ps, t0, noise, inv_a, *, dt: float,
                            norm_eps: float, precision: str = "highest"):
     """Running waveform [T, N] (the cumulative sum of the increments; the
-    caller scales by A and transposes). Plain PyTorch, any device."""
+    caller scales by A and transposes). The expectation is taken on the
+    current state with the p twist, then the state is updated with the
+    realised increment / A and renormalised. The state is carried
+    unnormalised, in the kernel's order: u_0 = t0 and u_{k+1} = y_k, the
+    update before its renorm; step k forms a = Ab u_k and b = Bb u_k,
+    applies c_k = rsqrt(max(sum(u_k^2), norm_eps)) (1 at step 0, where t0
+    is taken as given) after its products, e_k = 2 c_k^2 E_k with E_k =
+    sum_r b_r (pc u_r + ps u_{r+D}) + b_{r+D} (pc u_{r+D} - ps u_r) (the
+    twist regrouped by the rows of b) and u_{k+1} = c_k (a + s_k b), the
+    same recursion in exact arithmetic. Plain PyTorch, any device."""
     prep, dotf = _make_dot_ops(precision)
     D = pc.shape[0]
     abp, bbp = prep(ab), prep(bb)
     pc, ps = pc[:, None], ps[:, None]
-    t = t0
+    u = t0
     samp = torch.zeros_like(noise[:1])
     out = torch.empty_like(noise)
     for k in range(noise.shape[0]):
-        tp = prep(t)
-        ru = dotf(bbp, tp)                   # R x (reused below)
-        rur, rui = ru[:D], ru[D:]
-        wr = pc * rur - ps * rui             # w = p .* ru
-        wi = pc * rui + ps * rur
-        e = 2.0 * torch.sum(t[:D] * wr + t[D:] * wi, dim=0, keepdim=True)
-        inc = e * dt + noise[k:k + 1]
+        up = prep(u)
+        a, b = dotf(abp, up), dotf(bbp, up)
+        ur, ui = u[:D], u[D:]
+        E = torch.sum(b[:D] * (pc * ur + ps * ui)
+                      + b[D:] * (pc * ui - ps * ur), dim=0, keepdim=True)
+        c = (torch.rsqrt(torch.clamp(torch.sum(u * u, dim=0, keepdim=True),
+                                     min=norm_eps))
+             if k else torch.ones_like(E))
+        inc = 2.0 * c * c * E * dt + noise[k:k + 1]
         samp = samp + inc
         out[k:k + 1] = samp
-        s = inc * inv_a
-        y = dotf(abp, tp) + s * ru           # y = C x + (inc/A) R x
-        n2 = torch.sum(y * y, dim=0, keepdim=True)
-        t = y * torch.rsqrt(torch.clamp(n2, min=norm_eps))
+        u = c * (a + (inc * inv_a) * b)
     return out
+
+
+PSI_SAMPLE_BODIES = ("quad", "row")
+
+
+def psi_sample_body(D: int) -> str:
+    """The body of ``csrc/psi_sample.cu`` at bond dimension D, mirrored from
+    its ``psi_sample_quad``: "quad" (the quad layout of psi's block
+    forward, a row's quarter of Ab and Bb in each thread's registers) where
+    its CTA is at most 512 threads (D <= 64), else "row" (one thread a row,
+    Ab^T and Bb^T in shared memory: D=72 and 80 of the sampler's
+    D % 8 == 0). A pure function of D."""
+    return ("quad" if psi_block_fits(D) and 4 * _quad(D)[1] <= 512
+            else "row")
+
+
+def psi_sample_smem_bytes(D: int, body: Optional[str] = None) -> int:
+    """Dynamic shared memory of one sampler CTA (its ``psi_sample_words``):
+    the parts of the step's two sums (2 x 16 float2), the step-parity
+    buffers of the walk's vector (quad: 4 quarters of 2 x 36 floats; row:
+    2 x 2D) and of the raw state [2][2D], and in the row body Ab^T and
+    Bb^T."""
+    n = 2 * D
+    quad = (body or psi_sample_body(D)) == "quad"
+    return 4 * (64 + (16 * PSI_QUAD_PITCH if quad else 4 * n) + 2 * n
+                + (0 if quad else 2 * n * n))
 
 
 @torch.no_grad()
 def psi_sample_block(ab, bb, pc, ps, t0, noise, inv_a, *, dt: float,
-                     norm_eps: float, precision: str = "highest"):
+                     norm_eps: float, precision: str = "highest",
+                     _body: Optional[str] = None):
     """Running waveform [T, N]: ``psi_sample_block_plain`` for CPU tensors,
-    the CUDA kernel ``csrc/psi_sample.cu`` for CUDA tensors."""
+    the CUDA kernel ``csrc/psi_sample.cu`` for CUDA tensors, in the body of
+    ``psi_sample_body`` (``_body`` forces one; the last launch's in
+    ``.body``). Raises NotImplementedError where the row body's constants
+    pass one block's shared memory (D > 80)."""
     if _cuda_or_raise("psi_sample_block", noise):
         return psi_sample_block_plain(ab, bb, pc, ps, t0, noise, inv_a,
                                       dt=dt, norm_eps=norm_eps,
@@ -416,12 +454,18 @@ def psi_sample_block(ab, bb, pc, ps, t0, noise, inv_a, *, dt: float,
     _check_options(precision)
     T, N = noise.shape
     D = pc.shape[0]
+    body = _body or psi_sample_body(D)
+    if body not in PSI_SAMPLE_BODIES:
+        raise ValueError(f"psi_sample_block: body {body!r}")
+    if body == "quad" and psi_sample_body(D) != "quad":
+        raise ValueError(f"psi_sample_block: the quad body does not take "
+                         f"D={D}")
     _check_inputs("psi_sample_block", noise.device, dict(
         ab=(ab, (2 * D, 2 * D)), bb=(bb, (2 * D, 2 * D)), pc=(pc, (D,)),
         ps=(ps, (D,)), t0=(t0, (2 * D, N)), noise=(noise, (T, N)),
         inv_a=(inv_a, (1,))))
     lib = _build.library()
-    _check_smem("psi_sample_block", lib.amt_psi_sample_smem_bytes(D),
+    _check_smem("psi_sample_block", psi_sample_smem_bytes(D, body),
                 noise.device, D)
     wave = torch.empty_like(noise)
     if T == 0 or N == 0:
@@ -429,13 +473,16 @@ def psi_sample_block(ab, bb, pc, ps, t0, noise, inv_a, *, dt: float,
     err = lib.amt_psi_sample(
         _ptr(ab), _ptr(bb), _ptr(pc), _ptr(ps), _ptr(t0), _ptr(noise),
         _ptr(inv_a), _ptr(wave), D, T, N, dt, norm_eps,
-        PRECISIONS.index(precision), _stream_ptr(noise.device))
+        PRECISIONS.index(precision), int(body == "quad"),
+        _stream_ptr(noise.device))
     _build.check(lib, err, "psi_sample_block")
     psi_sample_block.launches += 1
+    psi_sample_block.body = body
     return wave
 
 
 psi_sample_block.launches = 0
+psi_sample_block.body = None
 
 
 # ===========================================================================

@@ -62,12 +62,13 @@ def rho_sampler_fits(cfg: CMPSConfig, rank: int, device) -> bool:
     ``device``: the block sampler where the layout resolves to block
     (D % 8 == 0, within ``block.rho_block_fits``; its CTA at some cluster
     the card holds, ``block.rho_sample_fits``), else the split one, within
-    one block's shared memory?"""
+    one block's shared memory (its ceiling,
+    ``split.rho_split_sample_ceiling_bytes``)?"""
     D = cfg.bond_dim
     if cfg.kernel_layout != "split" and block.supports_block_sampler(cfg):
         return (block.rho_block_fits(D, rank)
                 and block.rho_sample_fits(D, rank, device))
-    need = _build.library().amt_rho_split_sample_smem_bytes(D, rank)
+    need = split.rho_split_sample_ceiling_bytes(D, rank)
     return need <= torch.cuda.get_device_properties(
         device).shared_memory_per_block_optin
 

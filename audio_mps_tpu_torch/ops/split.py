@@ -196,6 +196,38 @@ def rho_split_fwd_layout(D: int, rank: int,
                              4 * words)
 
 
+class RhoSplitSampleLayout(NamedTuple):
+    """The layout of one CTA of rho's split sampler."""
+    threads: int
+    elems: int       # elements a thread at most (1, 2, 4 or 8)
+
+
+def rho_split_sample_layout(D: int, rank: int) -> RhoSplitSampleLayout:
+    """The layout ``csrc/rho_split_sample.cu`` launches for a chain's
+    [D, rank] segment (its C entry checks it with
+    ``rho_split_sample_layout_ok``): the element layout, D rank threads
+    rounded to warps (at most 1024), each on the fewest elements, a power
+    of 2, that cover the segment. A pure function of D and rank; raises
+    ValueError past 8 elements a thread (8192 elements, past the ceiling
+    of ``rho_split_sample_ceiling_bytes``)."""
+    threads = _rho_split_threads(D, rank)
+    elems = 1 << (-(-(D * rank) // threads) - 1).bit_length()
+    if elems > 8:
+        raise ValueError(f"rho split sampler: D={D}, rank {rank} needs "
+                         f"{elems} elements a thread, past 8")
+    return RhoSplitSampleLayout(threads, elems)
+
+
+def rho_split_sample_ceiling_bytes(D: int, rank: int) -> int:
+    """The split sampler's ceiling, kept from its first design: it takes
+    the shapes whose 4 (6 D^2 + 8 D rank + 2 D + 64) bytes fit one block's
+    shared memory (D=64 at full rank on an H100, not 65), so that
+    ``scan.rho_sampler_fits`` and ``rho_sample_split`` accept the shapes
+    they did. The kernel's own CTA (its ``amt_rho_split_sample_smem_bytes``,
+    4 (6 D^2 + 4 D rank + 128)) fits wherever the ceiling does."""
+    return 4 * (6 * D * D + 8 * D * rank + 2 * D + 64)
+
+
 def _bwd_reduction_words(unroll: int, warps: int, form: str) -> int:
     """The adjoints' warp partials and reduction floats: the re-run's two
     a step a warp and 64, the sweep's one and 64; the single form's roles
@@ -897,8 +929,14 @@ def rho_sample_split_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i,
     rank] (the caller scales by A and transposes), the TPU's
     ``pallas_scan._make_rho_sample_kernel``: the expectation e = sum(H . X^T
     H) on the current factor, ``inc = e dt + noise``, the update with the
-    realised increment / A, renormalise by the trace, rotate by p. Plain
-    PyTorch, any device."""
+    realised increment / A, renormalise by the trace, rotate by p. The
+    factor is carried unnormalised, in the kernel's order: u_0 = h0 and
+    u_{k+1} = p .* y_k, the rotated update before its renorm (|p .* y| =
+    |y|); step k forms gx = X^T u_k, a1 = conj(C) u_k and a2 = conj(R) u_k,
+    applies c_k = rsqrt(max(|u_k|^2, norm_eps)) (1 at step 0, where h0 is
+    taken as given) after its products, e_k = c_k^2 sum(u_k . gx) and
+    u_{k+1} = p .* (c_k (a1 + s_k a2)), the same recursion in exact
+    arithmetic. Plain PyTorch, any device."""
     _check_split_options(precision)
     prep, dotf = _make_dot_ops(precision)
     rank = _rank_of("rho_sample_split", h0r.shape[1], noise.shape[1])
@@ -906,21 +944,24 @@ def rho_sample_split_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i,
     rcp = (prep(rcr), prep(rci))
     xtp = (prep(xtr), prep(xti))
     pc, ps = pc[:, None], ps[:, None]
-    hr, hi = h0r, h0i
+    ur, ui = h0r, h0i
     samp = torch.zeros_like(noise[0])
     out = torch.empty_like(noise)
     for k in range(noise.shape[0]):
-        xr, xi = prep(hr), prep(hi)
+        xr, xi = prep(ur), prep(ui)
         gxr, gxi = _cdot(dotf, *xtp, xr, xi)
-        e = _segment_sum(hr * gxr + hi * gxi, rank)
-        inc = e * dt + noise[k]
+        a1r, a1i = _cdot(dotf, *ccp, xr, xi)
+        a2r, a2i = _cdot(dotf, *rcp, xr, xi)
+        E = _segment_sum(ur * gxr + ui * gxi, rank)
+        c = (torch.rsqrt(torch.clamp(_segment_sum(ur * ur + ui * ui, rank),
+                                     min=norm_eps))
+             if k else torch.ones_like(E))
+        inc = c * c * E * dt + noise[k]
         samp = samp + inc
         out[k] = samp
-        yr, yi, _, _ = _rho_update(dotf, ccp, rcp, xr, xi,
-                                   _lanes(inc * inv_a, rank))
-        inv = _lanes(torch.rsqrt(torch.clamp(
-            _segment_sum(yr * yr + yi * yi, rank), min=norm_eps)), rank)
-        hr, hi = _rotate_p(yr * inv, yi * inv, pc, ps)
+        s, cl = _lanes(inc * inv_a, rank), _lanes(c, rank)
+        ur, ui = _rotate_p(cl * (a1r + s * a2r), cl * (a1i + s * a2i), pc,
+                           ps)
     return out
 
 
@@ -929,7 +970,10 @@ def rho_sample_split(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, noise,
                      inv_a, *, dt: float, norm_eps: float,
                      precision: str = "highest"):
     """Running waveform [T, N]: ``rho_sample_split_plain`` for CPU tensors,
-    the CUDA kernel ``csrc/rho_split_sample.cu`` for CUDA tensors."""
+    the CUDA kernel ``csrc/rho_split_sample.cu`` for CUDA tensors in the
+    layout of ``rho_split_sample_layout`` (the last launch's in
+    ``.layout``). Raises NotImplementedError past the sampler's ceiling
+    (``rho_split_sample_ceiling_bytes``)."""
     if _cuda_or_raise("rho_sample_split", noise):
         return rho_sample_split_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps,
                                       h0r, h0i, noise, inv_a, dt=dt,
@@ -943,22 +987,30 @@ def rho_sample_split(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i, noise,
                   noise=(noise, (T, N)), inv_a=(inv_a, (1,)))
     _check_inputs("rho_sample_split", noise.device, shapes)
     lib = _build.library()
-    _check_smem("rho_sample_split",
-                lib.amt_rho_split_sample_smem_bytes(D, rank), noise.device, D)
+    have = _smem_optin(noise.device)
+    if rho_split_sample_ceiling_bytes(D, rank) > have:
+        raise NotImplementedError(
+            f"rho_sample_split at D={D}, rank {rank}: past the split "
+            f"sampler's ceiling (4 (6 D^2 + 8 D rank + 2 D + 64) bytes "
+            f"within the {have} of one block; D=64 at full rank). Streaming "
+            f"the constants is not ported yet (ROADMAP queue B)")
+    lay = rho_split_sample_layout(D, rank)
     wave = torch.empty_like(noise)
     if T == 0 or N == 0:
         return wave
     err = lib.amt_rho_split_sample(
         *[_ptr(x) for x in (ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i,
                             noise, inv_a, wave)],
-        D, T, N, rank, dt, norm_eps, PRECISIONS.index(precision),
-        _stream_ptr(noise.device))
+        D, T, N, rank, lay.threads, lay.elems, dt, norm_eps,
+        PRECISIONS.index(precision), _stream_ptr(noise.device))
     _build.check(lib, err, "rho_sample_split")
     rho_sample_split.launches += 1
+    rho_sample_split.layout = lay
     return wave
 
 
 rho_sample_split.launches = 0
+rho_sample_split.layout = None
 
 
 def _rho_split_chain_plain(ccr, cci, rcr, rci, xtr, xti, pc, ps, h0r, h0i,

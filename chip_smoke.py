@@ -3039,6 +3039,17 @@ def rho_split_phases(dev):
                       nll_full[False]),
           "the rho training forward's loss at defer_norm=False is not the "
           "NLL's bit for bit")
+    s_one = dict(s_in, noise=s_in["noise"][:, :1].contiguous(),
+                 h0r=s_in["h0r"][:, :RHO_SPLIT_RANK].contiguous(),
+                 h0i=s_in["h0i"][:, :RHO_SPLIT_RANK].contiguous())
+    one_ms = median_ms(lambda: kernels["sample"](**s_one))
+    lay = split.rho_sample_split.layout
+    print(f"  rho_sample_split ({lay.threads} threads of {lay.elems} "
+          f"element(s)): {SPLIT_N_CHAINS} chains "
+          f"{ms['sample']:.3f} ms ({ms['sample'] / SPLIT_T * 1e3:.3f} us a "
+          f"step), one chain {one_ms:.3f} ms "
+          f"({one_ms / SPLIT_T * 1e3:.3f} us a step)", flush=True)
+    del s_one
     layout = split.rho_split_fwd.layout
     variants = {
         "rho_nll_split/defer=True": median_ms(
@@ -3629,6 +3640,15 @@ def main() -> int:
     n = 2 * D
     sample_ms = median_ms(
         lambda: block.psi_sample_block(**s_in, precision="highest"))
+    s_one = dict(s_in, noise=s_in["noise"][:, :1].contiguous(),
+                 t0=s_in["t0"][:, :1].contiguous())
+    sample_one_ms = median_ms(
+        lambda: block.psi_sample_block(**s_one, precision="highest"))
+    print(f"  psi_sample_block ({block.psi_sample_block.body} body): "
+          f"{N_CHAINS} chains {sample_ms:.3f} ms "
+          f"({sample_ms / T_SAMPLE * 1e3:.3f} us a step), one chain "
+          f"{sample_one_ms:.3f} ms ({sample_one_ms / T_SAMPLE * 1e3:.3f} us "
+          f"a step)", flush=True)
     # plain versions: one run each, the sampler's on the T_PLAIN prefix it
     # is held on (its whole run takes ~18 s, 3% of the script's limit)
     sample_plain_ms = median_ms(
@@ -3681,7 +3701,7 @@ def main() -> int:
         print(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.1f} "
               f"ms, bound {k['bound_ms']:.3f} ms by {k['bound_by']})",
               flush=True)
-    del s_in, n_in, noise, signals, wave
+    del s_in, s_one, n_in, noise, signals, wave
     _free()
     split_entries = split_phases(dev)
     _free()

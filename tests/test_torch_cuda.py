@@ -39,20 +39,73 @@ def _close(got, want, tol):
     assert err <= tol * want.abs().max().item(), err
 
 
-@pytest.mark.parametrize("D", [8, 16, 64])
-@pytest.mark.parametrize("precision", ["highest", "high", "default"])
-def test_sampler_kernel_matches_plain(dev, D, precision):
+def _psi_sample_inputs(dev, D, N, steps):
     cfg = CMPSConfig(bond_dim=D)
     p = init_psi(torch.Generator(dev).manual_seed(D), cfg, device=dev)
-    noise = core._sample_noise(cfg, torch.Generator(dev).manual_seed(1), 3,
-                               STEPS[precision], 1.0)
-    inputs = block.psi_sample_inputs(p, cfg, noise)
+    noise = core._sample_noise(cfg, torch.Generator(dev).manual_seed(1), N,
+                               steps, 1.0)
+    return block.psi_sample_inputs(p, cfg, noise)
+
+
+@pytest.mark.parametrize("D", [8, 16, 64, 72, 80])
+@pytest.mark.parametrize("N", [1, 3, 133])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_sampler_kernel_matches_plain(dev, D, N, precision):
+    """The sampler in the body of psi_sample_body (quad to D=64, row at 72
+    and 80), one chain, three, and 133 (past one wave of 132 SMs)."""
+    inputs = _psi_sample_inputs(dev, D, N, STEPS[precision])
     before = block.psi_sample_block.launches
     got = block.psi_sample_block(**inputs, precision=precision)
     torch.cuda.synchronize()
     assert block.psi_sample_block.launches == before + 1
+    assert block.psi_sample_block.body == block.psi_sample_body(D)
     _close(got, block.psi_sample_block_plain(**inputs, precision=precision),
            TOL[precision])
+
+
+@pytest.mark.parametrize("D", [8, 64])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_sampler_row_body_at_quad_shapes(dev, D, precision):
+    """The row body, forced at a D the rule gives the quad body, matches the
+    plain version too; the quad body, forced past D=64, raises ValueError
+    before any launch."""
+    inputs = _psi_sample_inputs(dev, D, 5, STEPS[precision])
+    row = block.psi_sample_block(**inputs, precision=precision, _body="row")
+    torch.cuda.synchronize()
+    assert block.psi_sample_block.body == "row"
+    _close(row, block.psi_sample_block_plain(**inputs, precision=precision),
+           TOL[precision])
+    wide = _psi_sample_inputs(dev, 72, 2, 4)
+    before = block.psi_sample_block.launches
+    with pytest.raises(ValueError, match="quad"):
+        block.psi_sample_block(**wide, _body="quad")
+    assert block.psi_sample_block.launches == before
+
+
+def test_sampler_fits_agree_with_the_kernels(dev):
+    """scan.psi_sampler_fits is true where the block sampler launches (every
+    D % 8 == 0 to 80) and false at D=88, where the wrapper raises
+    NotImplementedError before any launch; the bodies' byte counts and the
+    body rule are the kernel's own."""
+    from audio_mps_tpu_torch.ops import _build, scan
+    lib = _build.library()
+    for D in range(8, 97, 8):
+        assert lib.amt_psi_sample_smem_bytes(D) == \
+            block.psi_sample_smem_bytes(D)
+        assert bool(lib.amt_psi_sample_quad(D)) == (
+            block.psi_sample_body(D) == "quad")
+    for D in (72, 80, 88):
+        fits = scan.psi_sampler_fits(CMPSConfig(bond_dim=D), dev)
+        assert fits == (D <= 80)
+        inputs = _psi_sample_inputs(dev, D, 2, 20)
+        before = block.psi_sample_block.launches
+        if fits:
+            assert torch.isfinite(block.psi_sample_block(**inputs)).all()
+            assert block.psi_sample_block.launches == before + 1
+        else:
+            with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+                block.psi_sample_block(**inputs)
+            assert block.psi_sample_block.launches == before
 
 
 @pytest.mark.parametrize("D", [8, 12, 16, 64])
@@ -1321,6 +1374,56 @@ def test_rho_split_sampler_at_d12_matches_plain(dev, precision):
     assert _rho_split_counts() == (before[0] + 1,) + before[1:]
 
 
+# (D, rank, elements a thread): one warp, no CTA barrier (D=6, rank 3);
+# one element a thread (D=10, 12, 20); two (D=33), four (D=64 at full
+# rank) and eight (D=40, rank 110: 4400 elements).
+RHO_SPLIT_SAMPLE_CASES = [(6, 3, 1), (10, 10, 1), (12, 3, 1), (20, 20, 1),
+                          (33, 33, 2), (64, 64, 4), (40, 110, 8)]
+
+
+@pytest.mark.parametrize("D, rank, elems", RHO_SPLIT_SAMPLE_CASES)
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_rho_split_sampler_layouts_match_plain(dev, D, rank, elems,
+                                               precision):
+    """The rho split sampler at every elements-a-thread instantiation it
+    takes against its plain version: highest over 300 steps at TOL,
+    default over 16; the launch records the rule's layout. The kernel's
+    CTA fits wherever the ceiling does."""
+    from audio_mps_tpu_torch.ops import _build, split
+    s_in, _, _, _ = _rho_split_inputs(dev, D, rank, "split",
+                                      STEPS[precision], B=2)
+    before = split.rho_sample_split.launches
+    got = split.rho_sample_split(**s_in, precision=precision)
+    torch.cuda.synchronize()
+    assert split.rho_sample_split.launches == before + 1
+    assert split.rho_sample_split.layout == split.rho_split_sample_layout(
+        D, rank)
+    assert split.rho_sample_split.layout.elems == elems
+    _close(got, split.rho_sample_split_plain(**s_in, precision=precision),
+           TOL[precision])
+    have = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert _build.library().amt_rho_split_sample_smem_bytes(D, rank) <= have
+
+
+def test_rho_split_sampler_fits_agree_with_the_kernel(dev):
+    """scan.rho_sampler_fits in the split layout is true where the split
+    sampler launches (D=64 at full rank; D=33, rank 33) and false at D=65
+    full rank, where it raises before any launch."""
+    from audio_mps_tpu_torch.ops import scan, split
+    for D, fits in ((33, True), (64, True), (65, False)):
+        cfg = CMPSConfig(bond_dim=D, kernel_layout="split")
+        assert scan.rho_sampler_fits(cfg, D, dev) is fits
+        s_in, _, _, _ = _rho_split_inputs(dev, D, D, "split", 12, B=2)
+        before = split.rho_sample_split.launches
+        if fits:
+            assert torch.isfinite(split.rho_sample_split(**s_in)).all()
+            assert split.rho_sample_split.launches == before + 1
+        else:
+            with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+                split.rho_sample_split(**s_in)
+            assert split.rho_sample_split.launches == before
+
+
 @pytest.mark.parametrize("defer", [False, True])
 def test_rho_split_adjoint_forms_give_the_same_bits(dev, defer):
     """The adjoint's two forms with their slabs in shared memory and in the
@@ -1362,8 +1465,9 @@ def test_rho_split_adjoint_is_reproducible_bit_for_bit(dev):
 
 def test_rho_split_ceilings_raise_before_any_launch(dev):
     """The stated ceilings (ops/split.py) are the kernels' own byte counts
-    on this card: at full rank the sampler, NLL and training forward take
-    D=64 and not 65, the adjoint (unroll 16) D=53 and not 54; past them
+    on this card: at full rank the sampler (its ceiling, kept from its
+    first design), NLL and training forward take D=64 and not 65, the
+    adjoint (unroll 16) D=53 and not 54; past them
     each wrapper raises NotImplementedError and no launch counter moves;
     scan.rho_sampler_fits agrees (true at D=10 full rank and D=12, false
     at D=66 full rank)."""
@@ -1371,7 +1475,7 @@ def test_rho_split_ceilings_raise_before_any_launch(dev):
     lib = _build.library()
     have = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     for fn, ok, past in (
-            (lib.amt_rho_split_sample_smem_bytes, (64, 64), (65, 65)),
+            (split.rho_split_sample_ceiling_bytes, (64, 64), (65, 65)),
             (lib.amt_rho_split_fwd_smem_bytes, (64, 64), (65, 65)),
             (lambda D, r: lib.amt_rho_split_bwd_smem_bytes(D, r, 16),
              (53, 53), (54, 54))):
