@@ -227,90 +227,6 @@ __device__ __forceinline__ void store_cols(float* vh, float* vl, int i,
   for (int g = 0; g < G; ++g) store_vec<P>(vh, vl, i * G + g, x[g]);
 }
 
-// The chunk of state columns that one walk of a matrix row serves in the
-// batched ("limb") products of psi_batched_bwd.cu and psi_probe.cu.
-constexpr int kLimb = 8;
-
-// out[q] = sum_j m[j*stride] v_q[j] over j < n for the kLimb vectors
-// v_q[j] = y[j*kp + q] of a [n, kp] shared buffer: each 4-byte load of the
-// matrix feeds kLimb products (3 kLimb at kHigh), and each row of the
-// chunk comes in two 16-byte broadcast loads. PREPPED: y holds the prepped
-// values of store_vec (yl the kHigh lo parts); otherwise y holds fp32 values
-// and each is prepped as it is loaded (yl unused), to the same bits. Per
-// vector, the sum runs over j in order as dot_strided's does, so out[q] is
-// the same bits as dot_strided<P>(m, stride, v_q) would give. y + j*kp must
-// be 16-byte aligned.
-template <int P, bool PREPPED>
-__device__ __forceinline__ void dot_chunk(const uint32_t* m, int stride,
-                                          const float* y, const float* yl,
-                                          int kp, int n,
-                                          float (&out)[kLimb]) {
-  float a1[kLimb], a2[kLimb], a3[kLimb];
-#pragma unroll
-  for (int q = 0; q < kLimb; ++q) a1[q] = a2[q] = a3[q] = 0.f;
-#pragma unroll 2
-  for (int j = 0; j < n; ++j) {
-    const uint32_t w = m[j * stride];
-    float h[kLimb], l[kLimb];
-    const float4* row = reinterpret_cast<const float4*>(y + j * kp);
-#pragma unroll
-    for (int c = 0; c < kLimb / 4; ++c) {
-      const float4 v = row[c];
-      h[4 * c] = v.x;
-      h[4 * c + 1] = v.y;
-      h[4 * c + 2] = v.z;
-      h[4 * c + 3] = v.w;
-    }
-    if (P == kHigh && PREPPED) {
-      const float4* lrow = reinterpret_cast<const float4*>(yl + j * kp);
-#pragma unroll
-      for (int c = 0; c < kLimb / 4; ++c) {
-        const float4 v = lrow[c];
-        l[4 * c] = v.x;
-        l[4 * c + 1] = v.y;
-        l[4 * c + 2] = v.z;
-        l[4 * c + 3] = v.w;
-      }
-    }
-    if (!PREPPED) {
-#pragma unroll
-      for (int q = 0; q < kLimb; ++q) {
-        if (P == kHigh) {
-          const float x = h[q];
-          split_bf16(x, h[q], l[q]);
-        } else if (P == kDefault) {
-          h[q] = bf16_round(h[q]);
-        }
-      }
-    }
-    if (P == kHigh) {
-      const float mh = __uint_as_float(w & 0xffff0000u);
-      const float ml = __uint_as_float(w << 16);
-#pragma unroll
-      for (int q = 0; q < kLimb; ++q) {
-        a1[q] = fmaf(mh, h[q], a1[q]);
-        a2[q] = fmaf(mh, l[q], a2[q]);
-        a3[q] = fmaf(ml, h[q], a3[q]);
-      }
-    } else {
-      const float mv = __uint_as_float(w);
-#pragma unroll
-      for (int q = 0; q < kLimb; ++q) a1[q] = fmaf(mv, h[q], a1[q]);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kLimb; ++q)
-    out[q] = P == kHigh ? (a1[q] + a2[q]) + a3[q] : a1[q];
-}
-
-// Row pitch in words of a [n, K] state buffer of the batched kernels: K
-// rounded up to whole chunks (so dot_chunk's loads stay in the row), plus 4,
-// so rows start 16-byte aligned and a pitch = 4 (mod 8) keeps eight threads'
-// 16-byte loads of eight consecutive rows on distinct banks.
-__host__ __device__ inline int chunk_pitch(int K) {
-  return (K + kLimb - 1) / kLimb * kLimb + 4;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -413,13 +329,32 @@ __device__ __forceinline__ float floor_at(float x, float floor) {
   return x < floor ? floor : x;
 }
 
-// mbarriers (PTX for sm_90): the rank partials' slab ring
-// (rank_partials.cuh) and the split adjoints' hand-over of a block between
-// warp roles (psi_split_bwd.cu, rho_split_bwd.cu).
+// The shared-memory address of p, as PTX takes it.
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// cp.async (sm_80+): 16 bytes global -> shared, bytes < 16 zero-filling
+// the rest (psi_cotangents.cu's chunks, psi_batched_bwd.cu's contraction
+// stages); a group a commit, waited for with at most N groups in flight.
+__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers (PTX for sm_90): the rank partials' slab ring
+// (rank_partials.cuh) and the split adjoints' hand-over of a block between
+// warp roles (psi_split_bwd.cu, rho_split_bwd.cu).
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
                "r"(count)

@@ -124,31 +124,11 @@ inline int split_gram(int n, int n_steps) {
   return n_steps < 1 ? 1 : std::min(n_steps, want);
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; bytes < 16 zero-fills the rest.
-__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes));
-}
-
 // 4 bytes global -> shared; bytes = 0 writes a zero.
 __device__ __forceinline__ void cp4(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
+                   smem_addr(dst)),
                "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 struct Chunk {
@@ -567,7 +547,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],

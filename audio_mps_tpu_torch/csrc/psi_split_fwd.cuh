@@ -428,8 +428,8 @@ __device__ __forceinline__ void step_sync(bool warp_only) {
 // cdot3's unroll in the forward templates.
 constexpr int kFwdPsiU = 8;
 
-// The most threads of a psi forward CTA (D <= 128; its shared memory
-// stops at D=119).
+// The most threads of a psi forward or sampler CTA (D <= 128; their
+// shared memory stops at D=119 and D=120).
 constexpr int kSplitFwdPsiThreads = 128;
 
 template <int P, bool DEFER, int MODE>

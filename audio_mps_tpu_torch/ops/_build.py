@@ -142,9 +142,9 @@ _SIGNATURES = {
     # ab, bb, rb, t0, se, loss, ck, D, n_steps, B, unroll, log_eps,
     # norm_eps, precision, stream
     "amt_psi_batched_fwd": ([_P] * 7 + [_I] * 4 + [_F, _F, _I, _P], _I),
-    # ab, bb, rb, ck, se, g, dse, dt0, part, D, n_steps, B, unroll, log_eps,
-    # norm_eps, precision, stream
-    "amt_psi_batched_bwd": ([_P] * 9 + [_I] * 4 + [_F, _F, _I, _P], _I),
+    # ab, bb, rb, ck, se, g, dse, dt0, part, scr, D, n_steps, B, unroll,
+    # window, log_eps, norm_eps, precision, stream
+    "amt_psi_batched_bwd": ([_P] * 10 + [_I] * 5 + [_F, _F, _I, _P], _I),
     # ab, bb, rb, prod_t, t0, se, out, D, t_pad, B, unroll, G, mode,
     # log_eps, norm_eps, precision, stream
     "amt_psi_probe": ([_P] * 7 + [_I] * 6 + [_F, _F, _I, _P], _I),
@@ -189,6 +189,8 @@ _SIGNATURES = {
     "amt_rho_split_bwd_workspace_floats": ([_I, _I, _I], ctypes.c_size_t),
     "amt_psi_batched_fwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_psi_batched_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    # D, window
+    "amt_psi_batched_bwd_scratch_floats": ([_I, _I], ctypes.c_size_t),
     "amt_psi_probe_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "amt_error_string": ([_I], ctypes.c_char_p),
 }

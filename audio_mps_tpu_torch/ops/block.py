@@ -1468,14 +1468,25 @@ psi_batched_fwd.launches = 0
 
 
 @torch.no_grad()
+def psi_batched_window(unroll: int) -> int:
+    """Steps of the batched adjoint's contraction window: the most whole
+    blocks of ``unroll`` steps within 64, at least one. Each CTA keeps the
+    window's t, y and dy vectors in a device scratch and runs its three
+    lane contractions once a window, so it reads and writes its row of the
+    [B, 3, 2D, 2D] sums once every 64 steps (at unroll 16, 4 blocks). A
+    pure function of unroll."""
+    return max(1, 64 // unroll) * unroll
+
+
 def psi_batched_bwd(ab, bb, rb, ck, se, g, *, log_eps: float,
                     norm_eps: float, unroll: int = 16,
                     precision: str = "highest"):
     """(dse, dt0, dAb, dBb, dRb): ``psi_batched_bwd_plain`` for CPU tensors,
     the CUDA kernel ``csrc/psi_batched_bwd.cu`` for CUDA tensors. Each CTA
-    writes its column's three [2D,2D] sums to its own row of a [B, 3, 2D,
-    2D] buffer, which is summed here over the columns in a fixed order, so
-    two runs are equal bit for bit."""
+    adds its column's three [2D,2D] sums, once a contraction window
+    (``psi_batched_window``), to its own row of a [B, 3, 2D, 2D] buffer,
+    which is summed here over the columns in a fixed order, so two runs are
+    equal bit for bit."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision)
     if _cuda_or_raise("psi_batched_bwd", se):
@@ -1492,11 +1503,14 @@ def psi_batched_bwd(ab, bb, rb, ck, se, g, *, log_eps: float,
     dt0 = se.new_empty((n, B))
     # zeros: over no step the kernel writes no row (and dt0 = 0)
     part = se.new_zeros((B, 3, n, n))
+    window = psi_batched_window(unroll)
+    scratch = se.new_empty(
+        (B, lib.amt_psi_batched_bwd_scratch_floats(D, window)))
     if B > 0:
         err = lib.amt_psi_batched_bwd(
             _ptr(ab), _ptr(bb), _ptr(rb), _ptr(ck), _ptr(se), _ptr(g),
-            _ptr(dse), _ptr(dt0), _ptr(part), D, n_steps, B, unroll,
-            log_eps, norm_eps, PRECISIONS.index(precision),
+            _ptr(dse), _ptr(dt0), _ptr(part), _ptr(scratch), D, n_steps, B,
+            unroll, window, log_eps, norm_eps, PRECISIONS.index(precision),
             _stream_ptr(se.device))
         _build.check(lib, err, "psi_batched_bwd")
         psi_batched_bwd.launches += 1

@@ -41,9 +41,10 @@ from the kernels' own byte counts (``amt_*_smem_bytes``, mirrored here for
 the adjoints' plans):
 
 * psi: the sampler, the NLL and the training forward hold C and R
-  (16 D^2 bytes) and run to D=119; the adjoint also holds the [D,D]
-  cotangent sums and a slab of 12 [D] vectors a step of its block, so at
-  unroll 16 it runs to D=73 (``csrc/psi_split_bwd.cu``).
+  (16 D^2 bytes) and run to D=120 (the sampler) and D=119; the adjoint
+  also holds the [D,D] cotangent sums and a slab of 12 [D] vectors a step
+  of its block, so at unroll 16 it runs to D=73
+  (``csrc/psi_split_bwd.cu``).
 * rho: the sampler, the NLL and the training forward hold conj(C),
   conj(R) and X^T (24 D^2 bytes) and eight [D, rank] vectors
   (32 D rank bytes), so at full rank they run to D=64; the adjoint holds
@@ -122,6 +123,14 @@ def _loss_ring_words(threads: int, slots: int, lanes: bool) -> int:
     trace) and the totals and s a slot, and with ``lanes`` each lane's
     parts."""
     return slots * (2 * (threads // 32) + 2 + (2 * threads if lanes else 0))
+
+
+def psi_split_sample_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one CTA of psi's split sampler
+    (``csrc/psi_split_sample.cu``, its ``amt_psi_split_sample_smem_bytes``):
+    C and R packed (16 D^2 bytes), the prepped u (8 D) and the exchange's
+    32 float2 parts. 231,616 bytes at D=120, the ceiling on an H100."""
+    return 4 * (4 * D * D + 2 * D + 64)
 
 
 def psi_split_fwd_smem_bytes(D: int) -> int:
@@ -376,29 +385,35 @@ def psi_sample_split_plain(cr, ci, rr, ri, pc, ps, s0r, s0i, noise, inv_a, *,
     caller scales by A and transposes), the TPU's
     ``pallas_scan._make_psi_sample_kernel``: the expectation on the current
     state, ``inc = e dt + noise``, the update ``C psi + (inc/A) R psi``
-    reusing R psi, renormalise, rotate by conj(p). Plain PyTorch, any
+    reusing R psi, renormalise, rotate by conj(p). The state is carried
+    unnormalised, in the kernel's order: u_0 = s0 and u_{k+1} = conj(p) .*
+    y_k, the rotated update before its renorm (|conj(p) .* y| = |y|); step
+    k forms a1 = C u_k and a2 = R u_k, applies c_k = rsqrt(max(|u_k|^2,
+    norm_eps)) (1 at step 0, where s0 is taken as given) after its
+    products, e_k = c_k^2 2 sum(u_k . a2) and u_{k+1} = conj(p) .* (c_k (a1
+    + s_k a2)), the same recursion in exact arithmetic. Plain PyTorch, any
     device."""
     _check_split_options(precision)
     prep, dotf = _make_dot_ops(precision)
     crp, cip, rrp, rip = map(prep, (cr, ci, rr, ri))
     pc, ps = pc[:, None], ps[:, None]
-    pr, pi = s0r, s0i
+    ur, ui = s0r, s0i
     samp = torch.zeros_like(noise[:1])
     out = torch.empty_like(noise)
     for k in range(noise.shape[0]):
-        xr, xi = prep(pr), prep(pi)
-        rur, rui = _cdot(dotf, rrp, rip, xr, xi)
-        g1r, g1i = _cdot(dotf, crp, cip, xr, xi)
-        e = 2.0 * torch.sum(pr * rur + pi * rui, dim=0, keepdim=True)
-        inc = e * dt + noise[k:k + 1]
+        xr, xi = prep(ur), prep(ui)
+        a2r, a2i = _cdot(dotf, rrp, rip, xr, xi)
+        a1r, a1i = _cdot(dotf, crp, cip, xr, xi)
+        E = 2.0 * torch.sum(ur * a2r + ui * a2i, dim=0, keepdim=True)
+        c = (torch.rsqrt(torch.clamp(torch.sum(ur * ur + ui * ui, dim=0,
+                                               keepdim=True), min=norm_eps))
+             if k else torch.ones_like(E))
+        inc = c * c * E * dt + noise[k:k + 1]
         samp = samp + inc
         out[k:k + 1] = samp
         s = inc * inv_a
-        yr, yi = g1r + s * rur, g1i + s * rui
-        inv = torch.rsqrt(torch.clamp(torch.sum(yr * yr + yi * yi, dim=0,
-                                                keepdim=True), min=norm_eps))
-        yr, yi = yr * inv, yi * inv
-        pr, pi = yr * pc + yi * ps, yi * pc - yr * ps
+        yr, yi = c * (a1r + s * a2r), c * (a1i + s * a2i)
+        ur, ui = yr * pc + yi * ps, yi * pc - yr * ps
     return out
 
 

@@ -16,6 +16,14 @@ are the timings ``ops/block.py psi_columns_per_cta`` is derived from. It
 needs an NVIDIA card and the CUDA toolkit.
 
     python -m audio_mps_tpu_torch.tools.psi_columns_sweep [--precision=highest]
+
+``headline_inputs``, ``step_inputs`` and ``batched_inputs`` (the batched
+adjoint's, at B=128 or any batch) make inputs for
+``tools/checkout_timer.py``:
+
+    python -m audio_mps_tpu_torch.tools.checkout_timer \\
+        --roots=build/parent,.,.,build/parent --fn=ops.block:psi_batched_bwd \\
+        --inputs=tools.psi_columns_sweep:batched_inputs --args='{"batch": 1024}'
 """
 from __future__ import annotations
 
@@ -119,6 +127,19 @@ def headline_step(signals, defer_norm: bool = True,
         _STEPS[key] = make_train_step("psi_mps", cfg, p,
                                       device=signals.device)[1]
     _STEPS[key](signals)
+
+
+def batched_inputs(dev, batch: int = B_HEADLINE,
+                   precision: str = "highest") -> dict:
+    """The keyword inputs of ``block.psi_batched_bwd`` at D=64, T=16384,
+    unroll 16 and ``batch`` columns: the constants, the batched forward's
+    checkpoints at ``precision``, se, the loss cotangent g and the
+    options (B=128 the headline, B=1024 the saturated batch)."""
+    ins, eps, g = _inputs(dev, batch, T, seed=3)
+    o = dict(eps, unroll=UNROLL, precision=precision)
+    _, ck = block.psi_batched_fwd(**ins, **o)
+    return dict(ab=ins["ab"], bb=ins["bb"], rb=ins["rb"], ck=ck,
+                se=ins["se"], g=g, **o)
 
 
 def _outputs(ins, eps, g, o):

@@ -2,18 +2,22 @@
 
 psi's block sampler (``csrc/psi_sample.cu``) at D=64 (or each D of
 ``--psi_d``) in the quad body and in the row body (the row body alone
-past D=64); rho's split sampler (``csrc/rho_split_sample.cu``) at the
-legacy estimator's D=10, rank 10 (or each shape of ``--rho``); each at 8
-chains and at one, T=65536, ``highest`` (or ``--precision``), with the
-body rule's picks marked.
+past D=64); psi's split sampler (``csrc/psi_split_sample.cu``) at the
+legacy estimator's D=10 (or each D of ``--psi_split``: one warp a chain
+to D=32, a CTA of warps past it); rho's split sampler
+(``csrc/rho_split_sample.cu``) at D=10, rank 10 (or each shape of
+``--rho``); each at 8 chains and at one, T=65536, ``highest`` (or
+``--precision``), with the body rule's picks marked.
 CUDA events, the median of ``--reps`` runs after a warm-up; one line a case,
 then a JSON line with the card's name and power limit. Needs an NVIDIA
 card and the CUDA toolkit (~1 min with the build).
 
     python -m audio_mps_tpu_torch.tools.sampler_sweep [--chains=8,1] \\
-        [--psi_d=8,16,32,64,72] [--rho=10x10,20x20,32x32]
+        [--psi_d=8,16,32,64,72] [--psi_split=6,10,50,64,119] \\
+        [--rho=10x10,20x20,32x32]
 
-``psi_sampler_inputs`` and ``rho_split_sampler_inputs`` make the inputs
+``psi_sampler_inputs``, ``psi_split_sampler_inputs`` and
+``rho_split_sampler_inputs`` make the inputs
 of the timed calls (the serving headlines' weights from a seed, seeded
 noise); they serve ``tools/checkout_timer.py --inputs`` to time one
 sampler in several checkouts:
@@ -23,6 +27,11 @@ sampler in several checkouts:
         --fn=ops.block:psi_sample_block \\
         --inputs=tools.sampler_sweep:psi_sampler_inputs \\
         --args='{"n_chains": 8}'
+    python -m audio_mps_tpu_torch.tools.checkout_timer \\
+        --roots=build/parent,.,.,build/parent \\
+        --fn=ops.split:psi_sample_split \\
+        --inputs=tools.sampler_sweep:psi_split_sampler_inputs \\
+        --args='{"n_chains": 8, "D": 10}'
     python -m audio_mps_tpu_torch.tools.checkout_timer \\
         --roots=build/parent,.,.,build/parent \\
         --fn=ops.split:rho_sample_split \\
@@ -59,6 +68,18 @@ def psi_sampler_inputs(dev, n_chains=8, length=T_SAMPLE, D=PSI_D, seed=1):
     return block.psi_sample_inputs(p, cfg, noise)
 
 
+def psi_split_sampler_inputs(dev, n_chains=8, length=T_SAMPLE, D=RHO_D,
+                             seed=1):
+    """Kernel inputs of ``split.psi_sample_split`` at D (the estimator's
+    D=10 by default; any D to 120) for ``n_chains`` chains (weights from
+    seed 0, noise from ``seed``; the estimator's delta_t)."""
+    cfg = CMPSConfig(bond_dim=D, delta_t=RHO_DT, kernel_layout="split")
+    p = init_psi(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    noise = core._sample_noise(cfg, torch.Generator(dev).manual_seed(seed),
+                               n_chains, length, 1.0)
+    return split.psi_split_inputs(p, cfg, noise, noise=True)
+
+
 def rho_split_sampler_inputs(dev, n_chains=8, length=T_SAMPLE, D=RHO_D,
                              rank=None, seed=31):
     """Kernel inputs of ``split.rho_sample_split`` at D and ``rank`` (None:
@@ -87,11 +108,12 @@ def median_ms(fn, reps):
 
 
 def cases(psi_ds=(PSI_D,), rho_shapes=((RHO_D, RHO_D),),
-          precision="highest"):
+          precision="highest", psi_split_ds=(RHO_D,)):
     """(label, wrapper, inputs maker, its keywords, the wrapper's forcing
     keywords, is the rule's pick): psi at each D of ``psi_ds`` in each body
-    that takes it, rho at each (D, rank) of ``rho_shapes`` in its layout
-    (the split kernels have no ``high``)."""
+    that takes it, psi's split sampler at each D of ``psi_split_ds`` and
+    rho at each (D, rank) of ``rho_shapes`` in its layout (the split
+    kernels have no ``high``)."""
     out = []
     for D in psi_ds:
         rule = block.psi_sample_body(D)
@@ -99,6 +121,11 @@ def cases(psi_ds=(PSI_D,), rho_shapes=((RHO_D, RHO_D),),
             out.append((f"psi D={D} {body} body", block.psi_sample_block,
                         psi_sampler_inputs, dict(D=D), dict(_body=body),
                         body == rule))
+    for D in psi_split_ds if precision != "high" else ():
+        warps = -(-D // 32)
+        out.append((f"psi split D={D} ({warps} warp{'s' if warps > 1 else ''}"
+                    f" a chain)", split.psi_sample_split,
+                    psi_split_sampler_inputs, dict(D=D), {}, True))
     for D, rank in rho_shapes if precision != "high" else ():
         lay = split.rho_split_sample_layout(D, rank)
         out.append((f"rho split D={D} rank {rank} ({lay.threads} threads, "
@@ -113,6 +140,8 @@ def main(argv=None) -> int:
     ap.add_argument("--chains", default="8,1")
     ap.add_argument("--psi_d", default=str(PSI_D),
                     help="psi bond dimensions, comma-separated")
+    ap.add_argument("--psi_split", default=str(RHO_D),
+                    help="psi split-sampler bond dimensions, comma-separated")
     ap.add_argument("--rho", default=f"{RHO_D}x{RHO_D}",
                     help="rho (D)x(rank) shapes, comma-separated")
     ap.add_argument("--reps", type=int, default=3)
@@ -130,11 +159,12 @@ def main(argv=None) -> int:
     psi_ds = [int(d) for d in args.psi_d.split(",")]
     rho_shapes = [tuple(int(v) for v in x.split("x"))
                   for x in args.rho.split(",")]
+    psi_split_ds = [int(d) for d in args.psi_split.split(",")]
     rows = []
     for n_chains in (int(c) for c in args.chains.split(",")):
         made = {}
-        for label, fn, maker, mk, force, rule in cases(psi_ds, rho_shapes,
-                                                       args.precision):
+        for label, fn, maker, mk, force, rule in cases(
+                psi_ds, rho_shapes, args.precision, psi_split_ds):
             key = (maker, tuple(sorted(mk.items())))
             if key not in made:
                 made[key] = maker(dev, n_chains=n_chains, **mk)

@@ -155,3 +155,14 @@ def test_batched_mode_needs_the_deferred_norm():
     with pytest.raises(ValueError, match="deferred"):
         block.psi_nll_block_trainable(tp, hp, torch.as_tensor(
             np_signals(B, 33)), unroll=8, defer_norm=False, batched=True)
+
+
+@pytest.mark.parametrize("unroll, want", [(1, 64), (5, 60), (7, 63),
+                                          (16, 64), (17, 51), (40, 40),
+                                          (64, 64), (100, 100)])
+def test_batched_window_rule(unroll, want):
+    """The batched adjoint's contraction window: the most whole blocks
+    within 64 steps, at least one block."""
+    assert block.psi_batched_window(unroll) == want
+    assert want % unroll == 0 and want >= unroll
+

@@ -1127,6 +1127,64 @@ def test_split_kernels_match_plain(dev, D, layout, precision, defer):
         before[3] + 1 + n,)
 
 
+# psi's split sampler (csrc/psi_split_sample.cu): one warp a chain, no CTA
+# barrier (D=6, 10, 32), and a CTA of 2, 2, 4 warps (D=33, 64, the ceiling
+# 119 of the forwards)
+SPLIT_SAMPLE_DS = [6, 10, 32, 33, 64, 119]
+
+
+@pytest.mark.parametrize("D", SPLIT_SAMPLE_DS)
+@pytest.mark.parametrize("N", [1, 8, 133])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_split_sampler_forms_match_plain(dev, D, N, precision):
+    """The split sampler in its one-warp and multi-warp forms against its
+    plain version (the carried order): highest over 300 steps at TOL,
+    default over 16; one launch each."""
+    from audio_mps_tpu_torch.ops import split
+    cfg = CMPSConfig(bond_dim=D, kernel_layout="split")
+    p = init_psi(torch.Generator(dev).manual_seed(D), cfg, device=dev)
+    noise = core._sample_noise(cfg, torch.Generator(dev).manual_seed(1), N,
+                               STEPS[precision], 1.0)
+    s_in = split.psi_split_inputs(p, cfg, noise, noise=True)
+    before = split.psi_sample_split.launches
+    got = split.psi_sample_split(**s_in, precision=precision)
+    torch.cuda.synchronize()
+    assert got.shape == (STEPS[precision], N)
+    assert split.psi_sample_split.launches == before + 1
+    _close(got, split.psi_sample_split_plain(**s_in, precision=precision),
+           TOL[precision])
+
+
+def test_split_sampler_smem_and_fits_agree_with_the_kernel(dev):
+    """The sampler's shared memory is its Python mirror at every D it could
+    take; scan.psi_sampler_fits in the split layout is true to D=120, where
+    the sampler launches, and false at D=121, where it raises before any
+    launch."""
+    from audio_mps_tpu_torch.ops import _build, scan, split
+    lib = _build.library()
+    for D in range(1, 129):
+        assert lib.amt_psi_split_sample_smem_bytes(D) == \
+            split.psi_split_sample_smem_bytes(D)
+    for D, fits in ((120, True), (121, False)):
+        cfg = CMPSConfig(bond_dim=D, kernel_layout="split")
+        assert scan.psi_sampler_fits(cfg, dev) is fits
+        p = init_psi(torch.Generator(dev).manual_seed(D), cfg, device=dev)
+        noise = core._sample_noise(cfg, torch.Generator(dev).manual_seed(1),
+                                   2, 12, 1.0)
+        s_in = split.psi_split_inputs(p, cfg, noise, noise=True)
+        before = split.psi_sample_split.launches
+        if fits:
+            got = split.psi_sample_split(**s_in)
+            torch.cuda.synchronize()
+            _close(got, split.psi_sample_split_plain(**s_in),
+                   TOL["highest"])
+            assert split.psi_sample_split.launches == before + 1
+        else:
+            with pytest.raises(NotImplementedError):
+                split.psi_sample_split(**s_in)
+            assert split.psi_sample_split.launches == before
+
+
 @pytest.mark.parametrize("defer", [False, True])
 def test_split_adjoint_forms_give_the_same_bits(dev, defer):
     """The two forms of the adjoint (double: a re-run role and a sweep
@@ -1831,6 +1889,25 @@ def test_batched_adjoint_is_reproducible_bit_for_bit(dev):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("unroll", [1, 5, 40, 64])
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_batched_adjoint_windows_match_plain(dev, unroll, precision):
+    """The adjoint's contraction windows (psi_batched_window: 64 blocks of
+    one step, 12 of 5, one of 40 and one of 64 steps) and its tail's chunks
+    of 16 steps (several a block at unroll 40 and 64, the last partial)
+    against the plain adjoint at D=12 over 300 steps, the last block and the
+    last window partial."""
+    inputs, g = _train_inputs(dev, 12, 300, B=3)
+    kw = dict(log_eps=inputs.pop("log_eps"), norm_eps=inputs.pop("norm_eps"),
+              precision=precision, unroll=unroll)
+    _, ck = block.psi_batched_fwd_plain(**inputs, **kw)
+    con = (inputs["ab"], inputs["bb"], inputs["rb"], ck, inputs["se"], g)
+    got = block.psi_batched_bwd(*con, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, block.psi_batched_bwd_plain(*con, **kw)):
+        _close(a, b, TOL[precision])
 
 
 def test_batched_smem_ceiling_raises_before_any_launch(dev):

@@ -1,7 +1,9 @@
 """The samplers' carried recursion and their layout rules (CPU).
 
 psi's block sampler (``ops/block.psi_sample_block_plain``, the order of
-``csrc/psi_sample.cu``) and rho's split sampler
+``csrc/psi_sample.cu``), psi's split sampler
+(``ops/split.psi_sample_split_plain``, the order of
+``csrc/psi_split_sample.cu``) and rho's split sampler
 (``ops/split.rho_sample_split_plain``, the order of
 ``csrc/rho_split_sample.cu``) carry the state unnormalised and apply the
 step's scale after its products. Here each is held, in float64, to the
@@ -51,6 +53,31 @@ def psi_jax_order(ab, bb, pc, ps, t0, noise, inv_a, *, dt, norm_eps):
         y = ab @ t + (inc * inv_a) * ru
         t = y * torch.rsqrt(torch.clamp(torch.sum(y * y, dim=0),
                                         min=norm_eps))
+    return torch.stack(out)
+
+
+def psi_split_jax_order(cr, ci, rr, ri, pc, ps, s0r, s0i, noise, inv_a, *,
+                        dt, norm_eps):
+    """pallas_scan._make_psi_sample_kernel's step: the expectation on the
+    current state, the update reusing R psi, renormalise, rotate by
+    conj(p)."""
+    def cdot(mr, mi, vr, vi):
+        return mr @ vr - mi @ vi, mr @ vi + mi @ vr
+
+    pc, ps = pc[:, None], ps[:, None]
+    pr, pi, samp, out = s0r, s0i, 0.0, []
+    for k in range(noise.shape[0]):
+        rur, rui = cdot(rr, ri, pr, pi)
+        g1r, g1i = cdot(cr, ci, pr, pi)
+        inc = 2.0 * torch.sum(pr * rur + pi * rui, dim=0) * dt + noise[k]
+        samp = samp + inc
+        out.append(samp)
+        s = inc * inv_a
+        yr, yi = g1r + s * rur, g1i + s * rui
+        inv = torch.rsqrt(torch.clamp(torch.sum(yr * yr + yi * yi, dim=0),
+                                      min=norm_eps))
+        yr, yi = yr * inv, yi * inv
+        pr, pi = yr * pc + yi * ps, yi * pc - yr * ps
     return torch.stack(out)
 
 
@@ -106,17 +133,38 @@ def test_psi_carried_recursion_is_the_tpu_order(D, scale):
     _close(got, want)
 
 
+def _unit_phase(ins):
+    """p is a phase: |p .* y| = |y| is what lets the state carry its norm
+    through the rotation; its fp32 values are unit to rounding (~1e-7), so
+    in float64 it is taken normalised."""
+    mod = torch.hypot(ins["pc"], ins["ps"])
+    ins["pc"], ins["ps"] = ins["pc"] / mod, ins["ps"] / mod
+
+
+@pytest.mark.parametrize("D", [6, 10, 40, 70])
+@pytest.mark.parametrize("scale", [1.0, 1.7])
+def test_psi_split_carried_recursion_is_the_tpu_order(D, scale):
+    """One warp a chain (D=6, 10) and a CTA of two and three warps (D=40,
+    70), each from a state as given and from one scaled by 1.7."""
+    cfg = CMPSConfig(bond_dim=D)
+    p = init_psi(torch.Generator().manual_seed(D), cfg, device="cpu")
+    ins = _double(split.psi_split_inputs(p, cfg, _noise(3), noise=True))
+    _unit_phase(ins)
+    ins["s0r"] = ins["s0r"] * scale
+    ins["s0i"] = ins["s0i"] * scale
+    got = split.psi_sample_split_plain(**ins)
+    want = psi_split_jax_order(**ins)
+    assert got.dtype == torch.float64 and got.shape == (T, 3)
+    _close(got, want)
+
+
 @pytest.mark.parametrize("D, rank", [(6, 3), (10, 10)])
 @pytest.mark.parametrize("scale", [1.0, 1.7])
 def test_rho_split_carried_recursion_is_the_tpu_order(D, rank, scale):
     cfg = CMPSConfig(bond_dim=D, initial_rank=rank)
     p = init_rho(torch.Generator().manual_seed(D + rank), cfg, device="cpu")
     ins = _double(split.rho_split_inputs(p, cfg, _noise(2), noise=True))
-    # p is a phase: |p .* y| = |y| is what lets the factor carry its norm
-    # through the rotation; its fp32 values are unit to rounding (~1e-7),
-    # so in float64 it is taken normalised
-    mod = torch.hypot(ins["pc"], ins["ps"])
-    ins["pc"], ins["ps"] = ins["pc"] / mod, ins["ps"] / mod
+    _unit_phase(ins)
     ins["h0r"] = ins["h0r"] * scale
     ins["h0i"] = ins["h0i"] * scale
     got = split.rho_sample_split_plain(**ins)
@@ -156,6 +204,18 @@ def test_psi_sampler_takes_the_shapes_it_took():
         assert fits == (_parent_psi_sample_bytes(D)
                         <= block.H100_SMEM_OPTIN)
         assert fits == (D <= 80)
+
+
+def test_psi_split_sampler_takes_the_shapes_it_took():
+    """The split sampler's CTA is the first design's bytes at every D (C
+    and R, two [D] vectors and two 32-float reduction buffers then; C and
+    R packed, u as float2 and 32 float2 parts now), so it fits one H100
+    block exactly to D=120, as before."""
+    for D in range(1, 200):
+        first = 4 * 4 * D * D + (2 * D + 64) * 4
+        assert split.psi_split_sample_smem_bytes(D) == first
+        fits = first <= block.H100_SMEM_OPTIN
+        assert fits == (D <= 120)
 
 
 @pytest.mark.parametrize("D, rank, want", [
