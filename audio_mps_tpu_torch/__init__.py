@@ -5,8 +5,11 @@ the block kernels of the TPU package (SDE samplers, forward-only NLLs, the
 training forwards and their adjoints), and psi's split-layout kernels,
 written by hand in CUDA for Hopper (``csrc/``). The kernels are built on
 first use, never at import. The legacy estimator's entry point is
-``python -m audio_mps_tpu_torch.estimator``. The JAX package stays the
-reference; this package imports neither it nor jax.
+``python -m audio_mps_tpu_torch.estimator``. ``data/`` reads and writes
+the reference's TFRecord datasets (with the native scanner of
+``native/``, built with g++ on first use), and
+``models/reference_transcription.py`` is the lab-frame anchor. The JAX
+package stays the reference; this package imports neither it nor jax.
 """
 from .config import CMPSConfig, RunConfig
 from .models.cmps import PsiCMPS, RhoCMPS

@@ -17,13 +17,16 @@ CLI (flags mirror training_estimators.py:16-39, plus ``--device``, default
 At its defaults (psi, D=10, B=32, T=65536) the NLL and its gradient go
 through the split-layout kernels on a card (``ops/split.py``: D=10 is no
 multiple of 4). ``--discr=true`` trains rho (full rank 10 there) through
-rho's split-layout kernels, ``ops/split.rho_nll_split_trainable``. Not
-ported, and refused before anything runs: the latent family (ROADMAP
-queue A item 5) and ``--data_dir``, whose TFRecord reader is the data
-plane of ROADMAP queue A item 1.
+rho's split-layout kernels, ``ops/split.rho_nll_split_trainable``.
+``--data_dir=<file.tfrecords>`` trains on a file of audio-only Examples
+(``data/tfrecord.py``) instead of damped sines. Not ported, and refused
+before anything runs: the latent family (ROADMAP queue A: Latent
+family).
 
 Randomness: the init draws from a generator seeded with ``--seed``, the
-damped-sine batches from one seeded with ``--seed``, on ``--device``.
+damped-sine batches from one seeded with ``--seed``, on ``--device``; a
+``--data_dir`` file is shuffled by numpy's ``default_rng(--seed)``, as in
+the JAX package, so both give the same batches.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ from typing import Callable, Iterator
 import torch
 
 from .config import CMPSConfig, _coerce
-from .data import damped_sine_iterator
+from .data import ArrayDataset, damped_sine_iterator, read_audio_tfrecords
+from .data.audio import batches_on
 from .device import resolve_device
 from .training import (Checkpointer, init_params_for, make_loss_fn,
                        make_train_step)
@@ -93,7 +97,7 @@ class Estimator:
         if mps_model == "latent":
             raise NotImplementedError(
                 "mps_model='latent': the latent family is not ported yet "
-                "(ROADMAP queue A item 5)")
+                "(ROADMAP queue A: Latent family)")
         dev = resolve_device(device)
         self.mps_model = mps_model
         self.cfg = cfg
@@ -152,15 +156,18 @@ class Estimator:
 
 
 def build_input_fn(ec: EstimatorConfig, cfg: CMPSConfig):
-    """The synthetic damped-sine batches on ``ec.device`` (reference:
-    training_estimators.py:87-95, the synthetic fallback of the JAX
-    package). ``--data_dir`` raises: the TFRecord plane is not ported."""
-    if ec.data_dir:
-        raise NotImplementedError(
-            f"--data_dir={ec.data_dir}: reading TFRecord files is not "
-            f"ported yet (ROADMAP queue A item 1, the data plane)")
-    return lambda: damped_sine_iterator(cfg, ec.sample_duration,
-                                        seed=ec.seed, device=ec.device)
+    """Batches on ``ec.device`` (reference: training_estimators.py:87-95 —
+    shuffle/repeat/batch over the static dataset): the records of
+    ``ec.data_dir`` read once into host memory, else the synthetic
+    damped-sine batches of the JAX package's fallback."""
+    if not ec.data_dir:
+        return lambda: damped_sine_iterator(cfg, ec.sample_duration,
+                                            seed=ec.seed, device=ec.device)
+    dev = resolve_device(ec.device)
+    data = read_audio_tfrecords(ec.data_dir,
+                                sample_duration=ec.sample_duration)
+    return lambda: batches_on(
+        ArrayDataset(data, cfg.minibatch_size, seed=ec.seed), dev)
 
 
 def main(argv=None) -> Estimator:

@@ -11,6 +11,10 @@ pairs (see ``ops/complexing.py``); psi states are row-vector batches
 ``[B, D]``, rho states ``[B, D, D]`` and purification factors
 ``[B, rank, D]``.
 
+The lab-frame single steps at the end (``lab_*``) recompute the phases at
+time t instead: the reference's own form, which
+``models/reference_transcription.py`` runs step by step.
+
 Reference quirks kept as they are: the expectation in the loss is taken on
 the unnormalised post-update state; ``log_eps <= 0`` leaves ``-log`` of a
 non-positive argument unclamped (NaN, as the reference does); the norm
@@ -23,8 +27,9 @@ from dataclasses import dataclass
 import torch
 
 from ..config import CMPSConfig
-from ..ops.complexing import (apply_matrix, cmatmul, cmatmul_adj_right, cmul,
-                               ctrace_re, gram_adj, matmul)
+from ..ops.complexing import (apply_matrix, block_embed, cmatmul,
+                               cmatmul_adj_right, cmul, ctrace_re, gram_adj,
+                               matmul)
 
 
 def effective_R(params):
@@ -253,3 +258,110 @@ def psi_sample_step(cc: CellConstants, cfg: CMPSConfig, carry, noise):
     state = (pr2, pi2)
     pr2, pi2 = rotate_psi(cc, pr2, pi2)
     return (pr2, pi2), (inc, state)
+
+
+# ---------------------------------------------------------------------------
+# Lab-frame single steps: the reference's form, the steps that
+# models/reference_transcription.py runs
+# ---------------------------------------------------------------------------
+#
+# The JAX package's seams take split pairs and rebuild R, K and the phases
+# at every call. These take real blocks: a psi state stacked ``[re | im]``
+# ([B, 2D]; a phase applied by a roll of the halves), a rho state as its
+# real [2D, 2D] block (``ops.complexing.block_embed``, to which products,
+# adjoints and real traces, halved, carry over). What does not depend on t
+# is built once a call (``lab_psi_operators``, ``lab_rho_operators``); the
+# phases are recomputed at t every step (``lab_phases_psi``, ``_lab_Rt``).
+# The signal comes divided by A, as ``s``.
+
+@dataclass
+class LabPsiOperators:
+    """psi's lab-frame operators, as row-vector blocks: ``x @ rkb`` gives
+    ``[R u | -(sigma^2 dt / 2) K u]`` of a stacked state u."""
+
+    rkb: torch.Tensor   # [2D, 4D]
+    rb2: torch.Tensor   # [2D, 2D]: 2 R
+    f2: torch.Tensor    # [2D]: [f | -f]
+
+
+def lab_psi_operators(params, cfg: CMPSConfig) -> LabPsiOperators:
+    Rr, Ri = effective_R(params)
+    half = 0.5 * (cfg.sigma ** 2) * cfg.delta_t
+    rb = block_embed(Rr, Ri).T
+    return LabPsiOperators(
+        rkb=torch.cat([rb, -half * block_embed(*gram_adj(Rr, Ri)).T], -1),
+        rb2=2.0 * rb, f2=torch.cat([params.freqs, -params.freqs]))
+
+
+def lab_phases_psi(ops: LabPsiOperators, t):
+    """The phases ``p = e^{i f t}`` at t, as the cos and sin of
+    ``[f | -f] t``: ``[c | c]`` and ``[s | -s]``."""
+    ang = ops.f2 * t
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _lab_unphase(x, phases):
+    """``conj(p) .* psi`` of a stacked state."""
+    c, sn = phases
+    return torch.addcmul(x * c, x.roll(x.shape[-1] // 2, -1), sn)
+
+
+def lab_update_ancilla_psi(ops: LabPsiOperators, x, s, phases):
+    """Direct transcription of the reference psi update (model.py:300-317):
+    ``Upsi = conj(p) .* psi``, ``psi'' = psi + p .* (-(sigma^2 dt / 2) K +
+    s R) Upsi``. x: [B, 2D]; s: [B]; returns psi'' unnormalised."""
+    D = x.shape[-1] // 2
+    c, sn = phases
+    ru_ku = matmul(_lab_unphase(x, phases), ops.rkb)
+    du = torch.addcmul(ru_ku[:, 2 * D:], s[:, None], ru_ku[:, :2 * D])
+    return torch.addcmul(torch.addcmul(x, du, c), du.roll(D, -1), sn,
+                         value=-1.0)
+
+
+def lab_expectation_psi(ops: LabPsiOperators, x, phases):
+    """``2 Re <Upsi, R Upsi>`` (reference: model.py:319-325)."""
+    u = _lab_unphase(x, phases)
+    return torch.sum(u * matmul(u, ops.rb2), dim=-1)
+
+
+@dataclass
+class LabRhoOperators:
+    """rho's lab-frame operators that do not depend on t."""
+
+    Rr: torch.Tensor    # effective R
+    Ri: torch.Tensor
+    fd: torch.Tensor    # [D, D]: f_i - f_j
+    eye: torch.Tensor   # [2D, 2D]
+    half: float         # sigma^2 dt / 2
+
+
+def lab_rho_operators(params, cfg: CMPSConfig) -> LabRhoOperators:
+    Rr, Ri = effective_R(params)
+    f = params.freqs
+    return LabRhoOperators(
+        Rr=Rr, Ri=Ri, fd=f[:, None] - f[None, :],
+        eye=torch.eye(2 * Rr.shape[-1], dtype=Rr.dtype, device=Rr.device),
+        half=0.5 * (cfg.sigma ** 2) * cfg.delta_t)
+
+
+def _lab_Rt(ops: LabRhoOperators, t):
+    """``Rt = diag(e^{i f t}) R diag(e^{-i f t}) = R .* E``,
+    ``E_ij = e^{i (f_i - f_j) t}`` (reference: model.py:178-179), as its
+    real block."""
+    ang = ops.fd * t
+    return block_embed(*cmul(ops.Rr, ops.Ri, torch.cos(ang), torch.sin(ang)))
+
+
+def lab_update_ancilla_rho(ops: LabRhoOperators, rt, rho, s):
+    """Direct transcription of the reference update (model.py:172-187):
+    ``U = 1 - (sigma^2 dt / 2) Rt^dag Rt + s Rt``, ``rho'' = U rho U^dag``.
+    rt: Rt's block (``_lab_Rt``); rho: [B, 2D, 2D]; s: [B]."""
+    u = (ops.eye - ops.half * matmul(rt.T, rt))[None] + s[:, None, None] * rt
+    return matmul(matmul(u, rho), u.mT)
+
+
+def lab_expectation_rho(rt, rho):
+    """``Re tr[(Rt + Rt^dag) rho]`` (reference: model.py:189-196), half the
+    trace of the blocks' product, as elementwise products and sums: no
+    matrix product that a TF32 setting could round."""
+    return 0.5 * torch.sum((rt + rt.T) * rho.mT, dim=(-2, -1))

@@ -47,17 +47,9 @@ from ..config import CMPSConfig
 from ..models import core
 from ..models.cell import make_constants
 from . import _build
-from .complexing import fp32_products, matmul
+from .complexing import block_embed, fp32_products, matmul
 
 PRECISIONS = ("highest", "high", "default")
-
-
-def block_embed(mr, mi):
-    """Real [2D,2D] embedding of the complex matrix M = mr + i mi acting on
-    stacked [xr; xi] columns."""
-    top = torch.cat([mr, -mi], dim=1)
-    bot = torch.cat([mi, mr], dim=1)
-    return torch.cat([top, bot], dim=0)
 
 
 def supports_block(cfg: CMPSConfig) -> bool:

@@ -112,6 +112,14 @@ def gram_adj(ar, ai):
     return cmatmul(at_r, at_i, ar, ai)
 
 
+def block_embed(mr, mi):
+    """Real [2D,2D] embedding of the complex matrix M = mr + i mi acting on
+    stacked [xr; xi] columns."""
+    top = torch.cat([mr, -mi], dim=1)
+    bot = torch.cat([mi, mr], dim=1)
+    return torch.cat([top, bot], dim=0)
+
+
 def apply_matrix(mr, mi, vr, vi):
     """Apply matrix M [D,D] to a batch of row-vectors v [..., D]: (M v)_a =
     sum_b M_ab v_b, i.e. ``v @ M^T`` in row-vector form."""

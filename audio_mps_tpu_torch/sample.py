@@ -13,6 +13,10 @@ CLI does without a checkpoint. ``--fused`` runs the family's sampler
 kernel (psi: the block sampler at D % 8 == 0, the split one elsewhere;
 rho: the block sampler); ``--device`` defaults to ``cuda``.
 
+``--visualize`` also writes a waveform plot of each sample,
+``{out base}_{i}.png``, where matplotlib is installed (it says it wrote
+none where it is not).
+
 Randomness: the init draws from a generator seeded with ``--seed`` and the
 SDE noise from one seeded with ``--seed`` + 1, both on ``--device``.
 """
@@ -31,6 +35,7 @@ from .device import resolve_device
 from .models import core
 from .models.params import init_psi, init_rho
 from .ops.scan import psi_sample_fused_keyed, rho_sample_fused_keyed
+from .summaries import waveform_figure
 from .weights import load_params
 
 
@@ -46,6 +51,7 @@ class SampleConfig:
     seed: int = 0
     out: str = "samples.npz"
     wav: bool = True
+    visualize: bool = False      # waveform PNGs (reference sample.py:12)
     fused: bool = False          # sampler kernel (ops/block.py, split.py)
     mesh: str = ""               # multi-device sampling: not ported yet
     device: str = "cuda"
@@ -54,11 +60,11 @@ class SampleConfig:
 _TYPES = {"modeldir": str, "mps_model": str, "hparams": str,
           "sample_duration": int, "sample_rate": int, "num_samples": int,
           "temperature": float, "seed": int, "out": str, "wav": bool,
-          "fused": bool, "mesh": str, "device": str}
+          "visualize": bool, "fused": bool, "mesh": str, "device": str}
 
 # model families and options of the JAX CLI that later slices port
 _NOT_PORTED = {
-    "latent": "the latent family (ROADMAP queue A item 8)",
+    "latent": "the latent family (ROADMAP queue A: Latent family)",
 }
 # mps_model -> (init, fused sampler, eager sampler)
 _FAMILIES = {
@@ -104,7 +110,7 @@ def sample(sc: SampleConfig, verbose: bool = True) -> np.ndarray:
     if sc.mesh:
         raise NotImplementedError(
             f"--mesh={sc.mesh}: multi-device sampling is not ported yet "
-            f"(ROADMAP queue A item 10, multi-GPU)")
+            f"(ROADMAP queue A: Multi-GPU)")
     device = resolve_device(sc.device)
     mps_model = sc.mps_model
     cfg_path = os.path.join(sc.modeldir, "config.json")
@@ -155,6 +161,21 @@ def sample(sc: SampleConfig, verbose: bool = True) -> np.ndarray:
             write_wav(f"{base}_{i}.wav", w, sc.sample_rate)
         if verbose:
             print(f"wrote {len(waves)} wav files at {base}_*.wav", flush=True)
+    if sc.visualize:
+        base = os.path.splitext(sc.out or "samples.npz")[0]
+        figs = [waveform_figure(w, cfg.delta_t) for w in waves]
+        if None in figs:
+            if verbose:
+                print("matplotlib is not installed: wrote no waveform plots",
+                      flush=True)
+        else:
+            import matplotlib.pyplot as plt
+            for i, fig in enumerate(figs):
+                fig.savefig(f"{base}_{i}.png", dpi=100)
+                plt.close(fig)
+            if verbose:
+                print(f"wrote {len(waves)} waveform plots at {base}_*.png",
+                      flush=True)
     return waves
 
 

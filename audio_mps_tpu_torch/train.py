@@ -8,7 +8,14 @@
         --dataset=damped_sine --hparams="bond_dim=64,minibatch_size=8" \
         --sample_duration=16384 --logdir=./logging
 
-The flags are the JAX CLI's (``config.RunConfig``) plus ``--device``
+    python -m audio_mps_tpu_torch.train --dataset=guitar \
+        --datadir=<dir holding guitar.tfrecords> --logdir=./logging
+
+``--dataset`` is ``damped_sine`` or a file dataset, ``{datadir}/
+{dataset}.tfrecords`` of audio-only Examples (guitar, organ, nsynth;
+``data/audio.get_audio``; ``tools/make_small_dataset.py`` and
+``tools/make_instrument_dataset.py`` write them). The flags are the JAX
+CLI's (``config.RunConfig``) plus ``--device``
 (default ``cuda``; ``--device=cpu`` runs the eager reference on the CPU).
 The run writes into ``{logdir}/{dataset}/{bond_dim}_{delta_t}_
 {minibatch_size}``: ``config.json`` (the JAX CLI's format), torch
@@ -18,7 +25,9 @@ summaries where tensorboard is installed. A restart resumes from the
 latest checkpoint.
 
 Randomness: the init draws from a generator seeded with ``--seed``, the
-damped-sine batches from one seeded with ``--seed`` + 1, the summaries'
+damped-sine batches from one seeded with ``--seed`` + 1 (a file dataset
+is shuffled by numpy's ``default_rng(--seed)``, as in the JAX CLI, and
+streams as ``--stream`` says), the summaries'
 samples from one seeded with ``--seed`` + 2, all on ``--device``. The
 summaries' samples go through the family's sampler kernel on a card (the
 block sampler at D % 8 == 0, the split one elsewhere, each within its
@@ -61,18 +70,22 @@ def train(run: RunConfig, cfg: CMPSConfig = None, verbose: bool = True,
     if run.mesh:
         raise NotImplementedError(
             f"--mesh={run.mesh}: multi-device training is not ported yet "
-            f"(ROADMAP queue A item 10, multi-GPU)")
+            f"(ROADMAP queue A: Multi-GPU)")
     if run.profile_steps > 0:
         raise NotImplementedError(
             "--profile_steps: the profiler trace of the JAX CLI is not "
-            "ported yet (ROADMAP queue A item 11)")
+            "ported yet (ROADMAP queue A: Benchmark)")
     dev = resolve_device(device)
     params = init_params_for(run.mps_model,
                              torch.Generator(dev).manual_seed(run.seed), cfg,
                              device=dev)
+    # a file dataset's shuffle draws the JAX CLI's default_rng(seed), so
+    # both CLIs train on the same batches
+    data_seed = run.seed + 1 if run.dataset == "damped_sine" else run.seed
+    stream = {"auto": None, "true": True, "false": False}[run.stream]
     data_iter = get_audio(run.datadir, run.dataset, cfg,
                           sample_duration=run.sample_duration,
-                          seed=run.seed + 1, device=dev)
+                          seed=data_seed, stream=stream, device=dev)
     fused = {"auto": None, "true": True, "false": False}[run.fused]
     optimizer, step_fn = make_train_step(run.mps_model, cfg, params,
                                          fused=fused, device=dev)

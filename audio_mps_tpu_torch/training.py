@@ -27,7 +27,7 @@ from .models.params import init_psi, init_rho
 from .ops.grad import psi_nll_fused_trainable, rho_nll_fused_trainable
 
 _NOT_PORTED = {
-    "latent": "the latent family (ROADMAP queue A item 8)",
+    "latent": "the latent family (ROADMAP queue A: Latent family)",
 }
 # mps_model -> (eager loss, kernel loss, init)
 _FAMILIES = {

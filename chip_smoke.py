@@ -135,7 +135,33 @@ failure (the script then exits non-zero):
    ``core.psi_nll`` at D=64, B=128, T=257) and timing pass (T=16385, high
    and highest); each variant and the chain-only diagnostic held to its
    plain version per column at T=257, with controls at ``default``; each
-   variant's CUDA-event time and ns a step beside its bound.
+   variant's CUDA-event time and ns a step beside its bound;
+14. the data plane (``data_plane_phases``): the native library built with
+   g++ and loaded; a guitar-like and an organ-like stand-in dataset
+   (100 notes each in the NSynth schema, through the ETL of the
+   reference's make-small-dataset.py: padded to 2^16, audio-only
+   Examples) written by ``tools/make_instrument_dataset.py``; the records
+   read a second through the native and the pure-Python parsers, held to
+   identical arrays;
+15. training on those files (``file_training_phases``): BASELINE.json's
+   config 1, the train CLI at its defaults (psi, D=8, B=8, T=65536) on
+   guitar.tfrecords (3 Adam steps, a restore, 1 more; psi's three
+   training kernels and the adjoint's tail launch once a step, no other
+   training kernel), and ``get_audio``'s time a batch, in memory and
+   streamed, beside the train step's; config 2, organ-nsynth.tfrecord
+   filtered by instrument and pitch through ``NSynthDataset`` and
+   ``tools/make_small_dataset.py`` (equal to the ETL's output), the
+   estimator CLI with ``--data_dir`` at D=32 (2 + 2 steps) and the rho
+   train CLI on organ.tfrecords (1 step; rho's three training kernels
+   once);
+16. the lab-frame anchor (``lab_frame_phases``): psi's lab-frame NLL held
+   to the kernel path on a T=2048 prefix at rtol 2e-4; one lab-frame Adam
+   step at bench.py's primary cell (D=64, B=128, T=16384) after a short
+   warm-up, beside the kernel path's step (their ratio is vs_baseline),
+   and the whole-length gap between the two NLLs held to a limit set from
+   a float64 run (``tools/lab_frame_gap.py``); rho's lab-frame step and its
+   peak memory on a T=1025 prefix of its cell (D=64, rank 64, B=8), its
+   loss held to the kernel path's at rtol 2e-4.
 
 It prints each phase's measurements, the card line, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -325,8 +351,13 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    """A phase's header, with the seconds since the script started."""
+    print(f"== {name} [at {time.perf_counter() - T_START:.1f} s]",
+          flush=True)
 
 
 def card_line() -> str:
@@ -446,8 +477,9 @@ def _training_wrappers() -> dict:
     return counted
 
 
-def train_cli_phase(dev, mps_model, cfg, T, steps, per_step, flags=()):
-    """The train CLI on damped-sine batches at ``cfg``'s width and
+def train_cli_phase(dev, mps_model, cfg, T, steps, per_step, flags=(),
+                    dataset="damped_sine"):
+    """The train CLI on ``dataset``'s batches at ``cfg``'s width and
     ``kernel_stream``: ``steps`` Adam steps, then a second call that
     restores step ``steps`` and takes one more. Checks the checkpoints, the
     restored Adam state, params.npz, the family of the weights and that
@@ -460,7 +492,7 @@ def train_cli_phase(dev, mps_model, cfg, T, steps, per_step, flags=()):
 
     counted = _training_wrappers()
     with tempfile.TemporaryDirectory() as tmp:
-        argv = [f"--mps_model={mps_model}", "--dataset=damped_sine",
+        argv = [f"--mps_model={mps_model}", f"--dataset={dataset}",
                 f"--sample_duration={T}",
                 f"--hparams=bond_dim={cfg.bond_dim},"
                 f"minibatch_size={cfg.minibatch_size},"
@@ -3485,6 +3517,395 @@ def probe_phases(dev):
              "bound_ms": bound, "bound_by": by, "library_ms": None}]
 
 
+# ---------------------------------------------------------------------------
+# The data plane on the reference's datasets, and the lab-frame anchor
+# ---------------------------------------------------------------------------
+
+DATA_EXAMPLES = 100    # the reference's make-small-dataset.py keeps ~100
+DATA_LENGTH = 2 ** 16  # its ETL pads each note to 2^16 samples
+# (dataset name, instrument family, MIDI pitch) of the two stand-ins
+DATASETS = (("guitar", "guitar", 50), ("organ", "organ", 55))
+DATA_BATCHES = 20      # get_audio batches timed after the first
+EST_D = 32             # BASELINE.json config 2: D=32 on the organ subset
+EST_STEPS = 2          # the estimator CLI's two calls of 2 steps each
+DATA_STEP_REPS = 3
+PSI_KERNELS = {"psi_train_fwd": 1, "psi_train_bwd": 1, "psi_cotangents": 1,
+               PSI_TAIL: 1}
+RHO_KERNELS = {"rho_train_fwd": 1, "rho_train_bwd": 1, "rho_cotangents": 1}
+# bench.py's primary cell: psi D=64, B=128, T=16384; rho D=64 (rank 64), B=8
+LAB_D, LAB_B, LAB_T = 64, 128, 16384
+LAB_T_PREFIX = 2048    # the lab frame held to the kernel path at rtol 2e-4
+LAB_T_WARMUP = 256     # the warm-up lab step's prefix
+TOL_LAB = 2e-4         # tests/test_model_psi.py's lab-frame tolerance
+LAB_RHO_B = 8
+LAB_RHO_T = 1025       # rho's lab step on a prefix: 4 chunks of 256 steps
+# the whole-length gap of the lab frame to the kernel path, relative to the
+# kernel path's NLL: twice the sum of the float32 lab frame's and the
+# float32 eager core's gaps to a float64 run of the lab frame on the same
+# inputs, on the CPU (tools/lab_frame_gap.py on an H100 machine: 8.959e-4
+# and 4.548e-5; PERF.md section 5)
+LAB_GAP_LIMIT = 1.883e-3
+
+
+def _sync_ms(t0):
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _zero_launches():
+    counted = _training_wrappers()
+    for w in counted.values():
+        w.launches = 0
+    return counted
+
+
+def _check_launches(counted, per_step, steps, what):
+    launches = {k: w.launches for k, w in counted.items() if w.launches}
+    for name, w in counted.items():
+        want = per_step.get(name, 0) * steps
+        check(w.launches == want, f"{name} launched {w.launches} times in "
+                                  f"{what} ({want} expected)")
+    return launches
+
+
+def _summary_samples(sampler, calls):
+    """The train CLI's summaries draw their samples through ``sampler``
+    once a summary (``calls`` of them) where tensorboard is installed, and
+    draw none where it is not."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+        want = calls
+    except ImportError:
+        want = 0
+    print(f"  the summaries' sampler {sampler.__name__}: "
+          f"{sampler.launches} launches ({want} expected)", flush=True)
+    check(sampler.launches == want, f"{sampler.__name__} launched "
+                                    f"{sampler.launches} times")
+
+
+def data_plane_phases(dev, tmp):
+    """The native library, the two stand-in datasets written into ``tmp``
+    by the port's dataset tool, and the records read a second through the
+    native and the pure-Python parsers."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+
+    from audio_mps_tpu_torch import native
+    from audio_mps_tpu_torch.data import tfrecord
+    from audio_mps_tpu_torch.tools import make_instrument_dataset
+
+    card = card_line()
+    phase(f"data plane: the native library, {len(DATASETS)} stand-in "
+          f"datasets ({DATA_EXAMPLES} x {DATA_LENGTH}), records a second "
+          f"[{card}]")
+    built = native.build()
+    check(native.available(), f"the native library did not load: "
+                              f"{native.build_error()}")
+    crc = ("google_crc32c" if importlib.util.find_spec("google_crc32c")
+           else "the native library")
+    print(f"  native library: g++ {built['seconds']:.2f} s (rebuilt="
+          f"{built['rebuilt']}) -> {built['path']}; CRC32C by {crc}",
+          flush=True)
+    for name, family, pitch in DATASETS:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            make_instrument_dataset.main([
+                f"--output_dir={tmp}", f"--name={name}", f"--family={family}",
+                f"--pitch={pitch}", f"--count={DATA_EXAMPLES}",
+                f"--length={DATA_LENGTH}"])
+        secs = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(tmp, f"{name}.tfrecords"))
+        print(f"  {name}.tfrecords: {size / 1e6:.2f} MB, synthesized and "
+              f"written through the NSynth ETL in {secs:.2f} s", flush=True)
+    path = os.path.join(tmp, "guitar.tfrecords")
+    n_mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    payloads = list(tfrecord.read_records(path))
+    t_frame = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast = [native.parse_float_feature(p, "audio") for p in payloads]
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = [tfrecord.decode_example(p)["audio"] for p in payloads]
+    t_python = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = tfrecord.read_audio_tfrecords(path)
+    t_read = time.perf_counter() - t0
+    check(len(payloads) == DATA_EXAMPLES, f"{len(payloads)} records")
+    check(all(a is not None and np.array_equal(a, b)
+              for a, b in zip(fast, slow)),
+          "the native and the pure-Python parsers disagree")
+    check(whole.shape == (DATA_EXAMPLES, DATA_LENGTH)
+          and np.array_equal(whole, np.stack(slow)), "read_audio_tfrecords")
+    n = len(payloads)
+    print(f"  guitar.tfrecords ({n} records, {n_mb:.2f} MB): framing and "
+          f"CRC {n / t_frame:.1f} records/s ({n_mb / t_frame:.0f} MB/s); "
+          f"native parser {n / t_native:.1f} records/s "
+          f"({n_mb / t_native:.0f} MB/s); pure-Python parser "
+          f"{n / t_python:.1f} records/s ({n_mb / t_python:.0f} MB/s), "
+          f"identical arrays; read_audio_tfrecords {t_read * 1e3:.1f} ms "
+          f"[{card}]", flush=True)
+
+
+def file_training_phases(dev, tmp):
+    """Configs 1 and 2 of BASELINE.json on the stand-ins in ``tmp``: the
+    train CLI at its defaults on guitar.tfrecords, get_audio's time a batch
+    against the train step's; the organ set filtered by pitch and
+    instrument, the estimator CLI at D=32 and the rho train CLI on it."""
+    import contextlib
+    import io
+
+    from audio_mps_tpu_torch import estimator
+    from audio_mps_tpu_torch.config import CMPSConfig
+    from audio_mps_tpu_torch.data import NSynthDataset, get_audio
+    from audio_mps_tpu_torch.models.params import RhoParams, init_psi
+    from audio_mps_tpu_torch.ops import block
+    from audio_mps_tpu_torch.tools import make_small_dataset
+    from audio_mps_tpu_torch.train import parse_args, train
+    from audio_mps_tpu_torch.training import make_train_step
+
+    card = card_line()
+    cfg = CMPSConfig()
+    phase(f"config 1: the train CLI at its defaults on guitar.tfrecords "
+          f"(psi, D={cfg.bond_dim}, B={cfg.minibatch_size}, T={DATA_LENGTH}"
+          f"), {TRAIN_STEPS} steps, a restore and one more [{card}]")
+    block.psi_sample_block.launches = 0
+    train_cli_phase(dev, "psi_mps", cfg, DATA_LENGTH, TRAIN_STEPS,
+                    PSI_KERNELS, flags=(f"--datadir={tmp}",),
+                    dataset="guitar")
+    _summary_samples(block.psi_sample_block, 2)
+    reads = {}
+    for stream in (False, True):
+        t0 = time.perf_counter()
+        it = get_audio(tmp, "guitar", cfg, sample_duration=DATA_LENGTH,
+                       stream=stream, device=dev)
+        first = next(it)
+        t_first = _sync_ms(t0)
+        t0 = time.perf_counter()
+        for _ in range(DATA_BATCHES):
+            batch = next(it)
+        reads[stream] = (t_first, _sync_ms(t0) / DATA_BATCHES)
+        check(batch.shape == first.shape == (cfg.minibatch_size,
+                                             DATA_LENGTH)
+              and batch.device.type == "cuda"
+              and bool(torch.isfinite(batch).all()), "get_audio batches")
+    params = init_psi(torch.Generator(dev).manual_seed(30), cfg, device=dev)
+    _, step = make_train_step("psi_mps", cfg, params, device=dev)
+    it = get_audio(tmp, "guitar", cfg, sample_duration=DATA_LENGTH,
+                   device=dev)
+    step(next(it))
+    t0 = time.perf_counter()
+    for _ in range(DATA_STEP_REPS):
+        metrics = step(next(it))
+    step_ms = _sync_ms(t0) / DATA_STEP_REPS
+    check(bool(torch.isfinite(metrics["total_loss"])), "non-finite loss")
+    (m_first, m_batch), (s_first, s_batch) = reads[False], reads[True]
+    print(f"  get_audio a batch: in memory {m_batch:.3f} ms (the first "
+          f"{m_first:.1f} ms, the file read), streamed {s_batch:.3f} ms "
+          f"(the first {s_first:.1f} ms, the reservoir's fill); a train "
+          f"step {step_ms:.2f} ms host clock with its batch drawn, mean of "
+          f"{DATA_STEP_REPS}: the in-memory draw is "
+          f"{m_batch / step_ms:.1%} of it, the streamed "
+          f"{s_batch / step_ms:.1%} [{card}]", flush=True)
+    del params, step, it
+    _free()
+
+    raw = os.path.join(tmp, "organ-nsynth.tfrecord")
+    sub = os.path.join(tmp, "organ_pitch55.tfrecords")
+    _, family, pitch = DATASETS[1]
+    phase(f"config 2: organ-nsynth.tfrecord filtered by instrument "
+          f"({family}) and pitch ({pitch}) through NSynthDataset; the "
+          f"estimator CLI at D={EST_D} on it ({EST_STEPS} + {EST_STEPS} "
+          f"steps), the rho train CLI (1 step) [{card}]")
+    t0 = time.perf_counter()
+    audio = NSynthDataset(raw, instrument=family, pitch=pitch).load_audio(
+        length=DATA_LENGTH)
+    t_filter = time.perf_counter() - t0
+    check(audio.shape == (DATA_EXAMPLES, DATA_LENGTH), f"{audio.shape}")
+    for kw in (dict(instrument="guitar"), dict(pitch=pitch + 1)):
+        try:
+            NSynthDataset(raw, **kw).load_audio(length=DATA_LENGTH)
+        except IOError:
+            continue
+        check(False, f"NSynthDataset({kw}) matched organ notes at {pitch}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_small_dataset.main([
+            f"--input={raw}", f"--output={sub}", f"--pitch={pitch}",
+            f"--instrument={family}", f"--count={DATA_EXAMPLES}",
+            f"--length={DATA_LENGTH}"])
+    with open(sub, "rb") as f, open(os.path.join(tmp, "organ.tfrecords"),
+                                     "rb") as g:
+        check(f.read() == g.read(), "make_small_dataset's subset differs "
+                                    "from make_instrument_dataset's ETL")
+    print(f"  NSynthDataset: {audio.shape[0]} of {DATA_EXAMPLES} notes "
+          f"match in {t_filter * 1e3:.1f} ms; make_small_dataset wrote "
+          f"{os.path.basename(sub)}, equal to organ.tfrecords [{card}]",
+          flush=True)
+    counted = _zero_launches()
+    argv = [f"--data_dir={sub}", f"--bond_d={EST_D}",
+            f"--model_dir={os.path.join(tmp, 'estimator')}",
+            f"--viz_steps={EST_STEPS}", f"--max_steps={EST_STEPS}",
+            f"--sample_duration={DATA_LENGTH}", f"--device={dev.type}"]
+    t0 = time.perf_counter()
+    est = estimator.main(argv)
+    est = estimator.main(argv)
+    t_est = _sync_ms(t0)
+    check(est.global_step == 2 * EST_STEPS, f"step {est.global_step}")
+    check(all(bool(torch.isfinite(x).all()) for x in est.params.parameters()),
+          "non-finite parameters")
+    launches = _check_launches(counted, PSI_KERNELS, 2 * EST_STEPS,
+                               f"the estimator's {2 * EST_STEPS} steps")
+    print(f"  estimator: {2 * EST_STEPS} steps in two calls in {t_est:.1f} "
+          f"ms host clock (set-up and checkpoints included); launches "
+          f"{launches} [{card}]", flush=True)
+    del est
+    _free()
+    counted = _zero_launches()
+    block.rho_sample_block.launches = 0
+    logdir = os.path.join(tmp, "rho")
+    run, device = parse_args(["--mps_model=rho_mps", "--dataset=organ",
+                              f"--datadir={tmp}", f"--logdir={logdir}",
+                              f"--sample_duration={DATA_LENGTH}",
+                              "--max_steps=1", f"--device={dev.type}"])
+    t0 = time.perf_counter()
+    p, m = train(run, device=device)
+    t_rho = _sync_ms(t0)
+    check(type(p) is RhoParams, "the rho train CLI made no RhoParams")
+    check(all(bool(torch.isfinite(v).all()) for v in m.values()),
+          f"non-finite metrics {m}")
+    check(os.path.exists(os.path.join(run.run_logdir(CMPSConfig()),
+                                      "params.npz")), "no params.npz")
+    launches = _check_launches(counted, RHO_KERNELS, 1,
+                               "the rho train CLI's step")
+    _summary_samples(block.rho_sample_block, 1)
+    print(f"  rho train CLI (D={CMPSConfig().bond_dim}, full rank, "
+          f"B={CMPSConfig().minibatch_size}, T={DATA_LENGTH}): 1 step in "
+          f"{t_rho:.1f} ms host clock (set-up included), loss "
+          f"{float(m['model_loss']):.6f}; launches {launches} [{card}]",
+          flush=True)
+    del p, m
+    _free()
+
+
+def _lab_warmup(ref, cfg, mps_model, params, from_numpy, batch):
+    """One lab-frame Adam step on a copy of ``params``, which stay as they
+    are."""
+    from audio_mps_tpu_torch.weights import params_to_numpy
+    copy = from_numpy(params_to_numpy(params), params.A.device)
+    ref.make_lab_train_step(cfg, mps_model, copy)[1](batch)
+    del copy
+    _free()
+
+
+def lab_frame_phases(dev):
+    """The lab-frame anchor (models/reference_transcription.py) on the
+    card: psi's lab-frame Adam step at the primary cell beside the kernel
+    path's (vs_baseline), the lab frame held to the kernel path on a prefix
+    and over the whole length, and rho's lab step and its peak memory on a
+    prefix."""
+    from audio_mps_tpu_torch.config import CMPSConfig
+    from audio_mps_tpu_torch.data import damped_sine_batch
+    from audio_mps_tpu_torch.models import reference_transcription as ref
+    from audio_mps_tpu_torch.models.params import init_rho
+    from audio_mps_tpu_torch.tools.lab_frame_gap import psi_inputs
+    from audio_mps_tpu_torch.training import make_train_step, nll_fn_for
+    from audio_mps_tpu_torch.weights import (params_to_numpy,
+                                             psi_params_from_numpy,
+                                             rho_params_from_numpy)
+
+    card = card_line()
+    params, cfg, batch = psi_inputs(dev, LAB_T)
+    phase(f"lab frame, psi (D={LAB_D}, B={LAB_B}, T={LAB_T}): held to the "
+          f"kernel path on the T={LAB_T_PREFIX} prefix at rtol {TOL_LAB:g}; "
+          f"one lab-frame Adam step after a warm-up (T={LAB_T_WARMUP}) "
+          f"beside the kernel path's step [{card}]")
+    prefix = batch[:, :LAB_T_PREFIX]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lab = ref.psi_nll_lab_frame(params, cfg, prefix).item()
+        t_lab = _sync_ms(t0)
+        kern = nll_fn_for("psi_mps")(params, cfg, prefix).item()
+    rel = abs(lab - kern) / abs(kern)
+    print(f"  prefix NLL: lab frame {lab:.8f} ({t_lab:.1f} ms, no "
+          f"gradient), kernel path {kern:.8f}: {rel:.3e} relative (tol "
+          f"{TOL_LAB:g}) [{card}]", flush=True)
+    check(rel <= TOL_LAB, f"lab frame vs kernel path on the prefix: {rel}")
+    _lab_warmup(ref, cfg, "psi_mps", params, psi_params_from_numpy,
+                batch[:, :LAB_T_WARMUP])
+    lp = psi_params_from_numpy(params_to_numpy(params), dev)
+    _, lab_step = ref.make_lab_train_step(cfg, "psi_mps", lp)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    lab_nll = lab_step(batch)["model_loss"].item()
+    lab_ms = _sync_ms(t0)
+    lab_peak = torch.cuda.max_memory_allocated(dev)
+    del lp, lab_step
+    _free()
+    fp = psi_params_from_numpy(params_to_numpy(params), dev)
+    _, step = make_train_step("psi_mps", cfg, fp, device=dev)
+    first = step(batch)
+    t0 = time.perf_counter()
+    for _ in range(DATA_STEP_REPS):
+        step(batch)
+    fused_ms = _sync_ms(t0) / DATA_STEP_REPS
+    kern_nll = first["model_loss"].item()
+    gap = abs(lab_nll - kern_nll) / abs(kern_nll)
+    frames = LAB_B * (LAB_T - 1)
+    print(f"  lab-frame step {lab_ms:.1f} ms host clock "
+          f"({frames / lab_ms * 1e3:.4e} frames/s, peak "
+          f"{lab_peak / 1e9:.3f} GB); kernel-path step {fused_ms:.2f} ms "
+          f"(mean of {DATA_STEP_REPS} after a warm-up): vs_baseline "
+          f"{lab_ms / fused_ms:.1f} [{card}]", flush=True)
+    print(f"  whole-length NLL: lab frame {lab_nll:.8f}, kernel path "
+          f"{kern_nll:.8f}: gap {gap:.3e} relative (limit "
+          f"{LAB_GAP_LIMIT:g}, tools/lab_frame_gap.py)", flush=True)
+    check(gap <= LAB_GAP_LIMIT, f"whole-length gap {gap:.3e}")
+    del fp, step, params, batch, prefix
+    _free()
+
+    rcfg = CMPSConfig(bond_dim=LAB_D, minibatch_size=LAB_RHO_B)
+    phase(f"lab frame, rho (D={LAB_D}, rank {LAB_D}, B={LAB_RHO_B}, on the "
+          f"T={LAB_RHO_T} prefix of rho's T=16384 cell; chunks of "
+          f"{rcfg.scan_chunk} steps): one lab-frame Adam step after a "
+          f"warm-up, its peak memory, beside the kernel path's step "
+          f"[{card}]")
+    rp = init_rho(torch.Generator(dev).manual_seed(42), rcfg, device=dev)
+    rbatch = damped_sine_batch(torch.Generator(dev).manual_seed(43),
+                               LAB_RHO_B, LAB_RHO_T, rcfg.delta_t)
+    _lab_warmup(ref, rcfg, "rho_mps", rp, rho_params_from_numpy,
+                rbatch[:, :LAB_T_WARMUP])
+    lp = rho_params_from_numpy(params_to_numpy(rp), dev)
+    _, lab_step = ref.make_lab_train_step(rcfg, "rho_mps", lp)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    lab_nll = lab_step(rbatch)["model_loss"].item()
+    lab_ms = _sync_ms(t0)
+    lab_peak = torch.cuda.max_memory_allocated(dev)
+    del lp, lab_step
+    _free()
+    fp = rho_params_from_numpy(params_to_numpy(rp), dev)
+    _, step = make_train_step("rho_mps", rcfg, fp, device=dev)
+    first = step(rbatch)
+    t0 = time.perf_counter()
+    for _ in range(DATA_STEP_REPS):
+        step(rbatch)
+    fused_ms = _sync_ms(t0) / DATA_STEP_REPS
+    kern_nll = first["model_loss"].item()
+    rel = abs(lab_nll - kern_nll) / abs(kern_nll)
+    print(f"  lab-frame step {lab_ms:.1f} ms host clock "
+          f"({lab_ms / (LAB_RHO_T - 1) * 1e3:.1f} us a step), peak "
+          f"{lab_peak / 1e9:.3f} GB; kernel-path step {fused_ms:.2f} ms: "
+          f"ratio {lab_ms / fused_ms:.1f}; NLL lab frame {lab_nll:.8f}, "
+          f"kernel path {kern_nll:.8f} ({rel:.3e} relative, tol "
+          f"{TOL_LAB:g}) [{card}]", flush=True)
+    check(rel <= TOL_LAB, f"rho lab frame vs kernel path: {rel}")
+    del fp, step, rp, rbatch
+    _free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3499,8 +3920,6 @@ def main() -> int:
     from audio_mps_tpu_torch.ops.scan import psi_nll_fused, psi_sample_fused
     from audio_mps_tpu_torch.sample import SampleConfig, sample
     from audio_mps_tpu_torch.weights import load_params, save_params
-
-    t_start = time.perf_counter()
 
     phase("set-up")
     card = card_line()
@@ -3712,7 +4131,13 @@ def main() -> int:
     rank_entries, streamed = rank_phases(dev)
     _free()
     rank_entries += rank_recompute_phases(dev, streamed)
-    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    _free()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_plane_phases(dev, tmp)
+        file_training_phases(dev, tmp)
+    _free()
+    lab_frame_phases(dev)
+    print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels + train_entries + split_entries
                       + rho_entries + rank_entries}), flush=True)

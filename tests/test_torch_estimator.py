@@ -88,15 +88,36 @@ def test_main_trains_chunks_after_a_resume(tmp_path, capsys):
 
 
 def test_unported_branches_raise(tmp_path):
-    """The latent family (ROADMAP queue A item 5) and --data_dir (the
-    TFRecord plane, item 1) raise NotImplementedError before training."""
+    """The latent family (ROADMAP queue A: Latent family) raises
+    NotImplementedError before training. --data_dir, which raised while
+    the TFRecord plane was not ported, now trains on a record file: the
+    same batches as the JAX package's build_input_fn for the file and
+    --seed, then main() trains two chunks on them."""
     cfg = CMPSConfig(minibatch_size=2, bond_dim=4)
     with pytest.raises(NotImplementedError, match="latent"):
         estimator.Estimator("latent", cfg, str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="TFRecord"):
-        estimator.main([f"--model_dir={tmp_path}", "--device=cpu",
-                        "--data_dir=data/pitch_30.tfrecords"])
     assert not os.path.exists(tmp_path / "checkpoints")
+    from audio_mps_tpu.data import write_audio_tfrecords
+    path = str(tmp_path / "pitch_30.tfrecords")
+    waves = np.random.RandomState(0).randn(5, 300).astype(np.float32)
+    write_audio_tfrecords(path, waves)
+    ec = estimator.EstimatorConfig(data_dir=path, batch_size=2,
+                                   sample_duration=256, seed=3, device="cpu")
+    jec = jestimator.EstimatorConfig(data_dir=path, batch_size=2,
+                                     sample_duration=256, seed=3)
+    it = estimator.build_input_fn(ec, cfg)()
+    jit = jestimator.build_input_fn(jec, cfg)()
+    for _ in range(5):
+        batch = next(it)
+        assert batch.dtype == torch.float32 and batch.device.type == "cpu"
+        np.testing.assert_array_equal(batch.numpy(), next(jit))
+    est = estimator.main([f"--model_dir={tmp_path / 'run'}", "--device=cpu",
+                          f"--data_dir={path}", "--bond_d=3",
+                          "--batch_size=2", "--sample_duration=256",
+                          "--viz_steps=1", "--max_steps=2"])
+    assert est.global_step == 2
+    assert sorted(os.listdir(tmp_path / "run" / "checkpoints")) == [
+        "ckpt_1.pt", "ckpt_2.pt"]
 
 
 def test_discr_trains_rho_through_the_split_kernel_path(tmp_path,

@@ -20,6 +20,7 @@ import torch
 
 from audio_mps_tpu_torch import (CMPSConfig, PsiCMPS, RhoCMPS, RunConfig,
                                  init_psi, init_rho)
+from audio_mps_tpu_torch.data import get_audio, write_audio_tfrecords
 from audio_mps_tpu_torch.estimator import main as estimator_main
 from audio_mps_tpu_torch.ops import block, grad, scan, split
 from audio_mps_tpu_torch.ops import probe as probe_ops
@@ -50,7 +51,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"audio_mps_tpu_torch.ops.split",
             "audio_mps_tpu_torch.estimator", "audio_mps_tpu_torch.ops.probe",
             "audio_mps_tpu_torch.tools",
-            "audio_mps_tpu_torch.tools.probe8_psi_floor"} <= set(
+            "audio_mps_tpu_torch.tools.probe8_psi_floor",
+            "audio_mps_tpu_torch.data.tfrecord", "audio_mps_tpu_torch.native",
+            "audio_mps_tpu_torch.models.reference_transcription"} <= set(
                 port_modules())
     code = (
         "import importlib, sys\n"
@@ -103,7 +106,8 @@ def _np_rho_weights(D=8, rank=3):
                                    "train_cli", "make_train_step",
                                    "RhoCMPS", "init_rho", "rho_from_numpy",
                                    "rho_sample_cli", "rho_train_cli",
-                                   "rho_make_train_step", "estimator"])
+                                   "rho_make_train_step", "estimator",
+                                   "get_audio_file", "estimator_data_dir"])
 def test_default_device_entry_points_raise_without_a_card(entry, tmp_path,
                                                           monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -136,7 +140,14 @@ def test_default_device_entry_points_raise_without_a_card(entry, tmp_path,
             rho_params_from_numpy(_np_rho_weights(), "cpu")),
         "estimator": lambda: estimator_main([f"--model_dir={tmp_path}",
                                              "--max_steps=1"]),
+        "get_audio_file": lambda: get_audio(str(tmp_path), "guitar",
+                                            CMPSConfig()),
+        "estimator_data_dir": lambda: estimator_main([
+            f"--model_dir={tmp_path}", "--max_steps=1",
+            f"--data_dir={tmp_path / 'guitar.tfrecords'}"]),
     }
+    write_audio_tfrecords(str(tmp_path / "guitar.tfrecords"),
+                          np.zeros((2, 64), np.float32))
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
 

@@ -125,10 +125,39 @@ def test_parse_args_and_write_wav(tmp_path):
     assert (sc.modeldir, sc.fused, sc.num_samples, sc.temperature,
             sc.device) == ("/m", True, 4, 0.5, "cpu")
     assert parse_args([]).device == "cuda"
-    with pytest.raises(ValueError):
-        parse_args(["--visualize"])
+    assert parse_args(["--visualize"]).visualize
+    assert not parse_args([]).visualize
+    with pytest.raises(ValueError, match="unknown flag"):
+        parse_args(["--visualise"])
     path = os.path.join(tmp_path, "w.wav")
     write_wav(path, np.sin(np.arange(100) / 5.0), 8000)
     with wave.open(path) as f:
         pcm = np.frombuffer(f.readframes(100), "<i2")
     assert f.getframerate() == 8000 and np.abs(pcm).max() == 32767
+
+
+@pytest.mark.parametrize("matplotlib", [True, False])
+def test_sample_cli_visualize(tmp_path, capsys, monkeypatch, matplotlib):
+    """--visualize writes a waveform plot of each sample, samples_<i>.png
+    beside samples.npz, as the JAX CLI does; without matplotlib (as on the
+    card machine) the CLI says it wrote none and still returns the
+    samples."""
+    import sys
+    if not matplotlib:
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+    modeldir, _ = _modeldir(tmp_path, np_params(D, 2))
+    out = str(tmp_path / "samples.npz")
+    waves = sample(parse_args([f"--modeldir={modeldir}", "--num_samples=2",
+                               "--sample_duration=40", "--device=cpu",
+                               f"--out={out}", "--wav=false",
+                               "--visualize"]))
+    assert waves.shape == (2, 40)
+    pngs = sorted(p.name for p in tmp_path.glob("samples_*.png"))
+    said = capsys.readouterr().out
+    if matplotlib:
+        assert pngs == ["samples_0.png", "samples_1.png"]
+        assert "wrote 2 waveform plots" in said
+        for p in pngs:
+            assert (tmp_path / p).read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    else:
+        assert pngs == [] and "wrote no waveform plots" in said

@@ -332,8 +332,9 @@ def test_dispatch_and_unported_paths_on_cpu():
     (rho_mps is ported: tests/test_torch_rho_train.py); the split layout
     (D % 4 != 0) runs the split kernels' plain versions on the CPU
     (ops/split.py, held to JAX in tests/test_torch_split.py), which agree
-    with the eager core as the block path does; the file datasets raise
-    NotImplementedError."""
+    with the eager core as the block path does; a file dataset whose
+    .tfrecords file is missing raises FileNotFoundError (the data plane is
+    ported: tests/test_torch_tfrecord.py)."""
     hp, _ = configs()
     tp = psi_params_from_numpy(np_params(8), "cpu")
     sig = torch.as_tensor(np_signals(4, T))
@@ -353,8 +354,8 @@ def test_dispatch_and_unported_paths_on_cpu():
         p6, hp6, sig, defer_norm=False).item()
     np.testing.assert_allclose(got6, core.psi_nll(p6, hp6, sig).item(),
                                rtol=VALUE_RTOL)
-    with pytest.raises(NotImplementedError):
-        get_audio("data", "nsynth", hp, device="cpu")
+    with pytest.raises(FileNotFoundError, match="nsynth.tfrecords"):
+        get_audio("no_such_dir", "nsynth", hp, device="cpu")
     with pytest.raises(ValueError):
         training.make_train_step("psi_mps", hp, tp, device="meta")
 
