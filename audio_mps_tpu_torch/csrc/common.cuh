@@ -383,8 +383,9 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 }
 
 // Thread-block clusters (PTX for sm_90): the rank partials' slab ring
-// (rank_partials.cuh) and the rho block kernels' exchange of per-example
-// sums over the CTAs of an example (rho_cluster.cuh).
+// (rank_partials.cuh), the rho block kernels' exchange of per-example
+// sums over the CTAs of an example (rho_cluster.cuh) and psi's cluster
+// layout's exchange of state rows (psi_cluster.cuh).
 
 // Every thread of every CTA of the cluster.
 __device__ __forceinline__ void cluster_sync() {
@@ -441,6 +442,37 @@ __device__ __forceinline__ float ld_cluster(const float* p, uint32_t cta) {
       : "r"(smem_addr(p)), "r"(cta)
       : "memory");
   return v;
+}
+
+// Write v (a, b; a .. d) to the float (float2, float4) at p's offset in the
+// shared memory of cluster CTA `cta` (mapa, then a distributed-shared-memory
+// store; psi_cluster.cuh's pushes). A cluster barrier orders it before the
+// reads of that CTA.
+__device__ __forceinline__ void st_cluster(float* p, uint32_t cta, float v) {
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\tmapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "st.shared::cluster.f32 [ra], %2;\n\t}" ::"r"(smem_addr(p)),
+      "r"(cta), "f"(v)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_cluster2(float* p, uint32_t cta, float a,
+                                            float b) {
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\tmapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "st.shared::cluster.v2.f32 [ra], {%2, %3};\n\t}" ::"r"(smem_addr(p)),
+      "r"(cta), "f"(a), "f"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_cluster4(float* p, uint32_t cta, float a,
+                                            float b, float c, float d) {
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\tmapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "st.shared::cluster.v4.f32 [ra], {%2, %3, %4, %5};\n\t}" ::"r"(
+          smem_addr(p)),
+      "r"(cta), "f"(a), "f"(b), "f"(c), "f"(d)
+      : "memory");
 }
 
 // Opt `kernel` in to `smem` bytes of dynamic shared memory (past the 48 KB

@@ -30,10 +30,11 @@ SOURCES = ("psi_sample.cu", "psi_nll.cu", "psi_train_fwd.cu",
            "psi_split_sample.cu", "psi_split_nll.cu", "psi_split_fwd.cu",
            "psi_split_bwd.cu", "rho_split_sample.cu", "rho_split_nll.cu",
            "rho_split_fwd.cu", "rho_split_bwd.cu", "psi_batched_fwd.cu",
-           "psi_batched_bwd.cu", "psi_probe.cu")
+           "psi_batched_bwd.cu", "psi_probe.cu", "psi_cluster_fwd.cu",
+           "psi_cluster_bwd.cu", "psi_cluster_sample.cu")
 HEADERS = ("common.cuh", "psi_fwd.cuh", "rho_tile.cuh", "rho_cluster.cuh",
            "rho_fwd.cuh", "rank_partials.cuh", "rank_partials_fwd.cuh",
-           "psi_split_fwd.cuh", "rho_split_fwd.cuh")
+           "psi_split_fwd.cuh", "rho_split_fwd.cuh", "psi_cluster.cuh")
 ROOT = Path(__file__).resolve().parents[2]
 LIB_NAME = "libamt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -148,6 +149,36 @@ _SIGNATURES = {
     # ab, bb, rb, prod_t, t0, se, out, D, t_pad, B, unroll, G, mode,
     # log_eps, norm_eps, precision, stream
     "amt_psi_probe": ([_P] * 7 + [_I] * 6 + [_F, _F, _I, _P], _I),
+    # the cluster layout (psi_cluster*.cu): ab, bb, rb, t0, se, loss, D,
+    # n_steps, B, unroll, log_eps, norm_eps, precision, defer_norm, cluster,
+    # cols, stream
+    "amt_psi_cl_nll": ([_P] * 6 + [_I] * 4 + [_F, _F] + [_I] * 4 + [_P], _I),
+    # ... loss, ys, n2s ...
+    "amt_psi_cl_train_fwd": ([_P] * 8 + [_I] * 4 + [_F, _F] + [_I] * 4
+                             + [_P], _I),
+    # ... loss, ck ...
+    "amt_psi_cl_train_fwd_ckpt": ([_P] * 7 + [_I] * 4 + [_F, _F] + [_I] * 4
+                                  + [_P], _I),
+    # ab, bb, rb, ck, se, ys, n2s, D, n_steps, B, unroll, blocks_per_cta,
+    # norm_eps, precision, defer_norm, cluster, cols, stream
+    "amt_psi_cl_recompute": ([_P] * 7 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+                             _I),
+    # rb, rbp, se, g, ys, n2s, dse, dys, dehats, dn2ns, D, n_steps, B,
+    # unroll, log_eps, norm_eps, precision, defer_norm, stream
+    "amt_psi_cl_tail": ([_P] * 10 + [_I] * 4 + [_F, _F, _I, _I, _P], _I),
+    # ab, bb, rb, t0, se, g, ys, n2s, dtfin, dse, dt0, dys, dehats, dn2ns,
+    # rbp, D, n_steps, B, unroll, log_eps, norm_eps, precision, defer_norm,
+    # cluster, cols, stream
+    "amt_psi_cl_train_bwd": ([_P] * 15 + [_I] * 4 + [_F, _F] + [_I] * 4
+                             + [_P], _I),
+    # ab, bb, pc, ps, t0, noise, inv_a, wave, D, T, N, dt, norm_eps,
+    # precision, cluster, stream
+    "amt_psi_cl_sample": ([_P] * 8 + [_I] * 3 + [_F, _F, _I, _I, _P], _I),
+    "amt_psi_cl_fwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+    "amt_psi_cl_chain_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+    "amt_psi_cl_tail_smem_bytes": ([_I], ctypes.c_size_t),
+    "amt_psi_cl_sample_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "amt_psi_cl_threads": ([_I, _I], _I),
     "amt_psi_sample_smem_bytes": ([_I], ctypes.c_size_t),
     "amt_psi_sample_quad": ([_I], _I),
     "amt_psi_nll_smem_bytes": ([_I, _I], ctypes.c_size_t),

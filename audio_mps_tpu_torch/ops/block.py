@@ -324,26 +324,46 @@ def _check_cols(cols_per_cta):
                          f"got {cols_per_cta!r}")
 
 
-def _check_psi_block(name, D: int):
-    """Raise for a bond dimension past the quad layout's registers."""
-    if not psi_block_fits(D):
-        raise NotImplementedError(
-            f"{name} at D={D}: psi's block kernels hold a thread's quarter "
-            f"of each row of Ab and Bb in {PSI_QUAD_J} registers (D <= 68); "
-            f"streaming the constants is not ported yet (ROADMAP queue B)")
+PSI_LAYOUTS = ("quad", "cluster")
 
 
-def _psi_cols(B: int, D: int, device, cols_per_cta, name="psi") -> int:
-    """G of a psi block launch on ``device``: ``cols_per_cta``, or None for
-    ``psi_columns_per_cta`` on the card's SMs and shared memory; raises
-    past the quad layout's D."""
-    _check_cols(cols_per_cta)
-    _check_psi_block(name, D)
-    if cols_per_cta is not None:
-        return cols_per_cta
+def _psi_layout(B: int, D: int, device, cols_per_cta, name="psi",
+                layout: Optional[str] = None,
+                cluster: Optional[int] = None) -> tuple:
+    """(layout, C, G) of a psi block launch on ``device``: the rule of
+    ``cluster.psi_block_layout`` on the card's SMs and shared memory (the
+    quad layout to D=68, the cluster layout to D=256), ``cols_per_cta``
+    overriding its G. ``layout`` ("quad" or "cluster") and ``cluster`` (C)
+    force a layout, for the tests; a forced quad layout past D=68 raises.
+    Raises NotImplementedError past D=256."""
+    from . import cluster as cl
+    if layout not in (None,) + PSI_LAYOUTS:
+        raise ValueError(f"{name}: layout must be None or one of "
+                         f"{PSI_LAYOUTS}, got {layout!r}")
     props = torch.cuda.get_device_properties(device)
-    return psi_columns_per_cta(B, D, props.multi_processor_count,
-                               props.shared_memory_per_block_optin)
+    sms = props.multi_processor_count
+    smem = props.shared_memory_per_block_optin
+    if layout is None and cluster is None:
+        lay, C, G = cl.psi_block_layout(D, B, sms, smem, name)
+    elif layout == "quad":
+        if not psi_block_fits(D):
+            raise NotImplementedError(
+                f"{name} at D={D}: the quad layout holds a thread's quarter "
+                f"of each row of Ab and Bb in {PSI_QUAD_J} registers (D <= "
+                f"68); the cluster layout takes D to 256")
+        lay, C, G = "quad", 1, psi_columns_per_cta(B, D, sms, smem)
+    else:
+        lay = "cluster"
+        C = (cl.cluster_for(D, B, sms, smem, name)[0] if cluster is None
+             else cluster)
+        G = cl.cluster_cols(D, B, C, sms, smem)
+    if cols_per_cta is not None:
+        G = cols_per_cta
+    if lay == "quad":
+        _check_cols(G)
+    else:
+        cl.check_cluster(name, D, C, G)
+    return lay, C, G
 
 
 # ===========================================================================
@@ -404,28 +424,40 @@ def psi_sample_block_plain(ab, bb, pc, ps, t0, noise, inv_a, *, dt: float,
     return out
 
 
-PSI_SAMPLE_BODIES = ("quad", "row")
+PSI_SAMPLE_BODIES = ("quad", "row", "cluster")
+
+
+def _psi_sample_quad(D: int) -> bool:
+    """Does ``csrc/psi_sample.cu`` take its quad body at D (its
+    ``psi_sample_quad``: the quad layout at 512 threads at most)?"""
+    return psi_block_fits(D) and 4 * _quad(D)[1] <= 512
 
 
 def psi_sample_body(D: int) -> str:
-    """The body of ``csrc/psi_sample.cu`` at bond dimension D, mirrored from
-    its ``psi_sample_quad``: "quad" (the quad layout of psi's block
-    forward, a row's quarter of Ab and Bb in each thread's registers) where
-    its CTA is at most 512 threads (D <= 64), else "row" (one thread a row,
-    Ab^T and Bb^T in shared memory: D=72 and 80 of the sampler's
-    D % 8 == 0). A pure function of D."""
-    return ("quad" if psi_block_fits(D) and 4 * _quad(D)[1] <= 512
-            else "row")
+    """The body of psi's block sampler at bond dimension D: "quad" (the
+    quad layout of psi's block forward, a row's quarter of Ab and Bb in
+    each thread's registers; ``csrc/psi_sample.cu``'s ``psi_sample_quad``)
+    where its CTA is at most 512 threads (D <= 64); "row" (one thread a
+    row, Ab^T and Bb^T in one CTA's shared memory) where they fit an H100's
+    (D=72 and 80 of the sampler's D % 8 == 0); else "cluster" (one chain
+    over a thread-block cluster, ``csrc/psi_cluster_sample.cu``: D=88 to
+    256). A pure function of D."""
+    if _psi_sample_quad(D):
+        return "quad"
+    return ("row" if psi_sample_smem_bytes(D, "row") <= H100_SMEM_OPTIN
+            else "cluster")
 
 
 def psi_sample_smem_bytes(D: int, body: Optional[str] = None) -> int:
-    """Dynamic shared memory of one sampler CTA (its ``psi_sample_words``):
-    the parts of the step's two sums (2 x 16 float2), the step-parity
-    buffers of the walk's vector (quad: 4 quarters of 2 x 36 floats; row:
-    2 x 2D) and of the raw state [2][2D], and in the row body Ab^T and
-    Bb^T."""
+    """Dynamic shared memory of one CTA of ``csrc/psi_sample.cu`` (its
+    ``psi_sample_words``) in the quad or row body (None: the one its
+    ``psi_sample_quad`` picks): the parts of the step's two sums (2 x 16
+    float2), the step-parity buffers of the walk's vector (quad: 4 quarters
+    of 2 x 36 floats; row: 2 x 2D) and of the raw state [2][2D], and in the
+    row body Ab^T and Bb^T. The cluster body's is
+    ``cluster.psi_cluster_sample_smem_bytes``."""
     n = 2 * D
-    quad = (body or psi_sample_body(D)) == "quad"
+    quad = body == "quad" if body else _psi_sample_quad(D)
     return 4 * (64 + (16 * PSI_QUAD_PITCH if quad else 4 * n) + 2 * n
                 + (0 if quad else 2 * n * n))
 
@@ -433,12 +465,14 @@ def psi_sample_smem_bytes(D: int, body: Optional[str] = None) -> int:
 @torch.no_grad()
 def psi_sample_block(ab, bb, pc, ps, t0, noise, inv_a, *, dt: float,
                      norm_eps: float, precision: str = "highest",
-                     _body: Optional[str] = None):
-    """Running waveform [T, N]: ``psi_sample_block_plain`` for CPU tensors,
-    the CUDA kernel ``csrc/psi_sample.cu`` for CUDA tensors, in the body of
-    ``psi_sample_body`` (``_body`` forces one; the last launch's in
-    ``.body``). Raises NotImplementedError where the row body's constants
-    pass one block's shared memory (D > 80)."""
+                     _body: Optional[str] = None,
+                     _cluster: Optional[int] = None):
+    """Running waveform [T, N]: ``psi_sample_block_plain`` for CPU tensors;
+    for CUDA tensors in the body of ``psi_sample_body`` (``_body`` forces
+    one; the last launch's in ``.body``) the CUDA kernel
+    ``csrc/psi_sample.cu`` (quad, row) or ``cluster.psi_sample_cluster``
+    (cluster; ``_cluster`` forces its cluster size). Raises
+    NotImplementedError past D=256."""
     if _cuda_or_raise("psi_sample_block", noise):
         return psi_sample_block_plain(ab, bb, pc, ps, t0, noise, inv_a,
                                       dt=dt, norm_eps=norm_eps,
@@ -452,6 +486,12 @@ def psi_sample_block(ab, bb, pc, ps, t0, noise, inv_a, *, dt: float,
     if body == "quad" and psi_sample_body(D) != "quad":
         raise ValueError(f"psi_sample_block: the quad body does not take "
                          f"D={D}")
+    if body == "cluster":
+        from .cluster import psi_sample_cluster
+        psi_sample_block.body = body
+        return psi_sample_cluster(ab, bb, pc, ps, t0, noise, inv_a, dt=dt,
+                                  norm_eps=norm_eps, precision=precision,
+                                  cluster=_cluster)
     _check_inputs("psi_sample_block", noise.device, dict(
         ab=(ab, (2 * D, 2 * D)), bb=(bb, (2 * D, 2 * D)), pc=(pc, (D,)),
         ps=(ps, (D,)), t0=(t0, (2 * D, N)), noise=(noise, (T, N)),
@@ -557,11 +597,15 @@ def psi_nll_block_plain(ab, bb, rb, t0, se, *, log_eps: float,
 @torch.no_grad()
 def psi_nll_block(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
                   unroll: int = 16, precision: str = "highest",
-                  defer_norm: bool = False, cols_per_cta=None):
-    """Per-example NLL [B]: ``psi_nll_block_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/psi_nll.cu`` for CUDA tensors, ``cols_per_cta``
-    columns a CTA (None: ``psi_columns_per_cta``; every G gives the same
-    bits)."""
+                  defer_norm: bool = False, cols_per_cta=None,
+                  _layout: Optional[str] = None,
+                  _cluster: Optional[int] = None):
+    """Per-example NLL [B]: ``psi_nll_block_plain`` for CPU tensors; for
+    CUDA tensors the CUDA kernel ``csrc/psi_nll.cu`` in the quad layout
+    (D <= 68), ``cols_per_cta`` columns a CTA (None:
+    ``psi_columns_per_cta``; every G gives the same bits), or past it
+    ``cluster.psi_nll_cluster`` (``_psi_layout``; ``_layout`` and
+    ``_cluster`` force one; the last launch's in ``.layout``)."""
     if _cuda_or_raise("psi_nll_block", se):
         _check_cols(cols_per_cta)
         return psi_nll_block_plain(ab, bb, rb, t0, se, log_eps=log_eps,
@@ -574,7 +618,15 @@ def psi_nll_block(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
     _check_inputs("psi_nll_block", se.device, dict(
         ab=(ab, (2 * D, 2 * D)), bb=(bb, (2 * D, 2 * D)),
         rb=(rb, (2 * D, 2 * D)), t0=(t0, (2 * D, B)), se=(se, (n_steps, B))))
-    G = _psi_cols(B, D, se.device, cols_per_cta, "psi_nll_block")
+    lay, C, G = _psi_layout(B, D, se.device, cols_per_cta, "psi_nll_block",
+                            _layout, _cluster)
+    psi_nll_block.layout = lay
+    if lay == "cluster":
+        from .cluster import psi_nll_cluster
+        return psi_nll_cluster(ab, bb, rb, t0, se, log_eps=log_eps,
+                               norm_eps=norm_eps, unroll=unroll,
+                               precision=precision, defer_norm=defer_norm,
+                               cluster=C, cols=G)
     lib = _build.library()
     _check_smem("psi_nll_block", lib.amt_psi_nll_smem_bytes(D, G), se.device,
                 D)
@@ -594,6 +646,7 @@ def psi_nll_block(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
 
 psi_nll_block.launches = 0
 psi_nll_block.cols_per_cta = None
+psi_nll_block.layout = None
 
 
 # ===========================================================================
@@ -877,10 +930,13 @@ def psi_cotangents_plain(dy, ys, t0, se, n2s, dehat, *, norm_eps: float,
 @torch.no_grad()
 def psi_train_fwd(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
                   unroll: int = 16, precision: str = "highest",
-                  defer_norm: bool = False, cols_per_cta=None):
-    """(loss [B], ys, n2s): ``psi_train_fwd_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/psi_train_fwd.cu`` for CUDA tensors, ``cols_per_cta``
-    columns a CTA (None: ``psi_columns_per_cta``)."""
+                  defer_norm: bool = False, cols_per_cta=None,
+                  _layout: Optional[str] = None,
+                  _cluster: Optional[int] = None):
+    """(loss [B], ys, n2s): ``psi_train_fwd_plain`` for CPU tensors; for
+    CUDA tensors the CUDA kernel ``csrc/psi_train_fwd.cu`` in the quad
+    layout, ``cols_per_cta`` columns a CTA (None: ``psi_columns_per_cta``),
+    or past it ``cluster.psi_train_fwd_cluster`` (``_psi_layout``)."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm)
     if _cuda_or_raise("psi_train_fwd", se):
@@ -893,7 +949,13 @@ def psi_train_fwd(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
     _check_inputs("psi_train_fwd", se.device, dict(
         ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)), t0=(t0, (n, B)),
         se=(se, (n_steps, B))))
-    G = _psi_cols(B, D, se.device, cols_per_cta, "psi_train_fwd")
+    lay, C, G = _psi_layout(B, D, se.device, cols_per_cta, "psi_train_fwd",
+                            _layout, _cluster)
+    psi_train_fwd.layout = lay
+    if lay == "cluster":
+        from .cluster import psi_train_fwd_cluster
+        return psi_train_fwd_cluster(ab, bb, rb, t0, se, cluster=C, cols=G,
+                                     **kw)
     lib = _build.library()
     _check_smem("psi_train_fwd", lib.amt_psi_train_fwd_smem_bytes(D, G),
                 se.device, D)
@@ -915,17 +977,20 @@ def psi_train_fwd(ab, bb, rb, t0, se, *, log_eps: float, norm_eps: float,
 
 psi_train_fwd.launches = 0
 psi_train_fwd.cols_per_cta = None
+psi_train_fwd.layout = None
 
 
 @torch.no_grad()
 def psi_train_fwd_ckpt(ab, bb, rb, t0, se, *, log_eps: float,
                        norm_eps: float, unroll: int = 16,
                        precision: str = "highest", defer_norm: bool = False,
-                       cols_per_cta=None):
-    """(loss [B], ck): ``psi_train_fwd_ckpt_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/psi_train_fwd.cu`` (its checkpoint mode) for CUDA
-    tensors, ``cols_per_cta`` columns a CTA (None:
-    ``psi_columns_per_cta``)."""
+                       cols_per_cta=None, _layout: Optional[str] = None,
+                       _cluster: Optional[int] = None):
+    """(loss [B], ck): ``psi_train_fwd_ckpt_plain`` for CPU tensors; for
+    CUDA tensors the CUDA kernel ``csrc/psi_train_fwd.cu`` (its checkpoint
+    mode) in the quad layout, ``cols_per_cta`` columns a CTA (None:
+    ``psi_columns_per_cta``), or past it
+    ``cluster.psi_train_fwd_ckpt_cluster`` (``_psi_layout``)."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm)
     if _cuda_or_raise("psi_train_fwd_ckpt", se):
@@ -938,7 +1003,13 @@ def psi_train_fwd_ckpt(ab, bb, rb, t0, se, *, log_eps: float,
     _check_inputs("psi_train_fwd_ckpt", se.device, dict(
         ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)), t0=(t0, (n, B)),
         se=(se, (n_steps, B))))
-    G = _psi_cols(B, D, se.device, cols_per_cta, "psi_train_fwd_ckpt")
+    lay, C, G = _psi_layout(B, D, se.device, cols_per_cta,
+                            "psi_train_fwd_ckpt", _layout, _cluster)
+    psi_train_fwd_ckpt.layout = lay
+    if lay == "cluster":
+        from .cluster import psi_train_fwd_ckpt_cluster
+        return psi_train_fwd_ckpt_cluster(ab, bb, rb, t0, se, cluster=C,
+                                          cols=G, **kw)
     lib = _build.library()
     _check_smem("psi_train_fwd_ckpt",
                 lib.amt_psi_train_fwd_smem_bytes(D, G), se.device, D)
@@ -959,6 +1030,7 @@ def psi_train_fwd_ckpt(ab, bb, rb, t0, se, *, log_eps: float,
 
 psi_train_fwd_ckpt.launches = 0
 psi_train_fwd_ckpt.cols_per_cta = None
+psi_train_fwd_ckpt.layout = None
 
 
 def psi_recompute_blocks(cols: int, blocks: int, n_sms: int) -> int:
@@ -972,11 +1044,13 @@ def psi_recompute_blocks(cols: int, blocks: int, n_sms: int) -> int:
 @torch.no_grad()
 def psi_recompute(ab, bb, rb, ck, se, *, norm_eps: float, unroll: int = 16,
                   precision: str = "highest", defer_norm: bool = False,
-                  cols_per_cta=None):
-    """(ys, n2s) of a segment: ``psi_recompute_plain`` for CPU tensors, the
-    CUDA kernel ``csrc/psi_recompute.cu`` for CUDA tensors, a CTA
-    ``cols_per_cta`` columns (None: ``psi_columns_per_cta``) and a span of
-    ``psi_recompute_blocks`` blocks."""
+                  cols_per_cta=None, _layout: Optional[str] = None,
+                  _cluster: Optional[int] = None):
+    """(ys, n2s) of a segment: ``psi_recompute_plain`` for CPU tensors; for
+    CUDA tensors the CUDA kernel ``csrc/psi_recompute.cu`` in the quad
+    layout, a CTA ``cols_per_cta`` columns (None: ``psi_columns_per_cta``)
+    and a span of ``psi_recompute_blocks`` blocks, or past it
+    ``cluster.psi_recompute_cluster`` (``_psi_layout``)."""
     kw = dict(norm_eps=norm_eps, unroll=unroll, precision=precision,
               defer_norm=defer_norm)
     if _cuda_or_raise("psi_recompute", se):
@@ -989,7 +1063,13 @@ def psi_recompute(ab, bb, rb, ck, se, *, norm_eps: float, unroll: int = 16,
     _check_inputs("psi_recompute", se.device, dict(
         ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)),
         ck=(ck, (n_blocks(n_steps, unroll), n, B)), se=(se, (n_steps, B))))
-    G = _psi_cols(B, D, se.device, cols_per_cta, "psi_recompute")
+    lay, C, G = _psi_layout(B, D, se.device, cols_per_cta, "psi_recompute",
+                            _layout, _cluster)
+    psi_recompute.layout = lay
+    if lay == "cluster":
+        from .cluster import psi_recompute_cluster
+        return psi_recompute_cluster(ab, bb, rb, ck, se, cluster=C, cols=G,
+                                     **kw)
     lib = _build.library()
     _check_smem("psi_recompute", lib.amt_psi_train_fwd_smem_bytes(D, G),
                 se.device, D)
@@ -1013,17 +1093,21 @@ def psi_recompute(ab, bb, rb, ck, se, *, norm_eps: float, unroll: int = 16,
 
 psi_recompute.launches = 0
 psi_recompute.cols_per_cta = None
+psi_recompute.layout = None
 
 
 @torch.no_grad()
 def psi_train_bwd_tail(rb, se, g, ys, n2s, *, log_eps: float,
                        norm_eps: float, unroll: int = 16,
                        precision: str = "highest",
-                       defer_norm: bool = False):
+                       defer_norm: bool = False,
+                       _layout: Optional[str] = None):
     """(q, ds0, dehat, dn2_new): ``psi_train_bwd_tail_plain`` for CPU
     tensors; for CUDA tensors the tail kernel of ``csrc/psi_train_bwd.cu``
-    alone (``psi_train_bwd`` launches it before its chain, and counts its
-    launches here too)."""
+    alone where the quad layout takes D (``psi_train_bwd`` launches it
+    before its chain, and counts its launches here too), else (or with
+    ``_layout="cluster"``) ``cluster.psi_train_bwd_tail_cluster``, which
+    streams Rb from L2 where this one holds it whole in shared memory."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm)
     if _cuda_or_raise("psi_train_bwd_tail", se):
@@ -1035,7 +1119,16 @@ def psi_train_bwd_tail(rb, se, g, ys, n2s, *, log_eps: float,
     _check_inputs("psi_train_bwd_tail", se.device, dict(
         rb=(rb, (n, n)), se=(se, (n_steps, B)), g=(g, (B,)),
         ys=(ys, (n_steps, n, B)), n2s=(n2s, (n_steps, B))))
-    _check_psi_block("psi_train_bwd_tail", D)
+    if _layout not in (None,) + PSI_LAYOUTS:
+        raise ValueError(f"psi_train_bwd_tail: layout must be None or one "
+                         f"of {PSI_LAYOUTS}, got {_layout!r}")
+    if _layout == "cluster" or (_layout is None and not psi_block_fits(D)):
+        from .cluster import psi_train_bwd_tail_cluster
+        return psi_train_bwd_tail_cluster(rb, se, g, ys, n2s, **kw)
+    if not psi_block_fits(D):
+        raise NotImplementedError(
+            f"psi_train_bwd_tail at D={D}: the quad tail holds Rb^T and Rb "
+            f"whole in shared memory (D <= 68)")
     lib = _build.library()
     _check_smem("psi_train_bwd_tail",
                 lib.amt_psi_train_bwd_tail_smem_bytes(D), se.device, D)
@@ -1062,12 +1155,15 @@ psi_train_bwd_tail.launches = 0
 def psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
                   norm_eps: float, unroll: int = 16,
                   precision: str = "highest", defer_norm: bool = False,
-                  dtfin=None, cols_per_cta=None):
+                  dtfin=None, cols_per_cta=None,
+                  _layout: Optional[str] = None,
+                  _cluster: Optional[int] = None):
     """(dse, dt0, dy, dehat): ``psi_train_bwd_plain`` for CPU tensors; for
-    CUDA tensors the two kernels of ``csrc/psi_train_bwd.cu`` in one call,
-    the tail over all (step, column) pairs (counted in
-    ``psi_train_bwd_tail.launches``), then the chain at ``cols_per_cta``
-    columns a CTA (None: ``psi_columns_per_cta``)."""
+    CUDA tensors in the quad layout the two kernels of
+    ``csrc/psi_train_bwd.cu`` in one call, the tail over all (step, column)
+    pairs (counted in ``psi_train_bwd_tail.launches``), then the chain at
+    ``cols_per_cta`` columns a CTA (None: ``psi_columns_per_cta``); past it
+    ``cluster.psi_train_bwd_cluster`` (``_psi_layout``)."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm, dtfin=dtfin)
     if _cuda_or_raise("psi_train_bwd", se):
@@ -1084,7 +1180,13 @@ def psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
     if dtfin is not None:
         _check_inputs("psi_train_bwd", se.device,
                       dict(dtfin=(dtfin, (n, B))))
-    G = _psi_cols(B, D, se.device, cols_per_cta, "psi_train_bwd")
+    lay, C, G = _psi_layout(B, D, se.device, cols_per_cta, "psi_train_bwd",
+                            _layout, _cluster)
+    psi_train_bwd.layout = lay
+    if lay == "cluster":
+        from .cluster import psi_train_bwd_cluster
+        return psi_train_bwd_cluster(ab, bb, rb, t0, se, g, ys, n2s,
+                                     cluster=C, cols=G, **kw)
     lib = _build.library()
     _check_smem("psi_train_bwd", lib.amt_psi_train_bwd_smem_bytes(D, G),
                 se.device, D)
@@ -1111,6 +1213,7 @@ def psi_train_bwd(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
 
 psi_train_bwd.launches = 0
 psi_train_bwd.cols_per_cta = None
+psi_train_bwd.layout = None
 
 
 @torch.no_grad()
@@ -1256,18 +1359,22 @@ def psi_recompute_bwd_plain(ab, bb, rb, ck, se, g, *, log_eps: float,
 def psi_recompute_bwd(ab, bb, rb, ck, se, g, *, log_eps: float,
                       norm_eps: float, unroll: int = 16,
                       precision: str = "highest", defer_norm: bool = False,
-                      segment: Optional[int] = None, cols_per_cta=None):
+                      segment: Optional[int] = None, cols_per_cta=None,
+                      _layout: Optional[str] = None,
+                      _cluster: Optional[int] = None):
     """(dse, dt0, dAb, dBb, dRb): ``psi_recompute_bwd_plain`` for CPU
     tensors; for CUDA tensors the same segments through the kernels
     ``psi_recompute``, ``psi_train_bwd`` (its dt carried in; both at
-    ``cols_per_cta``) and ``psi_cotangents``, each counting its own
-    launches."""
+    ``cols_per_cta`` and in the layout ``_psi_layout`` picks, or
+    ``_layout`` / ``_cluster`` force) and ``psi_cotangents``, each
+    counting its own launches."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm, segment=segment)
     _check_cols(cols_per_cta)
     if _cuda_or_raise("psi_recompute_bwd", se):
         return psi_recompute_bwd_plain(ab, bb, rb, ck, se, g, **kw)
-    cols = dict(cols_per_cta=cols_per_cta)
+    cols = dict(cols_per_cta=cols_per_cta, _layout=_layout,
+                _cluster=_cluster)
     return _recompute_bwd(
         (functools.partial(psi_recompute, **cols),
          functools.partial(psi_train_bwd, **cols), psi_cotangents),

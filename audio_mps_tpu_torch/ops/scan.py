@@ -20,7 +20,7 @@ import torch
 
 from ..config import CMPSConfig
 from ..models import core
-from . import _build, block, split
+from . import _build, block, cluster, split
 
 DEFAULT_UNROLL = 16
 
@@ -45,16 +45,25 @@ def _sampler_layout(cfg: CMPSConfig, layout: Optional[str]) -> str:
 
 def psi_sampler_fits(cfg: CMPSConfig, device) -> bool:
     """Does a psi sampler kernel take ``cfg``'s D on the CUDA ``device``:
-    the block sampler where the layout resolves to block, else the split
-    one, each within one block's shared memory?"""
+    the block sampler where the layout resolves to block (its one-CTA
+    bodies within one block's shared memory, its cluster body at a cluster
+    of ``cluster.psi_sample_cluster_for``: D % 8 == 0 to 256), else the
+    split one, within one block's shared memory?"""
     lib = _build.library()
     D = cfg.bond_dim
+    optin = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
     block_layout = (cfg.kernel_layout != "split"
                     and block.supports_block_sampler(cfg))
+    if block_layout and block.psi_sample_body(D) == "cluster":
+        try:
+            cluster.psi_sample_cluster_for(D, optin)
+        except NotImplementedError:
+            return False
+        return True
     need = (lib.amt_psi_sample_smem_bytes(D) if block_layout
             else lib.amt_psi_split_sample_smem_bytes(D))
-    return need <= torch.cuda.get_device_properties(
-        device).shared_memory_per_block_optin
+    return need <= optin
 
 
 def rho_sampler_fits(cfg: CMPSConfig, rank: int, device) -> bool:

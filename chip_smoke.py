@@ -11,8 +11,9 @@ failure (the script then exits non-zero):
 
 1. set-up: card name and power limit, CUDA version, TF32 off, kernel build;
 2. kernel vs plain PyTorch at full width (psi, D=64): the SDE sampler
-   (N=8 chains, T=65536) and the forward-only NLL (B=128, T=16384), at the
-   tolerances stated below;
+   (N=8 chains, T=65536; the plain version on its T=4096 prefix) and the
+   forward-only NLL (B=128: the scoring variant at T=16384, the other three
+   on a T=2048 prefix), at the tolerances stated below;
 3. the port's kernels vs its eager reference (models/core.py) on a short
    input;
 4. the serving path: the sample CLI (``fused=True``) restores a seeded
@@ -36,13 +37,28 @@ failure (the script then exits non-zero):
    beside ``torch.matmul`` of its products, each precision's two launches
    equal bit for bit;
 6. timings of the psi sampler and NLL kernels, and one timed run of each
-   plain version, beside each kernel's bound;
+   plain version, beside each kernel's bound; then psi past the quad
+   layout (``wide_phases``, BASELINE config 5 on one card): the cluster
+   layout's kernels at D=128 (the NLL, the streamed and checkpoint
+   forwards, the segment recompute, the adjoint's tail and the whole
+   adjoint, and the cotangent reduction) held to their plain versions, the
+   main path's variant (highest, deferred norm) over the whole B=128,
+   T=16385 run, the other three on a T=2048 prefix; the same at D=256,
+   B=16, T=257; the cluster sampler at D=128 (8 chains and one, on the
+   T=4096 prefix) and D=256; the train CLI at D=128, B=128, T=16385 (3
+   Adam steps, a restore, 1 more; the summaries sample through the
+   cluster sampler) and with ``kernel_stream=off`` (1 + 1 steps); scoring
+   at B=128, T=16384 and the sample CLI at 8 x 65536; each cluster kernel's
+   CUDA-event time beside its bound, the tail beside two ``torch.matmul``
+   calls of its products;
 7. the rho (mixed-state) family at D=64, rank 64 (``rho_phases``): the
-   sampler (N=8 chains, T=65536) and the NLL (B=8, T=16384) held to their
-   plain versions (with controls at ``default`` for each ``high`` limit),
+   sampler (N=8 chains, T=65536, held to its plain version over its first
+   16384 steps) and the NLL (B=8, T=16384) held to their plain versions
+   (with controls at ``default`` for each ``high`` limit),
    the serving path (the sample CLI with ``mps_model=rho_mps`` and
    ``fused=True``, then ``rho_nll_fused``), the training phases of 5 at
-   B=8, T=16384 (the reference is autograd through the eager
+   B=8, T=16384 (the main variant held to plain on a T=4097 prefix; the
+   reference is autograd through the eager
    ``core.rho_nll_factor``), the device time by kernel of one rho train
    step (``torch.profiler``), the thread-block clusters the rho forward,
    chain and sampler took (``rho_cluster_phase``: the rule's, on the
@@ -87,10 +103,11 @@ failure (the script then exits non-zero):
    beside their bounds, with the G each launch took;
 10. psi's split layout (``split_phases``, after psi's phases) at the legacy
    estimator's published shape (D=10, B=32, dt=1e-3, T=65536): the sampler
-   (N=8 chains) held to its plain version on the T=4096 prefix and over the
-   whole run, the NLL (both norms) on a T=4096 prefix, the training forward
-   and adjoint on the T=16384 (deferred norm) and T=2048 (per-step norm)
-   prefixes, each with a control at ``default``, and all four at D=8 with
+   (N=8 chains) held to its plain version on the T=4096 prefix and over its
+   first 16384 steps, the NLL (both norms) on a T=4096 prefix, the training
+   forward and adjoint on the T=4096 (deferred norm) and T=2048 (per-step
+   norm) prefixes, each with a control at ``default``, and all four at D=8
+   with
    ``kernel_layout="split"``; the training path vs autograd through the
    eager reference; the estimator CLI at its defaults (4 steps, then 2
    more resuming at step 4: the split forward and adjoint launch once a
@@ -106,7 +123,7 @@ failure (the script then exits non-zero):
 11. rho's split layout (``rho_split_phases``, after psi's) at the same
    shape with ``--discr=true`` (full rank 10, 320 factor lanes): the
    sampler (N=8 chains) on the T=4096 prefix, the NLL (both norms) on a
-   T=4096 prefix, the training forward and adjoint on the T=16384 and
+   T=4096 prefix, the training forward and adjoint on the T=4096 and
    T=2048 prefixes, each held to its plain version with a control at
    ``default``; the training path vs autograd through the eager
    ``core.rho_nll_factor``; the estimator CLI with ``--discr=true`` (4 + 2
@@ -156,10 +173,11 @@ failure (the script then exits non-zero):
    once);
 16. the lab-frame anchor (``lab_frame_phases``): psi's lab-frame NLL held
    to the kernel path on a T=2048 prefix at rtol 2e-4; one lab-frame Adam
-   step at bench.py's primary cell (D=64, B=128, T=16384) after a short
-   warm-up, beside the kernel path's step (their ratio is vs_baseline),
-   and the whole-length gap between the two NLLs held to a limit set from
-   a float64 run (``tools/lab_frame_gap.py``); rho's lab-frame step and its
+   step on a T=2049 prefix of bench.py's primary cell (D=64, B=128,
+   T=16384) after a short warm-up, beside the kernel path's step there
+   (their ratio, per frame, is vs_baseline), and the whole-length gap
+   between the two NLLs (no gradient) held to a limit set from a float64
+   run (``tools/lab_frame_gap.py``); rho's lab-frame step and its
    peak memory on a T=1025 prefix of its cell (D=64, rank 64, B=8), its
    loss held to the kernel path's at rtol 2e-4.
 
@@ -261,12 +279,13 @@ TRAIN_BUILDS = {"psi": {"fwd": 0, "bwd": 0, "cot": 0},
 RHO_N_CHAINS = 8       # 8 chains x rank 64 = 512 state columns
 RHO_B = 8
 RHO_T = 16384
-RHO_T_SAMPLE_CHECK = 16384   # the sampler's prefix held at TOL["highest"]
-# The sampler's waveform is a running sum of T increments, so the kernel's
-# and the plain version's per-step differences in e dt add up along the run:
+RHO_T_SAMPLE_CHECK = 16384   # the sampler's plain run, held at TOL["highest"]
+RHO_T_TRAIN_MAIN = 4097      # the training kernels' main variant vs plain
+# A sampler's waveform is a running sum of T increments, so the kernel's and
+# the plain version's per-step differences in e dt add up along the run:
 # 7.9e-5 of max|plain| over all 65536 steps on an H100 at D=64, rank 64, 16x
-# the T=4096 level. The full run is held at 1e-3, its prefix at
-# TOL["highest"].
+# the T=4096 level. The split sampler's plain run (SPLIT_T_SAMPLE_PLAIN
+# steps) is held at 1e-3, its first SPLIT_T_SAMPLE_CHECK at TOL["highest"].
 RHO_TOL_SAMPLE_FULL = 1e-3
 
 # Rank-chunked rho training past the monolithic kernels' shared memory: the
@@ -463,7 +482,7 @@ def _training_wrappers() -> dict:
     """Every training kernel wrapper, both families' and the rank
     partials', streamed and recompute path, both split pairs and psi's
     batched pair, by name."""
-    from audio_mps_tpu_torch.ops import block, rank, split
+    from audio_mps_tpu_torch.ops import block, cluster, rank, split
     counted = {k: getattr(block, k) for f in ("psi", "rho")
                for k in _train_kernel_names(f).values()}
     counted.update((k, getattr(block, k)) for f in ("psi", "rho")
@@ -474,6 +493,9 @@ def _training_wrappers() -> dict:
         "psi_split_fwd", "psi_split_bwd", "rho_split_fwd", "rho_split_bwd"))
     counted.update((k, getattr(block, k)) for k in BATCHED_KERNELS)
     counted[PSI_TAIL] = block.psi_train_bwd_tail
+    counted.update((w.__name__, w) for w in cluster.WRAPPERS
+                   if w not in (cluster.psi_sample_cluster,
+                                cluster.psi_nll_cluster))
     return counted
 
 
@@ -627,13 +649,19 @@ def train_phases(dev, fam: Family):
         return out
 
     main = (cfg.kernel_precision, cfg.defer_norm)
+    # psi's main variant over the whole run; rho's on a prefix (its plain
+    # adjoint takes ~12 s over the whole run)
+    t_main = T if fam.name == "psi" else RHO_T_TRAIN_MAIN
+    main_in = (t_in if t_main == T
+               else dict(t_in, se=t_in["se"][:t_main - 1].contiguous()))
     phase(f"{fam.name} training kernels vs plain ({shape}): the main path's "
-          f"variant {main} at T={T}, the other three on a T={T_PREFIX} prefix")
+          f"variant {main} at T={t_main}, the other three on a T={T_PREFIX} "
+          f"prefix")
     err_at, plain_ms, ctrl = {}, {}, {}
     variants = [(p, d) for p in ("highest", "high") for d in (False, True)
                 if (p, d) != main] + [main]
     for prec, defer in variants:
-        ins = t_in if (prec, defer) == main else pre
+        ins = main_in if (prec, defer) == main else pre
         o = dict(precision=prec, defer_norm=defer)
         t_f, f_p = timed(lambda: fwd(ins, plain=True, **o))
         t_b, b_p = timed(lambda: bwd(ins, f_p[1], f_p[2], plain=True, **o))
@@ -696,7 +724,8 @@ def train_phases(dev, fam: Family):
                   f"limits): " + ", ".join(readings), flush=True)
         del f_p, b_p, c_p, want
         _free()
-    print(f"  plain versions at T={T} ({main}): fwd {plain_ms['fwd']:.1f} ms, "
+    print(f"  plain versions at T={t_main} ({main}): fwd "
+          f"{plain_ms['fwd']:.1f} ms, "
           f"bwd {plain_ms['bwd']:.1f} ms, cotangents {plain_ms['cot']:.1f} ms "
           f"(CUDA events, one run)", flush=True)
 
@@ -833,7 +862,8 @@ def train_phases(dev, fam: Family):
                   f"{bound / ms[role] * 100:.1f}% of its bound", flush=True)
         print(f"  {name}: {ms[role]:.3f} ms, launches per train step "
               f"{launches[name] / (TRAIN_STEPS + 1):g} (plain "
-              f"{plain_ms[role]:.1f} ms at T={T}, bound {bound:.3f} ms by "
+              f"{plain_ms[role]:.1f} ms at T={t_main}, bound {bound:.3f} ms "
+              f"by "
               f"{by}, control at default "
               f"{ctrl.get(role, float('nan')):.2e})", flush=True)
     if fam.name == "psi":
@@ -1394,21 +1424,19 @@ def rho_phases(dev):
     wave = block.rho_sample_block(**s_in)
     _free()
     check(bool(torch.isfinite(wave).all()), "rho sampler kernel: non-finite")
-    plain_ms["rho_sample_block"], want = timed(
-        lambda: block.rho_sample_block_plain(**s_in))
     k = RHO_T_SAMPLE_CHECK
-    _, rel_pre = rel_err(wave[:k], want[:k])
-    err, rel = rel_err(wave, want)
+    s_pre = dict(s_in, noise=s_in["noise"][:k].contiguous())
+    plain_ms["rho_sample_block"], want = timed(
+        lambda: block.rho_sample_block_plain(**s_pre))
+    del s_pre
+    err, rel_pre = rel_err(wave[:k], want)
     err_at["rho_sample_block"] = err
-    print(f"  highest: {rel_pre:.3e} x max|plain| over the first {k} steps "
-          f"(tol {TOL['highest']:g}); max|d| {err:.3e} = {rel:.3e} x "
-          f"max|plain| over all {T_SAMPLE} (tol {RHO_TOL_SAMPLE_FULL:g}); "
-          f"plain {plain_ms['rho_sample_block']:.1f} ms (one run)",
+    print(f"  highest: max|d| {err:.3e} = {rel_pre:.3e} x max|plain| over "
+          f"the first {k} of {T_SAMPLE} steps (tol {TOL['highest']:g}); "
+          f"plain {plain_ms['rho_sample_block']:.1f} ms at T={k} (one run)",
           flush=True)
     check(rel_pre <= TOL["highest"], f"rho sampler highest, first {k} "
                                      f"steps: rel err {rel_pre:.3e}")
-    check(rel <= RHO_TOL_SAMPLE_FULL, f"rho sampler highest: rel err "
-                                      f"{rel:.3e}")
     pre = dict(s_in, noise=s_in["noise"][:T_PLAIN].contiguous())
     want = block.rho_sample_block_plain(**pre, precision="high")
     _, rel = rel_err(block.rho_sample_block(**pre, precision="high"), want)
@@ -2285,9 +2313,12 @@ SPLIT_T = 65536
 SPLIT_N_CHAINS = 8
 # prefixes the plain versions run on (their step loops launch ~35 small ops
 # a step); the kernels are held to them at TOL["highest"] and TOL_TRAIN
-SPLIT_T_SAMPLE_CHECK = 4096   # the sampler's prefix (its full run: 1e-3)
+SPLIT_T_SAMPLE_CHECK = 4096   # the sampler's prefix (its plain run: 1e-3)
 SPLIT_T_NLL = 4096            # the NLL, both norms
-SPLIT_T_TRAIN = {True: 16384, False: 2048}   # the training pair, by defer
+SPLIT_T_TRAIN = {True: 4096, False: 2048}    # the training pair, by defer
+# the sampler's plain run (its first SPLIT_T_SAMPLE_CHECK steps at
+# TOL["highest"], all of it at 1e-3)
+SPLIT_T_SAMPLE_PLAIN = 16384
 SPLIT_T_REF = 512             # autograd through the eager reference
 SPLIT_T_D8 = 1024             # D=8 asked for with kernel_layout="split"
 SPLIT_CLI_STEPS = (4, 2)      # the estimator CLI's two calls
@@ -2424,10 +2455,13 @@ def split_phases(dev):
     wave = kernels["sample"](**s_in)
     _free()
     check(bool(torch.isfinite(wave).all()), "split sampler: non-finite")
-    plain_ms["sample"], want = timed(lambda: plains["sample"](**s_in))
+    kp = SPLIT_T_SAMPLE_PLAIN
+    s_plain = dict(s_in, noise=s_in["noise"][:kp].contiguous())
+    plain_ms["sample"], want = timed(lambda: plains["sample"](**s_plain))
+    del s_plain
     k = SPLIT_T_SAMPLE_CHECK
     _, rel_pre = rel_err(wave[:k], want[:k])
-    err, rel = rel_err(wave, want)
+    err, rel = rel_err(wave[:kp], want)
     err_at["sample"] = err
     check(rel_pre <= TOL["highest"], f"split sampler, first {k} steps: rel "
                                      f"err {rel_pre:.3e}")
@@ -2438,8 +2472,9 @@ def split_phases(dev):
         (kernels["sample"](**pre, precision="default"),), (want[:k],))
     print(f"  highest: {rel_pre:.3e} x max|plain| over the first {k} steps "
           f"(tol {TOL['highest']:g}); max|d| {err:.3e} = {rel:.3e} x "
-          f"max|plain| over all {SPLIT_T} (tol {RHO_TOL_SAMPLE_FULL:g}); "
-          f"plain {plain_ms['sample']:.1f} ms (one run); control at default "
+          f"max|plain| over the first {kp} of {SPLIT_T} (tol "
+          f"{RHO_TOL_SAMPLE_FULL:g}); plain {plain_ms['sample']:.1f} ms at "
+          f"T={kp} (one run); control at default "
           f"on the prefix {ctrl['sample'][0]}", flush=True)
     del wave, want, pre
 
@@ -2738,7 +2773,7 @@ def split_phases(dev):
     launches = {"sample": serve["psi_sample_split"],
                 "nll": serve["psi_nll_split"],
                 "fwd": cli["psi_split_fwd"], "bwd": cli["psi_split_bwd"]}
-    pre_t = {"sample": SPLIT_T, "nll": SPLIT_T_NLL,
+    pre_t = {"sample": SPLIT_T_SAMPLE_PLAIN, "nll": SPLIT_T_NLL,
              "fwd": SPLIT_T_TRAIN[True], "bwd": SPLIT_T_TRAIN[True]}
     entries = []
     for role, (name, src, rep) in SPLIT_KERNELS.items():
@@ -3536,6 +3571,10 @@ RHO_KERNELS = {"rho_train_fwd": 1, "rho_train_bwd": 1, "rho_cotangents": 1}
 LAB_D, LAB_B, LAB_T = 64, 128, 16384
 LAB_T_PREFIX = 2048    # the lab frame held to the kernel path at rtol 2e-4
 LAB_T_WARMUP = 256     # the warm-up lab step's prefix
+# the lab-frame Adam step and the kernel path's on this prefix (their ratio,
+# vs_baseline, is per frame; the lab step's backward takes ~4.7 ms a step);
+# the whole-length gap comes from the two NLLs without gradient
+LAB_T_STEP = 2049
 TOL_LAB = 2e-4         # tests/test_model_psi.py's lab-frame tolerance
 LAB_RHO_B = 8
 LAB_RHO_T = 1025       # rho's lab step on a prefix: 4 chunks of 256 steps
@@ -3820,8 +3859,9 @@ def lab_frame_phases(dev):
     params, cfg, batch = psi_inputs(dev, LAB_T)
     phase(f"lab frame, psi (D={LAB_D}, B={LAB_B}, T={LAB_T}): held to the "
           f"kernel path on the T={LAB_T_PREFIX} prefix at rtol {TOL_LAB:g}; "
-          f"one lab-frame Adam step after a warm-up (T={LAB_T_WARMUP}) "
-          f"beside the kernel path's step [{card}]")
+          f"one lab-frame Adam step on the T={LAB_T_STEP} prefix after a "
+          f"warm-up (T={LAB_T_WARMUP}) beside the kernel path's step there; "
+          f"the whole-length gap of the two NLLs [{card}]")
     prefix = batch[:, :LAB_T_PREFIX]
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -3833,28 +3873,31 @@ def lab_frame_phases(dev):
           f"gradient), kernel path {kern:.8f}: {rel:.3e} relative (tol "
           f"{TOL_LAB:g}) [{card}]", flush=True)
     check(rel <= TOL_LAB, f"lab frame vs kernel path on the prefix: {rel}")
+    with torch.no_grad():
+        lab_nll = ref.psi_nll_lab_frame(params, cfg, batch).item()
+        kern_nll = nll_fn_for("psi_mps")(params, cfg, batch).item()
+    gap = abs(lab_nll - kern_nll) / abs(kern_nll)
     _lab_warmup(ref, cfg, "psi_mps", params, psi_params_from_numpy,
                 batch[:, :LAB_T_WARMUP])
+    step_batch = batch[:, :LAB_T_STEP].contiguous()
     lp = psi_params_from_numpy(params_to_numpy(params), dev)
     _, lab_step = ref.make_lab_train_step(cfg, "psi_mps", lp)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    lab_nll = lab_step(batch)["model_loss"].item()
+    lab_step(step_batch)
     lab_ms = _sync_ms(t0)
     lab_peak = torch.cuda.max_memory_allocated(dev)
     del lp, lab_step
     _free()
     fp = psi_params_from_numpy(params_to_numpy(params), dev)
     _, step = make_train_step("psi_mps", cfg, fp, device=dev)
-    first = step(batch)
+    step(step_batch)
     t0 = time.perf_counter()
     for _ in range(DATA_STEP_REPS):
-        step(batch)
+        step(step_batch)
     fused_ms = _sync_ms(t0) / DATA_STEP_REPS
-    kern_nll = first["model_loss"].item()
-    gap = abs(lab_nll - kern_nll) / abs(kern_nll)
-    frames = LAB_B * (LAB_T - 1)
-    print(f"  lab-frame step {lab_ms:.1f} ms host clock "
+    frames = LAB_B * (LAB_T_STEP - 1)
+    print(f"  lab-frame step at T={LAB_T_STEP} {lab_ms:.1f} ms host clock "
           f"({frames / lab_ms * 1e3:.4e} frames/s, peak "
           f"{lab_peak / 1e9:.3f} GB); kernel-path step {fused_ms:.2f} ms "
           f"(mean of {DATA_STEP_REPS} after a warm-up): vs_baseline "
@@ -3863,7 +3906,7 @@ def lab_frame_phases(dev):
           f"{kern_nll:.8f}: gap {gap:.3e} relative (limit "
           f"{LAB_GAP_LIMIT:g}, tools/lab_frame_gap.py)", flush=True)
     check(gap <= LAB_GAP_LIMIT, f"whole-length gap {gap:.3e}")
-    del fp, step, params, batch, prefix
+    del fp, step, params, batch, prefix, step_batch
     _free()
 
     rcfg = CMPSConfig(bond_dim=LAB_D, minibatch_size=LAB_RHO_B)
@@ -3904,6 +3947,455 @@ def lab_frame_phases(dev):
     check(rel <= TOL_LAB, f"rho lab frame vs kernel path: {rel}")
     del fp, step, rp, rbatch
     _free()
+
+
+# psi past the quad layout (BASELINE config 5 on one card): the cluster
+# layout of psi's block kernels (ops/cluster.py, csrc/psi_cluster*.cu) at
+# D=128, psi training at B=128, T=16385 (16384 steps), the train CLI's
+# defaults otherwise (highest, deferred norm); scoring at B=128, T=16384;
+# the sampler 8 chains x 65536 and one chain. The kernels are held to their
+# plain versions on prefixes of the run (the plain versions launch ~10 small
+# ops a step; the kernels' states are renormalised as the run's are): the
+# main path's variant on WIDE_T_MAIN, the other three on WIDE_T_PREFIX; the
+# widest D the layout takes, 256, at B=16 (a layout sweep's batch) on a
+# short run.
+WIDE_D, WIDE_B, WIDE_T = 128, 128, 16385
+WIDE_T_MAIN, WIDE_T_PREFIX = 4097, 2048
+WIDEST_D, WIDEST_B, WIDEST_T = 256, 16, 257
+WIDE_OFF_STEPS = 1     # the kernel_stream=off CLI's first call
+WIDE_REPLACES = {
+    "psi_sample_cluster": "audio_mps_tpu/ops/pallas_block.py:2176",
+    "psi_nll_cluster": "audio_mps_tpu/ops/pallas_block.py:2428",
+    "psi_train_fwd_cluster": "audio_mps_tpu/ops/pallas_block.py:875",
+    "psi_train_bwd_cluster": "audio_mps_tpu/ops/pallas_block.py:935",
+    "psi_train_bwd_tail_cluster": "audio_mps_tpu/ops/pallas_block.py:935 "
+                                  "(its batched tail)",
+    "psi_train_fwd_ckpt_cluster": "audio_mps_tpu/ops/pallas_block.py:461",
+    "psi_recompute_cluster": "audio_mps_tpu/ops/pallas_block.py:621"}
+WIDE_SOURCES = {
+    "psi_sample_cluster": "psi_cluster_sample.cu",
+    "psi_train_bwd_cluster": "psi_cluster_bwd.cu",
+    "psi_train_bwd_tail_cluster": "psi_cluster_bwd.cu"}
+
+
+def _wide_holds(dev, params, cfg, T, variants, prefix):
+    """The cluster kernels against their plain versions at ``cfg``'s width:
+    each (precision, defer) of ``variants`` on the first ``prefix`` steps
+    (None: the whole run), each kernel fed the plain versions' streams; the
+    NLL's loss and the checkpoint forward's are the streamed forward's bit
+    for bit, and the recompute of the kernel's checkpoints is its stream.
+    Returns ({kernel: max|d|}, {kernel: plain ms}) of the last variant;
+    at highest the reductions are held to their plain version in
+    float64."""
+    from audio_mps_tpu_torch.data import damped_sine_batch
+    from audio_mps_tpu_torch.ops import block
+
+    B = cfg.minibatch_size
+    signals = damped_sine_batch(torch.Generator(dev).manual_seed(61), B, T,
+                                cfg.delta_t)
+    t_in = block.psi_nll_inputs(params, cfg, signals)
+    eps = dict(log_eps=t_in.pop("log_eps"), norm_eps=t_in.pop("norm_eps"))
+    g = torch.full((B,), 1.0 / B, device=dev)
+    err_at, plain_ms = {}, {}
+    for (prec, defer), steps in zip(variants, prefix):
+        ins = (t_in if steps is None
+               else dict(t_in, se=t_in["se"][:steps - 1].contiguous()))
+        o = dict(eps, precision=prec, defer_norm=defer)
+        r_o = dict(norm_eps=eps["norm_eps"], precision=prec, defer_norm=defer)
+        mats = (ins["ab"], ins["bb"], ins["rb"])
+        t_args = (ins["rb"], ins["se"])
+        ms = {}
+        ms["psi_train_fwd_cluster"], f_p = timed(
+            lambda: block.psi_train_fwd_plain(**ins, **o))
+        ms["psi_nll_cluster"] = ms["psi_train_fwd_cluster"]
+        ms["psi_train_fwd_ckpt_cluster"], c_p = timed(
+            lambda: block.psi_train_fwd_ckpt_plain(**ins, **o))
+        ms["psi_recompute_cluster"], r_p = timed(
+            lambda: block.psi_recompute_plain(*mats, c_p[1], ins["se"],
+                                              **r_o))
+        ms["psi_train_bwd_tail_cluster"], tail_p = timed(
+            lambda: block.psi_train_bwd_tail_plain(*t_args, g, f_p[1],
+                                                   f_p[2], **o))
+        ms["psi_train_bwd_cluster"], b_p = timed(
+            lambda: block.psi_train_bwd_plain(**ins, g=g, ys=f_p[1],
+                                              n2s=f_p[2], **o))
+        cot_in = (b_p[2], f_p[1], ins["t0"], ins["se"], f_p[2], b_p[3])
+        ms["psi_cotangents"], cot_p = timed(
+            lambda: block.psi_cotangents_plain(*cot_in, **r_o))
+        del r_p
+        tol = TOL_TRAIN[prec]
+        line = []
+
+        def hold(kernel, labels, got, want, tol_):
+            worst = 0.0
+            for label, a, b in zip(labels, got, want):
+                check(bool(torch.isfinite(a).all()),
+                      f"{kernel} {label}: non-finite")
+                err, rel = rel_err(a, b)
+                worst = max(worst, err)
+                line.append(f"{label} {rel:.2e}")
+                check(rel <= tol_, f"{kernel} {prec} defer={defer} {label}: "
+                                   f"rel err {rel:.3e} (tol {tol_:g})")
+            err_at[kernel] = worst
+
+        f_k = block.psi_train_fwd(**ins, **o)
+        check(block.psi_train_fwd.layout == "cluster",
+              f"psi_train_fwd took the {block.psi_train_fwd.layout} layout")
+        hold("psi_train_fwd_cluster", ("loss", "ys", "n2s"), f_k, f_p,
+             tol["fwd"])
+        nll = block.psi_nll_block(**ins, **o)
+        check(torch.equal(nll, f_k[0]), "the cluster NLL's loss is not the "
+                                        "training forward's bit for bit")
+        err_at["psi_nll_cluster"] = rel_err(nll, f_p[0])[0]
+        c_k = block.psi_train_fwd_ckpt(**ins, **o)
+        check(torch.equal(c_k[0], f_k[0]), "the checkpoint forward's loss is "
+                                           "not the streamed forward's")
+        hold("psi_train_fwd_ckpt_cluster", ("ck",), c_k[1:], c_p[1:],
+             tol["fwd"])
+        r_k = block.psi_recompute(*mats, c_k[1], ins["se"], **r_o)
+        check(torch.equal(r_k[0], f_k[1]) and torch.equal(r_k[1], f_k[2]),
+              "the recompute of the kernel's checkpoints is not its stream")
+        r_pk = block.psi_recompute_plain(*mats, c_k[1], ins["se"], **r_o)
+        hold("psi_recompute_cluster", ("rec ys", "rec n2s"), r_k, r_pk,
+             TOL_RECOMPUTE[prec])
+        del f_k, c_k, r_k, r_pk
+        tail_k = block.psi_train_bwd_tail(*t_args, g, f_p[1], f_p[2], **o)
+        hold("psi_train_bwd_tail_cluster", ("q", "ds0", "dehat", "dn2_new"),
+             tail_k, tail_p, tol["bwd"])
+        del tail_k, tail_p
+        b_k = block.psi_train_bwd(**ins, g=g, ys=f_p[1], n2s=f_p[2], **o)
+        hold("psi_train_bwd_cluster", ("dse", "dt0", "dy", "dehat"), b_k,
+             b_p, tol["bwd"])
+        del b_k
+        cot_k = block.psi_cotangents(*cot_in, **r_o)
+        if prec == "highest":
+            # the reductions sum (T-1) B terms an element in fp32, the
+            # kernel and the plain version in two orders (over the whole
+            # D=128, B=128, T=16385 run, 2.1e6 terms, they differed by
+            # 2.6e-5 of the largest element): at highest the kernel is held
+            # to the plain version in float64
+            cot_64 = block.psi_cotangents_plain(
+                *(x.double() for x in cot_in), **r_o)
+            p_64 = max(rel_err(a.double(), b)[1]
+                       for a, b in zip(cot_p, cot_64))
+            line.append(f"(fp32 plain vs float64 {p_64:.2e})")
+            hold("psi_cotangents", ("dAb/f64", "dBb/f64", "dRb/f64"),
+                 [a.double() for a in cot_k], cot_64, tol["cot"])
+            del cot_64
+        else:
+            hold("psi_cotangents", ("dAb", "dBb", "dRb"), cot_k, cot_p,
+                 tol["cot"])
+        torch.cuda.synchronize()
+        print(f"  {prec} defer_norm={defer}, T="
+              f"{ins['se'].shape[0] + 1} (tol fwd {tol['fwd']:g}, bwd "
+              f"{tol['bwd']:g}, cot {tol['cot']:g}, recompute "
+              f"{TOL_RECOMPUTE[prec]:g}), x max|plain|: " + ", ".join(line),
+              flush=True)
+        plain_ms = ms
+        del f_p, c_p, b_p, cot_p, cot_in, cot_k
+        _free()
+    return err_at, plain_ms
+
+
+def wide_phases(dev):
+    """psi past the quad layout of its block kernels: the cluster layout at
+    D=128 (training, recompute, scoring and sampling at the full width of
+    BASELINE config 5 on one card) and at D=256. Returns the cluster
+    kernels' entries of the {"kernels": [...]} line."""
+    from audio_mps_tpu_torch.config import CMPSConfig
+    from audio_mps_tpu_torch.data import damped_sine_batch
+    from audio_mps_tpu_torch.models import core
+    from audio_mps_tpu_torch.models.params import init_psi
+    from audio_mps_tpu_torch.ops import block, cluster as cl
+    from audio_mps_tpu_torch.ops.scan import DEFAULT_UNROLL, psi_nll_fused
+    from audio_mps_tpu_torch.sample import SampleConfig, sample
+    from audio_mps_tpu_torch.weights import save_params
+
+    Dw, B, T = WIDE_D, WIDE_B, WIDE_T
+    n = 2 * Dw
+    props = torch.cuda.get_device_properties(dev)
+    sms, optin = props.multi_processor_count, \
+        props.shared_memory_per_block_optin
+    lay = cl.psi_block_layout(Dw, B, sms, optin)
+    c_sample = cl.psi_sample_cluster_for(Dw, optin)
+    card = card_line()
+    cfg = CMPSConfig(bond_dim=Dw, minibatch_size=B)
+    params = init_psi(torch.Generator(dev).manual_seed(60), cfg, device=dev)
+    main = (cfg.kernel_precision, cfg.defer_norm)
+    variants = [(p, d) for p in ("highest", "high") for d in (False, True)
+                if (p, d) != main] + [main]
+
+    phase(f"psi at D={Dw} in the cluster layout ({lay[1]} CTAs a cluster, "
+          f"{lay[2]} columns a cluster at B={B} on this card; the sampler "
+          f"{c_sample} CTAs a chain): the kernels vs plain, the main path's "
+          f"variant {main} on the T={WIDE_T_MAIN} prefix of T={T}, the other "
+          f"three on a T={WIDE_T_PREFIX} prefix; the cotangent reduction at "
+          f"D={Dw} too [{card}]")
+    check(lay[0] == "cluster", f"the rule took {lay} at D={Dw}")
+    err_at, plain_ms = _wide_holds(
+        dev, params, cfg, T, variants,
+        [WIDE_T_PREFIX] * (len(variants) - 1) + [WIDE_T_MAIN])
+    print(f"  plain versions at T={WIDE_T_MAIN} {main}: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in plain_ms.items())
+        + " (CUDA events, one run)", flush=True)
+
+    wcfg = CMPSConfig(bond_dim=WIDEST_D, minibatch_size=WIDEST_B)
+    wlay = cl.psi_block_layout(WIDEST_D, WIDEST_B, sms, optin)
+    w_sample = cl.psi_sample_cluster_for(WIDEST_D, optin)
+    phase(f"psi at D={WIDEST_D}, the widest the cluster layout takes "
+          f"({wlay[1]} CTAs a cluster, {wlay[2]} columns a cluster): B="
+          f"{WIDEST_B}, T={WIDEST_T}, both precisions and norms, the kernels "
+          f"vs plain; the sampler ({w_sample} CTAs a chain) over "
+          f"{T_PREFIX} steps")
+    wparams = init_psi(torch.Generator(dev).manual_seed(63), wcfg,
+                       device=dev)
+    _wide_holds(dev, wparams, wcfg, WIDEST_T, variants,
+                [None] * len(variants))
+    noise = core._sample_noise(wcfg, torch.Generator(dev).manual_seed(64),
+                               2, T_PREFIX, 1.0)
+    w_in = block.psi_sample_inputs(wparams, wcfg, noise)
+    for prec in ("highest", "high"):
+        err, rel = rel_err(block.psi_sample_block(**w_in, precision=prec),
+                           block.psi_sample_block_plain(**w_in,
+                                                        precision=prec))
+        print(f"  sampler {prec}: {rel:.3e} x max|plain| (tol "
+              f"{TOL[prec]:g})", flush=True)
+        check(rel <= TOL[prec], f"the D={WIDEST_D} sampler {prec}: rel err "
+                                f"{rel:.3e}")
+    del wparams, w_in, noise
+    _free()
+
+    phase(f"psi sampler at D={Dw} (the cluster body): kernel vs plain, "
+          f"{N_CHAINS} chains and one, on the T={T_PLAIN} prefix of "
+          f"T={T_SAMPLE}")
+    noise = core._sample_noise(cfg, torch.Generator(dev).manual_seed(62),
+                               N_CHAINS, T_SAMPLE, 1.0)
+    s_in = block.psi_sample_inputs(params, cfg, noise)
+    s_short = dict(s_in, noise=s_in["noise"][:T_PLAIN].contiguous())
+    s_one = dict(s_in, noise=s_in["noise"][:, :1].contiguous(),
+                 t0=s_in["t0"][:, :1].contiguous())
+    s_one_short = dict(s_one, noise=s_one["noise"][:T_PLAIN].contiguous())
+    for prec in ("highest", "high"):
+        for tag, ins in ((f"{N_CHAINS} chains", s_short),
+                         ("one chain", s_one_short)):
+            got = block.psi_sample_block(**ins, precision=prec)
+            check(block.psi_sample_block.body == "cluster",
+                  f"the sampler took the {block.psi_sample_block.body} body")
+            if prec == "highest" and tag != "one chain":
+                plain_ms["psi_sample_cluster"], want = timed(
+                    lambda: block.psi_sample_block_plain(**ins,
+                                                         precision=prec))
+            else:
+                want = block.psi_sample_block_plain(**ins, precision=prec)
+            err, rel = rel_err(got, want)
+            if prec == "highest" and tag != "one chain":
+                err_at["psi_sample_cluster"] = err
+            print(f"  {prec}, {tag}: {rel:.3e} x max|plain| over {T_PLAIN} "
+                  f"steps (tol {TOL[prec]:g})", flush=True)
+            check(rel <= TOL[prec], f"the D={Dw} sampler {prec} {tag}: rel "
+                                    f"err {rel:.3e}")
+    del s_short, s_one_short
+
+    phase(f"psi training at D={Dw}: train CLI (B={B}, T={T}), "
+          f"{TRAIN_STEPS} steps, then a restore and one more step, the "
+          f"summaries sampling through the cluster sampler")
+    per_step = {"psi_train_fwd_cluster": 1, "psi_train_bwd_cluster": 1,
+                "psi_train_bwd_tail_cluster": 1, "psi_cotangents": 1}
+    cl.psi_sample_cluster.launches = 0
+    launches = train_cli_phase(dev, "psi_mps", cfg, T, TRAIN_STEPS, per_step)
+    _summary_samples(cl.psi_sample_cluster, 2)
+    reps = 3
+    step_ms, step_peak = time_train_step(dev, "psi_mps", cfg, params, T, 65,
+                                         reps)
+    print(f"  psi train step at D={Dw} (make_train_step, batch draw "
+          f"included): {step_ms:.2f} ms host clock, mean of {reps} after a "
+          f"warm-up; {B * (T - 1) / step_ms * 1e3:.4e} frames/s; peak "
+          f"{step_peak / 1e9:.3f} GB", flush=True)
+
+    phase(f"psi training at D={Dw} without the stream: train CLI "
+          f"(kernel_stream=off, B={B}, T={T}), {WIDE_OFF_STEPS} step, then a "
+          f"restore and one more")
+    cfg_off = dataclasses.replace(cfg, kernel_stream="off")
+    per_off = {"psi_train_fwd_ckpt_cluster": 1,
+               "psi_recompute_cluster": None, "psi_train_bwd_cluster": None,
+               "psi_train_bwd_tail_cluster": None, "psi_cotangents": None}
+    cl.psi_sample_cluster.launches = 0
+    off_launches = train_cli_phase(dev, "psi_mps", cfg_off, T,
+                                   WIDE_OFF_STEPS, per_off)
+    _summary_samples(cl.psi_sample_cluster, 2)
+    segments = len(block.recompute_segments(T - 1, DEFAULT_UNROLL))
+    for k in ("psi_recompute_cluster", "psi_train_bwd_cluster"):
+        check(off_launches[k] == segments * (WIDE_OFF_STEPS + 1),
+              f"{k} launched {off_launches[k]} times off the stream "
+              f"({segments} segments a step)")
+    launches["psi_train_fwd_ckpt_cluster"] = \
+        off_launches["psi_train_fwd_ckpt_cluster"]
+    launches["psi_recompute_cluster"] = off_launches["psi_recompute_cluster"]
+
+    phase(f"psi serving at D={Dw}: scoring (psi_nll_fused, B={B}, "
+          f"T={T_NLL}) and the sample CLI (fused, {N_CHAINS} x {T_SAMPLE})")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({"cfg": dataclasses.asdict(cfg),
+                       "run": {"mps_model": "psi_mps"}}, f)
+        save_params(os.path.join(tmp, "params.npz"), params)
+        cl.psi_nll_cluster.launches = 0
+        cl.psi_sample_cluster.launches = 0
+        batch = damped_sine_batch(torch.Generator(dev).manual_seed(66), B,
+                                  T_NLL, cfg.delta_t)
+        t0 = time.perf_counter()
+        nll = psi_nll_fused(params, cfg, batch).item()
+        t_score = _sync_ms(t0)
+        t0 = time.perf_counter()
+        waves = sample(SampleConfig(modeldir=tmp, num_samples=N_CHAINS,
+                                    sample_duration=T_SAMPLE, fused=True,
+                                    device="cuda",
+                                    out=os.path.join(tmp, "samples.npz")))
+        t_sample = _sync_ms(t0)
+        launches["psi_nll_cluster"] = cl.psi_nll_cluster.launches
+        launches["psi_sample_cluster"] = cl.psi_sample_cluster.launches
+    print(f"  NLL {nll:.6f} in {t_score:.1f} ms; sample CLI {waves.shape} in "
+          f"{t_sample:.1f} ms (host clock); launches nll "
+          f"{launches['psi_nll_cluster']}, sampler "
+          f"{launches['psi_sample_cluster']}", flush=True)
+    check(math.isfinite(nll), f"NLL {nll}")
+    check(waves.shape == (N_CHAINS, T_SAMPLE), f"waves {waves.shape}")
+    check(bool(torch.isfinite(torch.as_tensor(waves)).all()),
+          "sampled waveforms are not finite")
+    for k in ("psi_nll_cluster", "psi_sample_cluster"):
+        check(launches[k] == 1, f"{k} launched {launches[k]} times")
+    del batch, waves
+
+    phase(f"psi at D={Dw} timings (CUDA events, median of 5 after 1 "
+          f"warm-up; the recompute over the run's {segments} segments) "
+          f"[{card}]")
+    signals = damped_sine_batch(torch.Generator(dev).manual_seed(61), B, T,
+                                cfg.delta_t)
+    t_in = block.psi_nll_inputs(params, cfg, signals)
+    eps = dict(log_eps=t_in.pop("log_eps"), norm_eps=t_in.pop("norm_eps"))
+    o = dict(eps, precision=main[0], defer_norm=main[1])
+    r_o = dict(norm_eps=eps["norm_eps"], precision=main[0],
+               defer_norm=main[1])
+    g = torch.full((B,), 1.0 / B, device=dev)
+    loss, ys, n2s = block.psi_train_fwd(**t_in, **o)
+    _, ck = block.psi_train_fwd_ckpt(**t_in, **o)
+    mats = (t_in["ab"], t_in["bb"], t_in["rb"])
+    seg = block.recompute_segments(T - 1, DEFAULT_UNROLL)
+
+    def recompute_run():
+        for k0, k1 in seg:
+            b0 = k0 // DEFAULT_UNROLL
+            block.psi_recompute(
+                *mats, ck[b0:b0 + block.n_blocks(k1 - k0, DEFAULT_UNROLL)],
+                t_in["se"][k0:k1], **r_o)
+
+    ms = {"psi_sample_cluster": median_ms(
+              lambda: block.psi_sample_block(**s_in)),
+          "psi_nll_cluster": median_ms(
+              lambda: block.psi_nll_block(**t_in, **o)),
+          "psi_train_fwd_cluster": median_ms(
+              lambda: block.psi_train_fwd(**t_in, **o)),
+          "psi_train_fwd_ckpt_cluster": median_ms(
+              lambda: block.psi_train_fwd_ckpt(**t_in, **o)),
+          "psi_recompute_cluster": median_ms(recompute_run),
+          "psi_train_bwd_tail_cluster": median_ms(
+              lambda: block.psi_train_bwd_tail(t_in["rb"], t_in["se"], g, ys,
+                                               n2s, **o)),
+          "psi_train_bwd_cluster": median_ms(
+              lambda: block.psi_train_bwd(**t_in, g=g, ys=ys, n2s=n2s, **o))}
+    one_ms = median_ms(lambda: block.psi_sample_block(**s_one))
+    # the per-step norm (defer_norm=False, the TPU's :461 / :529) at
+    # highest: a second cluster barrier a step in both
+    o_s = dict(o, defer_norm=False)
+    _, ys_s, n2s_s = block.psi_train_fwd(**t_in, **o_s)
+    per_step_ms = (median_ms(lambda: block.psi_train_fwd(**t_in, **o_s)),
+                   median_ms(lambda: block.psi_train_bwd(
+                       **t_in, g=g, ys=ys_s, n2s=n2s_s, **o_s)))
+    del ys_s, n2s_s
+    # the whole recompute adjoint (its 32 segments' recompute, adjoint and
+    # reductions), the path of kernel_stream="off"; bound: 2 + 4 + 3
+    # products a column-step
+    rec_bwd_ms = median_ms(lambda: block.psi_recompute_bwd(
+        *mats, ck, t_in["se"], g, **o))
+    rec_bwd_bound = bound_ms(9 * 2 * n * n * (T - 1) * B, 4 * (
+        (T - 1) * B * (2 * n + 4) + 3 * n * n + ck.numel()))
+    _, _, dy, dehat = block.psi_train_bwd(**t_in, g=g, ys=ys, n2s=n2s, **o)
+    cot_ms = median_ms(lambda: block.psi_cotangents(
+        dy, ys, t_in["t0"], t_in["se"], n2s, dehat, **r_o))
+    # the tail's yardstick: its two [2D,2D] x [2D, (T-1) B] products as
+    # torch.matmul (fp32, TF32 off) on operands built once
+    lanes_y = ys.transpose(0, 1).reshape(n, -1)
+    lanes_u = (2.0 * dehat[:, None, :] * ys).transpose(0, 1).reshape(n, -1)
+    rbT = t_in["rb"].T.contiguous()
+    tail_lib_ms = median_ms(lambda: (t_in["rb"] @ lanes_y, rbT @ lanes_u))
+    del lanes_y, lanes_u, dy, dehat, ck
+    _free()
+    # bounds: FLOPs the fewest [2D,2D] products a column-step (2 n^2 each):
+    # the forwards 3 (Ab t, Bb t, Rb y), the recompute 2, the adjoint 4 (its
+    # tail 2: Rb y and Rb^T u; its chain 2: Ab^T dy and Bb^T dy), the
+    # sampler 2 a chain-step; bytes: each input read once, each output
+    # written once
+    steps = T - 1
+    lane_steps = steps * B
+    mats_b = 3 * n * n
+    prods = {"psi_train_fwd_cluster": 3, "psi_nll_cluster": 3,
+             "psi_train_fwd_ckpt_cluster": 3, "psi_recompute_cluster": 2,
+             "psi_train_bwd_cluster": 4, "psi_train_bwd_tail_cluster": 2}
+    n_ck = block.n_blocks(steps, DEFAULT_UNROLL) * n * B
+    nbytes = {"psi_train_fwd_cluster": lane_steps * (n + 2) + mats_b + n * B
+              + B,
+              "psi_nll_cluster": lane_steps + mats_b + n * B + B,
+              "psi_train_fwd_ckpt_cluster": lane_steps + mats_b + n * B + B
+              + n_ck,
+              "psi_recompute_cluster": lane_steps * (n + 2) + 2 * n * n
+              + n_ck,
+              "psi_train_bwd_tail_cluster": 2 * lane_steps * n
+              + 5 * lane_steps + n * n + B,
+              "psi_train_bwd_cluster": 2 * lane_steps * n + 4 * lane_steps
+              + mats_b + 2 * n * B + B}
+    entries = []
+    for name in WIDE_REPLACES:
+        if name == "psi_sample_cluster":
+            flops = T_SAMPLE * N_CHAINS * 2 * (2 * n * n)
+            nb = 2 * T_SAMPLE * N_CHAINS + 2 * n * n + n * N_CHAINS + n + 1
+        else:
+            flops = prods[name] * 2 * n * n * lane_steps
+            nb = nbytes[name]
+        bound, by = bound_ms(flops, 4 * nb)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "audio_mps_tpu_torch/csrc/"
+                      + WIDE_SOURCES.get(name, "psi_cluster_fwd.cu"),
+            "replaces": WIDE_REPLACES[name], "launches": launches[name],
+            "max_abs_err": err_at[name], "ms": ms[name],
+            "plain_ms": plain_ms[name], "bound_ms": bound, "bound_by": by,
+            "library_ms": (tail_lib_ms if name == "psi_train_bwd_tail_cluster"
+                           else None)})
+        at = (f"T={T_PLAIN}" if name == "psi_sample_cluster"
+              else f"T={WIDE_T_MAIN}")
+        print(f"  {name}: {ms[name]:.3f} ms, launches {launches[name]} (plain "
+              f"{plain_ms[name]:.1f} ms at {at}, bound {bound:.3f} ms by "
+              f"{by}, {bound / ms[name] * 100:.1f}% of it)", flush=True)
+    print(f"  defer_norm=False (highest): psi_train_fwd_cluster "
+          f"{per_step_ms[0]:.3f} ms, psi_train_bwd_cluster "
+          f"{per_step_ms[1]:.3f} ms; the whole recompute adjoint "
+          f"{rec_bwd_ms:.3f} ms (bound {rec_bwd_bound[0]:.3f} ms by "
+          f"{rec_bwd_bound[1]})", flush=True)
+    print(f"  psi_sample_cluster one chain: {one_ms:.3f} ms "
+          f"({one_ms / T_SAMPLE * 1e3:.3f} us a step); {N_CHAINS} chains "
+          f"{ms['psi_sample_cluster'] / T_SAMPLE * 1e3:.3f} us a step",
+          flush=True)
+    in_kernels = (ms["psi_train_fwd_cluster"] + ms["psi_train_bwd_cluster"]
+                  + cot_ms)
+    print(f"  psi_train_bwd_tail_cluster vs torch.matmul of its two "
+          f"products: {ms['psi_train_bwd_tail_cluster']:.3f} / "
+          f"{tail_lib_ms:.3f} ms; psi_cotangents at D={Dw}: {cot_ms:.3f} ms "
+          f"(plain {plain_ms['psi_cotangents']:.1f} ms); train step "
+          f"{step_ms:.2f} ms, of which the forward, the adjoint and the "
+          f"reductions {in_kernels:.2f} ms [{card}]", flush=True)
+    del loss, ys, n2s, t_in, s_in, s_one, params
+    _free()
+    return entries
 
 
 def main() -> int:
@@ -3961,23 +4453,28 @@ def main() -> int:
               f"{T_PLAIN} steps (tol {TOL[prec]:g})", flush=True)
         check(rel <= TOL[prec], f"sampler {prec}: rel err {rel:.3e}")
 
-    phase(f"NLL kernel vs plain (D={D}, B={B_NLL}, T={T_NLL})")
+    phase(f"NLL kernel vs plain (D={D}, B={B_NLL}): the scoring variant "
+          f"(highest, per-step norm) at T={T_NLL}, the other three on a "
+          f"T={T_PREFIX} prefix")
     signals = damped_sine_batch(torch.Generator(dev).manual_seed(2), B_NLL,
                                 T_NLL, cfg.delta_t)
     n_in = block.psi_nll_inputs(params, cfg, signals)
+    n_pre = dict(n_in, se=n_in["se"][:T_PREFIX - 1].contiguous())
     nll_err = {}
     for prec in ("highest", "high"):
         for defer in (False, True):
-            got = block.psi_nll_block(**n_in, precision=prec,
+            ins = n_in if (prec, defer) == ("highest", False) else n_pre
+            got = block.psi_nll_block(**ins, precision=prec,
                                       defer_norm=defer)
-            want = block.psi_nll_block_plain(**n_in, precision=prec,
+            want = block.psi_nll_block_plain(**ins, precision=prec,
                                              defer_norm=defer)
             check(bool(torch.isfinite(got).all()), "NLL kernel: non-finite")
             err, rel = rel_err(got, want)
             nll_err[f"{prec}/defer={defer}"] = err
-            print(f"  {prec} defer_norm={defer}: max|d| {err:.3e} = "
-                  f"{rel:.3e} x max|plain| (tol {TOL[prec]:g}); mean loss "
-                  f"{got.mean().item():.6f}", flush=True)
+            print(f"  {prec} defer_norm={defer}, T={ins['se'].shape[0] + 1}: "
+                  f"max|d| {err:.3e} = {rel:.3e} x max|plain| (tol "
+                  f"{TOL[prec]:g}); mean loss {got.mean().item():.6f}",
+                  flush=True)
             check(rel <= TOL[prec], f"NLL {prec} defer={defer}: rel err "
                                     f"{rel:.3e}")
 
@@ -4122,6 +4619,8 @@ def main() -> int:
               flush=True)
     del s_in, s_one, n_in, noise, signals, wave
     _free()
+    wide_entries = wide_phases(dev)
+    _free()
     split_entries = split_phases(dev)
     _free()
     split_entries += rho_split_phases(dev)
@@ -4139,8 +4638,9 @@ def main() -> int:
     lab_frame_phases(dev)
     print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card_line(), flush=True)
-    print(json.dumps({"kernels": kernels + train_entries + split_entries
-                      + rho_entries + rank_entries}), flush=True)
+    print(json.dumps({"kernels": kernels + train_entries + wide_entries
+                      + split_entries + rho_entries + rank_entries}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

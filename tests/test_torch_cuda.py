@@ -84,9 +84,10 @@ def test_sampler_row_body_at_quad_shapes(dev, D, precision):
 
 def test_sampler_fits_agree_with_the_kernels(dev):
     """scan.psi_sampler_fits is true where the block sampler launches (every
-    D % 8 == 0 to 80) and false at D=88, where the wrapper raises
-    NotImplementedError before any launch; the bodies' byte counts and the
-    body rule are the kernel's own."""
+    D % 8 == 0 to 256: the one-CTA bodies to 80, the cluster body past it)
+    and false at D=264, where the wrapper raises NotImplementedError before
+    any launch; the one-CTA bodies' byte counts and the body rule are the
+    kernel's own."""
     from audio_mps_tpu_torch.ops import _build, scan
     lib = _build.library()
     for D in range(8, 97, 8):
@@ -94,18 +95,22 @@ def test_sampler_fits_agree_with_the_kernels(dev):
             block.psi_sample_smem_bytes(D)
         assert bool(lib.amt_psi_sample_quad(D)) == (
             block.psi_sample_body(D) == "quad")
-    for D in (72, 80, 88):
+    for D in (72, 80, 88, 256, 264):
         fits = scan.psi_sampler_fits(CMPSConfig(bond_dim=D), dev)
-        assert fits == (D <= 80)
+        assert fits == (D <= 256)
         inputs = _psi_sample_inputs(dev, D, 2, 20)
-        before = block.psi_sample_block.launches
+        from audio_mps_tpu_torch.ops.cluster import psi_sample_cluster
+        before = (block.psi_sample_block.launches,
+                  psi_sample_cluster.launches)
         if fits:
             assert torch.isfinite(block.psi_sample_block(**inputs)).all()
-            assert block.psi_sample_block.launches == before + 1
+            assert (block.psi_sample_block.launches
+                    + psi_sample_cluster.launches) == sum(before) + 1
         else:
             with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
                 block.psi_sample_block(**inputs)
-            assert block.psi_sample_block.launches == before
+            assert (block.psi_sample_block.launches,
+                    psi_sample_cluster.launches) == before
 
 
 @pytest.mark.parametrize("D", [8, 12, 16, 64])
@@ -195,13 +200,13 @@ def test_train_path_runs_the_three_kernels_at_d64(dev):
         _close(getattr(p, name).grad.cpu(), getattr(q, name).grad, 1e-3)
 
 
-@pytest.mark.parametrize("case", ["D72"])
+@pytest.mark.parametrize("case", ["D260"])
 def test_train_path_raises_without_a_kernel(dev, case):
-    """D=72 (past the quad layout of psi's block kernels) raises
-    NotImplementedError on the card before any launch. kernel_stream="off"
-    runs: test_train_path_runs_without_the_stream."""
+    """D=260 (past the cluster layout of psi's block kernels, D <= 256)
+    raises NotImplementedError on the card before any launch. D=72 to 256
+    run: test_cluster_train_path_at_d128."""
     from audio_mps_tpu_torch.training import nll_fn_for
-    D = 72
+    D = 260
     cfg = CMPSConfig(bond_dim=D)
     p = init_psi(torch.Generator(dev).manual_seed(0), cfg, device=dev)
     sig = torch.zeros(2, 17, device=dev)
@@ -2540,3 +2545,259 @@ def test_rho_sampler_rule_and_smem_agree_with_the_kernels(dev):
             block.rho_sample_block(**s_in, cluster=cluster)
     torch.cuda.synchronize()
     assert block.rho_sample_block.launches == before
+
+
+# ---------------------------------------------------------------------------
+# psi's block kernels in the cluster layout (ops/cluster.py; csrc/
+# psi_cluster*.cu): a column's rows over a thread-block cluster of C CTAs,
+# D % 4 == 0 past the quad layout to 256; every C and G give the same bits
+# ---------------------------------------------------------------------------
+
+CLUSTER_DS = [72, 128, 256]
+# steps of the cluster holds: past one 16-step block and a partial one
+CL_STEPS = {"highest": 40, "high": 40, "default": 16}
+
+
+def _cl_kw(inputs, precision, defer):
+    return dict(log_eps=inputs.pop("log_eps"), norm_eps=inputs.pop(
+        "norm_eps"), precision=precision, defer_norm=defer, unroll=16)
+
+
+def _cl_sizes(D):
+    """The clusters the layout takes at D whose CTAs fit the card."""
+    from audio_mps_tpu_torch.ops import cluster as cl
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    return [C for C in cl.PSI_CLUSTERS if cl.cl_ok(D, C)
+            and cl.psi_cluster_fwd_smem_bytes(D, C, 1) <= optin]
+
+
+@pytest.mark.parametrize("D", CLUSTER_DS)
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_cluster_kernels_match_plain(dev, D, precision, defer):
+    """The cluster layout's NLL, streamed and checkpoint forwards, tail and
+    adjoint (with and without dtfin) against their plain versions at the
+    rule's C and G, each counted by its own wrapper; the checkpoint
+    recompute re-runs the stream bit for bit."""
+    from audio_mps_tpu_torch.ops import cluster as cl
+    inputs, g = _train_inputs(dev, D, CL_STEPS[precision], B=3)
+    kw = _cl_kw(inputs, precision, defer)
+    before = [w.launches for w in cl.WRAPPERS]
+    fwd = block.psi_train_fwd_plain(**inputs, **kw)
+    got = block.psi_train_fwd(**inputs, **kw)
+    assert block.psi_train_fwd.layout == "cluster"
+    for a, b in zip(got, fwd):
+        _close(a, b, TOL[precision])
+    assert torch.equal(block.psi_nll_block(**inputs, **kw), got[0])
+    loss_ck, ck = block.psi_train_fwd_ckpt(**inputs, **kw)
+    assert torch.equal(loss_ck, got[0])
+    _close(ck, block.psi_train_fwd_ckpt_plain(**inputs, **kw)[1],
+           TOL[precision])
+    rk = {k: v for k, v in kw.items() if k != "log_eps"}
+    ys, n2s = block.psi_recompute(inputs["ab"], inputs["bb"], inputs["rb"],
+                                  ck, inputs["se"], **rk)
+    assert torch.equal(ys, got[1]) and torch.equal(n2s, got[2])
+    _, ys, n2s = fwd
+    tail = block.psi_train_bwd_tail(inputs["rb"], inputs["se"], g, ys, n2s,
+                                    **kw)
+    for a, b in zip(tail, block.psi_train_bwd_tail_plain(
+            inputs["rb"], inputs["se"], g, ys, n2s, **kw)):
+        _close(a, b, TOL[precision])
+    dtfin = 0.1 * torch.randn(inputs["t0"].shape, device=dev,
+                              generator=torch.Generator(dev).manual_seed(7))
+    for dt in (None, dtfin):
+        bwd = block.psi_train_bwd_plain(**inputs, g=g, ys=ys, n2s=n2s,
+                                        dtfin=dt, **kw)
+        for a, b in zip(block.psi_train_bwd(**inputs, g=g, ys=ys, n2s=n2s,
+                                            dtfin=dt, **kw), bwd):
+            _close(a, b, TOL[precision])
+    torch.cuda.synchronize()
+    # nll, fwd, ckpt, recompute, tail (alone and in two adjoints), adjoint
+    assert [w.launches - b for w, b in zip(cl.WRAPPERS, before)] == \
+        [0, 1, 1, 1, 1, 3, 2]
+
+
+@pytest.mark.parametrize("D", CLUSTER_DS)
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("defer", [False, True])
+def test_cluster_sizes_and_columns_give_the_same_bits(dev, D, precision,
+                                                      defer):
+    """Every cluster C the card holds at D and every G in 1, 2, 4 that fits
+    give one set of bits: the NLL, the streamed forward, the adjoint; the
+    NLL's loss is the training forward's; the recompute's spans are the
+    stream."""
+    from audio_mps_tpu_torch.ops import cluster as cl
+    inputs, g = _train_inputs(dev, D, 40, B=5)
+    kw = _cl_kw(inputs, precision, defer)
+    optin = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin
+    ref = None
+    for C in _cl_sizes(D):
+        for G in cl.PSI_CLUSTER_COLS:
+            if max(cl.psi_cluster_fwd_smem_bytes(D, C, G),
+                   cl.psi_cluster_chain_smem_bytes(D, C, G)) > optin:
+                continue
+            o = dict(kw, _layout="cluster", _cluster=C, cols_per_cta=G)
+            loss, ys, n2s = block.psi_train_fwd(**inputs, **o)
+            nll = block.psi_nll_block(**inputs, **o)
+            bwd = block.psi_train_bwd(**inputs, g=g, ys=ys, n2s=n2s, **o)
+            torch.cuda.synchronize()
+            assert torch.equal(nll, loss)
+            got = (loss, ys, n2s) + tuple(bwd)
+            if ref is None:
+                ref = got
+                _, ck = block.psi_train_fwd_ckpt(**inputs, **o)
+                rk = {k: v for k, v in o.items() if k != "log_eps"}
+                r_ys, r_n2s = block.psi_recompute(
+                    inputs["ab"], inputs["bb"], inputs["rb"], ck,
+                    inputs["se"], **rk)
+                assert torch.equal(r_ys, ys) and torch.equal(r_n2s, n2s)
+            else:
+                for a, b in zip(got, ref):
+                    assert torch.equal(a, b), (C, G)
+    assert ref is not None
+
+
+@pytest.mark.parametrize("D", [88, 128, 256])
+@pytest.mark.parametrize("N", [1, 8])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_cluster_sampler_matches_plain(dev, D, N, precision):
+    """The cluster sampler (psi_sample_body past D=80) against its plain
+    version, and every cluster the card holds at D gives the rule's bits."""
+    from audio_mps_tpu_torch.ops import cluster as cl
+    assert block.psi_sample_body(D) == "cluster"
+    inputs = _psi_sample_inputs(dev, D, N, STEPS[precision])
+    before = cl.psi_sample_cluster.launches
+    got = block.psi_sample_block(**inputs, precision=precision)
+    torch.cuda.synchronize()
+    assert cl.psi_sample_cluster.launches == before + 1
+    assert cl.psi_sample_cluster.cluster == cl.psi_sample_cluster_for(D)
+    _close(got, block.psi_sample_block_plain(**inputs, precision=precision),
+           TOL[precision])
+    optin = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin
+    for C in cl.PSI_CLUSTERS:
+        if cl.cl_ok(D, C) and cl.psi_cluster_sample_smem_bytes(D, C) <= optin:
+            other = block.psi_sample_block(**inputs, precision=precision,
+                                           _cluster=C)
+            torch.cuda.synchronize()
+            assert torch.equal(other, got), C
+
+
+def test_cluster_rule_and_smem_agree_with_the_kernels(dev):
+    """The cluster layout's Python byte counts and thread counts are the
+    kernels' own; the rule takes the quad layout exactly where
+    psi_block_fits holds and at D=128, B=128 on an H100 4 CTAs a cluster
+    and 4 columns a cluster; D=260 and a forced quad layout past D=68 raise
+    before any launch."""
+    from audio_mps_tpu_torch.ops import _build, cluster as cl
+    lib = _build.library()
+    for D in (8, 12, 68, 72, 76, 128, 192, 252, 256):
+        assert lib.amt_psi_cl_tail_smem_bytes(D) == \
+            cl.psi_cluster_tail_smem_bytes(D)
+        for C in cl.PSI_CLUSTERS:
+            ok = cl.cl_ok(D, C)
+            assert lib.amt_psi_cl_threads(D, C) == cl.cl_threads(D, C)
+            assert lib.amt_psi_cl_sample_smem_bytes(D, C) == (
+                cl.psi_cluster_sample_smem_bytes(D, C) if ok else 0)
+            for G in cl.PSI_CLUSTER_COLS:
+                assert lib.amt_psi_cl_fwd_smem_bytes(D, C, G) == (
+                    cl.psi_cluster_fwd_smem_bytes(D, C, G) if ok else 0)
+                assert lib.amt_psi_cl_chain_smem_bytes(D, C, G) == (
+                    cl.psi_cluster_chain_smem_bytes(D, C, G) if ok else 0)
+    props = torch.cuda.get_device_properties(dev)
+    if props.multi_processor_count == 132:
+        assert cl.psi_block_layout(128, 128, 132,
+                                   props.shared_memory_per_block_optin) == \
+            ("cluster", 4, 4)
+    inputs, _ = _train_inputs(dev, 72, 8, B=2)
+    kw = _cl_kw(inputs, "highest", True)
+    before = [w.launches for w in cl.WRAPPERS] + list(_counts())
+    with pytest.raises(NotImplementedError, match="quad layout"):
+        block.psi_train_fwd(**inputs, **kw, _layout="quad")
+    wide, _ = _train_inputs(dev, 260, 4, B=1)
+    kw = _cl_kw(wide, "highest", True)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+        block.psi_nll_block(**wide, **kw)
+    assert [w.launches for w in cl.WRAPPERS] + list(_counts()) == before
+
+
+def test_cotangents_at_d128_match_plain_bit_for_bit_twice(dev):
+    """psi_cotangents (csrc/psi_cotangents.cu, tiled for any D) at D=128:
+    against its plain version, and two launches equal bit for bit."""
+    inputs, g = _train_inputs(dev, 128, 40, B=4)
+    kw = _cl_kw(inputs, "highest", True)
+    _, ys, n2s = block.psi_train_fwd_plain(**inputs, **kw)
+    _, _, dy, dehat = block.psi_train_bwd_plain(**inputs, g=g, ys=ys,
+                                                n2s=n2s, **kw)
+    ck = dict(norm_eps=kw["norm_eps"], precision="highest", defer_norm=True,
+              unroll=16)
+    cot = (dy, ys, inputs["t0"], inputs["se"], n2s, dehat)
+    got = block.psi_cotangents(*cot, **ck)
+    again = block.psi_cotangents(*cot, **ck)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, block.psi_cotangents_plain(*cot, **ck)):
+        assert torch.equal(a, b)
+        _close(a, w, 1e-5)
+
+
+@pytest.mark.parametrize("stream", ["on", "off"])
+def test_cluster_train_path_at_d128(dev, stream):
+    """One value-and-gradient of the training NLL at D=128 on the card,
+    streamed and with kernel_stream="off", runs through the cluster
+    kernels and matches the plain path (the same call on CPU copies)."""
+    from audio_mps_tpu_torch.ops import cluster as cl
+    from audio_mps_tpu_torch.weights import (psi_params_from_numpy,
+                                             psi_params_to_numpy)
+    cfg = CMPSConfig(bond_dim=128, minibatch_size=4, kernel_stream=stream)
+    p = init_psi(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    sig = damped_sine_batch(torch.Generator(dev).manual_seed(1), 4, 97,
+                            cfg.delta_t)
+    before = [w.launches for w in cl.WRAPPERS]
+    loss = block.psi_nll_block_trainable(p, cfg, sig, defer_norm=True)
+    loss.backward()
+    torch.cuda.synchronize()
+    ran = [w.launches - b for w, b in zip(cl.WRAPPERS, before)]
+    # (sampler, nll, fwd, ckpt, recompute, tail, adjoint)
+    assert ran[2:] == ([1, 0, 0, 1, 1] if stream == "on" else
+                       [0, 1, ran[4], ran[5], ran[6]])
+    assert stream == "on" or ran[4] == ran[6] >= 1
+    q = psi_params_from_numpy(psi_params_to_numpy(p), "cpu")
+    want = block.psi_nll_block_trainable(q, cfg, sig.cpu(), defer_norm=True)
+    want.backward()
+    assert abs(loss.item() - want.item()) <= 1e-4 * abs(want.item())
+    for name in q.NAMES:
+        _close(getattr(p, name).grad.cpu(), getattr(q, name).grad, 1e-3)
+
+
+def test_cluster_kernels_index_past_2_pow_31_elements(dev):
+    """At D=72, B=1024, T=16385 a [n_steps, 2D, B] stream holds 2.4e9
+    elements (9.7 GB): the last column of the cluster forward and adjoint
+    over all columns equals, bit for bit, a launch over that column alone
+    (every column's arithmetic is its own at any G)."""
+    cfg = CMPSConfig(bond_dim=72)
+    p = init_psi(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    n_steps, cols = 16384, 1024
+    assert n_steps * 2 * cfg.bond_dim * cols > 2 ** 31
+    inputs = block.psi_nll_inputs(p, cfg, torch.zeros(cols, 2, device=dev))
+    inputs["se"] = torch.randn(n_steps, cols, device=dev,
+                               generator=torch.Generator(dev).manual_seed(3)
+                               ).mul_(0.01)
+    kw = dict(log_eps=inputs.pop("log_eps"), norm_eps=inputs.pop("norm_eps"),
+              defer_norm=True)
+    g = torch.ones(cols, device=dev)
+
+    def last(x):
+        return x[..., -1:].contiguous()
+
+    alone = dict(t0=last(inputs["t0"]), se=last(inputs["se"]),
+                 ab=inputs["ab"], bb=inputs["bb"], rb=inputs["rb"])
+    loss, ys, n2s = block.psi_train_fwd(**inputs, **kw)
+    assert block.psi_train_fwd.layout == "cluster"
+    a_loss, a_ys, a_n2s = block.psi_train_fwd(**alone, **kw)
+    assert torch.equal(last(loss), a_loss) and torch.equal(last(ys), a_ys)
+    bwd = block.psi_train_bwd(**inputs, g=g, ys=ys, n2s=n2s, **kw)
+    a_bwd = block.psi_train_bwd(**alone, g=g[-1:], ys=a_ys, n2s=a_n2s, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(bwd, a_bwd):
+        assert torch.isfinite(b).all() and torch.equal(last(a), b)

@@ -295,13 +295,14 @@ def test_chip_smoke_fails_without_the_port_or_a_card(where, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind, D", [("sample", 96), ("nll", 72),
+@pytest.mark.parametrize("kind, D", [("sample", 264), ("nll", 260),
                                      ("sample", 121), ("nll", 122),
                                      ("train", 74)])
 def test_cuda_path_raises_for_unported_shapes(kind, D):
     """On a CUDA tensor a psi D whose constants overflow one block's shared
     memory raises NotImplementedError instead of running anything else,
-    launching nothing: the block layout (sampler D=96, NLL D=72) and the
+    launching nothing: the block layout past its cluster layout (sampler
+    D=264, NLL D=260; D <= 256 runs since the cluster layout) and the
     split layout (sampler D=121 and NLL D=122 past its 119; training D=74
     past its adjoint's 73, refused before the forward launches). The split
     D below those ceilings runs (tests/test_torch_cuda.py); here they were

@@ -185,8 +185,11 @@ def _parent_psi_sample_bytes(D):
 
 @pytest.mark.parametrize("D", [8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88])
 def test_psi_sample_body_rule(D):
+    """quad to D=64, row at 72 and 80, and past them the cluster body
+    (csrc/psi_cluster_sample.cu), whose bytes are ops/cluster.py's; the
+    one-CTA bodies' bytes at every D."""
     body = block.psi_sample_body(D)
-    assert body == ("quad" if D <= 64 else "row")
+    assert body == ("quad" if D <= 64 else "row" if D <= 80 else "cluster")
     assert body == block.psi_sample_body(D)
     quad_bytes = block.psi_sample_smem_bytes(D, "quad")
     assert quad_bytes == 4 * (64 + 16 * block.PSI_QUAD_PITCH + 4 * D)
