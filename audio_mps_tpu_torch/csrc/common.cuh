@@ -382,6 +382,38 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// Arrive on `bar` and expect `bytes` more of asynchronous copies or stores
+// to complete on its current phase (the rank partials' bulk copies, psi's
+// cluster exchange).
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// mbar_wait with acquire semantics at cluster scope, for a phase completed
+// by other CTAs' st.async (psi's cluster exchange). A phase that has not
+// completed after ~2^26 polls traps: a miscounted phase ends the launch
+// with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
 // Thread-block clusters (PTX for sm_90): the rank partials' slab ring
 // (rank_partials.cuh), the rho block kernels' exchange of per-example
 // sums over the CTAs of an example (rho_cluster.cuh) and psi's cluster
@@ -472,6 +504,45 @@ __device__ __forceinline__ void st_cluster4(float* p, uint32_t cta, float a,
       "st.shared::cluster.v4.f32 [ra], {%2, %3, %4, %5};\n\t}" ::"r"(
           smem_addr(p)),
       "r"(cta), "f"(a), "f"(b), "f"(c), "f"(d)
+      : "memory");
+}
+
+// st.async (sm_90): write v (a, b; a .. d) to the float (float2, float4) at
+// p's offset in the shared memory of cluster CTA `cta`, the bytes
+// completing on the mbarrier at bar's offset there (psi_cluster.cuh's
+// point-to-point exchange): no fence, the receiver's wait on its mbarrier
+// orders the data.
+__device__ __forceinline__ void st_async(float* p, uint32_t cta, float v,
+                                         uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b32 ra, rb;\n\tmapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "mapa.shared::cluster.u32 rb, %2, %1;\n\t"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [ra], %3, "
+      "[rb];\n\t}" ::"r"(smem_addr(p)),
+      "r"(cta), "r"(smem_addr(bar)), "f"(v)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async2(float* p, uint32_t cta, float a,
+                                          float b, uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b32 ra, rb;\n\tmapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "mapa.shared::cluster.u32 rb, %2, %1;\n\t"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [ra], "
+      "{%3, %4}, [rb];\n\t}" ::"r"(smem_addr(p)),
+      "r"(cta), "r"(smem_addr(bar)), "f"(a), "f"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async4(float* p, uint32_t cta, float a,
+                                          float b, float c, float d,
+                                          uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b32 ra, rb;\n\tmapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "mapa.shared::cluster.u32 rb, %2, %1;\n\t"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [ra], "
+      "{%3, %4, %5, %6}, [rb];\n\t}" ::"r"(smem_addr(p)),
+      "r"(cta), "r"(smem_addr(bar)), "f"(a), "f"(b), "f"(c), "f"(d)
       : "memory");
 }
 

@@ -10,50 +10,105 @@
 // dn2 bookkeeping (its header, which has the step's algebra). The three
 // [2D,2D] cotangent reductions stay psi_cotangents.cu's.
 //
-// The tail (psi_cl_tail_kernel) is a batched [2D,2D] x [2D, (T-1) B] product
-// pair at true fp32 (the bf16 splits at kHigh, kDefault), free of the chain:
-//   ru = Rb y; ehat = 2 y . ru; (ds0, dehat, dn2_new) from ehat;
-//   q = ru (2 dehat) + Rb^T (2 dehat y)
-// over tiles of kClTailLanes (step, column) lanes: a tile's y (raw and
-// prepped) sits in shared memory as [2D][16]; thread (quartet, lane group)
-// forms a 4-row x 4-lane tile of each product over every j in order (one
-// fmaf chain an output, three at kHigh), Rb read packed from device memory
-// (a pre-pass packs Rb^T and Rb once a launch: 2 MB at D=256, resident in
-// L2), each 16-byte load feeding 16 FMAs. ehat is the quartets' fmaf
-// chains added in quartet order. Where the quad tail holds Rb^T and Rb whole
-// in shared memory (psi_train_bwd.cu, 2D (2D+4) words each), this one reads
-// them from L2: 512 KB at D=128 do not fit one CTA.
+// The tail (psi_cl_tail_kernel) is one [2D,2D] x [2D, (T-1) B] product at
+// true fp32 (the bf16 splits at kHigh, kDefault), free of the chain. The
+// TPU forms ru = Rb y and Rb^T (2 dehat y) (pallas_block.py :996, :1030)
+// with one scalar dehat a lane, so with the symmetric S = Rb + Rb^T, formed
+// and packed once a launch by a pre-pass,
+//   u = S y; ehat = y . u; (ds0, dehat, dn2_new) from ehat; q = (2 dehat) u
+// (the rank partials' tail takes the same form, rank_partials_bwd.cu). It is
+// shaped as an SGEMM: a CTA takes a tile of nl (step, column) lanes and all
+// 2D rows; the tile's prepped y sits in shared memory [2D][nl]; S goes
+// through shared memory in slabs of kClTailKs rows j in order, two in flight
+// (cp.async, persistent CTAs over the tiles, so the next tile's first slab
+// lands under this tile's epilogue); each thread forms a register tile of 8
+// rows x 8 lanes (256 threads a CTA, two CTAs an SM at kHighest), each word
+// it reads feeding 8 FMAs: 16 words a 64 FMAs, the rate at which an SM's
+// shared-memory reads into registers (32 words a cycle) match its fp32 FMAs
+// (128 a cycle). At kHigh, whose three fmaf chains an output take three
+// registers, 4 rows x 8 lanes. Each output is one fmaf chain over j in
+// order (three at kHigh, added (hi hi + hi lo) + lo hi); ehat is each
+// thread's fmaf chain over its rows, the row threads' parts added in
+// order; q goes back through shared memory to coalesced stores. The tail
+// does not depend on C or G.
 //
 // The chain (psi_cl_chain_kernel) runs the reverse recursion on the
-// cluster layout of psi_cluster.cuh: CTA r of a cluster holds rows r nr ..
-// of Ab^T and Bb^T (its rows of dt), a step's dy is pushed to every CTA,
-// one cluster barrier, one walk of both slabs; a renorm step first pushes
-// its atoms of dinv = dt . y and takes a barrier more. The ds sums
-// (Bb^T dy) . t_k ride on the next exchange and are added to ds0 by lanes
-// c < G of warp 0 of CTA 0.
+// cluster layout of psi_cluster.cuh and its point-to-point exchange: CTA r
+// of a cluster holds rows r nr .. of Ab^T and Bb^T (its rows of dt), a
+// step's dy is pushed to every CTA, one phase, one walk of both slabs; a
+// renorm step first pushes its atoms of dinv = dt . y, a phase more. The
+// ds sums (Bb^T dy) . t_k ride on the next phase and are added to ds0
+// (read a step ahead) by lanes c < G of warp 0 of CTA 0 after their CTA's
+// next push.
 //
-// What bounds them: the tail's 2 (2D)^2 FMAs a lane (16.4 ms of the
-// card's fp32 rate at D=128, B=128, T=16384 with the chain), its L2 reads of
-// Rb (a 16-byte load a 16 FMAs); the chain's shared-memory reads and its
-// cluster barrier a step (psi_cluster.cuh).
+// What bounds them: the tail's (2D)^2 FMAs a lane (4.10 ms of the card's
+// fp32 rate at D=128, B=128, T=16384) against shared-memory reads of one
+// word per 8 FMAs, at that line, and the parts of a tile that do not
+// overlap its products: the tile's y loads (a thread keeps kClTailYDepth
+// of them in flight; one at a time they took a fifth of the tail), its
+// epilogue and q's stores, hidden only by the SM's other CTA.
+// tools/psi_cluster_attribution.py's tail_* variants split it. The chain:
+// its walk's shared-memory reads and its exchange a step
+// (psi_cluster.cuh).
 #include "psi_cluster.cuh"
 
 namespace amt {
 
-constexpr int kClTailLanes = 16;     // (step, column) lanes a tail tile
-constexpr int kClTailThreads = 256;  // 64 quartets of rows x 4 lane groups
+constexpr int kClTailKs = 16;       // rows j of S a slab
+constexpr int kClTailStages = 2;    // slabs in flight
 
-// Words of one tail CTA's shared memory: y raw, the prepped vector (hi, lo;
-// y, then 2 dehat y), ru ([2D][16] each), the quartets' parts of ehat
-// [2D/4][16] and the lanes' s, n2p, g and 2 dehat [4][16].
-__host__ __device__ inline size_t cl_tail_words(int D) {
-  const size_t n = 2 * static_cast<size_t>(D);
-  return 4 * n * kClTailLanes + (n / 4) * kClTailLanes + 4 * kClTailLanes;
+constexpr int kClTailThreads = 256;
+constexpr int kClTailLanes = 8;     // lanes a thread
+constexpr int kClTailYDepth = 32;   // loads of y in flight a thread
+
+// Rows a tail thread: 4 at kHigh, whose three fmaf chains an output take
+// three registers.
+__host__ __device__ constexpr int cl_tail_rows(int P) {
+  return P == kHigh ? 4 : 8;
 }
 
-// out[0 .. n^2) = Rb^T packed j-major (out[j n + i] = Rb[i][j]) and
-// out[n^2 .. 2 n^2) = Rb packed the same way (out[n^2 + j n + i] = Rb[j][i]):
-// the tail's two products read column j of their matrix as a row.
+// The tail's tile at bond dimension D and precision P (ops/cluster.py
+// psi_cluster_tail_plan mirrors it): rows padded to whole slabs (zeros),
+// rm rows x rn lanes a thread, rt row threads x lt lane threads (at most
+// kClTailThreads), nl = rn lt lanes a tile, at most one a thread.
+struct ClTailPlan {
+  int n, np, rm, rn, rt, lt, nl;
+  __host__ __device__ ClTailPlan(int D, int P) {
+    constexpr int nt = kClTailThreads;
+    n = 2 * D;
+    np = kClTailKs * ((n + kClTailKs - 1) / kClTailKs);
+    rm = cl_tail_rows(P);
+    rn = kClTailLanes;
+    rt = np / rm;
+    lt = nt / rt < nt / rn ? nt / rt : nt / rn;
+    nl = rn * lt;
+  }
+  // words of the tile's prepped y (hi, and at kHigh lo)
+  __host__ __device__ int y_words(int P) const {
+    return (P == kHigh ? 2 : 1) * np * nl;
+  }
+  // dynamic shared memory: S's slabs, the tile's y, the row threads' parts
+  // of ehat [rt][nl], four floats a lane (s, n2p, g, 2 dehat) and a lane's
+  // offset into ys (8 bytes)
+  __host__ __device__ size_t smem_bytes(int P) const {
+    return 4 * (static_cast<size_t>(kClTailStages) * kClTailKs * np +
+                y_words(P) + static_cast<size_t>(rt) * nl + 4 * nl) +
+           8 * static_cast<size_t>(nl);
+  }
+};
+
+// The tail's shared memory at D: the most any precision takes.
+__host__ __device__ inline size_t cl_tail_smem_bytes(int D) {
+  size_t m = 0;
+  for (int p = kHighest; p <= kDefault; ++p) {
+    const size_t b = ClTailPlan(D, p).smem_bytes(p);
+    m = b > m ? b : m;
+  }
+  return m;
+}
+
+// out[j n + i] = S[j][i], S = Rb + Rb^T packed for P (symmetric, so also
+// S[i][j]: the tail reads row j of S as the column it multiplies y_j by).
 template <int P>
 __global__ void psi_cl_pack_kernel(const float* __restrict__ rb,
                                    uint32_t* __restrict__ out, int n) {
@@ -62,56 +117,27 @@ __global__ void psi_cl_pack_kernel(const float* __restrict__ rb,
                     threadIdx.x;
        idx < nn; idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const size_t j = idx / n, i = idx - j * n;
-    out[idx] = pack_elem<P>(rb[i * n + j]);
-    out[nn + idx] = pack_elem<P>(rb[idx]);
+    out[idx] = pack_elem<P>(rb[i * n + j] + rb[idx]);
   }
 }
 
-// out[r][c] = (M v_c)_{4 qt + r} for the thread's quartet of rows and its
-// 4 lanes 4 lg + c, mt[j n + i] = M[i][j] packed, v in [n][16] (vh, and at
-// kHigh vl): over j in order one fmaf chain an output (three at kHigh,
-// added (hi hi + hi lo) + lo hi).
-template <int P>
-__device__ __forceinline__ void cl_tail_tile(const uint32_t* __restrict__ mt,
-                                             const float* vh, const float* vl,
-                                             int n, int qt, int lg,
-                                             float (&out)[4][4]) {
-  float acc[4][4][3];
+// A thread's RN lanes of a row of the tile: fours at p, p + gap, ...
+template <int RN>
+__device__ __forceinline__ void ld_lanes(const float* p, int gap,
+                                         float (&x)[RN]) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      acc[r][c][0] = acc[r][c][1] = acc[r][c][2] = 0.f;
-  const uint32_t* mp = mt + 4 * qt;
-#pragma unroll 4
-  for (int j = 0; j < n; ++j) {
-    const uint4 w = __ldg(reinterpret_cast<const uint4*>(
-        mp + static_cast<size_t>(j) * n));
-    const uint32_t ww[4] = {w.x, w.y, w.z, w.w};
-    float h[4], l[4];
-    ld_g<4>(vh + j * kClTailLanes + 4 * lg, h);
-    if (P == kHigh) {
-      ld_g<4>(vl + j * kClTailLanes + 4 * lg, l);
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) l[c] = h[c];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) quad_fma<P>(ww[r], h[c], l[c], acc[r][c]);
+  for (int g = 0; g < RN / 4; ++g) {
+    const float4 a = *reinterpret_cast<const float4*>(p + g * gap);
+    x[4 * g] = a.x;
+    x[4 * g + 1] = a.y;
+    x[4 * g + 2] = a.z;
+    x[4 * g + 3] = a.w;
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      out[r][c] = P == kHigh ? (acc[r][c][0] + acc[r][c][1]) + acc[r][c][2]
-                             : acc[r][c][0];
 }
 
 template <int P, bool DEFER>
-__global__ void __launch_bounds__(kClTailThreads)
-    psi_cl_tail_kernel(const uint32_t* __restrict__ rbp,
+__global__ void __launch_bounds__(kClTailThreads, P == kHigh ? 1 : 2)
+    psi_cl_tail_kernel(const uint32_t* __restrict__ sp,
                        const float* __restrict__ se,
                        const float* __restrict__ g,
                        const float* __restrict__ ys,
@@ -120,116 +146,217 @@ __global__ void __launch_bounds__(kClTailThreads)
                        float* __restrict__ dehats, float* __restrict__ dn2ns,
                        int D, int n_steps, int B, int unroll, float log_eps,
                        float norm_eps) {
+  constexpr int RM = cl_tail_rows(P);    // rows a thread
+  constexpr int RN = kClTailLanes;       // lanes a thread
+  constexpr int RG = RM / 4;             // its groups of 4 rows
+  constexpr int KS = kClTailKs;
   extern __shared__ __align__(16) float4 smem4[];
-  constexpr int TL = kClTailLanes;
-  const int n = 2 * D, nq = n / 4;
-  float* yr = reinterpret_cast<float*>(smem4);   // [n][TL] raw y
-  float* vh = yr + n * TL;                       // prepped y, then u
-  float* vl = vh + n * TL;
-  float* ru = vl + n * TL;                       // Rb y
-  float* ep = ru + n * TL;                       // [nq][TL] parts of ehat
-  float* ls = ep + nq * TL;                      // [TL] s
-  float* ln2 = ls + TL;                          // [TL] the n2 e divides by
-  float* lg_ = ln2 + TL;                         // [TL] g
-  float* dh = lg_ + TL;                          // [TL] 2 dehat
-  const uint32_t* rbt = rbp;                                      // Rb y
-  const uint32_t* rbm = rbp + static_cast<size_t>(n) * n;         // Rb^T u
+  const ClTailPlan pl(D, P);
+  const int n = pl.n, np = pl.np, nl = pl.nl;
+  uint32_t* ss = reinterpret_cast<uint32_t*>(smem4);   // [stages][KS][np]
+  float* yh = reinterpret_cast<float*>(ss + kClTailStages * KS * np);
+  float* yl = yh + np * nl;                            // kHigh: lo parts
+  float* ep = yh + pl.y_words(P);                      // [rt][nl]
+  float* ls = ep + pl.rt * nl;                         // [nl] s
+  float* ln2 = ls + nl;                                // the n2 e divides by
+  float* lgb = ln2 + nl;                               // g
+  float* dh = lgb + nl;                                // 2 dehat
+  long long* loff = reinterpret_cast<long long*>(dh + nl);   // -1: no lane
   const int tid = threadIdx.x;
-  const int lg = tid & 3, qt0 = tid >> 2;
-  const size_t stride = static_cast<size_t>(B);
+  const bool comp = tid < pl.rt * pl.lt;   // holds a register tile
+  const int tm = comp ? tid / pl.lt : 0, tn = comp ? tid - tm * pl.lt : 0;
+  const int rstride = 4 * pl.rt;           // rows between a thread's groups
+  const int gap = 4 * pl.lt;               // lanes between its fours
   const size_t plane = static_cast<size_t>(n) * B;
   const long long total = static_cast<long long>(n_steps) * B;
-  const long long ntiles = (total + TL - 1) / TL;
+  const long long ntiles = (total + nl - 1) / nl;
+  const int nslab = np / KS;
 
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long f0 = tile * TL;
-    for (int idx = tid; idx < n * TL; idx += blockDim.x) {
-      const int j = idx / TL, l = idx - j * TL;
-      const long long f = f0 + l;
-      float y = 0.f;
-      if (f < total) {
-        const long long k = f / B, b = f - k * B;
-        y = ys[k * plane + j * stride + b];
-      }
-      yr[idx] = y;
-      store_vec<P>(vh, vl, idx, y);
+  // the stages' columns past n stay zero (the copies write columns < n)
+  for (int idx = tid; idx < kClTailStages * KS * (np - n);
+       idx += blockDim.x) {
+    const int r = idx / (np - n);
+    ss[r * np + n + (idx - r * (np - n))] = 0u;
+  }
+  // slab s of S (rows j = s KS ..; zeros past n) into stage st
+  auto issue = [&](int s, int st) {
+    uint32_t* dst = ss + st * KS * np;
+    const int c4 = n / 4;
+    for (int idx = tid; idx < KS * c4; idx += blockDim.x) {
+      const int r = idx / c4, c = idx - r * c4;
+      const int j = s * KS + r;
+      cp16(dst + r * np + 4 * c,
+           sp + static_cast<size_t>(j < n ? j : 0) * n + 4 * c,
+           j < n ? 16 : 0);
     }
-    if (tid < TL) {
+    cp_commit();
+  };
+
+  long long tile = blockIdx.x;
+  if (tile < ntiles) issue(0, 0);
+  int stage = 0;   // the stage of the slab the next iteration reads
+  for (; tile < ntiles; tile += gridDim.x) {
+    const long long f0 = tile * nl;
+    if (tid < nl) {
       const long long f = f0 + tid;
+      long long off = -1;
       float s = 0.f, n2p = 1.f, gb = 0.f;
       if (f < total) {
         const long long k = f / B, b = f - k * B;
-        s = se[k * stride + b];
-        if (DEFER && k % unroll != 0) n2p = n2s[(k - 1) * stride + b];
+        off = k * static_cast<long long>(plane) + b;
+        s = se[f];
+        if (DEFER && k % unroll != 0) n2p = n2s[f - B];
         gb = g[b];
       }
+      loff[tid] = off;
       ls[tid] = s;
       ln2[tid] = n2p;
-      lg_[tid] = gb;
+      lgb[tid] = gb;
     }
     __syncthreads();
-    for (int qt = qt0; qt < nq; qt += 64) {
-      float o[4][4];
-      cl_tail_tile<P>(rbt, vh, vl, n, qt, lg, o);
-      float e[4] = {0.f, 0.f, 0.f, 0.f};
+    // the tile's y, kClTailYDepth loads a thread in flight before their
+    // stores (the CTA waits on them: they are the tile's first operand)
+    constexpr int YD = kClTailYDepth;
+    for (int base = tid; base < np * nl; base += YD * kClTailThreads) {
+      float yv[YD];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = 4 * qt + r;
-        float yv[4];
-        ld_g<4>(yr + i * TL + 4 * lg, yv);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) e[c] = fmaf(yv[c], o[r][c], e[c]);
-        *reinterpret_cast<float4*>(ru + i * TL + 4 * lg) =
-            make_float4(o[r][0], o[r][1], o[r][2], o[r][3]);
+      for (int u = 0; u < YD; ++u) {
+        const int idx = base + u * kClTailThreads;
+        float y = 0.f;
+        if (idx < np * nl) {
+          const int j = idx / nl, l = idx - j * nl;
+          const long long off = loff[l];
+          if (j < n && off >= 0)
+            y = __ldg(ys + off + static_cast<size_t>(j) * B);
+        }
+        yv[u] = y;
       }
-      *reinterpret_cast<float4*>(ep + qt * TL + 4 * lg) =
-          make_float4(e[0], e[1], e[2], e[3]);
+#pragma unroll
+      for (int u = 0; u < YD; ++u) {
+        const int idx = base + u * kClTailThreads;
+        if (idx < np * nl) store_vec<P>(yh, yl, idx, yv[u]);
+      }
+    }
+    float acc[RM][RN][3];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int c = 0; c < RN; ++c)
+        acc[r][c][0] = acc[r][c][1] = acc[r][c][2] = 0.f;
+    for (int s = 0; s < nslab; ++s) {
+      // the next slab (the next tile's first after the last) goes in flight
+      if (s + 1 < nslab || tile + gridDim.x < ntiles) {
+        issue(s + 1 < nslab ? s + 1 : 0, stage ^ 1);
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
+      if (comp) {
+        const uint32_t* sw = ss + stage * KS * np + 4 * tm;
+        const float* vh = yh + (s * KS) * nl + 4 * tn;
+        const float* vl = yl + (s * KS) * nl + 4 * tn;
+#pragma unroll
+        for (int jj = 0; jj < KS; ++jj) {
+          uint32_t w[RM];
+#pragma unroll
+          for (int gq = 0; gq < RG; ++gq) {
+            const uint4 v = *reinterpret_cast<const uint4*>(
+                sw + jj * np + gq * rstride);
+            w[4 * gq] = v.x;
+            w[4 * gq + 1] = v.y;
+            w[4 * gq + 2] = v.z;
+            w[4 * gq + 3] = v.w;
+          }
+          float h[RN], l[RN];
+          ld_lanes<RN>(vh + jj * nl, gap, h);
+          if (P == kHigh) {
+            ld_lanes<RN>(vl + jj * nl, gap, l);
+          } else {
+#pragma unroll
+            for (int c = 0; c < RN; ++c) l[c] = h[c];
+          }
+#pragma unroll
+          for (int r = 0; r < RM; ++r)
+#pragma unroll
+            for (int c = 0; c < RN; ++c)
+              quad_fma<P>(w[r], h[c], l[c], acc[r][c]);
+        }
+      }
+      __syncthreads();   // every read of this stage is done before its refill
+      stage ^= 1;
+    }
+    // epilogue: u, then the lanes' ehat parts (raw y: the tile's own at
+    // kHighest, where y is its prepped vector; re-read otherwise)
+    float u[RM][RN];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int c = 0; c < RN; ++c)
+        u[r][c] = P == kHigh ? (acc[r][c][0] + acc[r][c][1]) + acc[r][c][2]
+                             : acc[r][c][0];
+    if (comp) {
+#pragma unroll
+      for (int c = 0; c < RN; ++c) {
+        const int l = (c >> 2) * gap + 4 * tn + (c & 3);
+        const long long off = loff[l];
+        float e = 0.f;
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          const int i = (r >> 2) * rstride + 4 * tm + (r & 3);
+          float y;
+          if (P == kHighest) {
+            y = yh[i * nl + l];
+          } else {
+            y = (i < n && off >= 0)
+                    ? __ldg(ys + off + static_cast<size_t>(i) * B)
+                    : 0.f;
+          }
+          e = fmaf(y, u[r][c], e);
+        }
+        ep[tm * nl + l] = e;
+      }
     }
     __syncthreads();
-    if (tid < TL) {
+    if (tid < nl) {
       const long long f = f0 + tid;
       float d2 = 0.f;
       if (f < total) {
-        const long long k = f / B, b = f - k * B;
         float ehat = ep[tid];
-        for (int qt = 1; qt < nq; ++qt) ehat += ep[qt * TL + tid];
-        ehat *= 2.f;
+        for (int t = 1; t < pl.rt; ++t) ehat += ep[t * nl + tid];
         const float s = ls[tid], n2p = ln2[tid];
         const float n2p_c = floor_at(n2p, norm_eps);
         const float ev = DEFER ? ehat / n2p_c : ehat;
         const float arg = floor_at(fmaf(ev, s, 1.f), log_eps);
-        const float darg = arg > log_eps ? -lg_[tid] / arg : 0.f;
+        const float darg = arg > log_eps ? -lgb[tid] / arg : 0.f;
         const float de = darg * s;
         const float dehat = DEFER ? de / n2p_c : de;
-        dse[k * stride + b] = darg * ev;
-        dehats[k * stride + b] = dehat;
-        dn2ns[k * stride + b] = n2p > norm_eps ? -de * ev / n2p_c : 0.f;
+        dse[f] = darg * ev;
+        dehats[f] = dehat;
+        dn2ns[f] = n2p > norm_eps ? -de * ev / n2p_c : 0.f;
         d2 = 2.f * dehat;
       }
       dh[tid] = d2;
     }
     __syncthreads();
-    for (int idx = tid; idx < n * TL; idx += blockDim.x) {
-      const int l = idx % TL;
-      store_vec<P>(vh, vl, idx, __fmul_rn(dh[l], yr[idx]));
-    }
-    __syncthreads();
-    for (int qt = qt0; qt < nq; qt += 64) {
-      float o[4][4];
-      cl_tail_tile<P>(rbm, vh, vl, n, qt, lg, o);
+    // q = (2 dehat) u through the y buffer (every read of it is done) to
+    // coalesced stores
+    if (comp) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const long long f = f0 + 4 * lg + c;
-        if (f >= total) continue;
-        const long long k = f / B, b = f - k * B;
-        const float d2 = dh[4 * lg + c];
+      for (int r = 0; r < RM; ++r) {
+        const int i = (r >> 2) * rstride + 4 * tm + (r & 3);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = 4 * qt + r;
-          dys[k * plane + i * stride + b] =
-              fmaf(ru[i * TL + 4 * lg + c], d2, o[r][c]);
+        for (int c = 0; c < RN; ++c) {
+          const int l = (c >> 2) * gap + 4 * tn + (c & 3);
+          yh[i * nl + l] = __fmul_rn(dh[l], u[r][c]);
         }
       }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < n * nl; idx += blockDim.x) {
+      const int j = idx / nl, l = idx - j * nl;
+      const long long off = loff[l];
+      if (off >= 0) dys[off + static_cast<size_t>(j) * B] = yh[idx];
     }
     __syncthreads();   // the next tile overwrites the buffers
   }
@@ -251,6 +378,7 @@ __global__ void __launch_bounds__(kClThreads, 1)
                         float* __restrict__ dys, int D, int n_steps, int B,
                         int unroll, int C, float norm_eps) {
   extern __shared__ __align__(16) float4 smem4[];
+  __shared__ uint64_t full[2];
   const ClLayout L(D, C);
   const int rank = static_cast<int>(cluster_rank());
   const ClThread th(L, rank);
@@ -261,6 +389,7 @@ __global__ void __launch_bounds__(kClThreads, 1)
   float* dva = vec + 2 * vw;                            // [slots][na][G]
   float* dsa = dva + kClSlots * L.na * G;
 
+  ClExchange ex = cl_exchange_init(full, 1);
   cl_load_slab<P, true>(ma, ab, L, rank * L.nr);
   cl_load_slab<P, true>(mb, bb, L, rank * L.nr);
   for (int idx = threadIdx.x; idx < static_cast<int>(cl_state_words(L, G));
@@ -283,15 +412,23 @@ __global__ void __launch_bounds__(kClThreads, 1)
   const bool rd = th.active;   // this thread reads its row's streams
   const bool lossl = rank == 0 && th.warp == 0 && th.lane < G;
   const int lc = th.lane < G ? th.lane : 0;
+  const uint32_t vbytes = cl_vec_bytes<P, G>(L);
+  const uint32_t abytes = cl_atom_bytes<G>(L);
 
-  // dse[m] = ds0[m] + the total of step m's ds atoms (after the barrier
-  // that follows their push)
-  int pend = -1;
+  // dse[m] = ds0[m] + the total of step m's ds atoms: the loss lanes hold
+  // the step whose atoms ride the next phase (pend, its ds0 pd0) and the
+  // step whose atoms have arrived (rdy, rd0), taken after a push
+  int pend = -1, rdy = -1;
+  float pd0 = 0.f, rd0 = 0.f;
   auto take = [&]() {
-    if (pend >= 0 && lossl && live[lc]) {
-      float* d = dse + pend * stride + col[lc];
-      *d = *d + cl_total<G>(dsa, pend % kClSlots, lc, L);
-    }
+    if (rdy >= 0 && lossl && live[lc])
+      dse[rdy * stride + col[lc]] =
+          rd0 + cl_total<G>(dsa, rdy % kClSlots, lc, L);
+    rdy = -1;
+  };
+  auto arrived = [&]() {
+    rdy = pend;
+    rd0 = pd0;
     pend = -1;
   };
 
@@ -309,10 +446,14 @@ __global__ void __launch_bounds__(kClThreads, 1)
     n2[c] = ok ? n2s[k1 * stride + col[c]] : 1.f;
     dn2n[c] = 0.f;
   }
-  // every CTA's buffers are zero before any push, and every lane of a row
-  // has read its q before the row's owner overwrites it with dy
+  // every CTA's buffers are zero and its mbarriers set before any push, and
+  // every lane of a row has read its q before the row's owner overwrites it
+  // with dy (later, the walk's shuffles order a row's lanes)
   cluster_sync();
-  int cur = 0;
+  if (rank >= L.cw) {   // no rows: nothing to push or wait for
+    cluster_sync();
+    return;
+  }
   for (int k = k1; k >= 0; --k) {
     const bool prev_renorm = !DEFER || k % unroll == 0;
     const bool renorm = !DEFER || (k + 1) % unroll == 0;
@@ -326,14 +467,19 @@ __global__ void __launch_bounds__(kClThreads, 1)
       n2p[c] = ok ? n2s[(k - 1) * stride + col[c]] : 1.f;
       dn2p[c] = ok ? dn2ns[k * stride + col[c]] : 0.f;
     }
+    const float dk0 = lossl && live[lc] ? dse[k * stride + col[lc]] : 0.f;
     float dtp[G], dn2[G];
     if (renorm) {
+      // a phase of its own: the atoms of dinv = dt . y (and the ds atoms of
+      // step k+1)
       float x[G];
 #pragma unroll
       for (int c = 0; c < G; ++c) x[c] = __fmul_rn(dt[c], y[c]);
-      cl_push_atoms<G>(dva, k % kClSlots, x, L, th);
-      cluster_sync();
+      cl_push_atoms<G>(dva, k % kClSlots, x, L, th, ex.bar());
+      cl_exchange_done(ex, (pend >= 0 ? 2 : 1) * abytes);
       take();
+      cl_exchange_wait(ex);
+      arrived();
 #pragma unroll
       for (int c = 0; c < G; ++c) {
         const float dinv = cl_total<G>(dva, k % kClSlots, c, L);
@@ -350,17 +496,21 @@ __global__ void __launch_bounds__(kClThreads, 1)
     }
     float dy[G];
 #pragma unroll
-    for (int c = 0; c < G; ++c) {
+    for (int c = 0; c < G; ++c)
       dy[c] = __fadd_rn(dtp[c], fmaf(y[c], 2.f * dn2[c], qv[c]));
+    const int vb = ex.parity();
+    cl_push_vec<P, G>(vec + vb * vw, dy, L, th, ex.bar());
+    cl_exchange_done(ex, vbytes + (pend >= 0 ? abytes : 0u));
+#pragma unroll
+    for (int c = 0; c < G; ++c)
       if (th.owner && live[c]) dys[k * plane + at_i[c]] = dy[c];
-    }
-    float* vb = vec + cur * vw;
-    cl_push_vec<P, G>(vb, dy, L, th);
-    cluster_sync();
     take();
+    cl_exchange_wait(ex);
+    if (pend >= 0) arrived();
     float o[2][G];
     const uint32_t* const mm[2] = {ma, mb};
-    cl_walk<P, 2, G>(mm, vb, vb + L.n * G, L, th, o);
+    const float* vh = vec + vb * vw;
+    cl_walk<P, 2, G>(mm, vh, vh + L.n * G, L, th, o);
     float x[G];
 #pragma unroll
     for (int c = 0; c < G; ++c) {
@@ -377,15 +527,22 @@ __global__ void __launch_bounds__(kClThreads, 1)
       n2[c] = n2p[c];
       dn2n[c] = dn2p[c];
     }
-    cl_push_atoms<G>(dsa, k % kClSlots, x, L, th);
+    // step k's ds atoms ride the next phase
+    cl_push_atoms<G>(dsa, k % kClSlots, x, L, th, ex.bar());
     pend = k;
-    cur ^= 1;
+    pd0 = dk0;
   }
-  cluster_sync();
-  take();
+  if (pend >= 0) {   // the last step's ds atoms: a phase of their own
+    cl_exchange_done(ex, abytes);
+    take();
+    cl_exchange_wait(ex);
+    arrived();
+    take();
+  }
 #pragma unroll
   for (int c = 0; c < G; ++c)
     if (th.owner && live[c]) dt0[at_i[c]] = dt[c];
+  cluster_sync();   // no CTA leaves while another may still push to it
 }
 
 inline int sm_count() {
@@ -397,10 +554,10 @@ inline int sm_count() {
   return v;
 }
 
-// Pack Rb into rbp (2 (2D)^2 words), then the tail over every (step,
-// column) lane: a grid-strided loop over the tiles, two CTAs an SM.
+// Pack S = Rb + Rb^T into sp ((2D)^2 words), then the tail over every
+// (step, column) lane: persistent CTAs, as many as the card holds at once.
 template <int P, bool DEFER>
-cudaError_t launch_cl_tail(const float* rb, uint32_t* rbp, const float* se,
+cudaError_t launch_cl_tail(const float* rb, uint32_t* sp, const float* se,
                            const float* g, const float* ys, const float* n2s,
                            float* dse, float* dys, float* dehats,
                            float* dn2ns, int D, int n_steps, int B, int unroll,
@@ -412,23 +569,41 @@ cudaError_t launch_cl_tail(const float* rb, uint32_t* rbp, const float* se,
   const int pack_grid = (n * n + 255) / 256 < 4 * sms ? (n * n + 255) / 256
                                                       : 4 * sms;
   cudaError_t err = launch_smem(psi_cl_pack_kernel<P>, dim3(pack_grid), 256,
-                                0, stream, rb, rbp, n);
+                                0, stream, rb, sp, n);
+  if (err != cudaSuccess) return err;
+  const ClTailPlan pl(D, P);
+  const size_t smem = pl.smem_bytes(P);
+  const auto kernel = psi_cl_tail_kernel<P, DEFER>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kClTailThreads, smem);
   if (err != cudaSuccess) return err;
   const long long tiles =
-      (static_cast<long long>(n_steps) * B + kClTailLanes - 1) / kClTailLanes;
-  const int grid = tiles < 2LL * sms ? static_cast<int>(tiles) : 2 * sms;
-  return launch_smem(psi_cl_tail_kernel<P, DEFER>, dim3(grid),
-                     kClTailThreads, 4 * cl_tail_words(D), stream, rbp, se, g,
-                     ys, n2s, dse, dys, dehats, dn2ns, D, n_steps, B, unroll,
-                     log_eps, norm_eps);
+      (static_cast<long long>(n_steps) * B + pl.nl - 1) / pl.nl;
+  const long long most = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
+  const int grid = static_cast<int>(tiles < most ? tiles : most);
+  return launch_smem(kernel, dim3(grid), kClTailThreads, smem, stream, sp,
+                     se, g, ys, n2s, dse, dys, dehats, dn2ns, D, n_steps, B,
+                     unroll, log_eps, norm_eps);
 }
 
 }  // namespace amt
 
 extern "C" {
 
-// Dynamic shared memory of one tail CTA at D (ops/cluster.py mirrors it).
-size_t amt_psi_cl_tail_smem_bytes(int D) { return 4 * amt::cl_tail_words(D); }
+// Dynamic shared memory of one tail CTA at D: the most any precision's
+// plan takes (ops/cluster.py psi_cluster_tail_smem_bytes mirrors it).
+size_t amt_psi_cl_tail_smem_bytes(int D) { return amt::cl_tail_smem_bytes(D); }
+
+// Lanes a tile of the tail at D and precision (0 highest, 1 high, 2
+// default; ops/cluster.py psi_cluster_tail_plan mirrors it).
+int amt_psi_cl_tail_lanes(int D, int precision) {
+  return amt::ClTailPlan(D, precision).nl;
+}
 
 // Dynamic shared memory of one chain CTA at D, cluster C and G columns a
 // cluster; 0 where the layout does not take D and C.
@@ -438,7 +613,7 @@ size_t amt_psi_cl_chain_smem_bytes(int D, int C, int G) {
 
 // The tail alone: q into dys[n_steps, 2D, B], ds0 into dse[n_steps, B],
 // dehats and dn2ns [n_steps, B] from g[B], ys and n2s; rbp is a scratch of
-// 2 (2D)^2 words. precision: 0 highest, 1 high, 2 default. Returns a
+// (2D)^2 words (S packed). precision: 0 highest, 1 high, 2 default. Returns a
 // cudaError_t.
 int amt_psi_cl_tail(const float* rb, void* rbp, const float* se,
                     const float* g, const float* ys, const float* n2s,
@@ -460,7 +635,7 @@ int amt_psi_cl_tail(const float* rb, void* rbp, const float* se,
 // dse[n_steps, B], dt0[2D, B], dys[n_steps, 2D, B] and dehats[n_steps, B]
 // from g[B], the forward's ys and n2s, and dtfin[2D, B] (null: zero): the
 // tail, then the chain in clusters of C CTAs, G columns a cluster; rbp
-// (2 (2D)^2 words) and dn2ns[n_steps, B] are scratch. Returns a
+// ((2D)^2 words) and dn2ns[n_steps, B] are scratch. Returns a
 // cudaError_t.
 int amt_psi_cl_train_bwd(const float* ab, const float* bb, const float* rb,
                          const float* t0, const float* se, const float* g,

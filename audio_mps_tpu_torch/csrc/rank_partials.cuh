@@ -86,14 +86,6 @@ inline bool partials_fits(int D, int rc) {
 // common.cuh)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
 // Copy `bytes` (a multiple of 16) from global src to shared dst, completing
 // on `bar`; with mask > 1, to dst and bar's offsets in every CTA of the
 // cluster that mask names.

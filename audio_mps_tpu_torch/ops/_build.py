@@ -177,6 +177,7 @@ _SIGNATURES = {
     "amt_psi_cl_fwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
     "amt_psi_cl_chain_smem_bytes": ([_I] * 3, ctypes.c_size_t),
     "amt_psi_cl_tail_smem_bytes": ([_I], ctypes.c_size_t),
+    "amt_psi_cl_tail_lanes": ([_I, _I], _I),
     "amt_psi_cl_sample_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "amt_psi_cl_threads": ([_I, _I], _I),
     "amt_psi_sample_smem_bytes": ([_I], ctypes.c_size_t),

@@ -31,7 +31,8 @@ PSI_CLUSTER_COLS = (1, 2, 4)      # columns a cluster
 PSI_CLUSTER_MAX_D = 256           # kClMaxD
 CL_THREADS = 512                  # kClThreads: the most threads a CTA
 CL_SLOTS = 4                      # kClSlots: the atoms' rings
-CL_TAIL_LANES = 16                # kClTailLanes
+CL_TAIL_KS = 16                   # kClTailKs: rows j of S a slab
+CL_TAIL_STAGES = 2                # kClTailStages: slabs in flight
 
 
 def cl_rows(D: int, C: int) -> int:
@@ -54,6 +55,14 @@ def cl_ok(D: int, C: int) -> bool:
             and cl_threads(D, C) <= CL_THREADS)
 
 
+def cl_fwd_ok(D: int, C: int) -> bool:
+    """Does the cluster forward take D and C (``cl_fwd_ok``): ``cl_ok``, and
+    room in the CTA for the loss warp past its row threads. Of the layouts
+    whose forward slabs fit an H100's shared memory, only D=64 at C=1 (512
+    row threads) has none, and the rule runs D=64 in the quad layout."""
+    return cl_ok(D, C) and cl_threads(D, C) + 32 <= CL_THREADS
+
+
 def _state_words(D: int, G: int) -> int:
     n = 2 * D
     return 4 * n * G + 2 * CL_SLOTS * (n // 8) * G
@@ -74,13 +83,33 @@ def psi_cluster_chain_smem_bytes(D: int, C: int, G: int) -> int:
     return 4 * (2 * 2 * D * cl_rows(D, C) + _state_words(D, G))
 
 
-def psi_cluster_tail_smem_bytes(D: int) -> int:
-    """Dynamic shared memory of one tail CTA (``cl_tail_words``): a tile's
-    y raw, its prepped vector (hi, lo) and Rb y ([2D][16] each), the row
-    quartets' parts of ehat and four per-lane values."""
+def psi_cluster_tail_plan(D: int, precision: str = "highest") -> dict:
+    """The tail's tile (``ClTailPlan``): the 2D rows padded to whole slabs
+    of ``CL_TAIL_KS`` (``np``), ``rm`` rows x ``rn`` = 8 lanes a thread (8
+    x 8; 4 x 8 at high, whose three fmaf chains an output take three
+    registers), ``rt`` row threads x ``lt`` lane threads of the CTA's 256
+    ``threads``, ``nl`` = rn lt (step, column) lanes a tile
+    (at most one a thread), and its dynamic shared memory ``smem`` (S's
+    slabs in flight, the tile's prepped y, the row threads' parts of ehat,
+    four floats and an 8-byte offset a lane)."""
+    high = precision == "high"
+    threads, rm, rn = 256, (4 if high else 8), 8
     n = 2 * D
-    return 4 * (4 * n * CL_TAIL_LANES + (n // 4) * CL_TAIL_LANES
-                + 4 * CL_TAIL_LANES)
+    np_ = CL_TAIL_KS * -(-n // CL_TAIL_KS)
+    rt = np_ // rm
+    lt = min(threads // rt, threads // rn)
+    nl = rn * lt
+    y_words = (2 if high else 1) * np_ * nl
+    smem = 4 * (CL_TAIL_STAGES * CL_TAIL_KS * np_ + y_words + rt * nl
+                + 4 * nl) + 8 * nl
+    return dict(threads=threads, np=np_, rm=rm, rn=rn, rt=rt, lt=lt, nl=nl,
+                smem=smem)
+
+
+def psi_cluster_tail_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one tail CTA at D (``cl_tail_smem_bytes``):
+    the most any precision's ``psi_cluster_tail_plan`` takes."""
+    return max(psi_cluster_tail_plan(D, p)["smem"] for p in block.PRECISIONS)
 
 
 def psi_cluster_sample_smem_bytes(D: int, C: int) -> int:
@@ -133,7 +162,7 @@ def cluster_for(D: int, B: int, n_sms: int,
                      f"CTAs a cluster, one column; the card allows "
                      f"{smem_optin} a block")
     for C in PSI_CLUSTERS:
-        if cl_ok(D, C) and _need(D, C, 1) <= smem_optin:
+        if cl_fwd_ok(D, C) and _need(D, C, 1) <= smem_optin:
             return C, cluster_cols(D, B, C, n_sms, smem_optin)
     raise _ceiling_refusal(
         name, D, f"the forward's CTA needs {_need(D, 16, 1)} bytes of "
@@ -193,6 +222,17 @@ def check_cluster(name: str, D: int, C: int, G: int):
                          f"the cluster layout, got {G!r}")
 
 
+def check_cluster_fwd(name: str, D: int, C: int, G: int):
+    """``check_cluster``, and raise ValueError where the forward's CTA has
+    no room for its loss warp (``cl_fwd_ok``)."""
+    check_cluster(name, D, C, G)
+    if not cl_fwd_ok(D, C):
+        raise ValueError(
+            f"{name}: the cluster forward at D={D} and a cluster of {C} has "
+            f"{cl_threads(D, C)} row threads a CTA, no room for its loss "
+            f"warp within {CL_THREADS}")
+
+
 def _smem_or_raise(name: str, need: int, device, D: int):
     have = block._smem_optin(device)
     if need > have:
@@ -222,7 +262,7 @@ def _fwd_launch(entry: str, name: str, outs, ab, bb, rb, t0, se, *, log_eps,
     block._check_inputs(name, se.device, dict(
         ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)), t0=(t0, (n, B)),
         se=(se, (n_steps, B))))
-    check_cluster(name, D, C, G)
+    check_cluster_fwd(name, D, C, G)
     lib = _build.library()
     _smem_or_raise(name, lib.amt_psi_cl_fwd_smem_bytes(D, C, G), se.device,
                    D)
@@ -329,7 +369,7 @@ def psi_recompute_cluster(ab, bb, rb, ck, se, *, norm_eps: float,
         ab=(ab, (n, n)), bb=(bb, (n, n)), rb=(rb, (n, n)),
         ck=(ck, (block.n_blocks(n_steps, unroll), n, B)),
         se=(se, (n_steps, B))))
-    check_cluster(name, D, cluster, cols)
+    check_cluster_fwd(name, D, cluster, cols)
     lib = _build.library()
     _smem_or_raise(name, lib.amt_psi_cl_fwd_smem_bytes(D, cluster, cols),
                    se.device, D)
@@ -375,8 +415,9 @@ def psi_train_bwd_tail_cluster(rb, se, g, ys, n2s, *, log_eps: float,
                                defer_norm: bool = False):
     """(q, ds0, dehat, dn2_new): ``block.psi_train_bwd_tail_plain`` for CPU
     tensors; for CUDA tensors the tail kernel of ``csrc/psi_cluster_bwd.cu``
-    alone (Rb streamed from L2, packed by a pre-pass into a scratch;
-    ``psi_train_bwd_cluster`` launches it before its chain and counts its
+    alone: one tiled product u = S y with S = Rb + Rb^T (packed by a
+    pre-pass into a scratch), ehat = y . u and q = (2 dehat) u
+    (``psi_train_bwd_cluster`` launches it before its chain and counts its
     launches here too)."""
     kw = dict(log_eps=log_eps, norm_eps=norm_eps, unroll=unroll,
               precision=precision, defer_norm=defer_norm)
@@ -390,7 +431,7 @@ def psi_train_bwd_tail_cluster(rb, se, g, ys, n2s, *, log_eps: float,
     dn2_new = torch.empty_like(se)
     if B == 0 or n_steps == 0:
         return q, ds0, dehat, dn2_new
-    rbp = se.new_empty((2 * rb.numel(),))
+    rbp = se.new_empty((rb.numel(),))
     err = lib.amt_psi_cl_tail(
         block._ptr(rb), block._ptr(rbp), block._ptr(se), block._ptr(g),
         block._ptr(ys), block._ptr(n2s), block._ptr(ds0), block._ptr(q),
@@ -439,7 +480,7 @@ def psi_train_bwd_cluster(ab, bb, rb, t0, se, g, ys, n2s, *, log_eps: float,
     dn2_new = torch.empty_like(se)    # the tail's, for the chain
     if B == 0:
         return dse, dt0, dy, dehat
-    rbp = se.new_empty((2 * n * n,))
+    rbp = se.new_empty((n * n,))
     err = lib.amt_psi_cl_train_bwd(
         block._ptr(ab), block._ptr(bb), block._ptr(rb), block._ptr(t0),
         block._ptr(se), block._ptr(g), block._ptr(ys), block._ptr(n2s),

@@ -9,8 +9,11 @@ runs its own ``--fn`` (``module:function``) on them, with the JSON
 keywords of ``--kwargs``, in a process of its own started from its root,
 so that it imports and builds that checkout's package; CUDA events, the
 median of ``--reps`` runs after a warm-up. Give the roots in the order
-parent, change, change, parent to see the card's drift. It prints one
-line a run and a JSON line of the timings, with the card's name and power
+parent, change, change, parent to see the card's drift. With
+``--compare`` each run also saves what the function returned, and every
+run's outputs are held to the first root's: the same bits, or the largest
+difference of each output that moved. It prints one line a run and a JSON
+line of the timings (and the comparisons), with the card's name and power
 limit. It needs an NVIDIA card and the CUDA toolkit.
 
     python -m audio_mps_tpu_torch.tools.checkout_timer \\
@@ -42,9 +45,40 @@ def _resolve(spec: str):
                    name)
 
 
-def _child(fn_spec: str, data: str, kwargs: dict, reps: int) -> float:
+def _outputs(out) -> list:
+    """The tensors a function returned, on the CPU, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out.detach().cpu()]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _outputs(o)]
+    return []
+
+
+def compare(runs: list) -> list:
+    """Each run's outputs against the first's: per output, "same bits" or
+    the largest absolute difference (and any change of shape)."""
+    first = runs[0]
+    out = []
+    for outs in runs:
+        line = []
+        for a, b in zip(outs, first):
+            if a.shape != b.shape:
+                line.append(f"shape {tuple(a.shape)} vs {tuple(b.shape)}")
+            elif torch.equal(a, b):
+                line.append("same bits")
+            else:
+                line.append(float((a.double() - b.double()).abs().max()))
+        if len(outs) != len(first):
+            line.append(f"{len(outs)} outputs vs {len(first)}")
+        out.append(line)
+    return out
+
+
+def _child(fn_spec: str, data: str, kwargs: dict, reps: int,
+           save: str = None) -> float:
     """The median ms of the current checkout's ``fn_spec`` on the saved
-    inputs (run from the checkout's root)."""
+    inputs (run from the checkout's root); with ``save``, its outputs are
+    saved there."""
     sys.path.insert(0, os.getcwd())
     fn = _resolve(fn_spec)
     ins = torch.load(data, map_location="cuda")
@@ -63,6 +97,8 @@ def _child(fn_spec: str, data: str, kwargs: dict, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    if save:
+        torch.save(_outputs(run()), save)
     return statistics.median(times)
 
 
@@ -75,36 +111,49 @@ def main(argv=None) -> int:
     ap.add_argument("--args", default="{}", help="JSON keywords of --inputs")
     ap.add_argument("--kwargs", default="{}", help="JSON keywords of --fn")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--compare", action="store_true",
+                    help="hold every run's outputs to the first root's")
     ap.add_argument("--data", help=argparse.SUPPRESS)   # a child's inputs
+    ap.add_argument("--save", help=argparse.SUPPRESS)   # a child's outputs
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("checkout_timer needs an NVIDIA card", file=sys.stderr)
         return 1
     kwargs = json.loads(args.kwargs)
     if args.data:
-        print(json.dumps(_child(args.fn, args.data, kwargs, args.reps)))
+        print(json.dumps(_child(args.fn, args.data, kwargs, args.reps,
+                                args.save)))
         return 0
     ins = _resolve(args.inputs)(torch.device("cuda"), **json.loads(args.args))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    runs = []
+    runs, saved = [], []
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "inputs.pt")
         torch.save(ins, data)
         del ins
-        for root in args.roots.split(","):
+        for i, root in enumerate(args.roots.split(",")):
             root = os.path.abspath(root)
+            save = os.path.join(tmp, f"outputs{i}.pt")
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__),
                  f"--roots={root}", f"--fn={args.fn}", f"--data={data}",
-                 f"--kwargs={args.kwargs}", f"--reps={args.reps}"],
+                 f"--kwargs={args.kwargs}", f"--reps={args.reps}"]
+                + ([f"--save={save}"] if args.compare else []),
                 cwd=root, capture_output=True, text=True, check=True,
                 env=dict(os.environ, PYTHONPATH=root), timeout=1800)
             ms = float(out.stdout.strip().splitlines()[-1])
             runs.append({"root": root, "ms": ms})
+            if args.compare:
+                saved.append(torch.load(save))
             print(f"  {root}: {args.fn} {ms:.3f} ms", flush=True)
+        if args.compare:
+            for run, line in zip(runs, compare(saved)):
+                run["vs_first"] = line
+                print(f"  {run['root']} vs {runs[0]['root']}: {line}",
+                      flush=True)
     print(json.dumps({"card": card, "fn": args.fn, "inputs": args.inputs,
                       "args": json.loads(args.args), "kwargs": kwargs,
                       "runs": runs}), flush=True)

@@ -53,7 +53,8 @@ failure (the script then exits non-zero):
    calls of its products;
 7. the rho (mixed-state) family at D=64, rank 64 (``rho_phases``): the
    sampler (N=8 chains, T=65536, held to its plain version over its first
-   16384 steps) and the NLL (B=8, T=16384) held to their plain versions
+   16384 steps and over the whole run) and the NLL (B=8, T=16384) held to
+   their plain versions
    (with controls at ``default`` for each ``high`` limit),
    the serving path (the sample CLI with ``mps_model=rho_mps`` and
    ``fused=True``, then ``rho_nll_fused``), the training phases of 5 at
@@ -103,8 +104,8 @@ failure (the script then exits non-zero):
    beside their bounds, with the G each launch took;
 10. psi's split layout (``split_phases``, after psi's phases) at the legacy
    estimator's published shape (D=10, B=32, dt=1e-3, T=65536): the sampler
-   (N=8 chains) held to its plain version on the T=4096 prefix and over its
-   first 16384 steps, the NLL (both norms) on a T=4096 prefix, the training
+   (N=8 chains) held to its plain version on the T=4096 prefix and over the
+   whole run, the NLL (both norms) on a T=4096 prefix, the training
    forward and adjoint on the T=4096 (deferred norm) and T=2048 (per-step
    norm) prefixes, each with a control at ``default``, and all four at D=8
    with
@@ -279,13 +280,13 @@ TRAIN_BUILDS = {"psi": {"fwd": 0, "bwd": 0, "cot": 0},
 RHO_N_CHAINS = 8       # 8 chains x rank 64 = 512 state columns
 RHO_B = 8
 RHO_T = 16384
-RHO_T_SAMPLE_CHECK = 16384   # the sampler's plain run, held at TOL["highest"]
+RHO_T_SAMPLE_CHECK = 16384   # the sampler's prefix held at TOL["highest"]
 RHO_T_TRAIN_MAIN = 4097      # the training kernels' main variant vs plain
 # A sampler's waveform is a running sum of T increments, so the kernel's and
 # the plain version's per-step differences in e dt add up along the run:
 # 7.9e-5 of max|plain| over all 65536 steps on an H100 at D=64, rank 64, 16x
-# the T=4096 level. The split sampler's plain run (SPLIT_T_SAMPLE_PLAIN
-# steps) is held at 1e-3, its first SPLIT_T_SAMPLE_CHECK at TOL["highest"].
+# the T=4096 level. So both samplers' whole runs are held at 1e-3, their
+# prefixes (RHO_T_SAMPLE_CHECK, SPLIT_T_SAMPLE_CHECK) at TOL["highest"].
 RHO_TOL_SAMPLE_FULL = 1e-3
 
 # Rank-chunked rho training past the monolithic kernels' shared memory: the
@@ -1424,19 +1425,21 @@ def rho_phases(dev):
     wave = block.rho_sample_block(**s_in)
     _free()
     check(bool(torch.isfinite(wave).all()), "rho sampler kernel: non-finite")
-    k = RHO_T_SAMPLE_CHECK
-    s_pre = dict(s_in, noise=s_in["noise"][:k].contiguous())
     plain_ms["rho_sample_block"], want = timed(
-        lambda: block.rho_sample_block_plain(**s_pre))
-    del s_pre
-    err, rel_pre = rel_err(wave[:k], want)
+        lambda: block.rho_sample_block_plain(**s_in))
+    k = RHO_T_SAMPLE_CHECK
+    _, rel_pre = rel_err(wave[:k], want[:k])
+    err, rel = rel_err(wave, want)
     err_at["rho_sample_block"] = err
-    print(f"  highest: max|d| {err:.3e} = {rel_pre:.3e} x max|plain| over "
-          f"the first {k} of {T_SAMPLE} steps (tol {TOL['highest']:g}); "
-          f"plain {plain_ms['rho_sample_block']:.1f} ms at T={k} (one run)",
+    print(f"  highest: {rel_pre:.3e} x max|plain| over the first {k} steps "
+          f"(tol {TOL['highest']:g}); max|d| {err:.3e} = {rel:.3e} x "
+          f"max|plain| over all {T_SAMPLE} (tol {RHO_TOL_SAMPLE_FULL:g}); "
+          f"plain {plain_ms['rho_sample_block']:.1f} ms (one run)",
           flush=True)
     check(rel_pre <= TOL["highest"], f"rho sampler highest, first {k} "
                                      f"steps: rel err {rel_pre:.3e}")
+    check(rel <= RHO_TOL_SAMPLE_FULL, f"rho sampler highest: rel err "
+                                      f"{rel:.3e}")
     pre = dict(s_in, noise=s_in["noise"][:T_PLAIN].contiguous())
     want = block.rho_sample_block_plain(**pre, precision="high")
     _, rel = rel_err(block.rho_sample_block(**pre, precision="high"), want)
@@ -2313,12 +2316,9 @@ SPLIT_T = 65536
 SPLIT_N_CHAINS = 8
 # prefixes the plain versions run on (their step loops launch ~35 small ops
 # a step); the kernels are held to them at TOL["highest"] and TOL_TRAIN
-SPLIT_T_SAMPLE_CHECK = 4096   # the sampler's prefix (its plain run: 1e-3)
+SPLIT_T_SAMPLE_CHECK = 4096   # the sampler's prefix (its full run: 1e-3)
 SPLIT_T_NLL = 4096            # the NLL, both norms
 SPLIT_T_TRAIN = {True: 4096, False: 2048}    # the training pair, by defer
-# the sampler's plain run (its first SPLIT_T_SAMPLE_CHECK steps at
-# TOL["highest"], all of it at 1e-3)
-SPLIT_T_SAMPLE_PLAIN = 16384
 SPLIT_T_REF = 512             # autograd through the eager reference
 SPLIT_T_D8 = 1024             # D=8 asked for with kernel_layout="split"
 SPLIT_CLI_STEPS = (4, 2)      # the estimator CLI's two calls
@@ -2455,13 +2455,10 @@ def split_phases(dev):
     wave = kernels["sample"](**s_in)
     _free()
     check(bool(torch.isfinite(wave).all()), "split sampler: non-finite")
-    kp = SPLIT_T_SAMPLE_PLAIN
-    s_plain = dict(s_in, noise=s_in["noise"][:kp].contiguous())
-    plain_ms["sample"], want = timed(lambda: plains["sample"](**s_plain))
-    del s_plain
+    plain_ms["sample"], want = timed(lambda: plains["sample"](**s_in))
     k = SPLIT_T_SAMPLE_CHECK
     _, rel_pre = rel_err(wave[:k], want[:k])
-    err, rel = rel_err(wave[:kp], want)
+    err, rel = rel_err(wave, want)
     err_at["sample"] = err
     check(rel_pre <= TOL["highest"], f"split sampler, first {k} steps: rel "
                                      f"err {rel_pre:.3e}")
@@ -2472,9 +2469,8 @@ def split_phases(dev):
         (kernels["sample"](**pre, precision="default"),), (want[:k],))
     print(f"  highest: {rel_pre:.3e} x max|plain| over the first {k} steps "
           f"(tol {TOL['highest']:g}); max|d| {err:.3e} = {rel:.3e} x "
-          f"max|plain| over the first {kp} of {SPLIT_T} (tol "
-          f"{RHO_TOL_SAMPLE_FULL:g}); plain {plain_ms['sample']:.1f} ms at "
-          f"T={kp} (one run); control at default "
+          f"max|plain| over all {SPLIT_T} (tol {RHO_TOL_SAMPLE_FULL:g}); "
+          f"plain {plain_ms['sample']:.1f} ms (one run); control at default "
           f"on the prefix {ctrl['sample'][0]}", flush=True)
     del wave, want, pre
 
@@ -2773,7 +2769,7 @@ def split_phases(dev):
     launches = {"sample": serve["psi_sample_split"],
                 "nll": serve["psi_nll_split"],
                 "fwd": cli["psi_split_fwd"], "bwd": cli["psi_split_bwd"]}
-    pre_t = {"sample": SPLIT_T_SAMPLE_PLAIN, "nll": SPLIT_T_NLL,
+    pre_t = {"sample": SPLIT_T, "nll": SPLIT_T_NLL,
              "fwd": SPLIT_T_TRAIN[True], "bwd": SPLIT_T_TRAIN[True]}
     entries = []
     for role, (name, src, rep) in SPLIT_KERNELS.items():
@@ -4322,25 +4318,43 @@ def wide_phases(dev):
     _, _, dy, dehat = block.psi_train_bwd(**t_in, g=g, ys=ys, n2s=n2s, **o)
     cot_ms = median_ms(lambda: block.psi_cotangents(
         dy, ys, t_in["t0"], t_in["se"], n2s, dehat, **r_o))
-    # the tail's yardstick: its two [2D,2D] x [2D, (T-1) B] products as
-    # torch.matmul (fp32, TF32 off) on operands built once
-    lanes_y = ys.transpose(0, 1).reshape(n, -1)
-    lanes_u = (2.0 * dehat[:, None, :] * ys).transpose(0, 1).reshape(n, -1)
+    def lanes(x):
+        return x.transpose(0, 1).reshape(n, -1)
+
+    # the tail's yardsticks on operands built once (fp32, TF32 off): the
+    # one [2D,2D] x [2D, (T-1) B] product it forms, S Y with S = Rb + Rb^T,
+    # as torch.matmul (the kernels line's library_ms), and the two of the
+    # plain version, Rb Y and Rb^T U
+    lanes_y = lanes(ys)
+    s_mat = t_in["rb"] + t_in["rb"].T
+    tail_lib_ms = median_ms(lambda: s_mat @ lanes_y)
+    lanes_u = lanes(2.0 * dehat[:, None, :] * ys)
     rbT = t_in["rb"].T.contiguous()
-    tail_lib_ms = median_ms(lambda: (t_in["rb"] @ lanes_y, rbT @ lanes_u))
-    del lanes_y, lanes_u, dy, dehat, ck
+    tail_lib2_ms = median_ms(lambda: (t_in["rb"] @ lanes_y, rbT @ lanes_u))
+    del lanes_y, lanes_u, s_mat, rbT
+    _free()
+    # the reductions' yardstick at D=128: their three [2D, M] x [M, 2D]
+    # products as torch.matmul
+    ts = block._input_states(t_in["t0"], ys, block._state_scales(
+        n2s, norm_eps=eps["norm_eps"], unroll=DEFAULT_UNROLL,
+        defer_norm=main[1]))
+    ops = [(lanes(dy), lanes(ts)),
+           (lanes(dy), lanes(t_in["se"][:, None, :] * ts))]
+    del ts
+    ops.append((lanes(2.0 * dehat[:, None, :] * ys), lanes(ys)))
+    cot_lib_ms = median_ms(lambda: [a @ b.T for a, b in ops])
+    del ops, dy, dehat, ck
     _free()
     # bounds: FLOPs the fewest [2D,2D] products a column-step (2 n^2 each):
-    # the forwards 3 (Ab t, Bb t, Rb y), the recompute 2, the adjoint 4 (its
-    # tail 2: Rb y and Rb^T u; its chain 2: Ab^T dy and Bb^T dy), the
-    # sampler 2 a chain-step; bytes: each input read once, each output
-    # written once
+    # the forwards 3 (Ab t, Bb t, Rb y), the recompute 2, the adjoint 3 (its
+    # tail 1: (Rb + Rb^T) y; its chain 2: Ab^T dy and Bb^T dy), the sampler
+    # 2 a chain-step; bytes: each input read once, each output written once
     steps = T - 1
     lane_steps = steps * B
     mats_b = 3 * n * n
     prods = {"psi_train_fwd_cluster": 3, "psi_nll_cluster": 3,
              "psi_train_fwd_ckpt_cluster": 3, "psi_recompute_cluster": 2,
-             "psi_train_bwd_cluster": 4, "psi_train_bwd_tail_cluster": 2}
+             "psi_train_bwd_cluster": 3, "psi_train_bwd_tail_cluster": 1}
     n_ck = block.n_blocks(steps, DEFAULT_UNROLL) * n * B
     nbytes = {"psi_train_fwd_cluster": lane_steps * (n + 2) + mats_b + n * B
               + B,
@@ -4387,10 +4401,12 @@ def wide_phases(dev):
           flush=True)
     in_kernels = (ms["psi_train_fwd_cluster"] + ms["psi_train_bwd_cluster"]
                   + cot_ms)
-    print(f"  psi_train_bwd_tail_cluster vs torch.matmul of its two "
-          f"products: {ms['psi_train_bwd_tail_cluster']:.3f} / "
-          f"{tail_lib_ms:.3f} ms; psi_cotangents at D={Dw}: {cot_ms:.3f} ms "
-          f"(plain {plain_ms['psi_cotangents']:.1f} ms); train step "
+    print(f"  psi_train_bwd_tail_cluster vs torch.matmul of its product "
+          f"(Rb + Rb^T) Y: {ms['psi_train_bwd_tail_cluster']:.3f} / "
+          f"{tail_lib_ms:.3f} ms (the plain version's two, Rb Y and Rb^T U: "
+          f"{tail_lib2_ms:.3f} ms); psi_cotangents at D={Dw}: {cot_ms:.3f} "
+          f"ms (plain {plain_ms['psi_cotangents']:.1f} ms, torch.matmul x3 "
+          f"{cot_lib_ms:.3f} ms); train step "
           f"{step_ms:.2f} ms, of which the forward, the adjoint and the "
           f"reductions {in_kernels:.2f} ms [{card}]", flush=True)
     del loss, ys, n2s, t_in, s_in, s_one, params

@@ -2158,8 +2158,9 @@ def test_psi_columns_rule_and_smem_agree_with_the_kernels(dev):
     past one, at most 4 columns (4 at B=1024 on 132 SMs); at D=68, the
     quad layout's last D,
     every G launches (Ab and Bb sit in registers, so no G overflows shared
-    memory there), and past it (D=72) or at a G the kernels do not take
-    the wrappers raise before any launch."""
+    memory there), and past it (D=72, asked for the quad layout: the rule
+    takes the cluster layout there) or at a G the kernels do not take the
+    wrappers raise before any launch."""
     from audio_mps_tpu_torch.ops import _build
     lib = _build.library()
     for D in (8, 12, 64, 68):
@@ -2187,11 +2188,12 @@ def test_psi_columns_rule_and_smem_agree_with_the_kernels(dev):
         block.psi_train_bwd(**inputs, g=g, ys=ys, n2s=n2s, cols_per_cta=3)
     wide, g72 = _train_inputs(dev, 72, 20, B=4)
     with pytest.raises(NotImplementedError, match="registers"):
-        block.psi_train_fwd(**wide)
+        block.psi_train_fwd(**wide, _layout="quad")
     with pytest.raises(NotImplementedError, match="registers"):
         block.psi_train_bwd(**wide, g=g72, ys=torch.zeros(20, 144, 4,
                                                           device=dev),
-                            n2s=torch.ones(20, 4, device=dev))
+                            n2s=torch.ones(20, 4, device=dev),
+                            _layout="quad")
     torch.cuda.synchronize()
     assert _counts() == (before[0] + 1, before[1] + 1, before[2])
 
@@ -2720,6 +2722,98 @@ def test_cluster_rule_and_smem_agree_with_the_kernels(dev):
     with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
         block.psi_nll_block(**wide, **kw)
     assert [w.launches for w in cl.WRAPPERS] + list(_counts()) == before
+
+
+@pytest.mark.parametrize("D", [8, 68] + CLUSTER_DS)
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("defer", [False, True])
+@pytest.mark.parametrize("B", [1, 3, 5])
+def test_cluster_tail_symmetric_product_matches_plain(dev, D, precision,
+                                                      defer, B):
+    """The cluster tail, one tiled product u = S y with S = Rb + Rb^T (q =
+    2 dehat u, ehat = y . u), against block.psi_train_bwd_tail_plain's two
+    products at TOL, at lane counts (T-1) B that are not a multiple of the
+    tile and at D whose rows are not whole slabs (8, 68: padded); two
+    launches are the same bits, each counted by its wrapper."""
+    from audio_mps_tpu_torch.ops import cluster as cl
+    inputs, g = _train_inputs(dev, D, CL_STEPS[precision], B=B)
+    kw = _cl_kw(inputs, precision, defer)
+    _, ys, n2s = block.psi_train_fwd_plain(**inputs, **kw)
+    args = (inputs["rb"], inputs["se"], g, ys, n2s)
+    before = cl.psi_train_bwd_tail_cluster.launches
+    got = cl.psi_train_bwd_tail_cluster(*args, **kw)
+    again = cl.psi_train_bwd_tail_cluster(*args, **kw)
+    torch.cuda.synchronize()
+    assert cl.psi_train_bwd_tail_cluster.launches == before + 2
+    for a, b, w in zip(got, again,
+                       block.psi_train_bwd_tail_plain(*args, **kw)):
+        assert torch.equal(a, b)
+        _close(a, w, TOL[precision])
+
+
+@pytest.mark.parametrize("D", [72, 128])
+def test_cluster_tail_over_more_tiles_than_ctas(dev, D):
+    """Past one wave of persistent CTAs (T=4097, B=7: 28672 lanes, 256
+    tiles of 112 at D=72, 448 of 64 at D=128) every tile's outputs match
+    the plain version at highest."""
+    inputs, g = _train_inputs(dev, D, 4096, B=7)
+    kw = _cl_kw(inputs, "highest", True)
+    _, ys, n2s = block.psi_train_fwd_plain(**inputs, **kw)
+    args = (inputs["rb"], inputs["se"], g, ys, n2s)
+    from audio_mps_tpu_torch.ops import cluster as cl
+    got = cl.psi_train_bwd_tail_cluster(*args, **kw)
+    for a, w in zip(got, block.psi_train_bwd_tail_plain(*args, **kw)):
+        _close(a, w, TOL["highest"])
+
+
+@pytest.mark.parametrize("defer", [False, True])
+def test_cluster_forward_refuses_a_cluster_without_room_for_a_loss_warp(
+        dev, defer):
+    """At D=64 forced into the cluster layout at one CTA a cluster (512 row
+    threads: no room for the loss warp) the forward's wrappers raise before
+    any launch; at two CTAs a cluster (which has the loss warp) the
+    streamed forward matches plain, the NLL's loss is the forward's bit for
+    bit and the checkpoint recompute is the stream."""
+    from audio_mps_tpu_torch.ops import cluster as cl
+    assert cl.cl_threads(64, 1) == cl.CL_THREADS
+    assert cl.cl_ok(64, 1) and not cl.cl_fwd_ok(64, 1)
+    inputs, _ = _train_inputs(dev, 64, 40, B=5)
+    kw = _cl_kw(inputs, "highest", defer)
+    rk = {k: v for k, v in kw.items() if k != "log_eps"}
+    mats = (inputs["ab"], inputs["bb"], inputs["rb"])
+    o = dict(_layout="cluster", _cluster=2)
+    got = block.psi_train_fwd(**inputs, **kw, **o)
+    nll = block.psi_nll_block(**inputs, **kw, **o)
+    _, ck = block.psi_train_fwd_ckpt(**inputs, **kw, **o)
+    ys, n2s = block.psi_recompute(*mats, ck, inputs["se"], **rk, **o)
+    torch.cuda.synchronize()
+    assert torch.equal(nll, got[0])
+    assert torch.equal(ys, got[1]) and torch.equal(n2s, got[2])
+    for a, w in zip(got, block.psi_train_fwd_plain(**inputs, **kw)):
+        _close(a, w, TOL["highest"])
+    before = [w.launches for w in cl.WRAPPERS]
+    o = dict(_layout="cluster", _cluster=1)
+    for call in (lambda: block.psi_train_fwd(**inputs, **kw, **o),
+                 lambda: block.psi_nll_block(**inputs, **kw, **o),
+                 lambda: block.psi_train_fwd_ckpt(**inputs, **kw, **o),
+                 lambda: block.psi_recompute(*mats, ck, inputs["se"], **rk,
+                                             **o)):
+        with pytest.raises(ValueError, match="loss warp"):
+            call()
+    torch.cuda.synchronize()
+    assert [w.launches for w in cl.WRAPPERS] == before
+
+
+def test_cluster_tail_plans_agree_with_the_kernel(dev):
+    """The tail's lanes a tile (ops/cluster.psi_cluster_tail_plan) are the
+    kernel's own (amt_psi_cl_tail_lanes) at every even D to 256 and every
+    precision."""
+    from audio_mps_tpu_torch.ops import _build, cluster as cl
+    lib = _build.library()
+    for D in range(2, cl.PSI_CLUSTER_MAX_D + 1, 2):
+        for i, p in enumerate(block.PRECISIONS):
+            assert lib.amt_psi_cl_tail_lanes(D, i) == \
+                cl.psi_cluster_tail_plan(D, p)["nl"], (D, p)
 
 
 def test_cotangents_at_d128_match_plain_bit_for_bit_twice(dev):

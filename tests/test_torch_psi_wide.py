@@ -218,16 +218,16 @@ def test_layout_rule_refuses_past_the_cluster_layout(D):
 
 
 @pytest.mark.parametrize("D, fwd, chain, tail, sample", [
-    (72, 130176, 88704, 39424, 88272),
-    (128, 217088, 151552, 69888, 140544),
-    (192, 228864, 155136, 104704, 161664),
-    (256, 217088, 151552, 139520, 150016)])
+    (72, 130176, 88704, 93696, 88272),
+    (128, 217088, 151552, 108032, 140544),
+    (192, 228864, 155136, 119232, 161664),
+    (256, 217088, 151552, 140032, 150016)])
 def test_cluster_byte_counts(D, fwd, chain, tail, sample):
     """The byte counts of the cluster layout's CTAs at D=72, 128, 192 and
     256 at the rule's C and G (the card test holds them to the kernels'
     own): three slabs of the CTA's rows of [2D,2D] in the forward, two in
-    the chain, the tail's tile of 16 lanes, the sampler's two slabs at its
-    own cluster."""
+    the chain, the tail's tile (its largest plan of the three precisions),
+    the sampler's two slabs at its own cluster."""
     _, C, G = cluster.psi_block_layout(D, 128, SMS, OPTIN)
     assert cluster.psi_cluster_fwd_smem_bytes(D, C, G) == fwd
     assert cluster.psi_cluster_chain_smem_bytes(D, C, G) == chain
